@@ -1,0 +1,76 @@
+"""
+Detector loading for the port (counterpart of
+megadetector_tpu/detection/run_detector.py load_detector,
+is_gpu_available and get_accelerator_summary).
+
+A known model name ('MDV5A') resolves only to a converted checkpoint that
+is already on disk in the model folder; nothing is downloaded.
+"""
+
+import os
+import time
+
+from megadetector_tpu.models import registry
+from megadetector_tpu_torch.device import (  # noqa: F401  (public API)
+    get_accelerator_summary,
+    is_gpu_available,
+)
+from megadetector_tpu_torch.models.detector import (  # noqa: F401
+    CONF_DIGITS,
+    COORD_DIGITS,
+    DEFAULT_DETECTOR_LABEL_MAP,
+    FAILURE_IMAGE_OPEN,
+    FAILURE_INFER,
+    TorchDetector,
+)
+
+
+def resolve_model_file(model_file):
+    """
+    A path that exists is returned as is. A known model name resolves to
+    its converted checkpoint in the model folder; if that is not on disk,
+    FileNotFoundError says how to make it.
+    """
+
+    if os.path.exists(model_file):
+        return model_file
+    version = registry.model_string_to_model_version.get(
+        str(model_file).lower())
+    if version is None:
+        raise FileNotFoundError('Model file {} does not exist'.format(
+            model_file))
+    converted = registry.find_converted_checkpoint(version)
+    if converted is None:
+        raise FileNotFoundError(
+            'No converted checkpoint for {} ({}) in {}; convert the .pt '
+            'once with python -m megadetector_tpu.models.convert_weights '
+            'and place it there as md_{}.npz'.format(
+                model_file, version, registry.get_default_model_folder(),
+                version))
+    return converted
+
+
+def load_detector(model_file, detector_options=None, device=None,
+                  verbose=False):
+    """
+    Load a TorchDetector from a converted checkpoint (.npz + metadata, or
+    a folder with weights.npz + metadata.json) or a known model name.
+
+    Args:
+        model_file: checkpoint path or known model name
+        detector_options: dict of TorchDetector options
+        device: 'cuda', 'cuda:N', 'cpu' or None (CUDA when present);
+            asking for CUDA without a card raises
+        verbose: print load details
+    """
+
+    model_file = resolve_model_file(model_file)
+    if model_file.endswith(('.pt', '.pb', '.mdpkg')):
+        raise NotImplementedError(
+            '{}: the PyTorch port loads converted .npz checkpoints only'
+            .format(model_file))
+    start = time.time()
+    detector = TorchDetector(model_file, detector_options=detector_options,
+                             verbose=verbose, device=device)
+    print('Loaded model in {:.2f} seconds'.format(time.time() - start))
+    return detector

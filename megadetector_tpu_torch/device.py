@@ -1,0 +1,61 @@
+"""
+Device selection and float32 policy for the port (counterpart of
+megadetector_tpu/detection/run_detector.py is_gpu_available /
+get_accelerator_summary).
+
+A device is always explicit: asking for CUDA where there is no card
+raises instead of quietly running on the CPU.
+"""
+
+import torch
+
+
+def get_device(name=None):
+    """
+    The torch.device to run on. [name] is 'cuda', 'cuda:N', 'cpu' or a
+    torch.device; None picks 'cuda' when a card is present, else 'cpu'.
+    Raises RuntimeError when a CUDA device is asked for and absent.
+    """
+
+    if name is None:
+        name = 'cuda' if torch.cuda.is_available() else 'cpu'
+    device = torch.device(name)
+    if device.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'CUDA device {} requested but torch.cuda.is_available() '
+                'is False'.format(device))
+        index = device.index if device.index is not None else 0
+        if index >= torch.cuda.device_count():
+            raise RuntimeError('CUDA device {} requested but only {} '
+                               'present'.format(device,
+                                                torch.cuda.device_count()))
+    elif device.type != 'cpu':
+        raise ValueError('Unsupported device {}'.format(device))
+    return device
+
+
+def set_float32_exact():
+    """
+    Make float32 mean float32 on the card: cuDNN runs float32
+    convolutions in TF32 by default on Hopper, which keeps about three
+    decimal digits. Turns TF32 off for convolutions and matmuls.
+    """
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def is_gpu_available():
+    """True when torch sees a CUDA card."""
+
+    return torch.cuda.is_available()
+
+
+def get_accelerator_summary():
+    """Human-readable device summary ('<count> x <name>', or 'cpu')."""
+
+    if not torch.cuda.is_available():
+        return 'cpu'
+    return '{} x {}'.format(torch.cuda.device_count(),
+                            torch.cuda.get_device_name(0))

@@ -1,0 +1,534 @@
+"""
+The port's detector: host preprocessing, the batched device program
+(/255 -> YOLOv5 forward -> candidate selection -> greedy NMS) and MD-format
+emission. Counterpart of megadetector_tpu/models/detector.py TPUDetector,
+at the depth the float32 detection path needs.
+
+The device program has the two branches of the JAX program:
+- default ('classic' / 'modern'): raw heads -> ops/decode
+  select_topk_candidates -> ops/nms nms_on_candidates;
+- 'classic-strict': decoded forward -> ops/nms batched_nms.
+Both end in the greedy NMS kernel (ops/cuda_nms) when the detector runs on
+a CUDA device.
+
+Candidate capacity escalates like the JAX detector's (pre_nms_topk, then
+doubling up to max_pre_nms_topk) when more candidates pass the floor than
+the selection holds. PyTorch runs eagerly, so the escalation reuses the
+forward's head tensors and redoes only selection and NMS.
+"""
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from megadetector_tpu.ops import boxes as box_ops
+from megadetector_tpu.utils import ct_utils
+from megadetector_tpu_torch.device import get_device, set_float32_exact
+from megadetector_tpu_torch.models import yolov5
+from megadetector_tpu_torch.models.convert_weights import load_checkpoint
+from megadetector_tpu_torch.ops._build import KernelError
+from megadetector_tpu_torch.ops.decode import select_topk_candidates
+from megadetector_tpu_torch.ops.nms import batched_nms, nms_on_candidates
+
+# Failure strings and output precision: part of the MD output contract
+FAILURE_INFER = 'inference failure'
+FAILURE_IMAGE_OPEN = 'image access failure'
+CONF_DIGITS = 3
+COORD_DIGITS = 4
+
+DEFAULT_DETECTOR_LABEL_MAP = {
+    '1': 'animal',
+    '2': 'person',
+    '3': 'vehicle',
+}
+
+# Failure containment exists for DATA errors (corrupt images, a device
+# fault on one batch). Bug-shaped exceptions re-raise under pytest or
+# MD_STRICT_FAILURES; kernel build and launch failures always re-raise,
+# never becoming per-image 'inference failure' records.
+PROGRAMMING_ERRORS = (AttributeError, NameError, UnboundLocalError,
+                      ImportError)
+ALWAYS_RERAISED = (KernelError, NotImplementedError)
+
+# Options of the JAX detector that leave output unchanged (TPU layout and
+# schedule choices); accepted and ignored
+NO_OP_OPTIONS = ('folded_early', 'folded_h2', 'approx_select', 'select_cm',
+                 'stem_gemm', 'bottleneck_variant')
+
+PARSED_OPTIONS = ('compatibility_mode', 'canvas_mode', 'max_canvases',
+                  'image_size', 'pre_nms_topk', 'max_det',
+                  'auto_escalate_topk', 'max_pre_nms_topk',
+                  'pad_batches_to', 'use_model_native_classes', 'dtype',
+                  'force_cpu', 'preprocess_mode', 'conv_backend', 'mesh',
+                  'xla_compiler_options')
+
+
+def reraise_programming_errors():
+    """True when containment should let bug-shaped exceptions surface:
+    under pytest, or when MD_STRICT_FAILURES is set non-false."""
+
+    if os.environ.get('PYTEST_CURRENT_TEST'):
+        return True
+    return os.environ.get('MD_STRICT_FAILURES', '').lower() \
+        not in ('', '0', 'false')
+
+
+def _to_bool(v):
+    if isinstance(v, bool):
+        return v
+    s = str(v).strip().lower()
+    if s in ('true', '1', 'yes'):
+        return True
+    if s in ('false', '0', 'no', ''):
+        return False
+    raise ValueError('Unrecognized boolean option value {!r}; use '
+                     'true/false'.format(v))
+
+
+def _check_options(options):
+    """Raise on options this slice does not run, or does not know."""
+
+    unknown = sorted(set(options) - set(PARSED_OPTIONS) -
+                     set(NO_OP_OPTIONS))
+    if unknown:
+        raise ValueError('Unknown detector options {}; this detector takes '
+                         '{}'.format(unknown, sorted(PARSED_OPTIONS +
+                                                     NO_OP_OPTIONS)))
+    refused = []
+    if options.get('preprocess_mode', 'host') != 'host':
+        refused.append('preprocess_mode={}'.format(
+            options['preprocess_mode']))
+    if options.get('mesh') is not None:
+        refused.append('mesh')
+    if str(options.get('conv_backend', 'xla')).lower() != 'xla':
+        refused.append('conv_backend={}'.format(options['conv_backend']))
+    if options.get('xla_compiler_options'):
+        refused.append('xla_compiler_options')
+    if str(options.get('dtype', 'float32')) != 'float32':
+        refused.append('dtype={}'.format(options['dtype']))
+    if refused:
+        raise NotImplementedError(
+            'The PyTorch port runs the float32 host-preprocess path only; '
+            'not yet ported: {}'.format(', '.join(refused)))
+
+
+class TorchDetector:
+    """
+    YOLOv5-family detector on PyTorch. Loads converted checkpoints (.npz +
+    metadata, or a folder with weights.npz + metadata.json).
+
+    Options (a dict, the JAX detector's names):
+        compatibility_mode: 'classic' (default), 'modern', or a '-strict'
+            variant (decoded forward + batched_nms)
+        canvas_mode: 'auto' (default; minimal stride-rectangle canvases,
+            shape-grouped batches) or 'square'
+        max_canvases: distinct auto canvases before falling back to square
+        image_size: override the checkpoint's inference canvas
+        pre_nms_topk / max_pre_nms_topk / auto_escalate_topk: candidate
+            capacity, its escalation ceiling, and whether to escalate
+        max_det: detections kept per image
+        pad_batches_to: pad partial batches (repeating the last image)
+        use_model_native_classes: emit 0-based model classes
+        dtype: 'float32' only
+        force_cpu: run on the CPU
+    Accepted as no-ops: folded_early, folded_h2, approx_select, select_cm,
+    stem_gemm, bottleneck_variant. Refused (NotImplementedError):
+    preprocess_mode=device, mesh, conv_backend=pallas,
+    xla_compiler_options, dtype=bfloat16, quantized checkpoints, and
+    augment=True at inference.
+    """
+
+    def __init__(self, model_path, detector_options=None, verbose=False,
+                 device=None):
+
+        options = dict(detector_options or {})
+        _check_options(options)
+        if _to_bool(options.get('force_cpu', False)):
+            device = 'cpu'
+        self.device = get_device(device)
+        if self.device.type == 'cuda':
+            set_float32_exact()
+
+        self.compatibility_mode = options.get('compatibility_mode',
+                                              'classic') or 'classic'
+        self.use_model_native_classes = _to_bool(
+            options.get('use_model_native_classes', False))
+        self.pre_nms_topk = int(options.get('pre_nms_topk', 512))
+        self.max_det = int(options.get('max_det', 300))
+        self.auto_escalate_topk = _to_bool(
+            options.get('auto_escalate_topk', True))
+        self.max_pre_nms_topk = int(options.get('max_pre_nms_topk', 8192))
+        pad = options.get('pad_batches_to', None)
+        self.pad_batches_to = int(pad) if pad else None
+        self.canvas_mode = options.get('canvas_mode', 'auto')
+        if self.canvas_mode not in ('auto', 'square'):
+            raise ValueError('canvas_mode must be auto or square, got '
+                             '{}'.format(self.canvas_mode))
+        self.max_canvases = int(options.get('max_canvases', 16))
+        self._auto_canvases = set()
+        self._warned_low_threshold_topk = False
+        self.n_truncated_images = 0
+        # Device program executions (one per batch; escalation re-runs
+        # selection and NMS inside the same execution)
+        self.programs_run = 0
+        self.printed_image_size_warning = False
+
+        start = time.time()
+        params, metadata = load_checkpoint(model_path)
+        metadata = metadata or {}
+        self.config = yolov5.YoloV5Config(
+            metadata.get('arch', 'yolov5l6'),
+            num_classes=int(metadata.get('num_classes', 3)),
+            anchors=metadata.get('anchors', None))
+        self.model = yolov5.YoloV5(self.config).load_params(params) \
+            .eval().to(self.device)
+        # Fused selection from raw head logits; strict modes run the
+        # decoded forward + batched_nms instead
+        self._fused_decode = 'strict' not in self.compatibility_mode
+        self.letterbox_stride = int(self.config.max_stride)
+        self.default_image_size = int(options.get(
+            'image_size', metadata.get('image_size', 1280)))
+        if verbose:
+            print('Loaded model in {:.2f}s'.format(time.time() - start))
+        print('TorchDetector using device {}'.format(self.device))
+
+    #%% Preprocessing
+
+    def _auto_target_shape(self, shape_hw, image_size, scaleup=True):
+        return box_ops.auto_target_shape(
+            shape_hw, image_size, stride=self.letterbox_stride,
+            scaleup=scaleup)
+
+    def _use_auto_canvas(self, shape_hw, image_size, scaleup=True):
+        """True when this image letterboxes onto its minimal
+        stride-rectangle; False in square mode or once max_canvases
+        distinct rectangles are in use."""
+
+        if self.canvas_mode != 'auto':
+            return False
+        t = self._auto_target_shape(shape_hw, image_size, scaleup)
+        if t == (image_size, image_size) or t in self._auto_canvases:
+            return True
+        if len(self._auto_canvases) >= self.max_canvases:
+            return False
+        self._auto_canvases.add(t)
+        return True
+
+    def preprocess_image(self, img_original, image_id='unknown',
+                         image_size=None, verbose=False):
+        """
+        Letterbox an image (PIL or HWC uint8 numpy, RGB, EXIF-rotated)
+        onto its inference canvas. Returns a dict with the uint8 canvas
+        and the geometry that maps boxes back.
+        """
+
+        result = {'file': image_id}
+        img_original_pil = None
+        if not isinstance(img_original, np.ndarray):
+            img_original_pil = img_original
+            img_original = np.asarray(img_original)
+        scaling_shape = img_original.shape
+
+        if image_size is not None:
+            if not isinstance(image_size, int):
+                raise TypeError('image_size must be an int')
+            if not self.printed_image_size_warning:
+                print('Using user-supplied image size {}'.format(image_size))
+                self.printed_image_size_warning = True
+        else:
+            image_size = self.default_image_size
+            self.printed_image_size_warning = False
+
+        if 'classic' in self.compatibility_mode:
+            auto = self._use_auto_canvas(img_original.shape[:2],
+                                         image_size, scaleup=True)
+            img, ratio, pad = box_ops.letterbox(
+                img_original, new_shape=(image_size, image_size),
+                stride=self.letterbox_stride, auto=auto, scaleup=True)
+        else:
+            use_ceil = 'use_ceil_for_resize' in self.compatibility_mode
+            img_resized, _ = box_ops.resize_long_side(
+                img_original, image_size, use_ceil=use_ceil)
+            auto = self._use_auto_canvas(img_resized.shape[:2],
+                                         image_size, scaleup=False)
+            img, ratio, pad = box_ops.letterbox(
+                img_resized, new_shape=(image_size, image_size),
+                stride=self.letterbox_stride, auto=auto, scaleup=False)
+            img_original = img_resized
+
+        result['img_processed'] = img
+        result['img_original'] = img_original
+        result['img_original_pil'] = img_original_pil
+        result['target_shape'] = img.shape[:2]
+        result['scaling_shape'] = scaling_shape
+        result['letterbox_ratio'] = ratio
+        result['letterbox_pad'] = pad
+        return result
+
+    def repreprocess_on_square_canvas(self, info, image_size=None):
+        """Re-letterbox a preprocessed image onto the square canvas (the
+        batch runner merges small tail buckets this way). None when the
+        original pixels are gone."""
+
+        source = info.get('img_original_pil')
+        if source is None:
+            source = info.get('img_original')
+        if source is None:
+            return None
+        saved_mode = self.canvas_mode
+        self.canvas_mode = 'square'
+        try:
+            new_info = self.preprocess_image(
+                source, image_id=info.get('file', 'unknown'),
+                image_size=image_size)
+        finally:
+            self.canvas_mode = saved_mode
+        for key, value in info.items():
+            if key not in new_info:
+                new_info[key] = value
+        return new_info
+
+    #%% Device program
+
+    def run_program(self, batch_u8, conf_thres, iou_thres):
+        """
+        The device program on one uint8 NHWC batch [B, H, W, 3], with
+        capacity escalation. Returns (numpy dict of 'boxes' [B, max_det,
+        4] xyxy canvas pixels, 'scores', 'classes', 'valid',
+        'n_candidates'; the capacity finally used).
+        """
+
+        config = self.config
+        topk = self.pre_nms_topk
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(
+                self.device).float() / 255.0
+            if self._fused_decode:
+                heads = self.model(x, decode=False)
+
+                def select_and_suppress(capacity):
+                    cands = select_topk_candidates(
+                        heads, config.anchors, config.strides,
+                        config.num_classes, conf_thres, capacity)
+                    return nms_on_candidates(
+                        cands, iou_thres, max_det=self.max_det,
+                        class_agnostic=(config.num_classes == 1))
+            else:
+                pred = self.model(x, decode=True)
+
+                def select_and_suppress(capacity):
+                    return batched_nms(pred, conf_thres, iou_thres,
+                                       max_det=self.max_det,
+                                       pre_nms_topk=capacity)
+
+            out = {k: v.cpu().numpy()
+                   for k, v in select_and_suppress(topk).items()}
+            # More above-floor candidates than the capacity holds: redo
+            # selection + NMS at the next power of two (up to
+            # max_pre_nms_topk), like the reference's uncapped nms()
+            while self.auto_escalate_topk and topk < self.max_pre_nms_topk:
+                needed = int(out['n_candidates'].max(initial=0))
+                if needed <= topk:
+                    break
+                new_topk = topk
+                while new_topk < needed:
+                    new_topk *= 2
+                topk = min(new_topk, self.max_pre_nms_topk)
+                out = {k: v.cpu().numpy()
+                       for k, v in select_and_suppress(topk).items()}
+        self.programs_run += 1
+        return out, topk
+
+    #%% Inference
+
+    def generate_detections_one_image(self, img_original,
+                                      image_id='unknown',
+                                      detection_threshold=0.00001,
+                                      image_size=None, augment=False,
+                                      verbose=False):
+        """Run detection on one image; returns an MD-format image dict."""
+
+        return self.generate_detections_one_batch(
+            [img_original], [image_id],
+            detection_threshold=detection_threshold,
+            image_size=image_size, augment=augment, verbose=verbose)[0]
+
+    def generate_detections_one_batch(self, img_originals, image_ids=None,
+                                      detection_threshold=0.00001,
+                                      image_size=None, augment=False,
+                                      verbose=False):
+        """
+        Run detection on a batch of images (PIL images, numpy arrays, or
+        dicts from preprocess_image). Returns MD-format image dicts with
+        'file', 'detections', 'max_detection_conf' (or 'failure').
+        """
+
+        if augment:
+            raise NotImplementedError(
+                'augment=True (test-time augmentation) is not ported yet')
+        if image_ids is None:
+            image_ids = ['unknown'] * len(img_originals)
+        if len(img_originals) != len(image_ids):
+            raise ValueError('{} images but {} ids'.format(
+                len(img_originals), len(image_ids)))
+
+        results = [None] * len(img_originals)
+        infos = []
+        for idx, (img, image_id) in enumerate(zip(img_originals,
+                                                  image_ids)):
+            if isinstance(img, dict):
+                info = dict(img)
+                if image_id is not None and image_id != 'unknown':
+                    info['file'] = image_id
+                infos.append((idx, info))
+                continue
+            if img is not None:
+                try:
+                    infos.append((idx, self.preprocess_image(
+                        img, image_id=image_id, image_size=image_size)))
+                    continue
+                except Exception as e:
+                    if verbose:
+                        print('Preprocess error for {}: {}'.format(
+                            image_id, e))
+            results[idx] = {'file': image_id, 'detections': None,
+                            'failure': FAILURE_IMAGE_OPEN}
+
+        # One device program per canvas shape (shape-grouped batching)
+        groups = {}
+        for item in infos:
+            shape = tuple(item[1].get('target_shape') or (0, 0))
+            groups.setdefault(shape, []).append(item)
+
+        for group in groups.values():
+            try:
+                self._run_batch(group, results, detection_threshold)
+            except Exception as e:
+                if isinstance(e, ALWAYS_RERAISED) or (
+                        isinstance(e, PROGRAMMING_ERRORS) and
+                        reraise_programming_errors()):
+                    raise
+                print('Inference failure on batch of {}: {}'.format(
+                    len(group), e))
+                if verbose:
+                    import traceback
+                    traceback.print_exc()
+                for idx, info in group:
+                    results[idx] = {'file': info['file'],
+                                    'detections': None,
+                                    'failure': FAILURE_INFER}
+        return results
+
+    def _run_batch(self, infos, results, detection_threshold):
+        """Stack preprocessed images, run the device program, emit dicts."""
+
+        nms_iou = 0.45 if 'classic' in self.compatibility_mode else 0.6
+
+        if detection_threshold < 0.005 and self.pre_nms_topk < 2048 and \
+                not self.auto_escalate_topk and \
+                not self._warned_low_threshold_topk:
+            print('Warning: detection_threshold {} is very low but '
+                  'pre_nms_topk is {}; detections beyond the top {} '
+                  'candidates per image will be dropped (set the '
+                  'pre_nms_topk detector option to keep more)'.format(
+                      detection_threshold, self.pre_nms_topk,
+                      self.pre_nms_topk))
+            self._warned_low_threshold_topk = True
+
+        # Pad partial batches by repeating the last image; padded slots
+        # carry idx None and are dropped below
+        n_real = len(infos)
+        if self.pad_batches_to is not None and \
+                n_real < self.pad_batches_to:
+            infos = list(infos) + \
+                [(None, infos[-1][1])] * (self.pad_batches_to - n_real)
+
+        imgs = [info['img_processed'] for _, info in infos]
+        h, w = imgs[0].shape[:2]
+        for im in imgs:
+            if im.shape[:2] != (h, w):
+                raise ValueError('Heterogeneous canvas in one batch')
+        out, topk = self.run_program(np.stack(imgs).astype(np.uint8),
+                                     detection_threshold, nms_iou)
+        n_cand = out['n_candidates']
+
+        for slot, (idx, info) in enumerate(infos):
+            if idx is None:
+                continue
+            valid = out['valid'][slot]
+            boxes = np.asarray(out['boxes'][slot][valid], np.float64)
+            scores = np.asarray(out['scores'][slot][valid], np.float64)
+            classes = np.asarray(out['classes'][slot][valid])
+
+            scaling_shape = info['scaling_shape']
+            detections = []
+            max_conf = 0.0
+
+            if boxes.shape[0] > 0:
+                if 'classic' in self.compatibility_mode:
+                    ratio_pad = None
+                    img_orig = info.get('img_original')
+                    img0_shape = img_orig.shape if img_orig is not None \
+                        else scaling_shape
+                else:
+                    img_orig = info['img_original']
+                    ratio = (img_orig.shape[0] / scaling_shape[0],
+                             img_orig.shape[1] / scaling_shape[1])
+                    ratio_pad = (ratio, info['letterbox_pad'])
+                    img0_shape = scaling_shape
+
+                boxes = box_ops.scale_coords(
+                    (h, w), boxes, img0_shape, ratio_pad).round()
+                gn = np.array([scaling_shape[1], scaling_shape[0],
+                               scaling_shape[1], scaling_shape[0]],
+                              dtype=np.float64)
+
+                # The reference emits detections in reversed prediction
+                # order, i.e. ascending confidence
+                for i in reversed(range(boxes.shape[0])):
+                    conf = float(scores[i])
+                    if conf < detection_threshold:
+                        continue
+                    xywh = (box_ops.xyxy2xywh(boxes[i:i + 1]) / gn)[0]
+                    api_box = ct_utils.convert_yolo_to_xywh(list(xywh))
+                    if 'classic' in self.compatibility_mode:
+                        api_box = ct_utils.truncate_float_array(
+                            api_box, precision=COORD_DIGITS)
+                        conf = ct_utils.truncate_float(
+                            conf, precision=CONF_DIGITS)
+                    else:
+                        api_box = ct_utils.round_float_array(
+                            api_box, precision=COORD_DIGITS)
+                        conf = ct_utils.round_float(
+                            conf, precision=CONF_DIGITS)
+
+                    if self.use_model_native_classes:
+                        cls = int(classes[i])
+                    else:
+                        cls = int(classes[i]) + 1
+                        if cls not in (1, 2, 3):
+                            raise KeyError(
+                                '{} is not a valid class.'.format(cls))
+                    detections.append({'category': str(cls),
+                                       'conf': conf,
+                                       'bbox': api_box})
+                    max_conf = max(max_conf, conf)
+
+            results[idx] = {'file': info['file'],
+                            'detections': detections,
+                            'max_detection_conf': max_conf}
+
+            # A count still above the final capacity means the tail was
+            # truncated relative to the reference's uncapped nms()
+            if int(n_cand[slot]) > topk:
+                results[idx]['pre_nms_truncation'] = int(n_cand[slot])
+                self.n_truncated_images += 1
+                if self.n_truncated_images <= 3:
+                    print('Warning: image {} had {} candidates above the '
+                          'confidence floor but the candidate capacity is '
+                          '{}; lowest-confidence detections were dropped '
+                          '(raise the max_pre_nms_topk detector option to '
+                          'keep them)'.format(info['file'],
+                                              int(n_cand[slot]), topk))

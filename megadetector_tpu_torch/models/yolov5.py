@@ -1,0 +1,449 @@
+"""
+YOLOv5-family detection network as a torch nn.Module (counterpart of
+megadetector_tpu/models/yolov5.py).
+
+The config tables, make_divisible and init_params are the JAX module's,
+line for line, so both packages build the same architecture and draw the
+same random parameters from a seed. The network is an inference graph
+with BatchNorm folded into the weights: a Conv is conv + bias + SiLU.
+
+The public forward keeps the JAX layout: it takes NHWC float images and
+returns NHWC per-level head tensors [B, H_l, W_l, na*(5+nc)] or the
+decoded [B, A, 5+nc]. Inside, the convolutions run on an NCHW view of the
+NHWC input (channels_last strides, no copy). Width/height folding, im2col
+and the int8 QTensor routes of the JAX module exist only to fit the TPU
+and are not ported.
+"""
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from megadetector_tpu_torch.models.convert_weights import params_to_torch
+
+
+#%% Architecture configs (same tables as the JAX module)
+
+# (depth_multiple, width_multiple) per published variant
+VARIANT_MULTIPLES = {
+    'n': (0.33, 0.25),
+    's': (0.33, 0.50),
+    'm': (0.67, 0.75),
+    'l': (1.00, 1.00),
+    'x': (1.33, 1.25),
+}
+
+# P5 anchors (strides 8/16/32), pixel units at the native image scale
+ANCHORS_P5 = [
+    [(10, 13), (16, 30), (33, 23)],
+    [(30, 61), (62, 45), (59, 119)],
+    [(116, 90), (156, 198), (373, 326)],
+]
+
+# P6 anchors (strides 8/16/32/64) used by the -6 1280px variants (= MDv5)
+ANCHORS_P6 = [
+    [(19, 27), (44, 40), (38, 94)],
+    [(96, 68), (86, 152), (180, 137)],
+    [(140, 301), (303, 264), (238, 542)],
+    [(436, 615), (739, 380), (925, 792)],
+]
+
+# Layer spec: (from, repeats, kind, args); see the JAX module
+P5_LAYERS = [
+    (-1, 1, 'conv', (64, 6, 2, 2)),  # 0  P1/2 (explicit pad 2)
+    (-1, 1, 'conv', (128, 3, 2)),    # 1  P2/4
+    (-1, 3, 'c3', (128, True)),      # 2
+    (-1, 1, 'conv', (256, 3, 2)),    # 3  P3/8
+    (-1, 6, 'c3', (256, True)),      # 4
+    (-1, 1, 'conv', (512, 3, 2)),    # 5  P4/16
+    (-1, 9, 'c3', (512, True)),      # 6
+    (-1, 1, 'conv', (1024, 3, 2)),   # 7  P5/32
+    (-1, 3, 'c3', (1024, True)),     # 8
+    (-1, 1, 'sppf', (1024, 5)),      # 9
+    (-1, 1, 'conv', (512, 1, 1)),    # 10
+    (-1, 1, 'up', ()),               # 11
+    ([-1, 6], 1, 'cat', ()),         # 12
+    (-1, 3, 'c3', (512, False)),     # 13
+    (-1, 1, 'conv', (256, 1, 1)),    # 14
+    (-1, 1, 'up', ()),               # 15
+    ([-1, 4], 1, 'cat', ()),         # 16
+    (-1, 3, 'c3', (256, False)),     # 17 P3 out
+    (-1, 1, 'conv', (256, 3, 2)),    # 18
+    ([-1, 14], 1, 'cat', ()),        # 19
+    (-1, 3, 'c3', (512, False)),     # 20 P4 out
+    (-1, 1, 'conv', (512, 3, 2)),    # 21
+    ([-1, 10], 1, 'cat', ()),        # 22
+    (-1, 3, 'c3', (1024, False)),    # 23 P5 out
+    ([17, 20, 23], 1, 'detect', ()),  # 24
+]
+
+P6_LAYERS = [
+    (-1, 1, 'conv', (64, 6, 2, 2)),  # 0  P1/2 (explicit pad 2)
+    (-1, 1, 'conv', (128, 3, 2)),    # 1  P2/4
+    (-1, 3, 'c3', (128, True)),      # 2
+    (-1, 1, 'conv', (256, 3, 2)),    # 3  P3/8
+    (-1, 6, 'c3', (256, True)),      # 4
+    (-1, 1, 'conv', (512, 3, 2)),    # 5  P4/16
+    (-1, 9, 'c3', (512, True)),      # 6
+    (-1, 1, 'conv', (768, 3, 2)),    # 7  P5/32
+    (-1, 3, 'c3', (768, True)),      # 8
+    (-1, 1, 'conv', (1024, 3, 2)),   # 9  P6/64
+    (-1, 3, 'c3', (1024, True)),     # 10
+    (-1, 1, 'sppf', (1024, 5)),      # 11
+    (-1, 1, 'conv', (768, 1, 1)),    # 12
+    (-1, 1, 'up', ()),               # 13
+    ([-1, 8], 1, 'cat', ()),         # 14
+    (-1, 3, 'c3', (768, False)),     # 15
+    (-1, 1, 'conv', (512, 1, 1)),    # 16
+    (-1, 1, 'up', ()),               # 17
+    ([-1, 6], 1, 'cat', ()),         # 18
+    (-1, 3, 'c3', (512, False)),     # 19
+    (-1, 1, 'conv', (256, 1, 1)),    # 20
+    (-1, 1, 'up', ()),               # 21
+    ([-1, 4], 1, 'cat', ()),         # 22
+    (-1, 3, 'c3', (256, False)),     # 23 P3 out
+    (-1, 1, 'conv', (256, 3, 2)),    # 24
+    ([-1, 20], 1, 'cat', ()),        # 25
+    (-1, 3, 'c3', (512, False)),     # 26 P4 out
+    (-1, 1, 'conv', (512, 3, 2)),    # 27
+    ([-1, 16], 1, 'cat', ()),        # 28
+    (-1, 3, 'c3', (768, False)),     # 29 P5 out
+    (-1, 1, 'conv', (768, 3, 2)),    # 30
+    ([-1, 12], 1, 'cat', ()),        # 31
+    (-1, 3, 'c3', (1024, False)),    # 32 P6 out
+    ([23, 26, 29, 32], 1, 'detect', ()),  # 33
+]
+
+
+def make_divisible(x, divisor=8):
+    """Round channel counts up to the nearest multiple of [divisor]."""
+
+    return int(math.ceil(x / divisor) * divisor)
+
+
+class YoloV5Config:
+    """Resolved architecture: per-layer channel counts, strides, anchors."""
+
+    def __init__(self, arch='yolov5l6', num_classes=3, anchors=None):
+        if not arch.startswith('yolov5'):
+            raise ValueError('Unknown arch {}'.format(arch))
+        suffix = arch[len('yolov5'):]
+        p6 = suffix.endswith('6')
+        variant = suffix[:-1] if p6 else suffix
+        if variant not in VARIANT_MULTIPLES:
+            raise ValueError('Unknown yolov5 variant {}'.format(variant))
+
+        self.arch = arch
+        self.num_classes = num_classes
+        gd, gw = VARIANT_MULTIPLES[variant]
+        self.depth_multiple = gd
+        self.width_multiple = gw
+        spec = P6_LAYERS if p6 else P5_LAYERS
+        self.strides = (8, 16, 32, 64) if p6 else (8, 16, 32)
+        default_anchors = ANCHORS_P6 if p6 else ANCHORS_P5
+        self.anchors = np.asarray(
+            anchors if anchors is not None else default_anchors,
+            dtype=np.float32)
+        self.num_anchors = self.anchors.shape[1]
+        self.max_stride = self.strides[-1]
+
+        # channels[0] is the network input; layer f's output channel count
+        # lives at channels[f + 1]
+        self.layers = []
+        channels = [3]
+
+        def ch(f):
+            return channels[-1] if f == -1 else channels[f + 1]
+
+        for (frm, repeats, kind, args) in spec:
+            n = max(round(repeats * gd), 1) if repeats > 1 else repeats
+            if kind == 'conv':
+                c_out = make_divisible(args[0] * gw)
+                pad = args[3] if len(args) > 3 else args[1] // 2
+                entry = dict(frm=frm, kind=kind, n=1, c_in=ch(frm),
+                             c_out=c_out, k=args[1], s=args[2], p=pad)
+            elif kind == 'c3':
+                c_out = make_divisible(args[0] * gw)
+                entry = dict(frm=frm, kind=kind, n=n, c_in=ch(frm),
+                             c_out=c_out, shortcut=args[1])
+            elif kind == 'sppf':
+                c_out = make_divisible(args[0] * gw)
+                entry = dict(frm=frm, kind=kind, n=1, c_in=ch(frm),
+                             c_out=c_out, pool_k=args[1])
+            elif kind == 'up':
+                c_out = ch(frm)
+                entry = dict(frm=frm, kind=kind, n=1, c_out=c_out)
+            elif kind == 'cat':
+                c_out = sum(ch(f) for f in frm)
+                entry = dict(frm=frm, kind=kind, n=1, c_out=c_out)
+            elif kind == 'detect':
+                entry = dict(frm=frm, kind=kind, n=1,
+                             c_ins=[ch(f) for f in frm], c_out=0)
+            else:
+                raise ValueError(kind)
+            self.layers.append(entry)
+            channels.append(entry['c_out'])
+
+        # Which layer outputs must be retained for later layers
+        needed = set()
+        for entry in self.layers:
+            frm = entry['frm']
+            for f in (frm if isinstance(frm, list) else [frm]):
+                if f != -1:
+                    needed.add(f)
+        self.save_indices = needed
+
+    @property
+    def num_outputs(self):
+        return self.num_classes + 5
+
+
+#%% Parameter initialization (numpy RNG; same draws as the JAX module)
+
+
+def _init_conv(rng, c_in, c_out, k):
+    """He-normal conv weight [k, k, c_in, c_out] (HWIO) + zero bias."""
+
+    fan_in = c_in * k * k
+    std = math.sqrt(2.0 / fan_in)
+    w = rng.standard_normal((k, k, c_in, c_out)).astype(np.float32) * std
+    return {'w': w, 'b': np.zeros((c_out,), dtype=np.float32)}
+
+
+def _init_c3(rng, c_in, c_out, n):
+    c_h = int(c_out * 0.5)
+    params = {
+        'cv1': _init_conv(rng, c_in, c_h, 1),
+        'cv2': _init_conv(rng, c_in, c_h, 1),
+        'cv3': _init_conv(rng, 2 * c_h, c_out, 1),
+    }
+    for j in range(n):
+        params['m{}'.format(j)] = {
+            'cv1': _init_conv(rng, c_h, c_h, 1),
+            'cv2': _init_conv(rng, c_h, c_h, 3),
+        }
+    return params
+
+
+def init_params(config, seed=0):
+    """Random numpy parameters (JAX pytree layout, HWIO) for [config]."""
+
+    rng = np.random.RandomState(seed)
+    params = {}
+    for i, entry in enumerate(config.layers):
+        kind = entry['kind']
+        name = 'l{}'.format(i)
+        if kind == 'conv':
+            params[name] = _init_conv(
+                rng, entry['c_in'], entry['c_out'], entry['k'])
+        elif kind == 'c3':
+            params[name] = _init_c3(
+                rng, entry['c_in'], entry['c_out'], entry['n'])
+        elif kind == 'sppf':
+            c_h = entry['c_in'] // 2
+            params[name] = {
+                'cv1': _init_conv(rng, entry['c_in'], c_h, 1),
+                'cv2': _init_conv(rng, c_h * 4, entry['c_out'], 1),
+            }
+        elif kind == 'detect':
+            no = config.num_outputs * config.num_anchors
+            heads = {}
+            for lvl, c_in in enumerate(entry['c_ins']):
+                heads['m{}'.format(lvl)] = _init_conv(rng, c_in, no, 1)
+            params[name] = heads
+    return params
+
+
+#%% Modules (NCHW inside; parameter names follow the pytree keys)
+
+
+class Conv(nn.Module):
+    """Conv + bias (+ SiLU); BatchNorm is already folded into the weights."""
+
+    def __init__(self, c_in, c_out, k, s=1, p=None, act=True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(c_out, c_in, k, k))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+        self.stride = s
+        self.padding = k // 2 if p is None else p
+        self.act = act
+
+    def forward(self, x):
+        y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        return F.silu(y) if self.act else y
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (-> residual add)."""
+
+    def __init__(self, c, shortcut):
+        super().__init__()
+        self.cv1 = Conv(c, c, 1)
+        self.cv2 = Conv(c, c, 3)
+        self.shortcut = shortcut
+
+    def forward(self, x):
+        h = self.cv2(self.cv1(x))
+        return x + h if self.shortcut else h
+
+
+class C3(nn.Module):
+    """CSP block: two 1x1 branches, n bottlenecks on the first, 1x1 merge."""
+
+    def __init__(self, c_in, c_out, n, shortcut):
+        super().__init__()
+        c_h = int(c_out * 0.5)
+        self.cv1 = Conv(c_in, c_h, 1)
+        self.cv2 = Conv(c_in, c_h, 1)
+        self.cv3 = Conv(2 * c_h, c_out, 1)
+        self.n = n
+        for j in range(n):
+            self.add_module('m{}'.format(j), Bottleneck(c_h, shortcut))
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        y2 = self.cv2(x)
+        for j in range(self.n):
+            y1 = getattr(self, 'm{}'.format(j))(y1)
+        return self.cv3(torch.cat([y1, y2], dim=1))
+
+
+class SPPF(nn.Module):
+    """Three chained stride-1 SAME max pools (-inf padding), concat, 1x1."""
+
+    def __init__(self, c_in, c_out, pool_k):
+        super().__init__()
+        c_h = c_in // 2
+        self.cv1 = Conv(c_in, c_h, 1)
+        self.cv2 = Conv(c_h * 4, c_out, 1)
+        self.pool_k = pool_k
+
+    def forward(self, x):
+        y = self.cv1(x)
+        pools = [y]
+        for _ in range(3):
+            pools.append(F.max_pool2d(pools[-1], self.pool_k, 1,
+                                      self.pool_k // 2))
+        return self.cv2(torch.cat(pools, dim=1))
+
+
+class Detect(nn.Module):
+    """Per-level 1x1 linear heads (no activation)."""
+
+    def __init__(self, c_ins, no):
+        super().__init__()
+        for lvl, c_in in enumerate(c_ins):
+            self.add_module('m{}'.format(lvl), Conv(c_in, no, 1, act=False))
+
+    def forward(self, xs):
+        return [getattr(self, 'm{}'.format(lvl))(x)
+                for lvl, x in enumerate(xs)]
+
+
+def _decode_level(raw, anchors_level, stride, num_outputs):
+    """
+    Anchor-grid decode of one NHWC head [B, H, W, na*(5+nc)] ->
+    [B, H*W*na, 5+nc] in canvas pixels (YOLOv5 v6: xy = (2s - 0.5 +
+    grid) * stride, wh = (2s)^2 * anchor).
+    """
+
+    b, h, w, _ = raw.shape
+    na = anchors_level.shape[0]
+    y = torch.sigmoid(raw.reshape(b, h, w, na, num_outputs).float())
+    gy, gx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=raw.device),
+        torch.arange(w, dtype=torch.float32, device=raw.device),
+        indexing='ij')
+    grid = torch.stack([gx, gy], dim=-1)[None, :, :, None, :]
+    xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+    anchor = torch.as_tensor(anchors_level, dtype=torch.float32,
+                             device=raw.device)
+    wh = torch.square(y[..., 2:4] * 2.0) * anchor
+    out = torch.cat([xy, wh, y[..., 4:]], dim=-1)
+    return out.reshape(b, h * w * na, num_outputs)
+
+
+class YoloV5(nn.Module):
+    """The network for a YoloV5Config; load weights with load_params."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        self.layers = nn.ModuleDict()
+        for i, e in enumerate(config.layers):
+            name = 'l{}'.format(i)
+            if e['kind'] == 'conv':
+                self.layers[name] = Conv(e['c_in'], e['c_out'], e['k'],
+                                         e['s'], e['p'])
+            elif e['kind'] == 'c3':
+                self.layers[name] = C3(e['c_in'], e['c_out'], e['n'],
+                                       e['shortcut'])
+            elif e['kind'] == 'sppf':
+                self.layers[name] = SPPF(e['c_in'], e['c_out'],
+                                         e['pool_k'])
+            elif e['kind'] == 'detect':
+                self.layers[name] = Detect(
+                    e['c_ins'], config.num_outputs * config.num_anchors)
+
+    def load_params(self, params_np):
+        """Load a JAX-layout numpy pytree (HWIO 'w', 'b' leaves)."""
+
+        state = {}
+
+        def walk(node, prefix):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, prefix + k + '.')
+                else:
+                    state[prefix + {'w': 'weight', 'b': 'bias'}[k]] = v
+
+        walk(params_to_torch(params_np), 'layers.')
+        self.load_state_dict(state, strict=True)
+        return self
+
+    def forward(self, x, decode=True):
+        """
+        Args:
+            x: [B, H, W, 3] float images in [0, 1]; H and W multiples of
+                config.max_stride
+            decode: True -> decoded [B, A, 5+nc] in canvas pixels;
+                False -> list of raw NHWC heads [B, H_l, W_l, na*(5+nc)]
+        """
+
+        config = self.config
+        prev = x.permute(0, 3, 1, 2)
+        saved = {}
+        heads = None
+        for i, entry in enumerate(config.layers):
+            kind = entry['kind']
+            frm = entry['frm']
+            if kind == 'cat':
+                out = torch.cat([prev if f == -1 else saved[f]
+                                 for f in frm], dim=1)
+            elif kind == 'detect':
+                heads = self.layers['l{}'.format(i)](
+                    [saved[f] for f in frm])
+                out = prev
+            else:
+                src = prev if frm == -1 else saved[frm]
+                if kind == 'up':
+                    out = F.interpolate(src, scale_factor=2,
+                                        mode='nearest')
+                else:
+                    out = self.layers['l{}'.format(i)](src)
+            if i in config.save_indices:
+                saved[i] = out
+            prev = out
+
+        if heads is None:
+            raise ValueError('Config has no detect layer')
+        heads = [h.permute(0, 2, 3, 1).contiguous() for h in heads]
+        if not decode:
+            return heads
+        return torch.cat([
+            _decode_level(raw, config.anchors[lvl],
+                          float(config.strides[lvl]), config.num_outputs)
+            for lvl, raw in enumerate(heads)], dim=1)

@@ -1,0 +1,119 @@
+"""
+Greedy NMS keep mask: the CUDA kernel (csrc/nms.cu) and its plain PyTorch
+version.
+
+Replaces megadetector_tpu/ops/pallas_nms.py pallas_greedy_nms /
+_nms_kernel (and the XLA _fixpoint_suppress the JAX default program runs).
+The mask pass is bounded by its K^2/2 IoU evaluations, the sweep by its
+K-step serial chain; the design keeps the serial part to one shared-memory
+word-OR per kept box (see the source note in csrc/nms.cu).
+
+greedy_nms_keep takes the plain version only for tensors on the CPU. For a
+CUDA tensor it launches the kernel or raises KernelError.
+"""
+
+import torch
+
+from megadetector_tpu_torch.ops import _build
+from megadetector_tpu_torch.ops._build import KernelError
+
+# Kernel launches made by greedy_nms_keep (the plain version never counts)
+launches = 0
+
+
+def pairwise_iou_xyxy(boxes):
+    """IoU matrix [..., K, K] for xyxy boxes [..., K, 4] (JAX formula)."""
+
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    area = torch.clamp(x1 - x0, min=0.0) * torch.clamp(y1 - y0, min=0.0)
+    ix0 = torch.maximum(x0[..., :, None], x0[..., None, :])
+    iy0 = torch.maximum(y0[..., :, None], y0[..., None, :])
+    ix1 = torch.minimum(x1[..., :, None], x1[..., None, :])
+    iy1 = torch.minimum(y1[..., :, None], y1[..., None, :])
+    inter = torch.clamp(ix1 - ix0, min=0.0) * torch.clamp(iy1 - iy0,
+                                                           min=0.0)
+    union = area[..., :, None] + area[..., None, :] - inter
+    return inter / torch.clamp(union, min=1e-9)
+
+
+def greedy_nms_keep_reference(boxes, valid, thresh):
+    """
+    Plain version: the sequential greedy scan over the IoU matrix
+    (megadetector_tpu/ops/nms.py _greedy_suppress), batched.
+
+    Args:
+        boxes: [B, K, 4] float32 xyxy, class-offset, score-sorted
+        valid: [B, K] bool
+        thresh: IoU threshold (compared in float32, strict '>')
+
+    Returns:
+        [B, K] bool keep mask
+    """
+
+    k = boxes.shape[1]
+    thr = torch.tensor(thresh, dtype=torch.float32, device=boxes.device)
+    overlap = torch.triu(pairwise_iou_xyxy(boxes.float()) > thr,
+                         diagonal=1)
+    keep = valid.clone()
+    for i in range(k):
+        keep &= ~(overlap[:, i, :] & keep[:, i:i + 1])
+    return keep
+
+
+def greedy_nms_keep(boxes, valid, thresh):
+    """
+    Greedy NMS keep mask [B, K] bool for score-sorted, class-offset xyxy
+    boxes [B, K, 4] float32 and valid [B, K] bool: box i, while kept,
+    suppresses every j > i with IoU(i, j) > thresh.
+
+    CPU tensors run the plain version. CUDA tensors run the kernel
+    (built at first use); anything else raises.
+    """
+
+    global launches
+
+    if boxes.device.type == 'cpu' and valid.device.type == 'cpu':
+        return greedy_nms_keep_reference(boxes, valid, thresh)
+    if boxes.device.type != 'cuda' or valid.device != boxes.device:
+        raise ValueError('greedy_nms_keep: boxes on {} and valid on {}; '
+                         'need both on the CPU or both on one CUDA '
+                         'device'.format(boxes.device, valid.device))
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise ValueError('greedy_nms_keep: need float32 boxes and bool '
+                         'valid, got {} and {}'.format(boxes.dtype,
+                                                       valid.dtype))
+    if boxes.dim() != 3 or boxes.shape[2] != 4 or \
+            tuple(valid.shape) != tuple(boxes.shape[:2]):
+        raise ValueError('greedy_nms_keep: need boxes [B, K, 4] and valid '
+                         '[B, K], got {} and {}'.format(
+                             tuple(boxes.shape), tuple(valid.shape)))
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError('greedy_nms_keep: inputs must be contiguous')
+    if boxes.data_ptr() % 16 != 0:
+        raise ValueError('greedy_nms_keep: boxes must be 16-byte aligned '
+                         '(the kernel loads one float4 per box)')
+
+    b, k = valid.shape
+    words = (k + 63) // 64
+    if words * 8 > 48 * 1024:
+        raise ValueError('greedy_nms_keep: K={} exceeds the sweep\'s '
+                         'shared-memory bitmask'.format(k))
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    if b == 0 or k == 0:
+        return keep
+
+    lib = _build.load_library()
+    mask = torch.empty((b, k, words), dtype=torch.int64,
+                       device=boxes.device)
+    # The launch goes to the runtime's current device: make it the
+    # tensors' device, and use its current torch stream
+    with torch.cuda.device(boxes.device):
+        err = lib.md_greedy_nms(
+            boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+            keep.data_ptr(), b, k, float(thresh),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise KernelError('md_greedy_nms launch failed: {} ({})'.format(
+            lib.md_cuda_error_string(err).decode(), err))
+    launches += 1
+    return keep

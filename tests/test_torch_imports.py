@@ -1,0 +1,68 @@
+"""
+Import guard for the port: megadetector_tpu_torch must run where jax and
+PIL are absent, so it imports no jax, and PIL only once a file is decoded.
+cv2 is not checked: megadetector_tpu/ops/boxes.py imports it whenever it
+is installed and falls back to numpy where it is not.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import megadetector_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE_DIR = os.path.dirname(os.path.abspath(
+    megadetector_tpu_torch.__file__))
+
+_CHECK = """
+import importlib, json, pkgutil, sys
+import megadetector_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + '.')]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(json.dumps({'modules': names,
+                  'jax': sorted(m for m in sys.modules
+                                if m == 'jax' or m.startswith('jax.')),
+                  'PIL': 'PIL' in sys.modules}))
+"""
+
+
+def test_port_imports_no_jax_and_no_pil():
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', _CHECK], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    expected = {'megadetector_tpu_torch.device',
+                'megadetector_tpu_torch.ops.cuda_nms',
+                'megadetector_tpu_torch.models.detector',
+                'megadetector_tpu_torch.detection.run_detector_batch'}
+    assert expected <= set(report['modules'])
+    assert report['jax'] == []
+    assert report['PIL'] is False
+
+
+def test_no_port_source_imports_jax():
+    jax_import = re.compile(r'^\s*(import\s+jax\b|from\s+jax\b)', re.M)
+    # The JAX package's device modules (each imports jax)
+    jax_module_import = re.compile(
+        r'^\s*(from|import)\s+megadetector_tpu\.(models\.(detector|yolov5|'
+        r'convert_weights)|ops\.(decode|nms|pallas_\w+|quantization)|'
+        r'detection\.run_detector(_batch)?)\b', re.M)
+    sources = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, files in os.walk(PACKAGE_DIR):
+        sources += [os.path.join(root, f) for f in files
+                    if f.endswith('.py')]
+    assert len(sources) > 10
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert not jax_import.search(text), path
+        assert not jax_module_import.search(text), path
