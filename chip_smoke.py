@@ -20,7 +20,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      batch; images/s of a second, timed pass;
   5. card vs CPU: the same yolov5l6 forward on a 320 px batch of 2;
      heads agree to max |d| <= 1e-3 * max |ref| (cuDNN sums in another
-     order than the CPU, even with TF32 off).
+     order than the CPU, even with TF32 off);
+  6. int8 kernels vs plain on the card, at yolov5l6 shapes of a 960x1280
+     canvas, batch 8: the conv kernel on l1's 3x3 s2 64->128, a 3x3 s1
+     128->128 at 120x160 and a 1x1 512->256 at 120x160 (int32 and int8
+     outputs), the bottleneck kernel at C 64 / 256 / 512 (240x320, 60x80,
+     15x20) with and without the residual; outputs must be identical; ms
+     per call of both;
+  7. int8 main path: the port's quantize_checkpoint on phase 4's
+     yolov5l6 (calibrated on two 320 px uniform images from
+     RandomState(1)), load_detector on cuda with conv_backend xla, then
+     pallas, load_and_run_detector_batch over the same 16 images and
+     write_results_to_file; the MD JSON is checked, the conv kernel must
+     launch once per chain conv of every batch (under pallas: once per
+     chain conv outside the bottlenecks) and the bottleneck kernel once
+     per bottleneck of every batch (pallas) or never (xla), and the two
+     backends' detections must be identical; images/s of a second, timed
+     pass of each;
+  8. card vs CPU, int8 forward at 320 px, batch 2: decoded obj*cls
+     scores p99 |d| < 0.02 and xy p99 |d| < 2 px (the bounds of the JAX
+     package's int8-vs-float test).
 Then one JSON line per kernel, and last the device line.
 """
 
@@ -33,6 +52,10 @@ import time
 
 NMS_SOURCE = 'megadetector_tpu_torch/csrc/nms.cu'
 NMS_REPLACES = 'megadetector_tpu/ops/pallas_nms.py:26'
+CONV_SOURCE = 'megadetector_tpu_torch/csrc/conv_int8.cu'
+CONV_REPLACES = 'megadetector_tpu/ops/pallas_conv.py:90'
+BOTTLENECK_SOURCE = 'megadetector_tpu_torch/csrc/bottleneck_int8.cu'
+BOTTLENECK_REPLACES = 'megadetector_tpu/ops/pallas_bottleneck.py:136'
 
 
 def _time_ms(fn, reps, warmup=2):
@@ -160,39 +183,13 @@ def _synthetic_images(rng):
     return images
 
 
-def phase_main_path(device, workdir, config, params):
-    """The port's batch detection path on the card; returns
-    (launches, images/s, detector)."""
+def _write_and_check(results, pairs, model_path, out_file):
+    """write_results_to_file, then check the MD JSON; returns the number
+    of detections."""
 
-    import numpy as np
-    import torch
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        write_results_to_file
 
-    from megadetector_tpu_torch.detection.run_detector import load_detector
-    from megadetector_tpu_torch.detection.run_detector_batch import (
-        load_and_run_detector_batch, write_results_to_file)
-    from megadetector_tpu_torch.models.convert_weights import \
-        save_checkpoint
-    from megadetector_tpu_torch.ops import cuda_nms
-
-    model_path = os.path.join(workdir, 'md_smoke_{}.npz'.format(config.arch))
-    save_checkpoint(params, model_path, {
-        'arch': config.arch, 'model_type': 'yolov5', 'num_classes': 3,
-        'class_names': ['animal', 'person', 'vehicle'], 'image_size': 1280})
-    detector = load_detector(model_path, detector_options={
-        'pad_batches_to': 8}, device=device)
-
-    rng = np.random.RandomState(1)
-    pairs = [('smoke/img_{:02d}.jpg'.format(i), img)
-             for i, img in enumerate(_synthetic_images(rng))]
-
-    cuda_nms.launches = 0
-    detector.programs_run = 0
-    results = load_and_run_detector_batch(detector, pairs, batch_size=8)
-    torch.cuda.synchronize()
-    launches = cuda_nms.launches
-    batches = detector.programs_run
-
-    out_file = os.path.join(workdir, 'smoke_results.json')
     write_results_to_file(results, out_file, detector_file=model_path)
     with open(out_file) as f:
         written = json.load(f)
@@ -217,6 +214,43 @@ def phase_main_path(device, workdir, config, params):
                 raise AssertionError('{}: conf {}'.format(im['file'],
                                                           det['conf']))
             n_det += 1
+    return n_det
+
+
+def phase_main_path(device, workdir, config, params):
+    """The port's batch detection path on the card; returns
+    (launches, images/s, detector)."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+    from megadetector_tpu_torch.models.convert_weights import \
+        save_checkpoint
+    from megadetector_tpu_torch.ops import cuda_nms
+
+    model_path = os.path.join(workdir, 'md_smoke_{}.npz'.format(config.arch))
+    save_checkpoint(params, model_path, {
+        'arch': config.arch, 'model_type': 'yolov5', 'num_classes': 3,
+        'class_names': ['animal', 'person', 'vehicle'], 'image_size': 1280})
+    detector = load_detector(model_path, detector_options={
+        'pad_batches_to': 8}, device=device)
+
+    rng = np.random.RandomState(1)
+    pairs = [('smoke/img_{:02d}.jpg'.format(i), img)
+             for i, img in enumerate(_synthetic_images(rng))]
+
+    cuda_nms.launches = 0
+    detector.programs_run = 0
+    results = load_and_run_detector_batch(detector, pairs, batch_size=8)
+    torch.cuda.synchronize()
+    launches = cuda_nms.launches
+    batches = detector.programs_run
+
+    n_det = _write_and_check(results, pairs, model_path,
+                             os.path.join(workdir, 'smoke_results.json'))
     if batches < 2 or launches < batches:
         raise AssertionError('{} device batches but {} NMS kernel '
                              'launches'.format(batches, launches))
@@ -244,7 +278,7 @@ def phase_main_path(device, workdir, config, params):
                                                detection_threshold=0.005)
     torch.cuda.synchronize()
     device_rate = len(infos) / (time.time() - start)
-    return launches, e2e, device_rate, detector, buckets
+    return launches, e2e, device_rate, detector, buckets, model_path, pairs
 
 
 def phase_breakdown(detector, buckets):
@@ -276,6 +310,7 @@ def phase_breakdown(detector, buckets):
           'nms_on_candidates {:.3f} ms'.format(
               topk, int(out['n_candidates'].max()), fwd, sel, nms),
           flush=True)
+    return batch, fwd
 
 
 def phase_card_vs_cpu(detector, config, params):
@@ -305,6 +340,245 @@ def phase_card_vs_cpu(detector, config, params):
         worst = max(worst, diff / scale)
     print('card vs CPU yolov5l6 heads at 320 px: max |d| / max |ref| = '
           '{:.3e} (limit 1e-3)'.format(worst), flush=True)
+
+
+def _int8_conv_case(rng, device, cin, cout, k):
+    """Seeded int8 weight [cout, k, k, cin] and a float32 scale that puts
+    acc * scale at about unit std, plus a bias, on the card."""
+
+    import numpy as np
+    import torch
+
+    w = rng.randint(-127, 128, (cout, k, k, cin)).astype(np.int8)
+    scale = rng.uniform(0.5, 1.5, cout) / (np.sqrt(cin * k * k) *
+                                           127.0 * 127.0 / 3.0)
+    bias = rng.uniform(-0.5, 0.5, cout)
+    return (torch.from_numpy(w).to(device),
+            torch.from_numpy(scale.astype(np.float32)).to(device),
+            torch.from_numpy(bias.astype(np.float32)).to(device))
+
+
+def _int8_input(rng, device, shape):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(rng.randint(-127, 128, shape).astype(
+        np.int8)).to(device)
+
+
+def phase_int8_kernels(device):
+    """Conv and bottleneck kernels vs their plain versions on the card at
+    yolov5l6 shapes (960x1280 canvas, batch 8); returns their records."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.ops import bottleneck_int8, conv_int8
+
+    rng = np.random.RandomState(6)
+    conv_cases = [
+        ('l1 3x3 s2 [8,480,640,64]->128', (8, 480, 640, 64), 128, 3,
+         (2, 2), (1, 1, 1, 1)),
+        ('3x3 s1 [8,120,160,128]->128', (8, 120, 160, 128), 128, 3,
+         (1, 1), (1, 1, 1, 1)),
+        ('1x1 [8,120,160,512]->256', (8, 120, 160, 512), 256, 1,
+         (1, 1), (0, 0, 0, 0)),
+    ]
+    conv_ms, conv_err, bottleneck_err = {}, 0, 0
+    for name, shape, cout, k, stride, pads in conv_cases:
+        x = _int8_input(rng, device, shape)
+        w, scale, bias = _int8_conv_case(rng, device, shape[3], cout, k)
+        for y_scale in (None, 0.02):
+            got = conv_int8.conv_int8(x, w, scale, bias, stride, pads,
+                                      y_scale)
+            torch.cuda.synchronize()
+            ref = conv_int8.conv_int8_reference(x, w, scale, bias, stride,
+                                                pads, y_scale)
+            conv_err = max(conv_err, int((got.long() - ref.long()).abs()
+                                         .max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    'conv kernel disagrees with its plain version on {} '
+                    '({}): {} of {} elements differ'.format(
+                        name, 'int32' if y_scale is None else 'int8',
+                        int((got != ref).sum()), got.numel()))
+        ms = _time_ms(lambda: conv_int8.conv_int8(
+            x, w, scale, bias, stride, pads, 0.02), reps=10)
+        plain_ms = _time_ms(lambda: conv_int8.conv_int8_reference(
+            x, w, scale, bias, stride, pads, 0.02), reps=2, warmup=1)
+        conv_ms[name] = (ms, plain_ms)
+        print('conv kernel == plain (int32 and int8) on {}: kernel {:.4f} '
+              'ms, plain {:.4f} ms per call'.format(name, ms, plain_ms),
+              flush=True)
+        del x, w, got, ref
+        torch.cuda.empty_cache()
+
+    bottleneck_ms = {}
+    for c, h, w_ in ((64, 240, 320), (256, 60, 80), (512, 15, 20)):
+        x = _int8_input(rng, device, (8, h, w_, c))
+        w1, s1, b1 = _int8_conv_case(rng, device, c, c, 1)
+        w2, s2, b2 = _int8_conv_case(rng, device, c, c, 3)
+        for shortcut in (True, False):
+            args = (x, w1, s1, b1, 0.021, w2, s2, b2, 0.033, 0.007,
+                    shortcut)
+            got, got_scale = bottleneck_int8.bottleneck_int8(*args)
+            torch.cuda.synchronize()
+            ref, ref_scale = bottleneck_int8.bottleneck_int8_reference(*args)
+            bottleneck_err = max(bottleneck_err, int(
+                (got.long() - ref.long()).abs().max()))
+            name = 'C={} [8,{},{}] shortcut={}'.format(c, h, w_, shortcut)
+            if got_scale != ref_scale or not torch.equal(got, ref):
+                raise AssertionError(
+                    'bottleneck kernel disagrees with its plain version on '
+                    '{}: {} of {} elements differ'.format(
+                        name, int((got != ref).sum()), got.numel()))
+            ms = _time_ms(lambda: bottleneck_int8.bottleneck_int8(*args),
+                          reps=10)
+            plain_ms = _time_ms(
+                lambda: bottleneck_int8.bottleneck_int8_reference(*args),
+                reps=2, warmup=1)
+            bottleneck_ms[name] = (ms, plain_ms)
+            line = 'bottleneck kernel == plain on {}: kernel {:.4f} ms, ' \
+                'plain {:.4f} ms per call'.format(name, ms, plain_ms)
+            if shortcut:
+                # the same bottleneck unfused: two conv kernel launches and
+                # the residual requant in torch (the conv_backend=xla route)
+                def unfused():
+                    h1 = conv_int8.conv_int8(x, w1, s1, b1, (1, 1),
+                                             (0, 0, 0, 0), 0.021)
+                    h2 = conv_int8.conv_int8(h1, w2, s2, b2, (1, 1),
+                                             (1, 1, 1, 1), 0.033)
+                    return bottleneck_int8.residual_requant(x, 0.007, h2,
+                                                            0.033)
+                if not torch.equal(unfused()[0], got):
+                    raise AssertionError('fused and unfused kernels differ '
+                                         'on {}'.format(name))
+                line += '; unfused through the conv kernel (identical) ' \
+                    '{:.4f} ms'.format(_time_ms(unfused, reps=10))
+            print(line, flush=True)
+        del x, got, ref
+        torch.cuda.empty_cache()
+
+    ms, plain_ms = conv_ms['3x3 s1 [8,120,160,128]->128']
+    conv_record = {'name': 'conv_int8', 'route': 'cuda',
+                   'source': CONV_SOURCE, 'replaces': CONV_REPLACES,
+                   'launches': None, 'max_abs_err': float(conv_err),
+                   'ms': ms, 'plain_ms': plain_ms}
+    ms, plain_ms = bottleneck_ms['C=256 [8,60,80] shortcut=True']
+    bottleneck_record = {'name': 'bottleneck_int8', 'route': 'cuda',
+                         'source': BOTTLENECK_SOURCE,
+                         'replaces': BOTTLENECK_REPLACES, 'launches': None,
+                         'max_abs_err': float(bottleneck_err), 'ms': ms,
+                         'plain_ms': plain_ms}
+    return conv_record, bottleneck_record
+
+
+def phase_int8_main_path(device, workdir, float_path, pairs, batch):
+    """The int8 chain through the port's entry points on the card, under
+    both conv backends, and the forward's CUDA-event ms on [batch] (one
+    960x1280 batch of 8); returns (int8 checkpoint path, {backend: (conv
+    launches, bottleneck launches)}, {backend: images/s}, {backend:
+    forward ms}, last detector)."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+    from megadetector_tpu_torch.models.convert_weights import \
+        quantize_checkpoint
+    from megadetector_tpu_torch.models.yolov5 import Bottleneck, QConv
+    from megadetector_tpu_torch.ops import bottleneck_int8, conv_int8
+
+    q_path = os.path.join(workdir, 'md_smoke_int8.npz')
+    start = time.time()
+    calib = np.random.RandomState(1).uniform(
+        0, 1, (2, 320, 320, 3)).astype(np.float32)
+    quantize_checkpoint(float_path, q_path, calibration_images=calib,
+                        device=device)
+    print('int8 checkpoint: quantize_checkpoint calibrated on the card in '
+          '{:.1f} s'.format(time.time() - start), flush=True)
+
+    counts, rates, forward_ms, detections = {}, {}, {}, {}
+    for backend in ('xla', 'pallas'):
+        detector = load_detector(q_path, device=device, detector_options={
+            'pad_batches_to': 8, 'conv_backend': backend})
+        modules = list(detector.model.modules())
+        n_qconv = sum(isinstance(m, QConv) for m in modules)
+        n_bottleneck = sum(isinstance(m, Bottleneck) for m in modules)
+        if backend == 'pallas':
+            want_conv, want_fused = n_qconv - 2 * n_bottleneck, n_bottleneck
+        else:
+            want_conv, want_fused = n_qconv, 0
+
+        detector.programs_run = 0
+        conv_int8.launches = 0
+        bottleneck_int8.launches = 0
+        results = load_and_run_detector_batch(detector, pairs, batch_size=8)
+        torch.cuda.synchronize()
+        got = (conv_int8.launches, bottleneck_int8.launches)
+        batches = detector.programs_run
+        if batches < 2 or got != (want_conv * batches, want_fused * batches):
+            raise AssertionError(
+                'int8 {}: {} batches, kernel launches (conv, bottleneck) {}, '
+                'expected ({} x {}, {} x {})'.format(
+                    backend, batches, got, want_conv, batches, want_fused,
+                    batches))
+        counts[backend] = got
+        n_det = _write_and_check(results, pairs, q_path, os.path.join(
+            workdir, 'smoke_int8_{}.json'.format(backend)))
+        detections[backend] = results
+
+        start = time.time()
+        load_and_run_detector_batch(detector, pairs, batch_size=8,
+                                    quiet=True)
+        torch.cuda.synchronize()
+        rates[backend] = len(pairs) / (time.time() - start)
+        with torch.inference_mode():
+            x = torch.from_numpy(batch).to(device).float() / 255.0
+            forward_ms[backend] = _time_ms(
+                lambda: detector.model(x, decode=False), reps=5)
+        print('int8 main path, conv_backend={}: 16 images, {} detections, '
+              '{} device batches; conv kernel {} launches ({} chain convs '
+              'x {}), bottleneck kernel {} ({} x {}); {:.3f} images/s '
+              'through load_and_run_detector_batch (second pass); forward '
+              '{:.3f} ms per 960x1280 batch of 8'.format(
+                  backend, n_det, batches, got[0], want_conv, batches,
+                  got[1], want_fused, batches, rates[backend],
+                  forward_ms[backend]), flush=True)
+    if detections['xla'] != detections['pallas']:
+        raise AssertionError('int8 detections differ between the conv '
+                             'backends')
+    print('int8 detections identical under conv_backend xla and pallas',
+          flush=True)
+    return q_path, counts, rates, forward_ms, detector
+
+
+def phase_int8_card_vs_cpu(q_path, detector):
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+
+    x = np.random.RandomState(2).rand(2, 320, 320, 3).astype(np.float32)
+    cpu = load_detector(q_path, device='cpu')
+    with torch.inference_mode():
+        ref = cpu.model(torch.from_numpy(x), decode=True).numpy()
+        got = detector.model(torch.from_numpy(x).to(detector.device),
+                             decode=True).cpu().numpy()
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError('int8 forward: shape {} vs {} or '
+                             'non-finite'.format(got.shape, ref.shape))
+    d_score = np.percentile(np.abs(got[..., 4:5] * got[..., 5:] -
+                                   ref[..., 4:5] * ref[..., 5:]), 99)
+    d_xy = np.percentile(np.abs(got[..., :2] - ref[..., :2]), 99)
+    if not (d_score < 0.02 and d_xy < 2.0):
+        raise AssertionError('int8 card vs CPU: score p99 {} (limit 0.02), '
+                             'xy p99 {} px (limit 2)'.format(d_score, d_xy))
+    print('int8 card vs CPU yolov5l6 at 320 px: decoded score p99 |d| '
+          '{:.3e} (limit 0.02), xy p99 |d| {:.3e} px (limit 2)'.format(
+              d_score, d_xy), flush=True)
 
 
 def main():
@@ -350,25 +624,47 @@ def main():
     # 3. kernel vs plain
     record = phase_kernel(device)
 
-    # 4. main path
     config = YoloV5Config('yolov5l6', num_classes=3)
     params = init_params(config, seed=0)
     with tempfile.TemporaryDirectory() as workdir:
-        launches, e2e, device_rate, detector, buckets = phase_main_path(
-            device, workdir, config, params)
-    record['launches'] = launches
-    print('main path throughput on {}: {:.3f} images/s through '
-          'load_and_run_detector_batch (host letterbox included), {:.3f} '
-          'images/s through generate_detections_one_batch on letterboxed '
-          'batches; 1280 px auto canvases, batch 8, float32'.format(
-              card, e2e, device_rate), flush=True)
-    phase_breakdown(detector, buckets)
+        # 4. main path
+        launches, e2e, device_rate, detector, buckets, float_path, pairs = \
+            phase_main_path(device, workdir, config, params)
+        record['launches'] = launches
+        print('main path throughput on {}: {:.3f} images/s through '
+              'load_and_run_detector_batch (host letterbox included), '
+              '{:.3f} images/s through generate_detections_one_batch on '
+              'letterboxed batches; 1280 px auto canvases, batch 8, '
+              'float32'.format(card, e2e, device_rate), flush=True)
+        batch, float_fwd = phase_breakdown(detector, buckets)
 
-    # 5. card vs CPU
-    phase_card_vs_cpu(detector, config, params)
+        # 5. card vs CPU
+        phase_card_vs_cpu(detector, config, params)
+        del detector
+        torch.cuda.empty_cache()
+
+        # 6. int8 kernels vs plain
+        conv_record, bottleneck_record = phase_int8_kernels(device)
+
+        # 7. int8 main path
+        q_path, counts, rates, forward_ms, detector = phase_int8_main_path(
+            device, workdir, float_path, pairs, batch)
+        conv_record['launches'] = counts['xla'][0]
+        bottleneck_record['launches'] = counts['pallas'][1]
+        print('int8 main path throughput on {}: {:.3f} images/s '
+              '(conv_backend xla), {:.3f} images/s (pallas) through '
+              'load_and_run_detector_batch, float32 {:.3f}; forward per '
+              '960x1280 batch of 8: int8 {:.3f} ms (xla), {:.3f} ms '
+              '(pallas), float32 {:.3f} ms'.format(
+                  card, rates['xla'], rates['pallas'], e2e,
+                  forward_ms['xla'], forward_ms['pallas'], float_fwd),
+              flush=True)
+
+        # 8. int8 card vs CPU
+        phase_int8_card_vs_cpu(q_path, detector)
 
     print(card)
-    print(json.dumps({'kernels': [record]}))
+    print(json.dumps({'kernels': [record, conv_record, bottleneck_record]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

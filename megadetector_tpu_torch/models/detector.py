@@ -4,6 +4,12 @@ The port's detector: host preprocessing, the batched device program
 emission. Counterpart of megadetector_tpu/models/detector.py TPUDetector,
 at the depth the float32 detection path needs.
 
+Float32 and int8-chain checkpoints load (quantized checkpoints written
+width-folded by the JAX package are unfolded on load). conv_backend picks
+how the chain's bottlenecks run: 'xla' (default) runs each of their convs
+on the int8 conv kernel, 'pallas' (and 'pallas-interpret', the same
+output) runs each bottleneck as the fused bottleneck kernel.
+
 The device program has the two branches of the JAX program:
 - default ('classic' / 'modern'): raw heads -> ops/decode
   select_topk_candidates -> ops/nms nms_on_candidates;
@@ -27,7 +33,8 @@ from megadetector_tpu.ops import boxes as box_ops
 from megadetector_tpu.utils import ct_utils
 from megadetector_tpu_torch.device import get_device, set_float32_exact
 from megadetector_tpu_torch.models import yolov5
-from megadetector_tpu_torch.models.convert_weights import load_checkpoint
+from megadetector_tpu_torch.models.convert_weights import (
+    load_checkpoint, unfold_early_params)
 from megadetector_tpu_torch.ops._build import KernelError
 from megadetector_tpu_torch.ops.decode import select_topk_candidates
 from megadetector_tpu_torch.ops.nms import batched_nms, nms_on_candidates
@@ -56,6 +63,8 @@ ALWAYS_RERAISED = (KernelError, NotImplementedError)
 # schedule choices); accepted and ignored
 NO_OP_OPTIONS = ('folded_early', 'folded_h2', 'approx_select', 'select_cm',
                  'stem_gemm', 'bottleneck_variant')
+
+CONV_BACKENDS = ('xla', 'pallas', 'pallas-interpret')
 
 PARSED_OPTIONS = ('compatibility_mode', 'canvas_mode', 'max_canvases',
                   'image_size', 'pre_nms_topk', 'max_det',
@@ -102,16 +111,18 @@ def _check_options(options):
             options['preprocess_mode']))
     if options.get('mesh') is not None:
         refused.append('mesh')
-    if str(options.get('conv_backend', 'xla')).lower() != 'xla':
-        refused.append('conv_backend={}'.format(options['conv_backend']))
+    if str(options.get('conv_backend', 'xla')).lower() not in CONV_BACKENDS:
+        raise ValueError('conv_backend must be one of {}, got {!r}'.format(
+            CONV_BACKENDS, options['conv_backend']))
     if options.get('xla_compiler_options'):
         refused.append('xla_compiler_options')
     if str(options.get('dtype', 'float32')) != 'float32':
         refused.append('dtype={}'.format(options['dtype']))
     if refused:
         raise NotImplementedError(
-            'The PyTorch port runs the float32 host-preprocess path only; '
-            'not yet ported: {}'.format(', '.join(refused)))
+            'The PyTorch port runs the float32 and int8-chain '
+            'host-preprocess paths only; not yet ported: {}'.format(
+                ', '.join(refused)))
 
 
 class TorchDetector:
@@ -131,13 +142,16 @@ class TorchDetector:
         max_det: detections kept per image
         pad_batches_to: pad partial batches (repeating the last image)
         use_model_native_classes: emit 0-based model classes
-        dtype: 'float32' only
+        dtype: 'float32' only (the float layers of an int8 checkpoint
+            run in float32 too)
         force_cpu: run on the CPU
+        conv_backend: 'xla' (default; int8 bottleneck convs on the conv
+            kernel) or 'pallas' / 'pallas-interpret' (int8 bottlenecks on
+            the fused bottleneck kernel); no effect on float checkpoints
     Accepted as no-ops: folded_early, folded_h2, approx_select, select_cm,
     stem_gemm, bottleneck_variant. Refused (NotImplementedError):
-    preprocess_mode=device, mesh, conv_backend=pallas,
-    xla_compiler_options, dtype=bfloat16, quantized checkpoints, and
-    augment=True at inference.
+    preprocess_mode=device, mesh, xla_compiler_options, dtype=bfloat16,
+    and augment=True at inference.
     """
 
     def __init__(self, model_path, detector_options=None, verbose=False,
@@ -182,8 +196,13 @@ class TorchDetector:
             metadata.get('arch', 'yolov5l6'),
             num_classes=int(metadata.get('num_classes', 3)),
             anchors=metadata.get('anchors', None))
-        self.model = yolov5.YoloV5(self.config).load_params(params) \
-            .eval().to(self.device)
+        self.conv_backend = str(options.get('conv_backend',
+                                            'xla')).lower()
+        params = unfold_early_params(params, self.config)
+        self.model = yolov5.YoloV5(
+            self.config,
+            fuse_bottlenecks=self.conv_backend != 'xla').load_params(
+                params).eval().to(self.device)
         # Fused selection from raw head logits; strict modes run the
         # decoded forward + batched_nms instead
         self._fused_decode = 'strict' not in self.compatibility_mode

@@ -9,10 +9,18 @@ with BatchNorm folded into the weights: a Conv is conv + bias + SiLU.
 
 The public forward keeps the JAX layout: it takes NHWC float images and
 returns NHWC per-level head tensors [B, H_l, W_l, na*(5+nc)] or the
-decoded [B, A, 5+nc]. Inside, the convolutions run on an NCHW view of the
-NHWC input (channels_last strides, no copy). Width/height folding, im2col
-and the int8 QTensor routes of the JAX module exist only to fit the TPU
-and are not ported.
+decoded [B, A, 5+nc]. Inside, the float convolutions run on an NCHW view of
+the NHWC input (channels_last strides, no copy).
+
+int8-chain parameters (nodes with 'w_q', ops/quantization.py) load as
+QConv modules: with calibrated scales they take and give QTensors (int8
+NHWC + a static scale) through the int8 conv kernel, and
+YoloV5(fuse_bottlenecks=True) runs every bottleneck whose convs are both
+chained as the fused bottleneck kernel (the JAX conv_backend=pallas route).
+Float tensors stay NCHW and QTensors NHWC; concat, add, pool and upsample
+take either, and float convs (l0, the detect heads) dequantize QTensor
+inputs. Width/height folding and im2col exist only to fit the TPU and are
+not ported (folded checkpoints are unfolded on load).
 """
 
 import math
@@ -23,6 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from megadetector_tpu_torch.models.convert_weights import params_to_torch
+from megadetector_tpu_torch.ops import quantization as q
+from megadetector_tpu_torch.ops.quantization import QTensor
 
 
 #%% Architecture configs (same tables as the JAX module)
@@ -257,7 +267,43 @@ def init_params(config, seed=0):
     return params
 
 
-#%% Modules (NCHW inside; parameter names follow the pytree keys)
+#%% Tensors of either kind: float NCHW or QTensor (int8 NHWC)
+
+
+def _float_nchw(x):
+    """A float NCHW tensor; QTensors are dequantized."""
+
+    return q.qt_dequant(x).permute(0, 3, 1, 2) if isinstance(x, QTensor) \
+        else x
+
+
+def _cat(xs):
+    """Channel concat: QTensors through qt_concat, else float NCHW."""
+
+    if all(isinstance(x, QTensor) for x in xs):
+        return q.qt_concat(xs)
+    return torch.cat([_float_nchw(x) for x in xs], dim=1)
+
+
+def _add(a, b):
+    if isinstance(a, QTensor) and isinstance(b, QTensor):
+        return q.qt_add(a, b)
+    return _float_nchw(a) + _float_nchw(b)
+
+
+def _maxpool(x, k):
+    if isinstance(x, QTensor):
+        return q.qt_maxpool(x, k)
+    return F.max_pool2d(x, k, 1, k // 2)
+
+
+def _upsample2x(x):
+    if isinstance(x, QTensor):
+        return q.qt_upsample2x(x)
+    return F.interpolate(x, scale_factor=2, mode='nearest')
+
+
+#%% Modules (parameter names follow the pytree keys)
 
 
 class Conv(nn.Module):
@@ -272,28 +318,82 @@ class Conv(nn.Module):
         self.act = act
 
     def forward(self, x):
-        y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        y = F.conv2d(_float_nchw(x), self.weight, self.bias, self.stride,
+                     self.padding)
         return F.silu(y) if self.act else y
 
 
-class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (-> residual add)."""
+class QConv(nn.Module):
+    """
+    int8 conv of the chain, in place of a Conv (+ SiLU): int8 weight
+    [Cout, kh, kw, Cin], float32 w_scale and bias buffers, Python-float
+    x_scale / y_scale.
 
-    def __init__(self, c, shortcut):
+    Calibrated (with scales), it returns a QTensor at y_scale
+    (quantization.chained_conv). Uncalibrated, it is the calibration
+    forward's float-in / float-out quantized_conv; setting [stats] to a
+    dict records its input and output abs-max there.
+    """
+
+    def __init__(self, conv, node):
+        super().__init__()
+        if not conv.act:
+            raise ValueError('int8 convs without SiLU (the detect heads) '
+                             'are not part of the chain')
+        if ('x_scale' in node) != ('y_scale' in node):
+            raise NotImplementedError(
+                'int8 conv nodes with only some static scales (the JAX '
+                'package\'s mode=static checkpoints) are not ported')
+        self.register_buffer('weight', node['w_q'])
+        self.register_buffer('w_scale', node['w_scale'])
+        self.register_buffer('bias', node['b'])
+        self.x_scale = node.get('x_scale')
+        self.y_scale = node.get('y_scale')
+        self.stride = conv.stride
+        self.pads = q.conv_pads(conv.padding, self.weight.shape[1])
+        self.stats = None
+
+    def forward(self, x):
+        if self.y_scale is not None:
+            if not isinstance(x, QTensor):
+                x = x.permute(0, 2, 3, 1)
+            return q.chained_conv(x, self.weight, self.w_scale, self.bias,
+                                  self.x_scale, self.y_scale, self.stride,
+                                  self.pads)
+        y = q.quantized_conv(_float_nchw(x).permute(0, 2, 3, 1),
+                             self.weight, self.w_scale, self.bias,
+                             self.stride, self.pads, self.stats)
+        return y.permute(0, 3, 1, 2)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (-> residual add). With [fused] and both convs chained,
+    a QTensor input runs the fused bottleneck kernel."""
+
+    def __init__(self, c, shortcut, fused=False):
         super().__init__()
         self.cv1 = Conv(c, c, 1)
         self.cv2 = Conv(c, c, 3)
         self.shortcut = shortcut
+        self.fused = fused
 
     def forward(self, x):
-        h = self.cv2(self.cv1(x))
-        return x + h if self.shortcut else h
+        cv1, cv2 = self.cv1, self.cv2
+        if self.fused and isinstance(x, QTensor) and \
+                isinstance(cv1, QConv) and isinstance(cv2, QConv) and \
+                cv1.y_scale is not None and cv2.y_scale is not None:
+            return q.fused_bottleneck(
+                x, cv1.weight, cv1.w_scale, cv1.bias, cv1.y_scale,
+                cv2.weight, cv2.w_scale, cv2.bias, cv2.y_scale,
+                self.shortcut)
+        h = cv2(cv1(x))
+        return _add(x, h) if self.shortcut else h
 
 
 class C3(nn.Module):
     """CSP block: two 1x1 branches, n bottlenecks on the first, 1x1 merge."""
 
-    def __init__(self, c_in, c_out, n, shortcut):
+    def __init__(self, c_in, c_out, n, shortcut, fuse_bottlenecks=False):
         super().__init__()
         c_h = int(c_out * 0.5)
         self.cv1 = Conv(c_in, c_h, 1)
@@ -301,14 +401,15 @@ class C3(nn.Module):
         self.cv3 = Conv(2 * c_h, c_out, 1)
         self.n = n
         for j in range(n):
-            self.add_module('m{}'.format(j), Bottleneck(c_h, shortcut))
+            self.add_module('m{}'.format(j), Bottleneck(
+                c_h, shortcut, fuse_bottlenecks))
 
     def forward(self, x):
         y1 = self.cv1(x)
         y2 = self.cv2(x)
         for j in range(self.n):
             y1 = getattr(self, 'm{}'.format(j))(y1)
-        return self.cv3(torch.cat([y1, y2], dim=1))
+        return self.cv3(_cat([y1, y2]))
 
 
 class SPPF(nn.Module):
@@ -325,9 +426,8 @@ class SPPF(nn.Module):
         y = self.cv1(x)
         pools = [y]
         for _ in range(3):
-            pools.append(F.max_pool2d(pools[-1], self.pool_k, 1,
-                                      self.pool_k // 2))
-        return self.cv2(torch.cat(pools, dim=1))
+            pools.append(_maxpool(pools[-1], self.pool_k))
+        return self.cv2(_cat(pools))
 
 
 class Detect(nn.Module):
@@ -367,9 +467,11 @@ def _decode_level(raw, anchors_level, stride, num_outputs):
 
 
 class YoloV5(nn.Module):
-    """The network for a YoloV5Config; load weights with load_params."""
+    """The network for a YoloV5Config; load weights with load_params.
+    fuse_bottlenecks routes chained int8 bottlenecks to the fused
+    bottleneck kernel (else each of their convs runs the conv kernel)."""
 
-    def __init__(self, config):
+    def __init__(self, config, fuse_bottlenecks=False):
         super().__init__()
         self.config = config
         self.layers = nn.ModuleDict()
@@ -380,7 +482,7 @@ class YoloV5(nn.Module):
                                          e['s'], e['p'])
             elif e['kind'] == 'c3':
                 self.layers[name] = C3(e['c_in'], e['c_out'], e['n'],
-                                       e['shortcut'])
+                                       e['shortcut'], fuse_bottlenecks)
             elif e['kind'] == 'sppf':
                 self.layers[name] = SPPF(e['c_in'], e['c_out'],
                                          e['pool_k'])
@@ -389,18 +491,40 @@ class YoloV5(nn.Module):
                     e['c_ins'], config.num_outputs * config.num_anchors)
 
     def load_params(self, params_np):
-        """Load a JAX-layout numpy pytree (HWIO 'w', 'b' leaves)."""
+        """Load a JAX-layout numpy pytree: float nodes (HWIO 'w', 'b') into
+        the Conv modules; int8 nodes ('w_q', 'w_scale', 'b', static
+        scales) replace their Conv with a QConv."""
 
         state = {}
 
-        def walk(node, prefix):
-            for k, v in node.items():
-                if isinstance(v, dict):
-                    walk(v, prefix + k + '.')
+        def walk(node, path):
+            if 'b' in node and ('w' in node or 'w_q' in node):
+                name = '.'.join(path)
+                if 'w_q' in node:
+                    parent = self.get_submodule('.'.join(path[:-1]))
+                    conv = getattr(parent, path[-1])
+                    if not isinstance(conv, Conv):
+                        raise ValueError('{} is not a float Conv to '
+                                         'replace'.format(name))
+                    setattr(parent, path[-1], QConv(conv, node))
+                    keys = {'w_q': 'weight', 'w_scale': 'w_scale',
+                            'b': 'bias'}
                 else:
-                    state[prefix + {'w': 'weight', 'b': 'bias'}[k]] = v
+                    keys = {'w': 'weight', 'b': 'bias'}
+                extra = set(node) - set(keys) - set(q.SCALE_KEYS)
+                if extra:
+                    raise ValueError('{}: unexpected leaves {}'.format(
+                        name, sorted(extra)))
+                for k, v in keys.items():
+                    state[name + '.' + v] = node[k]
+                return
+            for k, v in node.items():
+                if not isinstance(v, dict):
+                    raise ValueError('Leaf {} outside a conv node'.format(
+                        '.'.join(path + [k])))
+                walk(v, path + [k])
 
-        walk(params_to_torch(params_np), 'layers.')
+        walk(params_to_torch(params_np), ['layers'])
         self.load_state_dict(state, strict=True)
         return self
 
@@ -421,8 +545,7 @@ class YoloV5(nn.Module):
             kind = entry['kind']
             frm = entry['frm']
             if kind == 'cat':
-                out = torch.cat([prev if f == -1 else saved[f]
-                                 for f in frm], dim=1)
+                out = _cat([prev if f == -1 else saved[f] for f in frm])
             elif kind == 'detect':
                 heads = self.layers['l{}'.format(i)](
                     [saved[f] for f in frm])
@@ -430,8 +553,7 @@ class YoloV5(nn.Module):
             else:
                 src = prev if frm == -1 else saved[frm]
                 if kind == 'up':
-                    out = F.interpolate(src, scale_factor=2,
-                                        mode='nearest')
+                    out = _upsample2x(src)
                 else:
                     out = self.layers['l{}'.format(i)](src)
             if i in config.save_indices:

@@ -1,8 +1,9 @@
 """
 Build of the port's CUDA kernels at first use.
 
-Every csrc/*.cu is compiled by nvcc into one shared library with a plain C
-interface, loaded with ctypes. The library lands in
+Every csrc/*.cu is compiled by its own nvcc process (all started
+together) into an object file, and the objects are linked into one shared
+library with a plain C interface, loaded with ctypes. The library lands in
 megadetector_tpu_torch/_build/ (ignored by git) under a name keyed by a
 hash of the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused. A missing nvcc or a failed compile raises
@@ -26,8 +27,24 @@ BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 # -fmad=false keeps nvcc from contracting a*b+c into FMAs, which would
 # change float rounding against the reference formulas.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-Xptxas', '-v', '-shared',
-              '-Xcompiler', '-fPIC']
+              '-O3', '-fmad=false', '-Xptxas', '-v', '-Xcompiler', '-fPIC']
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points of the library: name -> argtypes (each returns an int,
+# cudaGetLastError() after its launches)
+_FUNCTIONS = {
+    'md_greedy_nms': [_P, _P, _P, _P, _I, _I, _F, _P],
+    # x, w, scale, bias, out, batch, h, w, cin, cout, kh, kw, sh, sw,
+    # pad_top, pad_left, ho, wo, y_scale, requant, stream
+    'md_conv_int8': [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _P],
+    # x, w1, scale1, bias1, mid_scale, w2, scale2, bias2, cv2_scale,
+    # s_in, out_scale, shortcut, out, batch, h, w, c, stream
+    'md_bottleneck_int8': [_P, _P, _P, _P, _F, _P, _P, _P, _F, _F, _F, _I,
+                           _P, _I, _I, _I, _I, _P],
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -61,7 +78,8 @@ def library_path():
     """Where the library for the current sources and flags lives."""
 
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in _sources():
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
+    for src in _sources() + headers:
         with open(src, 'rb') as f:
             digest.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR,
@@ -78,16 +96,41 @@ def _compile(out_path):
                           '/usr/local/cuda/bin); the CUDA kernels in {} '
                           'cannot be built'.format(CSRC_DIR))
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp_path = '{}.tmp{}'.format(out_path, os.getpid())
-    cmd = [nvcc] + NVCC_FLAGS + ['-o', tmp_path] + _sources()
+    tag = '{}.tmp{}'.format(out_path, os.getpid())
     start = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # One nvcc per source, all running at once
+    jobs = []
+    for i, src in enumerate(_sources()):
+        obj = '{}.{}.o'.format(tag, i)
+        cmd = [nvcc] + NVCC_FLAGS + ['-c', '-o', obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append('nvcc failed ({}):\n{}\n{}'.format(
+                proc.returncode, ' '.join(cmd), out))
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            build_log = ''.join(logs)
+            raise KernelError('\n'.join(failed))
+        cmd = [nvcc, '-shared', '-o', tag] + objs
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        build_log = ''.join(logs)
+        if proc.returncode != 0:
+            raise KernelError('nvcc link failed ({}):\n{}\n{}'.format(
+                proc.returncode, ' '.join(cmd), build_log))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     build_seconds = time.time() - start
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise KernelError('nvcc failed ({}):\n{}\n{}'.format(
-            proc.returncode, ' '.join(cmd), build_log))
-    os.replace(tmp_path, out_path)
+    os.replace(tag, out_path)
 
 
 def load_library():
@@ -101,12 +144,19 @@ def load_library():
         if not os.path.isfile(path):
             _compile(path)
         lib = ctypes.CDLL(path)
-        lib.md_greedy_nms.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p]
-        lib.md_greedy_nms.restype = ctypes.c_int
+        for name, argtypes in _FUNCTIONS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.md_cuda_error_string.argtypes = [ctypes.c_int]
         lib.md_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return _lib
+
+
+def check_launch(lib, err, name):
+    """Raise KernelError when a C entry point returned a CUDA error."""
+
+    if err != 0:
+        raise KernelError('{} launch failed: {} ({})'.format(
+            name, lib.md_cuda_error_string(err).decode(), err))

@@ -15,7 +15,6 @@ CUDA tensor it launches the kernel or raises KernelError.
 import torch
 
 from megadetector_tpu_torch.ops import _build
-from megadetector_tpu_torch.ops._build import KernelError
 
 # Kernel launches made by greedy_nms_keep (the plain version never counts)
 launches = 0
@@ -112,8 +111,6 @@ def greedy_nms_keep(boxes, valid, thresh):
             boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
             keep.data_ptr(), b, k, float(thresh),
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise KernelError('md_greedy_nms launch failed: {} ({})'.format(
-            lib.md_cuda_error_string(err).decode(), err))
+    _build.check_launch(lib, err, 'md_greedy_nms')
     launches += 1
     return keep

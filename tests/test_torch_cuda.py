@@ -1,6 +1,7 @@
 """
-The port on a CUDA card: the greedy-NMS kernel against its plain version,
-and the card's selection, NMS and detector against the CPU's.
+The port on a CUDA card: the greedy-NMS, int8 conv and fused int8
+bottleneck kernels against their plain versions, and the card's selection,
+NMS and detectors (float32 and int8 chain) against the CPU's.
 
 Every test is marked `cuda` and skips without a card. This file imports
 no jax, so it also runs on a machine without the JAX package's
@@ -16,7 +17,10 @@ import torch
 from megadetector_tpu.utils import md_tests
 from megadetector_tpu_torch.detection import run_detector
 from megadetector_tpu_torch.models.convert_weights import save_checkpoint
-from megadetector_tpu_torch.ops import cuda_nms, decode, nms
+from megadetector_tpu_torch.models import yolov5
+from megadetector_tpu_torch.models.convert_weights import quantize_checkpoint
+from megadetector_tpu_torch.ops import (bottleneck_int8, conv_int8,
+                                        cuda_nms, decode, nms)
 
 import torch_port_data as data
 
@@ -132,3 +136,130 @@ def test_detector_on_card_matches_cpu(cuda_device, tmp_path):
                                       data.golden_options())
     assert result['n_images_compared'] == len(imgs)
     assert result['errors'] == [], result['errors'][:5]
+
+
+def _int8(rng, shape):
+    return torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+
+
+def _conv_case(rng, cin, cout, k):
+    """int8 weight, and a scale that puts acc * scale at about unit std"""
+    w = _int8(rng, (cout, k, k, cin))
+    scale = torch.from_numpy((rng.uniform(0.5, 1.5, cout) / (
+        np.sqrt(cin * k * k) * 127.0 * 127.0 / 3.0)).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-0.5, 0.5, cout).astype(np.float32))
+    return w, scale, bias
+
+
+@pytest.mark.parametrize('b,h,w,cin,cout,k,stride,pads', [
+    (2, 16, 16, 128, 128, 3, (1, 1), (1, 1, 1, 1)),
+    (1, 13, 21, 36, 72, 3, (1, 1), (1, 1, 1, 1)),
+    (2, 17, 23, 64, 96, 3, (2, 2), (1, 1, 1, 1)),
+    (1, 9, 30, 516, 200, 1, (1, 1), (0, 0, 0, 0)),
+    (1, 8, 12, 4, 8, 6, (2, 2), (2, 2, 2, 2)),
+    (1, 10, 11, 24, 40, 3, (2, 1), (1, 1, 1, 0)),
+])
+def test_conv_kernel_identical_to_plain(cuda_device, b, h, w, cin, cout, k,
+                                        stride, pads):
+    rng = np.random.RandomState(cin + cout)
+    x = _int8(rng, (b, h, w, cin))
+    wq, scale, bias = _conv_case(rng, cin, cout, k)
+    dev = [t.to(cuda_device) for t in (x, wq, scale, bias)]
+    for y_scale in (None, 0.013):
+        before = conv_int8.launches
+        got = conv_int8.conv_int8(*dev, stride, pads, y_scale)
+        torch.cuda.synchronize()
+        assert conv_int8.launches == before + 1
+        ref = conv_int8.conv_int8_reference(x, wq, scale, bias, stride, pads,
+                                            y_scale)
+        ref_card = conv_int8.conv_int8_reference(*dev, stride, pads,
+                                                 y_scale)
+        assert got.dtype == ref.dtype and tuple(got.shape) == \
+            tuple(ref.shape)
+        assert torch.equal(got.cpu(), ref_card.cpu())
+        if y_scale is None:
+            assert torch.equal(got.cpu(), ref)
+        else:
+            diff = (got.cpu().int() - ref.int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) \
+                <= 1e-3
+
+
+@pytest.mark.parametrize('shortcut', [True, False])
+@pytest.mark.parametrize('b,h,w,c', [(2, 12, 16, 128), (1, 9, 8, 128),
+                                     (1, 60, 8, 64), (2, 17, 35, 36),
+                                     (1, 5, 7, 516)])
+def test_bottleneck_kernel_identical_to_plain(cuda_device, b, h, w, c,
+                                              shortcut):
+    rng = np.random.RandomState(c + h)
+    x = _int8(rng, (b, h, w, c))
+    w1, scale1, bias1 = _conv_case(rng, c, c, 1)
+    w2, scale2, bias2 = _conv_case(rng, c, c, 3)
+    args = (x, w1, scale1, bias1, 0.021, w2, scale2, bias2, 0.033,
+            0.007, shortcut)
+    dev = [a.to(cuda_device) if torch.is_tensor(a) else a for a in args]
+    before = bottleneck_int8.launches
+    got, got_scale = bottleneck_int8.bottleneck_int8(*dev)
+    torch.cuda.synchronize()
+    assert bottleneck_int8.launches == before + 1
+    ref, ref_scale = bottleneck_int8.bottleneck_int8_reference(*dev)
+    assert got_scale == ref_scale
+    assert torch.equal(got, ref)
+
+
+def test_int8_kernels_reject_bad_inputs(cuda_device):
+    x = torch.zeros((1, 8, 8, 6), dtype=torch.int8, device=cuda_device)
+    w = torch.zeros((8, 3, 3, 6), dtype=torch.int8, device=cuda_device)
+    s = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        conv_int8.conv_int8(x, w, s, s, (1, 1), (1, 1, 1, 1), 0.1)
+    with pytest.raises(ValueError):
+        conv_int8.conv_int8(x[..., :4], w[..., :4], s, s, (1, 1),
+                            (1, 1, 1, 1), 0.1)
+    x4 = torch.zeros((1, 8, 8, 8), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        bottleneck_int8.bottleneck_int8(
+            x4, w[:, :1, :1, :], s, s, 0.1, w, s, s, 0.1, 0.1, True)
+
+
+def test_int8_detector_on_card_matches_cpu(cuda_device, tmp_path):
+    """The int8 yolov5s6 on the card: both conv backends give identical
+    detections and launch their kernels; the forward agrees with the
+    CPU's within the int8-vs-float bounds of the JAX package's
+    test_int8_chain_close_to_float (the float l0 sums in another order on
+    the card, which can move an l1 input across a rounding boundary)."""
+
+    config = yolov5.YoloV5Config('yolov5s6', num_classes=3)
+    f_path = str(tmp_path / 'float.npz')
+    save_checkpoint(yolov5.init_params(config, seed=0), f_path, {
+        'arch': 'yolov5s6', 'model_type': 'yolov5', 'num_classes': 3,
+        'image_size': 256})
+    q_path = str(tmp_path / 'int8.npz')
+    quantize_checkpoint(f_path, q_path, calibration_image_size=256)
+    imgs = data.images()
+    results = {}
+    for backend in ('xla', 'pallas'):
+        detector = run_detector.load_detector(
+            q_path, device='cuda', detector_options={'conv_backend': backend})
+        conv_before = conv_int8.launches
+        fused_before = bottleneck_int8.launches
+        results[backend] = detector.generate_detections_one_batch(
+            imgs, ['im{}'.format(i) for i in range(len(imgs))],
+            detection_threshold=0.005)
+        assert conv_int8.launches > conv_before
+        assert (bottleneck_int8.launches > fused_before) == \
+            (backend == 'pallas')
+    assert results['xla'] == results['pallas']
+    assert sum(len(r['detections']) for r in results['xla']) > 0
+
+    x = torch.from_numpy(np.random.RandomState(2).rand(
+        2, 256, 256, 3).astype(np.float32))
+    cpu = run_detector.load_detector(q_path, device='cpu')
+    with torch.inference_mode():
+        ref = cpu.model(x, decode=True).numpy()
+        got = detector.model(x.to(cuda_device), decode=True).cpu().numpy()
+    assert np.isfinite(got).all() and got.shape == ref.shape
+    d_score = np.abs(got[..., 4:5] * got[..., 5:] - ref[..., 4:5] *
+                     ref[..., 5:])
+    assert np.percentile(d_score, 99) < 0.02
+    assert np.percentile(np.abs(got[..., :2] - ref[..., :2]), 99) < 2.0

@@ -186,7 +186,8 @@ def test_data_errors_become_failure_records(slice_inputs, monkeypatch):
 @pytest.mark.parametrize('options', [
     {'preprocess_mode': 'device'},
     {'mesh': object()},
-    {'conv_backend': 'pallas'},
+    # conv_backend=pallas is ported; bf16 is not, with either backend
+    {'conv_backend': 'pallas', 'dtype': 'bfloat16'},
     {'xla_compiler_options': 'xla_foo=1'},
     {'dtype': 'bfloat16'},
 ])
@@ -195,6 +196,26 @@ def test_unported_options_are_refused(slice_inputs, options):
     with pytest.raises(NotImplementedError):
         run_detector.load_detector(model, detector_options=options,
                                    device='cpu')
+
+
+@pytest.mark.parametrize('backend', ['pallas', 'pallas-interpret'])
+def test_conv_backend_pallas_is_accepted_and_runs(slice_inputs, backend):
+    """A float checkpoint has no int8 bottlenecks to fuse: the option is
+    taken and leaves the output as it is. An unknown backend raises."""
+
+    _, _, model = slice_inputs
+    img = data.images()[4]
+    base = run_detector.load_detector(model, device='cpu')
+    fused = run_detector.load_detector(
+        model, device='cpu', detector_options={'conv_backend': backend})
+    assert fused.conv_backend == backend
+    assert all(m.fused for m in fused.model.modules()
+               if hasattr(m, 'fused'))
+    assert fused.generate_detections_one_image(img, 'a', 0.005) == \
+        base.generate_detections_one_image(img, 'a', 0.005)
+    with pytest.raises(ValueError, match='conv_backend'):
+        run_detector.load_detector(model, device='cpu', detector_options={
+            'conv_backend': 'cudnn'})
 
 
 def test_no_op_options_and_unknown_options(slice_inputs):

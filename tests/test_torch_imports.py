@@ -42,6 +42,10 @@ def test_port_imports_no_jax_and_no_pil():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     expected = {'megadetector_tpu_torch.device',
                 'megadetector_tpu_torch.ops.cuda_nms',
+                'megadetector_tpu_torch.ops.conv_int8',
+                'megadetector_tpu_torch.ops.bottleneck_int8',
+                'megadetector_tpu_torch.ops.quantization',
+                'megadetector_tpu_torch.models.convert_weights',
                 'megadetector_tpu_torch.models.detector',
                 'megadetector_tpu_torch.detection.run_detector_batch'}
     assert expected <= set(report['modules'])

@@ -102,12 +102,24 @@ def test_checkpoint_format_shared_with_jax(tmp_path):
 
 
 def test_quantized_checkpoint_is_refused(tmp_path):
+    """int8 checkpoints load (int8 leaves kept, static scales as Python
+    floats); the model refuses only the JAX package's mode=static nodes
+    (an x_scale without a y_scale), which the port does not run."""
+
+    from megadetector_tpu_torch.ops import quantization
+
+    config = yolov5.YoloV5Config('yolov5n', 3)
+    params = quantization.quantize_params_chain(
+        yolov5.init_params(config, seed=0), skip_names=('l24',),
+        float_store_names=('l0',))
+    params['l1']['x_scale'] = 0.02
     path = str(tmp_path / 'q.npz')
-    convert_weights.save_checkpoint(
-        {'l0': {'w_q': np.zeros((6, 6, 3, 16), np.int8),
-                'b': np.zeros(16, np.float32)}}, path)
+    convert_weights.save_checkpoint(params, path)
+    loaded, _ = convert_weights.load_checkpoint(path)
+    assert loaded['l1']['w_q'].dtype == np.int8
+    assert isinstance(loaded['l1']['x_scale'], float)
     with pytest.raises(NotImplementedError, match='int8'):
-        convert_weights.load_checkpoint(path)
+        yolov5.YoloV5(config).load_params(loaded)
 
 
 @pytest.mark.parametrize('arch', ARCHS)
