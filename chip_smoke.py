@@ -2,7 +2,7 @@
 """
 Smoke run of the PyTorch port (megadetector_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: torch/CUDA versions and the card's name and power limit;
@@ -39,8 +39,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      pass of each;
   8. card vs CPU, int8 forward at 320 px, batch 2: decoded obj*cls
      scores p99 |d| < 0.02 and xy p99 |d| < 2 px (the bounds of the JAX
-     package's int8-vs-float test).
-Then one JSON line per kernel, and last the device line.
+     package's int8-vs-float test);
+  9. bf16 kernels vs plain on the card at yolov5l6 shapes of a 960x1280
+     batch of 8: the fused stem on u8 [8,960,1280,3] -> [8,480,640,64]
+     with the model's l0 weights, the bf16 epilogue (bias + SiLU) on l1's
+     output [8,128,240,320] and on a [8,1024,15,20] tensor, both
+     channels_last; outputs must be bit-identical; ms of kernel, plain
+     version and the library yardstick (cuDNN's bf16 conv of the
+     normalized batch for the stem, F.silu for the epilogue);
+ 10. bf16 main path: phase 4's yolov5l6 with dtype bf16 through
+     load_and_run_detector_batch over the same 16 images, batch 8; the
+     stem must launch once per batch and the bf16 epilogue once per
+     activated conv after l0 per batch; images/s of a second pass and the
+     forward's CUDA-event ms on one 960x1280 batch of 8;
+ 11. int8 with dtype bf16 under conv_backend xla and pallas: the stem once
+     per batch, the int8 kernels as in phase 7, no bf16 epilogue;
+ 12. preprocess_mode=device, float32 and bf16: the 16 images plus one
+     batch of 8 images of exactly 960x1280 (the identity path); the device
+     letterbox against the host letterbox's canvas; counts (no stem: l0
+     takes the letterbox's float output, so the bf16 epilogue runs for l0
+     too); images/s;
+ 13. card vs CPU, bf16 forward at 320 px, batch 2: the int8 bounds.
+With --profile, after phase 13: torch.profiler over one bf16 device
+program on a 960x1280 batch of 8 (device time by kernel, idle share).
+Then one JSON line with every kernel's record (time, plain time, bound,
+library yardstick, launches on the main path), and last the device line.
 """
 
 import json
@@ -56,6 +79,25 @@ CONV_SOURCE = 'megadetector_tpu_torch/csrc/conv_int8.cu'
 CONV_REPLACES = 'megadetector_tpu/ops/pallas_conv.py:90'
 BOTTLENECK_SOURCE = 'megadetector_tpu_torch/csrc/bottleneck_int8.cu'
 BOTTLENECK_REPLACES = 'megadetector_tpu/ops/pallas_bottleneck.py:136'
+STEM_SOURCE = 'megadetector_tpu_torch/csrc/l0_fused.cu'
+STEM_REPLACES = 'megadetector_tpu/ops/pallas_l0.py:80'
+SILU_SOURCE = 'megadetector_tpu_torch/csrc/silu_bf16.cu'
+SILU_REPLACES = 'experiments/exp_pallas_l0_retry.py:71'
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) for bound_ms
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+INT8_OPS_PER_MS = 1979e12 / 1e3
+BF16_OPS_PER_MS = 989e12 / 1e3
+F32_OPS_PER_MS = 67e12 / 1e3
+
+
+def _bound(n_bytes, n_ops, ops_per_ms):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+
+    t_bytes = n_bytes / HBM_BYTES_PER_MS
+    t_ops = n_ops / ops_per_ms
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 def _time_ms(fn, reps, warmup=2):
@@ -155,9 +197,19 @@ def phase_kernel(device):
         torch.cuda.empty_cache()
 
     ms, plain_ms = timings[8192]
+    # B=8, K=8192: boxes, valid in, keep out; K(K-1)/2 IoU tests per image
+    # at 14 float32 operations each (intersection 9, union 2, divide and
+    # max 2, compare 1), on the CUDA cores
+    k = 8192
+    bound_ms, bound_by = _bound(8 * k * (16 + 1 + 1),
+                                8 * k * (k - 1) / 2 * 14, F32_OPS_PER_MS)
+    print('greedy NMS B=8 K=8192: bound {:.4f} ms ({}); library call: none '
+          '(PyTorch has no greedy NMS; torchvision is absent)'.format(
+              bound_ms, bound_by), flush=True)
     return {'name': 'greedy_nms', 'route': 'cuda', 'source': NMS_SOURCE,
             'replaces': NMS_REPLACES, 'launches': None,
-            'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms}
+            'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
 
 
 def _synthetic_images(rng):
@@ -460,16 +512,31 @@ def phase_int8_kernels(device):
         torch.cuda.empty_cache()
 
     ms, plain_ms = conv_ms['3x3 s1 [8,120,160,128]->128']
+    # int8 x, w in; scale, bias; int8 out; 2 ops per int8 MAC
+    pixels = 8 * 120 * 160
+    conv_bound = _bound(pixels * 128 * 2 + 128 * 9 * 128 + 128 * 8,
+                        2 * pixels * 128 * 128 * 9, INT8_OPS_PER_MS)
     conv_record = {'name': 'conv_int8', 'route': 'cuda',
                    'source': CONV_SOURCE, 'replaces': CONV_REPLACES,
                    'launches': None, 'max_abs_err': float(conv_err),
-                   'ms': ms, 'plain_ms': plain_ms}
+                   'ms': ms, 'plain_ms': plain_ms,
+                   'bound_ms': conv_bound[0], 'bound_by': conv_bound[1],
+                   'library_ms': None}
     ms, plain_ms = bottleneck_ms['C=256 [8,60,80] shortcut=True']
+    pixels = 8 * 60 * 80
+    fused_bound = _bound(pixels * 256 * 2 + 256 * 256 * 10 + 256 * 16,
+                         2 * pixels * 256 * 256 * 10, INT8_OPS_PER_MS)
     bottleneck_record = {'name': 'bottleneck_int8', 'route': 'cuda',
                          'source': BOTTLENECK_SOURCE,
                          'replaces': BOTTLENECK_REPLACES, 'launches': None,
                          'max_abs_err': float(bottleneck_err), 'ms': ms,
-                         'plain_ms': plain_ms}
+                         'plain_ms': plain_ms, 'bound_ms': fused_bound[0],
+                         'bound_by': fused_bound[1], 'library_ms': None}
+    print('int8 bounds: conv 3x3 s1 [8,120,160,128]->128 {:.4f} ms ({}), '
+          'bottleneck C=256 [8,60,80] {:.4f} ms ({}); library call: none '
+          '(PyTorch has no CUDA int8 convolution)'.format(
+              conv_bound[0], conv_bound[1], fused_bound[0], fused_bound[1]),
+          flush=True)
     return conv_record, bottleneck_record
 
 
@@ -581,6 +648,408 @@ def phase_int8_card_vs_cpu(q_path, detector):
               d_score, d_xy), flush=True)
 
 
+def _n_activated_convs(model):
+    """Float convs with SiLU (every one runs the bf16 epilogue in bf16)."""
+
+    from megadetector_tpu_torch.models.yolov5 import Conv
+
+    return sum(1 for m in model.modules() if type(m) is Conv and m.act)
+
+
+def phase_bf16_kernels(device, params):
+    """Fused stem and bf16 epilogue vs their plain versions on the card at
+    yolov5l6 shapes (960x1280 canvas, batch 8); returns their records."""
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from megadetector_tpu_torch.ops import l0_fused, silu_bf16
+
+    rng = np.random.RandomState(9)
+    images = torch.from_numpy(rng.randint(0, 256, (8, 960, 1280, 3),
+                                          dtype=np.uint8)).to(device)
+    w, b = l0_fused.prepare_l0_weights(params['l0'])
+    w, b = w.to(device), b.to(device)
+    got = l0_fused.l0_fused(images, w, b)
+    torch.cuda.synchronize()
+    ref = l0_fused.l0_fused_reference(images, w, b)
+    if tuple(got.shape) != (8, 480, 640, 64) or \
+            not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError(
+            'stem kernel disagrees with its plain version: {} of {} '
+            'elements differ'.format(int((got != ref).sum()), got.numel()))
+    stem_err = float((got.float() - ref.float()).abs().max())
+    stem_ms = _time_ms(lambda: l0_fused.l0_fused(images, w, b), reps=10)
+    stem_plain_ms = _time_ms(
+        lambda: l0_fused.l0_fused_reference(images, w, b), reps=2, warmup=1)
+    # Yardstick: cuDNN's bf16 conv (+ bias) of the normalized batch
+    x16 = (images.float() / 255.0).to(torch.bfloat16).permute(0, 3, 1, 2)
+    w16 = torch.from_numpy(np.asarray(params['l0']['w'], np.float32)).permute(
+        3, 2, 0, 1).to(torch.bfloat16).to(device).contiguous(
+            memory_format=torch.channels_last)
+    b16 = b.to(torch.bfloat16)
+    stem_lib_ms = _time_ms(lambda: F.conv2d(x16, w16, b16, 2, 2), reps=10)
+    macs = 8 * 480 * 640 * 64 * 108
+    stem_bound = _bound(images.numel() + got.numel() * 2 + w.numel() * 2 +
+                        b.numel() * 4, 2 * macs, BF16_OPS_PER_MS)
+    print('stem kernel == plain (bit-identical) on u8 [8,960,1280,3] -> '
+          '[8,480,640,64] bf16: kernel {:.4f} ms, plain {:.4f} ms, cuDNN bf16 '
+          'conv of the normalized batch {:.4f} ms, bound {:.4f} ms ({}; {:.1f} '
+          'G MAC)'.format(stem_ms, stem_plain_ms, stem_lib_ms, stem_bound[0],
+                          stem_bound[1], macs / 1e9), flush=True)
+    del images, got, ref, x16
+    torch.cuda.empty_cache()
+
+    silu_times = {}
+    silu_err = 0.0
+    for name, shape in (('l1 output [8,128,240,320]', (8, 128, 240, 320)),
+                        ('[8,1024,15,20]', (8, 1024, 15, 20))):
+        x = (torch.randn(shape, generator=torch.Generator().manual_seed(3))
+             * 3).to(torch.bfloat16).to(device).contiguous(
+                 memory_format=torch.channels_last)
+        bias = (torch.rand(shape[1], generator=torch.Generator().manual_seed(
+            4)) * 2 - 1).to(torch.bfloat16).to(device)
+        for bias_arg in (bias, None):
+            got = silu_bf16.silu_bf16(x, bias_arg)
+            torch.cuda.synchronize()
+            ref = silu_bf16.silu_bf16_reference(x, bias_arg)
+            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                raise AssertionError(
+                    'bf16 epilogue disagrees with its plain version on {} '
+                    '(bias {}): {} elements differ'.format(
+                        name, bias_arg is not None, int((got != ref).sum())))
+            silu_err = max(silu_err, float((got.float() - ref.float()).abs()
+                                           .max()))
+        ms = _time_ms(lambda: silu_bf16.silu_bf16(x, bias), reps=20)
+        ms_nobias = _time_ms(lambda: silu_bf16.silu_bf16(x), reps=20)
+        plain_ms = _time_ms(lambda: silu_bf16.silu_bf16_reference(x, bias),
+                            reps=5, warmup=1)
+        lib_ms = _time_ms(lambda: F.silu(x), reps=20)
+        bound = _bound(x.numel() * 4 + bias.numel() * 2, x.numel() * 6,
+                       F32_OPS_PER_MS)
+        silu_times[name] = (ms, plain_ms, lib_ms, bound)
+        print('bf16 epilogue == plain (bit-identical, with and without bias) '
+              'on {} channels_last: kernel {:.4f} ms with bias ({:.4f} ms '
+              'without), plain {:.4f} ms, F.silu {:.4f} ms, bound {:.4f} ms '
+              '({})'.format(name, ms, ms_nobias, plain_ms, lib_ms, bound[0],
+                            bound[1]), flush=True)
+        del x, got, ref
+        torch.cuda.empty_cache()
+
+    stem_record = {'name': 'l0_fused', 'route': 'cuda',
+                   'source': STEM_SOURCE, 'replaces': STEM_REPLACES,
+                   'launches': None, 'max_abs_err': stem_err,
+                   'ms': stem_ms, 'plain_ms': stem_plain_ms,
+                   'bound_ms': stem_bound[0], 'bound_by': stem_bound[1],
+                   'library_ms': stem_lib_ms}
+    ms, plain_ms, lib_ms, bound = silu_times['l1 output [8,128,240,320]']
+    silu_record = {'name': 'silu_bf16', 'route': 'cuda',
+                   'source': SILU_SOURCE, 'replaces': SILU_REPLACES,
+                   'launches': None, 'max_abs_err': silu_err, 'ms': ms,
+                   'plain_ms': plain_ms, 'bound_ms': bound[0],
+                   'bound_by': bound[1], 'library_ms': lib_ms}
+    return stem_record, silu_record
+
+
+def _reset_counts():
+    from megadetector_tpu_torch.ops import (bottleneck_int8, conv_int8,
+                                            cuda_nms, l0_fused, silu_bf16)
+
+    for module in (bottleneck_int8, conv_int8, cuda_nms, l0_fused,
+                   silu_bf16):
+        module.launches = 0
+
+
+def _counts():
+    """Launches since _reset_counts: (nms, conv, bottleneck, stem, silu)."""
+
+    import torch
+
+    from megadetector_tpu_torch.ops import (bottleneck_int8, conv_int8,
+                                            cuda_nms, l0_fused, silu_bf16)
+
+    torch.cuda.synchronize()
+    return (cuda_nms.launches, conv_int8.launches, bottleneck_int8.launches,
+            l0_fused.launches, silu_bf16.launches)
+
+
+def _forward_ms(detector, batch):
+    import torch
+
+    with torch.inference_mode():
+        x = torch.from_numpy(batch).to(detector.device)
+        return _time_ms(lambda: detector.model(x, decode=False), reps=5)
+
+
+def phase_bf16_main_path(device, workdir, float_path, pairs, batch):
+    """The bf16 configuration through the port's entry points; returns
+    (stem launches, epilogue launches, images/s, forward ms, detector)."""
+
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+
+    detector = load_detector(float_path, device=device, detector_options={
+        'pad_batches_to': 8, 'dtype': 'bfloat16'})
+    n_epilogue = _n_activated_convs(detector.model) - 1
+    detector.programs_run = 0
+    _reset_counts()
+    results = load_and_run_detector_batch(detector, pairs, batch_size=8)
+    nms, conv, fused, stem, silu = _counts()
+    batches = detector.programs_run
+    if batches < 2 or stem != batches or silu != n_epilogue * batches or \
+            nms < batches or conv or fused:
+        raise AssertionError(
+            'bf16 main path: {} batches; launches nms {}, stem {} (want {}), '
+            'bf16 epilogue {} (want {} x {}), int8 {} {}'.format(
+                batches, nms, stem, batches, silu, n_epilogue, batches, conv,
+                fused))
+    n_det = _write_and_check(results, pairs, float_path, os.path.join(
+        workdir, 'smoke_bf16.json'))
+    start = time.time()
+    load_and_run_detector_batch(detector, pairs, batch_size=8, quiet=True)
+    torch.cuda.synchronize()
+    rate = len(pairs) / (time.time() - start)
+    fwd = _forward_ms(detector, batch)
+    print('bf16 main path: 16 images, {} detections, {} device batches; stem '
+          'kernel {} launches (1 x {}), bf16 epilogue {} ({} activated convs '
+          'after l0 x {}), NMS {}; {:.3f} images/s through '
+          'load_and_run_detector_batch (second pass); forward {:.3f} ms per '
+          '960x1280 batch of 8 (uint8 in)'.format(
+              n_det, batches, stem, batches, silu, n_epilogue, batches, nms,
+              rate, fwd), flush=True)
+    return stem, silu, rate, fwd, detector
+
+
+def phase_int8_bf16_main_path(device, workdir, q_path, pairs, batch):
+    """int8 with dtype bf16 (bf16 l0 and heads around the int8 chain)
+    under both conv backends; returns {backend: images/s}, {backend:
+    forward ms}."""
+
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+    from megadetector_tpu_torch.models.yolov5 import Bottleneck, QConv
+
+    rates, forward_ms, detections = {}, {}, {}
+    for backend in ('xla', 'pallas'):
+        detector = load_detector(q_path, device=device, detector_options={
+            'pad_batches_to': 8, 'conv_backend': backend,
+            'dtype': 'bfloat16'})
+        modules = list(detector.model.modules())
+        n_qconv = sum(isinstance(m, QConv) for m in modules)
+        n_bottleneck = sum(isinstance(m, Bottleneck) for m in modules)
+        if backend == 'pallas':
+            want_conv, want_fused = n_qconv - 2 * n_bottleneck, n_bottleneck
+        else:
+            want_conv, want_fused = n_qconv, 0
+        detector.programs_run = 0
+        _reset_counts()
+        results = load_and_run_detector_batch(detector, pairs, batch_size=8)
+        nms, conv, fused, stem, silu = _counts()
+        batches = detector.programs_run
+        if batches < 2 or (conv, fused, stem, silu) != (
+                want_conv * batches, want_fused * batches, batches, 0) or \
+                nms < batches:
+            raise AssertionError(
+                'int8 + bf16 {}: {} batches; launches conv {} (want {} x '
+                '{}), bottleneck {} (want {} x {}), stem {}, bf16 epilogue {}'
+                ', nms {}'.format(backend, batches, conv, want_conv, batches,
+                                  fused, want_fused, batches, stem, silu,
+                                  nms))
+        n_det = _write_and_check(results, pairs, q_path, os.path.join(
+            workdir, 'smoke_int8_bf16_{}.json'.format(backend)))
+        detections[backend] = results
+        start = time.time()
+        load_and_run_detector_batch(detector, pairs, batch_size=8,
+                                    quiet=True)
+        torch.cuda.synchronize()
+        rates[backend] = len(pairs) / (time.time() - start)
+        forward_ms[backend] = _forward_ms(detector, batch)
+        print('int8 + bf16 main path, conv_backend={}: {} detections, {} '
+              'batches; stem {} launches, conv {}, bottleneck {}, bf16 '
+              'epilogue {}; {:.3f} images/s (second pass); forward {:.3f} ms '
+              'per 960x1280 batch of 8'.format(
+                  backend, n_det, batches, stem, conv, fused, silu,
+                  rates[backend], forward_ms[backend]), flush=True)
+        del detector
+        torch.cuda.empty_cache()
+    if detections['xla'] != detections['pallas']:
+        raise AssertionError('int8 + bf16 detections differ between the '
+                             'conv backends')
+    return rates, forward_ms
+
+
+def _exact_canvas_images(rng, n=8):
+    """n seeded uint8 images of exactly 960x1280, the auto canvas of a
+    4:3 image at 1280 px: the device-preprocess identity path."""
+
+    import numpy as np
+
+    images = []
+    for i in range(n):
+        yy = np.linspace(0, 255, 960, dtype=np.float32)[:, None, None]
+        img = yy + rng.randint(-30, 30, (960, 1280, 3)) + 10 * i
+        images.append(np.clip(img, 0, 255).astype(np.uint8))
+    return images
+
+
+def phase_device_preprocess(device, workdir, float_path, pairs,
+                            image_size=1280, stride=64):
+    """preprocess_mode=device for float32 and bf16; returns {dtype:
+    images/s}."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+    from megadetector_tpu_torch.ops import boxes, preprocess_device
+
+    # The device letterbox against the host letterbox's canvas
+    worst = 0.0
+    canvases = []
+    for shape in sorted({img.shape[:2] for _, img in pairs}):
+        imgs = [img for _, img in pairs if img.shape[:2] == shape]
+        staged, sizes = preprocess_device.stage_images(imgs, multiple=256)
+        canvas = boxes.auto_target_shape(shape, image_size, stride=stride)
+        canvases.append('{}x{}'.format(*canvas))
+        with torch.inference_mode():
+            out = preprocess_device.letterbox_batch(
+                torch.from_numpy(staged).to(device),
+                torch.from_numpy(sizes).to(device), canvas,
+                scale_target=image_size).cpu().numpy() * 255.0
+        for img, got in zip(imgs, out):
+            host = boxes.letterbox(img, (image_size, image_size),
+                                   stride=stride, auto=True)[0]
+            if host.shape != got.shape:
+                raise AssertionError('device canvas {} vs host {}'.format(
+                    got.shape, host.shape))
+            worst = max(worst, float(np.abs(got - host).max()))
+    if worst > 2.0:
+        raise AssertionError('device letterbox vs host letterbox: max |d| '
+                             '{} levels (limit 2)'.format(worst))
+    print('device letterbox vs host letterbox canvases ({}): max |d| {:.3f} '
+          'of 255 (limit 2; cv2 rounds its bilinear to uint8)'.format(
+              ', '.join(canvases), worst), flush=True)
+
+    exact = _exact_canvas_images(np.random.RandomState(7))
+    all_pairs = pairs + [('smoke/exact_{:02d}.jpg'.format(i), img)
+                         for i, img in enumerate(exact)]
+    rates = {}
+    for dtype in ('float32', 'bfloat16'):
+        detector = load_detector(float_path, device=device, detector_options={
+            'pad_batches_to': 8, 'preprocess_mode': 'device',
+            'dtype': dtype})
+        n_act = _n_activated_convs(detector.model)
+        detector.programs_run = detector.identity_programs_run = 0
+        _reset_counts()
+        results = load_and_run_detector_batch(detector, all_pairs,
+                                              batch_size=8)
+        nms, conv, fused, stem, silu = _counts()
+        batches = detector.programs_run
+        want_silu = n_act * batches if dtype == 'bfloat16' else 0
+        if batches < 3 or detector.identity_programs_run < 1 or stem or \
+                silu != want_silu or nms < batches:
+            raise AssertionError(
+                'device preprocess {}: {} batches ({} identity); launches '
+                'stem {} (want 0), bf16 epilogue {} (want {}), nms {}'.format(
+                    dtype, batches, detector.identity_programs_run, stem,
+                    silu, want_silu, nms))
+        n_det = _write_and_check(results, all_pairs, float_path,
+                                 os.path.join(workdir, 'smoke_device_{}.json'
+                                              .format(dtype)))
+        start = time.time()
+        load_and_run_detector_batch(detector, all_pairs, batch_size=8,
+                                    quiet=True)
+        torch.cuda.synchronize()
+        rates[dtype] = len(all_pairs) / (time.time() - start)
+        print('device preprocess, {}: 24 images, {} detections, {} batches '
+              '({} on the identity path); bf16 epilogue {} launches, stem {}, '
+              'NMS {}; {:.3f} images/s through load_and_run_detector_batch '
+              '(second pass)'.format(dtype, n_det, batches,
+                                     detector.identity_programs_run, silu,
+                                     stem, nms, rates[dtype]), flush=True)
+        del detector
+        torch.cuda.empty_cache()
+    return rates
+
+
+def phase_bf16_card_vs_cpu(detector, config, params):
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.models.yolov5 import YoloV5
+
+    x = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (2, 320, 320, 3), dtype=np.uint8))
+    cpu_model = YoloV5(config).load_params(params).set_compute_dtype(
+        torch.bfloat16, fused_stem=True).eval()
+    with torch.inference_mode():
+        ref = cpu_model(x, decode=True).numpy()
+        got = detector.model(x.to(detector.device),
+                             decode=True).cpu().numpy()
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError('bf16 forward: shape {} vs {} or non-finite'
+                             .format(got.shape, ref.shape))
+    d_score = np.percentile(np.abs(got[..., 4:5] * got[..., 5:] -
+                                   ref[..., 4:5] * ref[..., 5:]), 99)
+    d_xy = np.percentile(np.abs(got[..., :2] - ref[..., :2]), 99)
+    if not (d_score < 0.02 and d_xy < 2.0):
+        raise AssertionError('bf16 card vs CPU: score p99 {} (limit 0.02), '
+                             'xy p99 {} px (limit 2)'.format(d_score, d_xy))
+    print('bf16 card vs CPU yolov5l6 at 320 px: decoded score p99 |d| '
+          '{:.3e} (limit 0.02), xy p99 |d| {:.3e} px (limit 2)'.format(
+              d_score, d_xy), flush=True)
+
+
+def phase_profile(detector, buckets):
+    """torch.profiler over one device program (forward, selection, NMS)
+    on a 960x1280 batch of 8: device time by kernel and the idle share."""
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = np.stack([info['img_processed']
+                      for info in buckets[(960, 1280)]])
+    detector.run_program(batch, 0.005, 0.45)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.time()
+        detector.run_program(batch, 0.005, 0.45)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - start) * 1e3
+
+    from torch.autograd import DeviceType
+
+    def device_us(e):
+        return getattr(e, 'self_device_time_total',
+                       getattr(e, 'self_cuda_time_total', 0.0))
+
+    # Device activities only (kernels, copies): the host ops that launch
+    # them carry the same time again, and the profiler's own buffer
+    # requests are not work of the program
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0 and
+              not e.key.startswith('Activity Buffer')]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    print('profile, bf16 device program on a 960x1280 batch of 8: wall '
+          '{:.3f} ms (profiler on), device busy {:.3f} ms, idle share '
+          '{:.3f}'.format(wall_ms, busy_ms, 1.0 - busy_ms / wall_ms),
+          flush=True)
+    for e in sorted(events, key=device_us, reverse=True)[:16]:
+        print('  {:>9.3f} ms  {:>5d} x  {}'.format(
+            device_us(e) / 1e3, e.count, e.key[:90]), flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -662,9 +1131,42 @@ def main():
 
         # 8. int8 card vs CPU
         phase_int8_card_vs_cpu(q_path, detector)
+        del detector
+        torch.cuda.empty_cache()
+
+        # 9. bf16 kernels vs plain
+        stem_record, silu_record = phase_bf16_kernels(device, params)
+
+        # 10. bf16 main path
+        stem_launches, silu_launches, bf16_rate, bf16_fwd, detector = \
+            phase_bf16_main_path(device, workdir, float_path, pairs, batch)
+        stem_record['launches'] = stem_launches
+        silu_record['launches'] = silu_launches
+
+        # 11. int8 + bf16 main path
+        int8_bf16_rates, int8_bf16_fwd = phase_int8_bf16_main_path(
+            device, workdir, q_path, pairs, batch)
+
+        # 12. device preprocessing
+        device_rates = phase_device_preprocess(device, workdir, float_path,
+                                               pairs)
+        print('bf16 throughput on {}: {:.3f} images/s float bf16, {:.3f} / '
+              '{:.3f} int8 + bf16 (xla / pallas), device preprocess {:.3f} '
+              'float32 / {:.3f} bf16; forward per 960x1280 batch of 8: bf16 '
+              '{:.3f} ms, int8 + bf16 {:.3f} / {:.3f} ms'.format(
+                  card, bf16_rate, int8_bf16_rates['xla'],
+                  int8_bf16_rates['pallas'], device_rates['float32'],
+                  device_rates['bfloat16'], bf16_fwd, int8_bf16_fwd['xla'],
+                  int8_bf16_fwd['pallas']), flush=True)
+
+        # 13. bf16 card vs CPU
+        phase_bf16_card_vs_cpu(detector, config, params)
+        if '--profile' in sys.argv[1:]:
+            phase_profile(detector, buckets)
 
     print(card)
-    print(json.dumps({'kernels': [record, conv_record, bottleneck_record]}))
+    print(json.dumps({'kernels': [record, conv_record, bottleneck_record,
+                                  stem_record, silu_record]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -10,7 +10,6 @@ is already on disk in the model folder; nothing is downloaded.
 import os
 import time
 
-from megadetector_tpu.models import registry
 from megadetector_tpu_torch.device import (  # noqa: F401  (public API)
     get_accelerator_summary,
     is_gpu_available,
@@ -23,6 +22,7 @@ from megadetector_tpu_torch.models.detector import (  # noqa: F401
     FAILURE_INFER,
     TorchDetector,
 )
+from megadetector_tpu_torch.models import registry
 
 
 def resolve_model_file(model_file):
@@ -59,8 +59,8 @@ def load_detector(model_file, detector_options=None, device=None,
     Args:
         model_file: checkpoint path or known model name
         detector_options: dict of TorchDetector options
-        device: 'cuda', 'cuda:N', 'cpu' or None (CUDA when present);
-            asking for CUDA without a card raises
+        device: 'cuda', 'cuda:N', 'cpu' or None (CUDA); CUDA without a
+            card raises, so the CPU needs 'cpu' (or force_cpu)
         verbose: print load details
     """
 

@@ -22,18 +22,17 @@ import time
 
 from datetime import datetime
 
-from megadetector_tpu.models.registry import (
-    DEFAULT_OUTPUT_CONFIDENCE_THRESHOLD,
-    get_detector_metadata_from_version_string,
-    get_detector_version_from_filename,
-)
-from megadetector_tpu.utils import ct_utils
-from megadetector_tpu.utils import path_utils
 from megadetector_tpu_torch.detection.run_detector import (
     DEFAULT_DETECTOR_LABEL_MAP,
     FAILURE_IMAGE_OPEN,
     load_detector,
 )
+from megadetector_tpu_torch.models.registry import (
+    DEFAULT_OUTPUT_CONFIDENCE_THRESHOLD,
+    get_detector_metadata_from_version_string,
+    get_detector_version_from_filename,
+)
+from megadetector_tpu_torch.utils import ct_utils, path_utils
 
 # MD results format version emitted by write_results_to_file
 CURRENT_FORMAT_VERSION = '1.6'
@@ -50,7 +49,8 @@ def _load_and_preprocess(detector, item, image_size=None):
         image_id, image = item
     else:
         image_id = item
-        from megadetector_tpu.visualization import visualization_utils
+        from megadetector_tpu_torch.visualization import \
+            visualization_utils
         try:
             image = visualization_utils.load_image(item)
         except Exception:
@@ -295,8 +295,8 @@ def main():
                         help='output confidence floor (default {})'.format(
                             DEFAULT_OUTPUT_CONFIDENCE_THRESHOLD))
     parser.add_argument('--device', default=None,
-                        help='cuda, cuda:N or cpu (default: cuda when '
-                             'present)')
+                        help='cuda, cuda:N or cpu (default: cuda, which '
+                             'needs a card)')
     parser.add_argument('--class_mapping_filename', default=None,
                         help='JSON {category_id: name} to use instead of '
                              'the default label map (implies '

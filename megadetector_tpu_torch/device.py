@@ -3,7 +3,8 @@ Device selection and float32 policy for the port (counterpart of
 megadetector_tpu/detection/run_detector.py is_gpu_available /
 get_accelerator_summary).
 
-A device is always explicit: asking for CUDA where there is no card
+The entry points run on the card unless the caller asks for the CPU: no
+device (None) means CUDA, and asking for CUDA where there is no card
 raises instead of quietly running on the CPU.
 """
 
@@ -13,12 +14,13 @@ import torch
 def get_device(name=None):
     """
     The torch.device to run on. [name] is 'cuda', 'cuda:N', 'cpu' or a
-    torch.device; None picks 'cuda' when a card is present, else 'cpu'.
-    Raises RuntimeError when a CUDA device is asked for and absent.
+    torch.device; None means 'cuda'. Raises RuntimeError when a CUDA
+    device is asked for (or implied by None) and absent: the CPU runs only
+    when a caller passes 'cpu'.
     """
 
     if name is None:
-        name = 'cuda' if torch.cuda.is_available() else 'cpu'
+        name = 'cuda'
     device = torch.device(name)
     if device.type == 'cuda':
         if not torch.cuda.is_available():

@@ -299,7 +299,7 @@ def quantize_checkpoint(input_path, output_path, calibration_folder=None,
     Write an int8-chain checkpoint from a converted float checkpoint
     (counterpart of the JAX package's quantize_checkpoint, mode='chain',
     the only mode the port writes), calibrating with the port's own
-    forward on [device] (default CPU).
+    forward on [device] (None: the card; pass 'cpu' for the CPU).
 
     The policy is the JAX package's for MDv5a: l0 float, every later conv
     int8 with calibrated static scales, the detect heads float; l2's cv1
@@ -339,9 +339,10 @@ def quantize_checkpoint(input_path, output_path, calibration_folder=None,
     if calibration_images is not None:
         samples = np.asarray(calibration_images, np.float32)
     elif calibration_folder is not None:
-        from megadetector_tpu.ops.boxes import letterbox
-        from megadetector_tpu.utils.path_utils import find_images
-        from megadetector_tpu.visualization import visualization_utils
+        from megadetector_tpu_torch.ops.boxes import letterbox
+        from megadetector_tpu_torch.utils.path_utils import find_images
+        from megadetector_tpu_torch.visualization import \
+            visualization_utils
         files = find_images(calibration_folder,
                             recursive=True)[:n_calibration_images]
         if not files:

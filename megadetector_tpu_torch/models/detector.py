@@ -1,14 +1,24 @@
 """
-The port's detector: host preprocessing, the batched device program
-(/255 -> YOLOv5 forward -> candidate selection -> greedy NMS) and MD-format
-emission. Counterpart of megadetector_tpu/models/detector.py TPUDetector,
-at the depth the float32 detection path needs.
+The port's detector: preprocessing (the host letterbox, or the device
+letterbox of ops/preprocess_device), the batched device program (/255 ->
+YOLOv5 forward -> candidate selection -> greedy NMS) and MD-format
+emission. Counterpart of megadetector_tpu/models/detector.py TPUDetector.
 
-Float32 and int8-chain checkpoints load (quantized checkpoints written
-width-folded by the JAX package are unfolded on load). conv_backend picks
-how the chain's bottlenecks run: 'xla' (default) runs each of their convs
-on the int8 conv kernel, 'pallas' (and 'pallas-interpret', the same
-output) runs each bottleneck as the fused bottleneck kernel.
+Float and int8-chain checkpoints load (quantized checkpoints written
+width-folded by the JAX package are unfolded on load), and compute in
+float32 or bf16 (dtype): bf16 casts the float layers (all of a float
+checkpoint; l0 and the detect heads of an int8 one) as the JAX detector
+does, and outside the strict modes runs l0 as the fused stem kernel from
+the uint8 pixels. conv_backend picks how the int8 chain's bottlenecks run:
+'xla' (default) runs each of their convs on the int8 conv kernel, 'pallas'
+(and 'pallas-interpret', the same output) runs each bottleneck as the
+fused bottleneck kernel.
+
+preprocess_mode='device' (classic modes) ships each image as raw uint8 in
+a staging canvas and letterboxes the batch on the device; l0 then takes
+the letterbox's float output through the plain conv, as in the JAX
+program. A batch whose images already equal the canvas takes the identity
+path (slice + normalize), bit-identical to the letterbox at ratio 1.
 
 The device program has the two branches of the JAX program:
 - default ('classic' / 'modern'): raw heads -> ops/decode
@@ -29,15 +39,17 @@ import time
 import numpy as np
 import torch
 
-from megadetector_tpu.ops import boxes as box_ops
-from megadetector_tpu.utils import ct_utils
 from megadetector_tpu_torch.device import get_device, set_float32_exact
 from megadetector_tpu_torch.models import yolov5
 from megadetector_tpu_torch.models.convert_weights import (
     load_checkpoint, unfold_early_params)
+from megadetector_tpu_torch.ops import boxes as box_ops
 from megadetector_tpu_torch.ops._build import KernelError
 from megadetector_tpu_torch.ops.decode import select_topk_candidates
 from megadetector_tpu_torch.ops.nms import batched_nms, nms_on_candidates
+from megadetector_tpu_torch.ops.preprocess_device import (letterbox_batch,
+                                                          stage_images)
+from megadetector_tpu_torch.utils import ct_utils
 
 # Failure strings and output precision: part of the MD output contract
 FAILURE_INFER = 'inference failure'
@@ -66,11 +78,15 @@ NO_OP_OPTIONS = ('folded_early', 'folded_h2', 'approx_select', 'select_cm',
 
 CONV_BACKENDS = ('xla', 'pallas', 'pallas-interpret')
 
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+          'bf16': torch.bfloat16}
+
 PARSED_OPTIONS = ('compatibility_mode', 'canvas_mode', 'max_canvases',
                   'image_size', 'pre_nms_topk', 'max_det',
                   'auto_escalate_topk', 'max_pre_nms_topk',
                   'pad_batches_to', 'use_model_native_classes', 'dtype',
-                  'force_cpu', 'preprocess_mode', 'conv_backend', 'mesh',
+                  'force_cpu', 'preprocess_mode', 'staging_multiple',
+                  'max_staging_side', 'bf16_resize', 'conv_backend', 'mesh',
                   'xla_compiler_options')
 
 
@@ -105,24 +121,23 @@ def _check_options(options):
         raise ValueError('Unknown detector options {}; this detector takes '
                          '{}'.format(unknown, sorted(PARSED_OPTIONS +
                                                      NO_OP_OPTIONS)))
-    refused = []
-    if options.get('preprocess_mode', 'host') != 'host':
-        refused.append('preprocess_mode={}'.format(
-            options['preprocess_mode']))
-    if options.get('mesh') is not None:
-        refused.append('mesh')
     if str(options.get('conv_backend', 'xla')).lower() not in CONV_BACKENDS:
         raise ValueError('conv_backend must be one of {}, got {!r}'.format(
             CONV_BACKENDS, options['conv_backend']))
+    if str(options.get('dtype', 'float32')) not in DTYPES:
+        raise ValueError('dtype must be one of {}, got {!r}'.format(
+            sorted(DTYPES), options['dtype']))
+    if options.get('preprocess_mode', 'host') not in ('host', 'device'):
+        raise ValueError('preprocess_mode must be host or device, got '
+                         '{!r}'.format(options['preprocess_mode']))
+    refused = []
+    if options.get('mesh') is not None:
+        refused.append('mesh')
     if options.get('xla_compiler_options'):
         refused.append('xla_compiler_options')
-    if str(options.get('dtype', 'float32')) != 'float32':
-        refused.append('dtype={}'.format(options['dtype']))
     if refused:
         raise NotImplementedError(
-            'The PyTorch port runs the float32 and int8-chain '
-            'host-preprocess paths only; not yet ported: {}'.format(
-                ', '.join(refused)))
+            'Not ported to PyTorch: {}'.format(', '.join(refused)))
 
 
 class TorchDetector:
@@ -142,16 +157,23 @@ class TorchDetector:
         max_det: detections kept per image
         pad_batches_to: pad partial batches (repeating the last image)
         use_model_native_classes: emit 0-based model classes
-        dtype: 'float32' only (the float layers of an int8 checkpoint
-            run in float32 too)
-        force_cpu: run on the CPU
+        dtype: 'float32' (default) or 'bfloat16' / 'bf16' (the float
+            layers; an int8 checkpoint's chain stays int8)
+        force_cpu: run on the CPU (the default device is the card)
+        preprocess_mode: 'host' (default; letterbox on the host) or
+            'device' (classic modes: letterbox on the device from uint8
+            staging canvases; other modes letterbox on the host)
+        staging_multiple: staging canvas sides round up to this (256)
+        max_staging_side: images longer than this are shrunk on the host
+            before staging (4096)
+        bf16_resize: with dtype bf16 outside the strict modes, round the
+            device letterbox's matmul operands to bf16 (default true)
         conv_backend: 'xla' (default; int8 bottleneck convs on the conv
             kernel) or 'pallas' / 'pallas-interpret' (int8 bottlenecks on
             the fused bottleneck kernel); no effect on float checkpoints
     Accepted as no-ops: folded_early, folded_h2, approx_select, select_cm,
-    stem_gemm, bottleneck_variant. Refused (NotImplementedError):
-    preprocess_mode=device, mesh, xla_compiler_options, dtype=bfloat16,
-    and augment=True at inference.
+    stem_gemm, bottleneck_variant. Refused (NotImplementedError): mesh,
+    xla_compiler_options, and augment=True at inference.
     """
 
     def __init__(self, model_path, detector_options=None, verbose=False,
@@ -182,11 +204,23 @@ class TorchDetector:
                              '{}'.format(self.canvas_mode))
         self.max_canvases = int(options.get('max_canvases', 16))
         self._auto_canvases = set()
+        self.preprocess_mode = options.get('preprocess_mode', 'host')
+        self.staging_multiple = int(options.get('staging_multiple', 256))
+        self.max_staging_side = int(options.get('max_staging_side', 4096))
+        self.compute_dtype = DTYPES[str(options.get('dtype', 'float32'))]
+        strict = 'strict' in self.compatibility_mode
+        # bf16 interpolation operands for the device letterbox: a bf16
+        # forward rounds its input to bf16 anyway; never in strict modes
+        self.resize_dtype = torch.bfloat16 if (
+            self.compute_dtype == torch.bfloat16 and not strict and
+            _to_bool(options.get('bf16_resize', True))) else None
         self._warned_low_threshold_topk = False
         self.n_truncated_images = 0
         # Device program executions (one per batch; escalation re-runs
-        # selection and NMS inside the same execution)
+        # selection and NMS inside the same execution), and how many of
+        # them took the device-preprocess identity path
         self.programs_run = 0
+        self.identity_programs_run = 0
         self.printed_image_size_warning = False
 
         start = time.time()
@@ -199,13 +233,17 @@ class TorchDetector:
         self.conv_backend = str(options.get('conv_backend',
                                             'xla')).lower()
         params = unfold_early_params(params, self.config)
+        # bf16 outside the strict modes runs l0 as the fused stem; strict
+        # modes keep the JAX graph (bf16(u8 / 255) into the plain conv)
         self.model = yolov5.YoloV5(
             self.config,
             fuse_bottlenecks=self.conv_backend != 'xla').load_params(
-                params).eval().to(self.device)
+                params).set_compute_dtype(
+                    self.compute_dtype, fused_stem=not strict).eval().to(
+                        self.device)
         # Fused selection from raw head logits; strict modes run the
         # decoded forward + batched_nms instead
-        self._fused_decode = 'strict' not in self.compatibility_mode
+        self._fused_decode = not strict
         self.letterbox_stride = int(self.config.max_stride)
         self.default_image_size = int(options.get(
             'image_size', metadata.get('image_size', 1280)))
@@ -240,7 +278,11 @@ class TorchDetector:
         """
         Letterbox an image (PIL or HWC uint8 numpy, RGB, EXIF-rotated)
         onto its inference canvas. Returns a dict with the uint8 canvas
-        and the geometry that maps boxes back.
+        ('img_processed') and the geometry that maps boxes back. In device
+        preprocess mode (classic modes) 'img_processed' is None: the dict
+        carries the raw image ('img_original', shrunk to max_staging_side),
+        its canvas ('target_shape') and 'scale_target', and the batch
+        letterboxes on the device.
         """
 
         result = {'file': image_id}
@@ -259,6 +301,31 @@ class TorchDetector:
         else:
             image_size = self.default_image_size
             self.printed_image_size_warning = False
+
+        if self.preprocess_mode == 'device' and \
+                'classic' in self.compatibility_mode:
+            # The letterbox runs on the device: record the raw image and
+            # its canvas (the classic host letterbox's geometry). Images
+            # longer than max_staging_side are shrunk here first; the
+            # normalized output coordinates do not depend on the scale.
+            original_shape = img_original.shape
+            if max(img_original.shape[:2]) > self.max_staging_side:
+                img_original, _ = box_ops.resize_long_side(
+                    img_original, self.max_staging_side)
+                scaling_shape = img_original.shape
+            if self._use_auto_canvas(img_original.shape[:2], image_size):
+                target = self._auto_target_shape(img_original.shape[:2],
+                                                 image_size)
+            else:
+                target = (image_size, image_size)
+            result.update({
+                'img_processed': None, 'img_original': img_original,
+                'img_original_pil': img_original_pil,
+                'target_shape': target, 'scale_target': image_size,
+                'scaling_shape': scaling_shape,
+                'original_shape': original_shape,
+                'letterbox_ratio': None, 'letterbox_pad': None})
+            return result
 
         if 'classic' in self.compatibility_mode:
             auto = self._use_auto_canvas(img_original.shape[:2],
@@ -313,50 +380,80 @@ class TorchDetector:
 
     def run_program(self, batch_u8, conf_thres, iou_thres):
         """
-        The device program on one uint8 NHWC batch [B, H, W, 3], with
-        capacity escalation. Returns (numpy dict of 'boxes' [B, max_det,
-        4] xyxy canvas pixels, 'scores', 'classes', 'valid',
-        'n_candidates'; the capacity finally used).
+        The device program on one uint8 NHWC batch [B, H, W, 3] of
+        letterboxed canvases, with capacity escalation. Returns (numpy
+        dict of 'boxes' [B, max_det, 4] xyxy canvas pixels, 'scores',
+        'classes', 'valid', 'n_candidates'; the capacity finally used).
         """
+
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(
+                self.device)
+            return self._program(x, conf_thres, iou_thres)
+
+    def run_program_staged(self, staged_u8, sizes, canvas_hw, scale_target,
+                           identity, conf_thres, iou_thres):
+        """
+        The device-preprocess program: uint8 staging canvases [B, S0h,
+        S0w, 3] with valid sizes [B, 2] -> the device letterbox onto
+        canvas_hw (or, with [identity], the slice + normalize of images
+        that already equal the canvas) -> run_program's forward,
+        selection and NMS. Same return as run_program.
+        """
+
+        h, w = int(canvas_hw[0]), int(canvas_hw[1])
+        with torch.inference_mode():
+            staged = torch.from_numpy(np.ascontiguousarray(staged_u8)).to(
+                self.device)
+            if identity:
+                x = staged[:, :h, :w, :].to(torch.float32) / \
+                    torch.full((), 255.0, device=self.device)
+            else:
+                x = letterbox_batch(
+                    staged, torch.from_numpy(np.asarray(sizes)).to(
+                        self.device), (h, w), scale_target=scale_target,
+                    resize_dtype=self.resize_dtype)
+            return self._program(x, conf_thres, iou_thres)
+
+    def _program(self, x, conf_thres, iou_thres):
+        """Forward (uint8 pixels or float [0, 1] canvases), selection and
+        NMS with capacity escalation, inside inference_mode."""
 
         config = self.config
         topk = self.pre_nms_topk
-        with torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(
-                self.device).float() / 255.0
-            if self._fused_decode:
-                heads = self.model(x, decode=False)
+        if self._fused_decode:
+            heads = self.model(x, decode=False)
 
-                def select_and_suppress(capacity):
-                    cands = select_topk_candidates(
-                        heads, config.anchors, config.strides,
-                        config.num_classes, conf_thres, capacity)
-                    return nms_on_candidates(
-                        cands, iou_thres, max_det=self.max_det,
-                        class_agnostic=(config.num_classes == 1))
-            else:
-                pred = self.model(x, decode=True)
+            def select_and_suppress(capacity):
+                cands = select_topk_candidates(
+                    heads, config.anchors, config.strides,
+                    config.num_classes, conf_thres, capacity)
+                return nms_on_candidates(
+                    cands, iou_thres, max_det=self.max_det,
+                    class_agnostic=(config.num_classes == 1))
+        else:
+            pred = self.model(x, decode=True)
 
-                def select_and_suppress(capacity):
-                    return batched_nms(pred, conf_thres, iou_thres,
-                                       max_det=self.max_det,
-                                       pre_nms_topk=capacity)
+            def select_and_suppress(capacity):
+                return batched_nms(pred, conf_thres, iou_thres,
+                                   max_det=self.max_det,
+                                   pre_nms_topk=capacity)
 
+        out = {k: v.cpu().numpy()
+               for k, v in select_and_suppress(topk).items()}
+        # More above-floor candidates than the capacity holds: redo
+        # selection + NMS at the next power of two (up to
+        # max_pre_nms_topk), like the reference's uncapped nms()
+        while self.auto_escalate_topk and topk < self.max_pre_nms_topk:
+            needed = int(out['n_candidates'].max(initial=0))
+            if needed <= topk:
+                break
+            new_topk = topk
+            while new_topk < needed:
+                new_topk *= 2
+            topk = min(new_topk, self.max_pre_nms_topk)
             out = {k: v.cpu().numpy()
                    for k, v in select_and_suppress(topk).items()}
-            # More above-floor candidates than the capacity holds: redo
-            # selection + NMS at the next power of two (up to
-            # max_pre_nms_topk), like the reference's uncapped nms()
-            while self.auto_escalate_topk and topk < self.max_pre_nms_topk:
-                needed = int(out['n_candidates'].max(initial=0))
-                if needed <= topk:
-                    break
-                new_topk = topk
-                while new_topk < needed:
-                    new_topk *= 2
-                topk = min(new_topk, self.max_pre_nms_topk)
-                out = {k: v.cpu().numpy()
-                       for k, v in select_and_suppress(topk).items()}
         self.programs_run += 1
         return out, topk
 
@@ -464,13 +561,36 @@ class TorchDetector:
             infos = list(infos) + \
                 [(None, infos[-1][1])] * (self.pad_batches_to - n_real)
 
-        imgs = [info['img_processed'] for _, info in infos]
-        h, w = imgs[0].shape[:2]
-        for im in imgs:
-            if im.shape[:2] != (h, w):
+        staged = [info.get('img_processed') is None for _, info in infos]
+        if any(staged) != all(staged):
+            raise ValueError('Staged (device-preprocess) and letterboxed '
+                             'images in one batch')
+        if all(staged):
+            h, w = (int(v) for v in infos[0][1]['target_shape'])
+            scale_target = int(infos[0][1].get('scale_target', max(h, w)))
+            raw = [np.asarray(info['img_original']) for _, info in infos]
+            if any(tuple(info['target_shape']) != (h, w)
+                   for _, info in infos):
                 raise ValueError('Heterogeneous canvas in one batch')
-        out, topk = self.run_program(np.stack(imgs).astype(np.uint8),
-                                     detection_threshold, nms_iou)
+            staged_u8, sizes = stage_images(raw,
+                                            multiple=self.staging_multiple)
+            # Identity path: every image already equals the canvas, so the
+            # ratio is exactly 1 (T = max(canvas)) and the letterbox is a
+            # copy; slice + normalize gives the same bits
+            identity = scale_target == max(h, w) and \
+                all(im.shape[:2] == (h, w) for im in raw)
+            self.identity_programs_run += int(identity)
+            out, topk = self.run_program_staged(
+                staged_u8, sizes, (h, w), scale_target, identity,
+                detection_threshold, nms_iou)
+        else:
+            imgs = [info['img_processed'] for _, info in infos]
+            h, w = imgs[0].shape[:2]
+            for im in imgs:
+                if im.shape[:2] != (h, w):
+                    raise ValueError('Heterogeneous canvas in one batch')
+            out, topk = self.run_program(np.stack(imgs).astype(np.uint8),
+                                         detection_threshold, nms_iou)
         n_cand = out['n_candidates']
 
         for slot, (idx, info) in enumerate(infos):

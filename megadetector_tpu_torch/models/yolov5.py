@@ -7,10 +7,20 @@ line for line, so both packages build the same architecture and draw the
 same random parameters from a seed. The network is an inference graph
 with BatchNorm folded into the weights: a Conv is conv + bias + SiLU.
 
-The public forward keeps the JAX layout: it takes NHWC float images and
-returns NHWC per-level head tensors [B, H_l, W_l, na*(5+nc)] or the
-decoded [B, A, 5+nc]. Inside, the float convolutions run on an NCHW view of
-the NHWC input (channels_last strides, no copy).
+The public forward keeps the JAX layout: it takes NHWC images (uint8
+pixels, or floats in [0, 1]) and returns NHWC per-level head tensors [B,
+H_l, W_l, na*(5+nc)] or the decoded [B, A, 5+nc]. Inside, the float
+convolutions run on an NCHW view of the NHWC input (channels_last strides,
+no copy).
+
+Compute dtype (set_compute_dtype): float32, or bf16 as the JAX package's
+apply(dtype=bfloat16) computes: float weights and biases cast to bf16, each
+conv rounded to bf16, then + b rounded, then SiLU with a rounding after
+each op (ops/silu_bf16.py, the E7 kernel on a card, which fuses the bias
+add). A bf16 model may run l0 as the fused stem (ops/l0_fused.py, the B4
+kernel) straight from uint8 pixels; otherwise uint8 input becomes bf16(u8 /
+255), as the JAX detector's program computes it. The detect heads run in
+bf16 and are decoded in float32.
 
 int8-chain parameters (nodes with 'w_q', ops/quantization.py) load as
 QConv modules: with calibrated scales they take and give QTensors (int8
@@ -31,8 +41,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from megadetector_tpu_torch.models.convert_weights import params_to_torch
+from megadetector_tpu_torch.ops import l0_fused
 from megadetector_tpu_torch.ops import quantization as q
+from megadetector_tpu_torch.ops.conv_int8 import scalar_like
 from megadetector_tpu_torch.ops.quantization import QTensor
+from megadetector_tpu_torch.ops.silu_bf16 import silu_bf16
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 #%% Architecture configs (same tables as the JAX module)
@@ -270,11 +285,17 @@ def init_params(config, seed=0):
 #%% Tensors of either kind: float NCHW or QTensor (int8 NHWC)
 
 
-def _float_nchw(x):
-    """A float NCHW tensor; QTensors are dequantized."""
+def _float_nchw(x, dtype=torch.float32):
+    """A float NCHW tensor; QTensors are dequantized into [dtype] (in bf16
+    as the JAX qt_dequant does: bf16(q) * bf16(scale), rounded)."""
 
-    return q.qt_dequant(x).permute(0, 3, 1, 2) if isinstance(x, QTensor) \
-        else x
+    if not isinstance(x, QTensor):
+        return x
+    if dtype == torch.bfloat16:
+        scale = torch.full((), x.scale, dtype=torch.bfloat16,
+                           device=x.q.device)
+        return (x.q.to(torch.bfloat16) * scale).permute(0, 3, 1, 2)
+    return q.qt_dequant(x).permute(0, 3, 1, 2)
 
 
 def _cat(xs):
@@ -318,8 +339,14 @@ class Conv(nn.Module):
         self.act = act
 
     def forward(self, x):
-        y = F.conv2d(_float_nchw(x), self.weight, self.bias, self.stride,
-                     self.padding)
+        x = _float_nchw(x, self.weight.dtype)
+        if self.weight.dtype == torch.bfloat16:
+            # The JAX rounding points: the conv rounds to bf16, + b rounds,
+            # then the activation (silu_bf16 adds the bias itself)
+            y = F.conv2d(x, self.weight, None, self.stride, self.padding)
+            return silu_bf16(y, self.bias) if self.act else y + \
+                self.bias.view(1, -1, 1, 1)
+        y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
         return F.silu(y) if self.act else y
 
 
@@ -474,6 +501,11 @@ class YoloV5(nn.Module):
     def __init__(self, config, fuse_bottlenecks=False):
         super().__init__()
         self.config = config
+        self.compute_dtype = torch.float32
+        # The fused stem's weights (set_compute_dtype); None: l0 runs as a
+        # plain conv
+        self.register_buffer('stem_w', None, persistent=False)
+        self.register_buffer('stem_b', None, persistent=False)
         self.layers = nn.ModuleDict()
         for i, e in enumerate(config.layers):
             name = 'l{}'.format(i)
@@ -528,23 +560,74 @@ class YoloV5(nn.Module):
         self.load_state_dict(state, strict=True)
         return self
 
+    def set_compute_dtype(self, dtype, fused_stem=False):
+        """
+        Compute in [dtype] (float32 or bf16; call once, after load_params,
+        on float32 weights). bf16 casts every float conv's weight and bias
+        to bf16 (int8 convs are unchanged); with [fused_stem] and a float
+        l0, l0 then runs from uint8 pixels as the fused stem, whose weights
+        are bf16(w / 255) of the float32 l0 weights.
+        """
+
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError('compute dtype must be one of {}, got {}'.format(
+                COMPUTE_DTYPES, dtype))
+        if self.compute_dtype != torch.float32:
+            raise ValueError('set_compute_dtype: already {}'.format(
+                self.compute_dtype))
+        self.compute_dtype = dtype
+        if dtype == torch.float32:
+            return self
+        l0 = self.layers['l0']
+        if fused_stem and type(l0) is Conv:
+            w = l0.weight.detach().float().permute(2, 3, 1, 0).cpu().numpy()
+            b = l0.bias.detach().float().cpu().numpy()
+            self.stem_w, self.stem_b = l0_fused.prepare_l0_weights(
+                {'w': w, 'b': b})
+            self.stem_w = self.stem_w.to(l0.weight.device)
+            self.stem_b = self.stem_b.to(l0.weight.device)
+        for m in self.modules():
+            if type(m) is Conv:
+                m.weight.data = m.weight.data.to(dtype)
+                m.bias.data = m.bias.data.to(dtype)
+        return self
+
+    def _input(self, x):
+        """(l0's NCHW input in the compute dtype, None) for the NHWC
+        batch, or (None, l0's output) when the fused stem takes the uint8
+        pixels."""
+
+        if x.dtype == torch.uint8:
+            if self.stem_w is not None:
+                out = l0_fused.l0_fused(x.contiguous(), self.stem_w,
+                                        self.stem_b)
+                return None, out.permute(0, 3, 1, 2)
+            if self.compute_dtype == torch.bfloat16:
+                x = (x.float() / scalar_like(255.0, x)).to(torch.bfloat16)
+            else:
+                x = x.float() / 255.0
+        return x.to(self.compute_dtype).permute(0, 3, 1, 2), None
+
     def forward(self, x, decode=True):
         """
         Args:
-            x: [B, H, W, 3] float images in [0, 1]; H and W multiples of
-                config.max_stride
+            x: [B, H, W, 3] uint8 pixels, or float images in [0, 1]; H and
+                W multiples of config.max_stride
             decode: True -> decoded [B, A, 5+nc] in canvas pixels;
                 False -> list of raw NHWC heads [B, H_l, W_l, na*(5+nc)]
+                (in the compute dtype)
         """
 
         config = self.config
-        prev = x.permute(0, 3, 1, 2)
+        prev, stem_out = self._input(x)
         saved = {}
         heads = None
         for i, entry in enumerate(config.layers):
             kind = entry['kind']
             frm = entry['frm']
-            if kind == 'cat':
+            if i == 0 and stem_out is not None:
+                out = stem_out
+            elif kind == 'cat':
                 out = _cat([prev if f == -1 else saved[f] for f in frm])
             elif kind == 'detect':
                 heads = self.layers['l{}'.format(i)](

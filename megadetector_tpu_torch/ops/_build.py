@@ -44,6 +44,10 @@ _FUNCTIONS = {
     # s_in, out_scale, shortcut, out, batch, h, w, c, stream
     'md_bottleneck_int8': [_P, _P, _P, _P, _F, _P, _P, _P, _F, _F, _F, _I,
                            _P, _I, _I, _I, _I, _P],
+    # x, w, bias, out, batch, h, w, c, stream
+    'md_l0_fused': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, bias (or null), out, n, c, inner, stream
+    'md_silu_bf16': [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 
 _lock = threading.Lock()

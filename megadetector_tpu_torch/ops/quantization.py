@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from megadetector_tpu_torch.device import get_device
 from megadetector_tpu_torch.ops import bottleneck_int8, conv_int8
 from megadetector_tpu_torch.ops.conv_int8 import (round_to_int8,
                                                   scalar_like)
@@ -272,12 +273,13 @@ def calibrate_chain_scales(config, params_q, sample_images, headroom=1.0,
     the port's forward over [sample_images] ([N, H, W, 3] float in [0, 1])
     with every int8 conv in quantized_conv, recording its input and output
     abs-max. Sets x_scale = max(in * headroom, 1e-6) / 127 and y_scale
-    likewise from out, in place; returns params_q.
+    likewise from out, in place; returns params_q. [device] is as
+    get_device takes it: None means the card, 'cpu' the CPU.
     """
 
     from megadetector_tpu_torch.models.yolov5 import QConv, YoloV5
 
-    device = torch.device('cpu' if device is None else device)
+    device = get_device(device)
     model = YoloV5(config).load_params(params_q).eval().to(device)
     qconvs = [(name, m) for name, m in model.named_modules()
               if isinstance(m, QConv)]

@@ -1,0 +1,50 @@
+"""
+Image enumeration for the port: its own copy of
+megadetector_tpu/utils/path_utils.py find_images and read_list_from_file.
+"""
+
+import glob
+import json
+import os
+
+# The image extensions of the MD enumeration contract
+IMG_EXTENSIONS = ('.jpg', '.jpeg', '.gif', '.png', '.tif', '.tiff', '.bmp',
+                  '.webp', '.avif')
+
+
+def _is_image_file(s):
+    return os.path.splitext(s)[1].lower() in IMG_EXTENSIONS
+
+
+def find_images(dirname, recursive=False, return_relative_paths=False,
+                convert_slashes=True):
+    """
+    Image files in [dirname]: sorted, forward slashes by default, absolute
+    paths unless return_relative_paths.
+    """
+
+    if not os.path.isdir(dirname):
+        raise ValueError('{} is not a folder'.format(dirname))
+    pattern = os.path.join(dirname, '**', '*.*') if recursive \
+        else os.path.join(dirname, '*.*')
+    images = [s for s in glob.glob(pattern, recursive=recursive)
+              if _is_image_file(s)]
+    if return_relative_paths:
+        images = [os.path.relpath(fn, dirname) for fn in images]
+    images = sorted(images)
+    if convert_slashes:
+        images = [fn.replace('\\', '/') for fn in images]
+    return images
+
+
+def read_list_from_file(filename):
+    """A list of strings from a newline-delimited file or a .json list."""
+
+    if filename.endswith('.json'):
+        with open(filename, 'r') as f:
+            out = json.load(f)
+        if not isinstance(out, list):
+            raise ValueError('{} does not hold a JSON list'.format(filename))
+        return out
+    with open(filename, 'r') as f:
+        return [line.strip() for line in f if len(line.strip()) > 0]

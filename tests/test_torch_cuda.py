@@ -1,7 +1,8 @@
 """
-The port on a CUDA card: the greedy-NMS, int8 conv and fused int8
-bottleneck kernels against their plain versions, and the card's selection,
-NMS and detectors (float32 and int8 chain) against the CPU's.
+The port on a CUDA card: the greedy-NMS, int8 conv, fused int8
+bottleneck, fused stem and bf16 epilogue kernels against their plain
+versions, and the card's selection, NMS and detectors (float32, int8 chain
+and bf16) against the CPU's.
 
 Every test is marked `cuda` and skips without a card. This file imports
 no jax, so it also runs on a machine without the JAX package's
@@ -20,7 +21,8 @@ from megadetector_tpu_torch.models.convert_weights import save_checkpoint
 from megadetector_tpu_torch.models import yolov5
 from megadetector_tpu_torch.models.convert_weights import quantize_checkpoint
 from megadetector_tpu_torch.ops import (bottleneck_int8, conv_int8,
-                                        cuda_nms, decode, nms)
+                                        cuda_nms, decode, l0_fused, nms,
+                                        silu_bf16)
 
 import torch_port_data as data
 
@@ -235,7 +237,8 @@ def test_int8_detector_on_card_matches_cpu(cuda_device, tmp_path):
         'arch': 'yolov5s6', 'model_type': 'yolov5', 'num_classes': 3,
         'image_size': 256})
     q_path = str(tmp_path / 'int8.npz')
-    quantize_checkpoint(f_path, q_path, calibration_image_size=256)
+    quantize_checkpoint(f_path, q_path, calibration_image_size=256,
+                        device='cpu')
     imgs = data.images()
     results = {}
     for backend in ('xla', 'pallas'):
@@ -255,6 +258,100 @@ def test_int8_detector_on_card_matches_cpu(cuda_device, tmp_path):
     x = torch.from_numpy(np.random.RandomState(2).rand(
         2, 256, 256, 3).astype(np.float32))
     cpu = run_detector.load_detector(q_path, device='cpu')
+    with torch.inference_mode():
+        ref = cpu.model(x, decode=True).numpy()
+        got = detector.model(x.to(cuda_device), decode=True).cpu().numpy()
+    assert np.isfinite(got).all() and got.shape == ref.shape
+    d_score = np.abs(got[..., 4:5] * got[..., 5:] - ref[..., 4:5] *
+                     ref[..., 5:])
+    assert np.percentile(d_score, 99) < 0.02
+    assert np.percentile(np.abs(got[..., :2] - ref[..., :2]), 99) < 2.0
+
+
+@pytest.mark.parametrize('b,h,w,c', [(2, 64, 96, 64), (1, 70, 134, 16),
+                                     (1, 32, 66, 32), (2, 18, 200, 80),
+                                     (1, 8, 10, 256)])
+def test_l0_fused_kernel_identical_to_plain(cuda_device, b, h, w, c):
+    rng = np.random.RandomState(c + h)
+    images = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3),
+                                          dtype=np.uint8))
+    wt, bias = l0_fused.prepare_l0_weights({
+        'w': rng.standard_normal((6, 6, 3, c)).astype(np.float32) * 0.2,
+        'b': rng.uniform(-1, 1, c).astype(np.float32)})
+    dev = [t.to(cuda_device) for t in (images, wt, bias)]
+    before = l0_fused.launches
+    got = l0_fused.l0_fused(*dev)
+    torch.cuda.synchronize()
+    assert l0_fused.launches == before + 1
+    ref = l0_fused.l0_fused_reference(*dev)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h // 2, w // 2,
+                                                         c)
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    cpu = l0_fused.l0_fused_reference(images, wt, bias)
+    diff = (got.cpu().float() - cpu.float()).abs()
+    assert float(diff.max()) <= 2 ** -6 * max(1.0, float(cpu.float().abs()
+                                                         .max()))
+
+
+def test_silu_bf16_kernel_identical_to_plain(cuda_device):
+    bits = np.arange(65536, dtype=np.uint32).astype(np.uint16)
+    x = torch.from_numpy(bits.view(np.int16).copy()).view(
+        torch.bfloat16).to(cuda_device)
+    cases = [(x, None), (x[:65535], None)]      # vector and scalar paths
+    rng = np.random.RandomState(5)
+    for shape in ((2, 24, 5, 7), (1, 16, 8, 8)):
+        t = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * 4).to(torch.bfloat16).to(cuda_device)
+        bias = torch.from_numpy(rng.uniform(-2, 2, shape[1]).astype(
+            np.float32)).to(torch.bfloat16).to(cuda_device)
+        cases += [(t, bias),
+                  (t.contiguous(memory_format=torch.channels_last), bias)]
+    for t, bias in cases:
+        before = silu_bf16.launches
+        got = silu_bf16.silu_bf16(t, bias)
+        torch.cuda.synchronize()
+        assert silu_bf16.launches == before + 1
+        assert got.stride() == t.stride()
+        ref = silu_bf16.silu_bf16_reference(t, bias)
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    y = cases[-1][0].clone(memory_format=torch.channels_last)
+    want = silu_bf16.silu_bf16_reference(y, cases[-1][1])
+    assert silu_bf16.silu_bf16(y, cases[-1][1], out=y) is y
+    assert torch.equal(y.view(torch.int16), want.view(torch.int16))
+    with pytest.raises(ValueError):
+        silu_bf16.silu_bf16(x.float())
+    with pytest.raises(ValueError):
+        silu_bf16.silu_bf16(cases[2][0][:, :, ::2], cases[2][1])
+
+
+def test_bf16_detector_on_card_matches_cpu(cuda_device, tmp_path):
+    """The bf16 yolov5n on the card: the stem runs once per batch and the
+    bf16 epilogue once per activated conv after l0; the decoded forward
+    agrees with the CPU's within the bounds the int8 test uses (cuDNN
+    sums in another order, and one bf16 ulp moves through the layers)."""
+
+    imgs = data.images()
+    model = str(tmp_path / 'm.npz')
+    save_checkpoint(data.sharpened_params(imgs), model, data.METADATA)
+    options = {'dtype': 'bfloat16'}
+    detector = run_detector.load_detector(model, device='cuda',
+                                          detector_options=options)
+    n_act = sum(1 for m in detector.model.modules()
+                if type(m) is yolov5.Conv and m.act) - 1
+    stem_before, silu_before = l0_fused.launches, silu_bf16.launches
+    detector.programs_run = 0
+    results = detector.generate_detections_one_batch(
+        imgs, ['im{}'.format(i) for i in range(len(imgs))],
+        detection_threshold=0.005)
+    batches = detector.programs_run
+    assert batches == 2
+    assert l0_fused.launches - stem_before == batches
+    assert silu_bf16.launches - silu_before == n_act * batches
+    assert sum(len(r['detections']) for r in results) > 0
+
+    x = torch.from_numpy(np.stack([im[:192, :256] for im in imgs[:4]]))
+    cpu = run_detector.load_detector(model, device='cpu',
+                                     detector_options=options)
     with torch.inference_mode():
         ref = cpu.model(x, decode=True).numpy()
         got = detector.model(x.to(cuda_device), decode=True).cpu().numpy()

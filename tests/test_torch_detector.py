@@ -184,18 +184,37 @@ def test_data_errors_become_failure_records(slice_inputs, monkeypatch):
 
 
 @pytest.mark.parametrize('options', [
-    {'preprocess_mode': 'device'},
     {'mesh': object()},
-    # conv_backend=pallas is ported; bf16 is not, with either backend
-    {'conv_backend': 'pallas', 'dtype': 'bfloat16'},
     {'xla_compiler_options': 'xla_foo=1'},
-    {'dtype': 'bfloat16'},
 ])
 def test_unported_options_are_refused(slice_inputs, options):
     _, _, model = slice_inputs
     with pytest.raises(NotImplementedError):
         run_detector.load_detector(model, detector_options=options,
                                    device='cpu')
+
+
+@pytest.mark.parametrize('options', [
+    {'preprocess_mode': 'device'},
+    {'conv_backend': 'pallas', 'dtype': 'bfloat16'},
+    {'dtype': 'bfloat16'},
+])
+def test_bf16_and_device_options_load_and_run(slice_inputs, options):
+    """preprocess_mode=device and dtype bf16 (under either conv backend)
+    load and run on the CPU; their parity with the JAX package is held in
+    test_torch_bf16.py and test_torch_preprocess_device.py."""
+
+    _, _, model = slice_inputs
+    detector = run_detector.load_detector(model, detector_options=options,
+                                          device='cpu')
+    r = detector.generate_detections_one_image(data.images()[4], 'a', 0.005)
+    assert r['file'] == 'a' and 0 < len(r['detections']) < 300
+    want = torch.bfloat16 if 'dtype' in options else torch.float32
+    assert detector.model.compute_dtype == want
+    assert detector.model.layers['l1'].weight.dtype == want
+    with pytest.raises(ValueError):
+        run_detector.load_detector(model, device='cpu', detector_options=dict(
+            options, dtype='float16', preprocess_mode='disk'))
 
 
 @pytest.mark.parametrize('backend', ['pallas', 'pallas-interpret'])
@@ -246,7 +265,9 @@ def test_cuda_request_without_card_raises(slice_inputs):
         get_device('cuda')
     with pytest.raises(RuntimeError, match='CUDA'):
         run_detector.load_detector(model, device='cuda')
-    assert get_device(None) == torch.device('cpu')
+    # No device means the card: without one, None raises too
+    with pytest.raises(RuntimeError, match='CUDA'):
+        get_device(None)
 
 
 def test_known_model_name_needs_a_converted_file(tmp_path, monkeypatch):

@@ -109,7 +109,7 @@ def test_port_written_checkpoint_runs_in_jax(checkpoints, tmp_path):
     f_path, q_path = checkpoints
     port_path = str(tmp_path / 'int8_port.npz')
     quantize_checkpoint(f_path, port_path,
-                        calibration_image_size=IMAGE_SIZE)
+                        calibration_image_size=IMAGE_SIZE, device='cpu')
     cfg = yolov5.YoloV5Config('yolov5s6', num_classes=3)
 
     # Same int8 weights and policy as the JAX package's, unfolded. The
@@ -180,7 +180,8 @@ def test_quantize_checkpoint_calibrates_on_a_folder(tmp_path):
         Image.fromarray(rng.randint(0, 255, (h, w, 3)).astype(
             np.uint8)).save(str(folder / 'c{}.png'.format(i)))
     q_path = str(tmp_path / 'int8.npz')
-    quantize_checkpoint(f_path, q_path, calibration_folder=str(folder))
+    quantize_checkpoint(f_path, q_path, calibration_folder=str(folder),
+                        device='cpu')
     params, metadata = load_checkpoint(q_path)
     assert metadata['quantized'] is True
     # l0 float; l1 on int8 with scales; l2's cv1/cv2 share theirs
@@ -189,4 +190,5 @@ def test_quantize_checkpoint_calibrates_on_a_folder(tmp_path):
     assert params['l2']['cv1']['y_scale'] == params['l2']['cv2']['y_scale']
     assert params['l2']['cv1']['x_scale'] == params['l2']['cv2']['x_scale']
     with pytest.raises(ValueError, match='already quantized'):
-        quantize_checkpoint(q_path, str(tmp_path / 'again.npz'))
+        quantize_checkpoint(q_path, str(tmp_path / 'again.npz'),
+                            device='cpu')

@@ -341,7 +341,7 @@ def test_calibration_matches_jax():
     samples = np.random.RandomState(1).uniform(
         0, 1, (2, 64, 96, 3)).astype(np.float32)
     port = q.calibrate_chain_scales(cfg, q.quantize_params_chain(
-        params, skip_names=(detect,)), samples)
+        params, skip_names=(detect,)), samples, device='cpu')
     ref = jq.calibrate_chain_scales(
         jax_yolov5.apply, jax_yolov5.YoloV5Config('yolov5n', num_classes=3),
         jq.quantize_params_chain(params, skip_names=(detect,)), samples)
@@ -366,7 +366,7 @@ def test_int8_forward_matches_jax():
         float_store_names=jq.DEFAULT_FLOAT_STORE_LAYERS_FOLDED)
     samples = np.random.RandomState(3).uniform(
         0, 1, (1, 128, 192, 3)).astype(np.float32)
-    q.calibrate_chain_scales(cfg, params_q, samples)
+    q.calibrate_chain_scales(cfg, params_q, samples, device='cpu')
     params_q = q.requalify_quantized(params_q)
     ref = jax_yolov5.apply(
         jax_yolov5.YoloV5Config('yolov5s6', num_classes=3),

@@ -1,8 +1,10 @@
 """
 The committed stub goldens (tests/data/stub_golden_results.json, square
-canvas, and stub_golden_results_auto.json, auto canvases) through the
-port's TorchDetector on the CPU, unchanged and at the same tolerances
-tests/test_stored_goldens.py holds the JAX detector to.
+canvas, and stub_golden_results_auto.json, auto canvases; and their
+preprocess_mode=device twins stub_golden_results_device.json and
+stub_golden_results_auto_device.json) through the port's TorchDetector on
+the CPU, unchanged and at the same tolerances tests/test_stored_goldens.py
+holds the JAX detector to.
 
 The forward is a torch twin of tests/stub_model.stub_apply (deterministic,
 image-dependent, well-separated predictions), routed through the port's
@@ -23,16 +25,18 @@ from megadetector_tpu_torch.models.detector import TorchDetector
 
 from stub_model import CELL
 from test_reference_golden import _structured_images, IMAGE_SIZE
-from test_stored_goldens import AUTO_GOLDEN_FILE, GOLDEN_FILE, SIZES
+from test_stored_goldens import (AUTO_DEVICE_GOLDEN_FILE, AUTO_GOLDEN_FILE,
+                                 DEVICE_GOLDEN_FILE, GOLDEN_FILE, SIZES)
 
 
 class TorchStub(torch.nn.Module):
-    """Torch twin of stub_model.stub_apply: NHWC float [0, 1] ->
-    [B, A, 8] decoded predictions in canvas pixels."""
+    """Torch twin of stub_model.stub_apply: NHWC uint8 pixels (the host
+    path) or float [0, 1] (the device letterbox) -> [B, A, 8] decoded
+    predictions in canvas pixels."""
 
     def forward(self, x, decode=True):
         assert decode, 'the stub emits decoded predictions only'
-        x = x.float()
+        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
         b, hgt, wid, _ = x.shape
         ny, nx = hgt // CELL, wid // CELL
         cells = x.reshape(b, ny, CELL, nx, CELL, 3)
@@ -56,7 +60,7 @@ class TorchStub(torch.nn.Module):
         return pred.reshape(b, ny * nx, 8)
 
 
-def _stub_detector(tmp_path_factory, canvas_mode):
+def _stub_detector(tmp_path_factory, canvas_mode, preprocess_mode='host'):
     config = yolov5.YoloV5Config('yolov5n', num_classes=3)
     path = str(tmp_path_factory.mktemp('torch_stub') / 'stub.npz')
     save_checkpoint(yolov5.init_params(config, seed=0), path, {
@@ -66,6 +70,7 @@ def _stub_detector(tmp_path_factory, canvas_mode):
     # pre_nms_topk above the stub's one candidate per cell, as in
     # tests/stub_model.make_stub_detector
     detector = TorchDetector(path, {'canvas_mode': canvas_mode,
+                                    'preprocess_mode': preprocess_mode,
                                     'pre_nms_topk': 131}, device='cpu')
     detector.model = TorchStub()
     detector._fused_decode = False
@@ -77,6 +82,22 @@ def _stub_detector(tmp_path_factory, canvas_mode):
 def test_port_matches_stored_golden(tmp_path_factory, canvas_mode,
                                     golden_file):
     detector = _stub_detector(tmp_path_factory, canvas_mode)
+    _check_golden(detector, canvas_mode, golden_file)
+
+
+@pytest.mark.parametrize('canvas_mode,golden_file', [
+    ('square', DEVICE_GOLDEN_FILE), ('auto', AUTO_DEVICE_GOLDEN_FILE)])
+def test_port_matches_stored_device_golden(tmp_path_factory, canvas_mode,
+                                           golden_file):
+    """preprocess_mode=device: the device letterbox (ops/preprocess_device
+    letterbox_batch) feeds the stub, as the JAX device golden was made."""
+
+    detector = _stub_detector(tmp_path_factory, canvas_mode, 'device')
+    _check_golden(detector, canvas_mode, golden_file)
+    assert detector.programs_run == len(SIZES)
+
+
+def _check_golden(detector, canvas_mode, golden_file):
     got = [detector.generate_detections_one_image(
         img, image_id='golden_{:02d}.jpg'.format(i),
         detection_threshold=0.005)

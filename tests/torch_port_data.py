@@ -7,8 +7,8 @@ whose detect heads give well-separated detections.
 import numpy as np
 import torch
 
-from megadetector_tpu.ops.boxes import letterbox
 from megadetector_tpu_torch.models import yolov5
+from megadetector_tpu_torch.ops.boxes import letterbox
 
 IMAGE_SIZE = 256
 # Two aspect buckets: 4 images fill one batch of 4, 3 leave one tail
