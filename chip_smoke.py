@@ -26,7 +26,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      128->128 at 120x160 and a 1x1 512->256 at 120x160 (int32 and int8
      outputs), the bottleneck kernel at C 64 / 256 / 512 (240x320, 60x80,
      15x20) with and without the residual; outputs must be identical; ms
-     per call of both;
+     per call of both, and of torch._int_mm on the 1x1 int32 case (the
+     same function: the conv kernel's library yardstick);
   7. int8 main path: the port's quantize_checkpoint on phase 4's
      yolov5l6 (calibrated on two 320 px uniform images from
      RandomState(1)), load_detector on cuda with conv_backend xla, then
@@ -59,7 +60,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      letterbox against the host letterbox's canvas; counts (no stem: l0
      takes the letterbox's float output, so the bf16 epilogue runs for l0
      too); images/s;
- 13. card vs CPU, bf16 forward at 320 px, batch 2: the int8 bounds.
+ 13. card vs CPU, bf16 forward at 320 px, batch 2: the int8 bounds;
+ 14. the int8 experiments' kernels vs plain on the card: the 3x3 conv
+     (E1-E4) at batch 8 on the stride-8/16/32 levels of a 960x1280 canvas
+     (120x160x128, 60x80x256, 30x40x512), every epilogue (f32,
+     f32_nosilu, bf16, hybrid), in_ratio 0.8531 and 1.0, at the
+     experiments' scales and at scales that spread the outputs over the
+     int8 range; the GEMM (E5, E6) at 65536x1152x1152 and 38400x2304x256,
+     int32 and fused int8; outputs must be identical; ms of kernel, plain
+     version and the yardsticks (im2col + torch._int_mm + plain epilogue,
+     requant pass + B2; torch._int_mm);
+ 15. the six experiment entry points (megadetector_tpu_torch/experiments)
+     through their main() at batch 8 with a chain of 2: every variant
+     launches exactly the kernels it declares, once per step.
 With --profile, after phase 13: torch.profiler over one bf16 device
 program on a 960x1280 batch of 8 (device time by kernel, idle share).
 Then one JSON line with every kernel's record (time, plain time, bound,
@@ -83,6 +96,28 @@ STEM_SOURCE = 'megadetector_tpu_torch/csrc/l0_fused.cu'
 STEM_REPLACES = 'megadetector_tpu/ops/pallas_l0.py:80'
 SILU_SOURCE = 'megadetector_tpu_torch/csrc/silu_bf16.cu'
 SILU_REPLACES = 'experiments/exp_pallas_l0_retry.py:71'
+GEMM_SOURCE = 'megadetector_tpu_torch/csrc/gemm_int8.cu'
+# The experiments' kernels: label -> (record name, source, TPU kernel,
+# the epilogue and in_ratio of the record's conv time (E1-E4), entry point)
+EXPERIMENTS = {
+    'E1': ('conv3x3_int8_exp_f32', CONV_SOURCE,
+           'experiments/exp_pallas_conv3x3.py:70', ('f32', 0.8531),
+           'exp_conv3x3'),
+    'E2': ('conv3x3_int8_exp_f32_nosilu', CONV_SOURCE,
+           'experiments/exp_pallas_conv3x3b.py:66', ('f32_nosilu', 0.8531),
+           'exp_conv3x3b'),
+    'E3': ('conv3x3_int8_exp_bf16', CONV_SOURCE,
+           'experiments/exp_pallas_conv3x3c.py:64', ('bf16', 0.8531),
+           'exp_conv3x3c'),
+    'E4': ('conv3x3_int8_exp_hybrid', CONV_SOURCE,
+           'experiments/exp_pallas_conv3x3d.py:60', ('hybrid', 1.0),
+           'exp_conv3x3d'),
+    'E5': ('gemm_int8', GEMM_SOURCE, 'experiments/exp_pallas_int8_chain.py:82',
+           None, 'exp_int8_chain'),
+    'E6': ('gemm_int8', GEMM_SOURCE,
+           'experiments/exp_pallas_int8_matmul.py:73', None,
+           'exp_int8_matmul'),
+}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) for bound_ms
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -462,6 +497,25 @@ def phase_int8_kernels(device):
         print('conv kernel == plain (int32 and int8) on {}: kernel {:.4f} '
               'ms, plain {:.4f} ms per call'.format(name, ms, plain_ms),
               flush=True)
+        if k == 1:
+            # the 1x1 int32 case is a GEMM: torch._int_mm (cuBLASLt, int8
+            # tensor cores) computes the same function
+            x2d = x.view(-1, shape[3])
+            w2d = w.view(cout, shape[3]).t().contiguous()
+            lib = torch._int_mm(x2d, w2d)
+            if not torch.equal(lib.view(got.shape[:3] + (cout,)),
+                               conv_int8.conv_int8(x, w, scale, bias, stride,
+                                                   pads, None)):
+                raise AssertionError('torch._int_mm and the conv kernel '
+                                     'differ on {} (int32)'.format(name))
+            int32_ms = _time_ms(lambda: conv_int8.conv_int8(
+                x, w, scale, bias, stride, pads, None), reps=10)
+            lib_ms = _time_ms(lambda: torch._int_mm(x2d, w2d), reps=10)
+            conv_lib = (int32_ms, lib_ms)
+            print('  int32 on {}: kernel {:.4f} ms, torch._int_mm (same '
+                  'function, identical) {:.4f} ms'.format(name, int32_ms,
+                                                          lib_ms), flush=True)
+            del x2d, w2d, lib
         del x, w, got, ref
         torch.cuda.empty_cache()
 
@@ -521,7 +575,7 @@ def phase_int8_kernels(device):
                    'launches': None, 'max_abs_err': float(conv_err),
                    'ms': ms, 'plain_ms': plain_ms,
                    'bound_ms': conv_bound[0], 'bound_by': conv_bound[1],
-                   'library_ms': None}
+                   'library_ms': conv_lib[1]}
     ms, plain_ms = bottleneck_ms['C=256 [8,60,80] shortcut=True']
     pixels = 8 * 60 * 80
     fused_bound = _bound(pixels * 256 * 2 + 256 * 256 * 10 + 256 * 16,
@@ -534,9 +588,11 @@ def phase_int8_kernels(device):
                          'bound_by': fused_bound[1], 'library_ms': None}
     print('int8 bounds: conv 3x3 s1 [8,120,160,128]->128 {:.4f} ms ({}), '
           'bottleneck C=256 [8,60,80] {:.4f} ms ({}); library call: none '
-          '(PyTorch has no CUDA int8 convolution)'.format(
-              conv_bound[0], conv_bound[1], fused_bound[0], fused_bound[1]),
-          flush=True)
+          'for a 3x3 (PyTorch has no CUDA int8 convolution); the conv '
+          'record\'s library_ms is torch._int_mm on the 1x1 512->256 int32 '
+          'case ({:.4f} ms, the kernel {:.4f} ms there)'.format(
+              conv_bound[0], conv_bound[1], fused_bound[0], fused_bound[1],
+              conv_lib[1], conv_lib[0]), flush=True)
     return conv_record, bottleneck_record
 
 
@@ -754,11 +810,13 @@ def phase_bf16_kernels(device, params):
 
 def _reset_counts():
     from megadetector_tpu_torch.ops import (bottleneck_int8, conv_int8,
-                                            cuda_nms, l0_fused, silu_bf16)
+                                            cuda_nms, gemm_int8, l0_fused,
+                                            silu_bf16)
 
-    for module in (bottleneck_int8, conv_int8, cuda_nms, l0_fused,
-                   silu_bf16):
+    for module in (bottleneck_int8, conv_int8, cuda_nms, gemm_int8,
+                   l0_fused, silu_bf16):
         module.launches = 0
+    conv_int8.exp_launches = 0
 
 
 def _counts():
@@ -1050,6 +1108,197 @@ def phase_profile(detector, buckets):
             device_us(e) / 1e3, e.count, e.key[:90]), flush=True)
 
 
+def _uniform(rng, device, shape, lo, hi):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+        np.float32)).to(device)
+
+
+def phase_exp_kernels(device):
+    """The experiments' conv (E1-E4) and GEMM (E5, E6) kernels vs their
+    plain versions on the card; returns {label: record} without launches."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.experiments import _harness
+    from megadetector_tpu_torch.ops import conv_int8, gemm_int8
+
+    rng = np.random.RandomState(14)
+    epilogues = sorted(conv_int8.EXP_EPILOGUES)
+    conv_ms, conv_err, conv_lib = {}, {}, {}
+    for h, w, c in ((120, 160, 128), (60, 80, 256), (30, 40, 512)):
+        x = _int8_input(rng, device, (8, h, w, c))
+        w_hwio = torch.from_numpy(rng.randint(-127, 128, (3, 3, c, c))
+                                  .astype(np.int8))
+        wk = conv_int8.prepare_weight(w_hwio).to(device)
+        w_hwio = w_hwio.to(device)
+        level = '[8,{},{},{}]'.format(h, w, c)
+        for scales in ((1e-6, 4e-6), (1e-4, 4e-4)):
+            scale = _uniform(rng, device, (c,), *scales)
+            bias = _uniform(rng, device, (c,), -0.5, 0.5)
+            for ratio in (0.8531, 1.0):
+                for epilogue in epilogues:
+                    args = (x, wk, scale, bias, ratio, 0.043, epilogue)
+                    got = conv_int8.conv3x3_int8_exp(*args)
+                    torch.cuda.synchronize()
+                    ref = conv_int8.conv3x3_int8_exp_reference(*args)
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            'experiments\' conv kernel disagrees with its '
+                            'plain version on {} {} in_ratio {} scales {}: '
+                            '{} of {} elements differ'.format(
+                                level, epilogue, ratio, scales,
+                                int((got != ref).sum()), got.numel()))
+                    conv_err[epilogue] = max(conv_err.get(epilogue, 0), int(
+                        (got.int() - ref.int()).abs().max()))
+                    if scales[0] == 1e-4:
+                        conv_ms[(level, epilogue, ratio)] = (
+                            _time_ms(lambda: conv_int8.conv3x3_int8_exp(
+                                *args), reps=10),
+                            _time_ms(lambda: conv_int8.
+                                     conv3x3_int8_exp_reference(*args),
+                                     reps=2, warmup=1))
+        # yardsticks at the experiments' scales, f32 at in_ratio 0.8531
+        args = (x, w_hwio, scale, bias, 0.8531, 0.043, 'f32')
+        im2col_ms = _time_ms(lambda: _harness.im2col_conv_exp(*args),
+                             reps=5)
+        b2_ms = _time_ms(lambda: conv_int8.conv_int8(
+            conv_int8.requant_input_reference(x, 0.8531), wk, scale, bias,
+            (1, 1), (1, 1, 1, 1), 0.043), reps=5)
+        patches = _harness.im2col_patches(x)
+        w2d = w_hwio.reshape(9 * c, c)
+        conv_lib[level] = _time_ms(lambda: torch._int_mm(patches, w2d),
+                                   reps=10)
+        for ratio in (0.8531, 1.0):
+            print('exp conv kernel == plain on {} in_ratio {}: {}'.format(
+                level, ratio, ', '.join(
+                    '{} {:.4f} ms (plain {:.4f})'.format(
+                        e, *conv_ms[(level, e, ratio)]) for e in epilogues)),
+                flush=True)
+        print('  yardsticks on {}: im2col + torch._int_mm + plain f32 '
+              'epilogue {:.4f} ms, requant pass + B2 {:.4f} ms, torch._int_mm '
+              'of the materialized patches alone {:.4f} ms'.format(
+                  level, im2col_ms, b2_ms, conv_lib[level]), flush=True)
+        del x, wk, w_hwio, got, ref, patches
+        torch.cuda.empty_cache()
+
+    gemm, gemm_err = {}, {}
+    for m, k, n in ((65536, 1152, 1152), (38400, 2304, 256)):
+        a = _int8_input(rng, device, (m, k))
+        b = _int8_input(rng, device, (k, n))
+        times = {}
+        for requant in (None, 3e-4):
+            got = gemm_int8.gemm_int8(a, b, requant)
+            torch.cuda.synchronize()
+            ref = gemm_int8.gemm_int8_reference(a, b, requant)
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                raise AssertionError(
+                    'GEMM kernel disagrees with its plain version at {}x{}x{}'
+                    ' ({}): {} of {} elements differ'.format(
+                        m, k, n, 'int32' if requant is None else 'int8',
+                        int((got != ref).sum()), got.numel()))
+            gemm_err[(m, k, n)] = max(gemm_err.get((m, k, n), 0), int(
+                (got.long() - ref.long()).abs().max()))
+            times[requant] = (
+                _time_ms(lambda: gemm_int8.gemm_int8(a, b, requant), reps=10),
+                _time_ms(lambda: gemm_int8.gemm_int8_reference(a, b, requant),
+                         reps=2, warmup=1))
+            del got, ref
+        lib_ms = _time_ms(lambda: torch._int_mm(a, b), reps=10)
+        gemm[(m, k, n)] = (times, lib_ms)
+        print('GEMM kernel == plain at {}x{}x{}: int32 {:.4f} ms (plain '
+              '{:.4f}), fused int8 {:.4f} ms (plain {:.4f}); torch._int_mm '
+              '{:.4f} ms'.format(m, k, n, *times[None], *times[3e-4], lib_ms),
+              flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+    records = {}
+    # conv: int8 x, w in, scale, bias; int8 out; 2 ops per int8 MAC
+    pixels = 8 * 120 * 160
+    conv_bound = _bound(pixels * 128 * 2 + 9 * 128 * 128 + 128 * 8,
+                        2 * pixels * 128 * 128 * 9, INT8_OPS_PER_MS)
+    for label in ('E1', 'E2', 'E3', 'E4'):
+        name, source, replaces, (epilogue, ratio), _ = EXPERIMENTS[label]
+        ms, plain_ms = conv_ms[('[8,120,160,128]', epilogue, ratio)]
+        records[label] = {
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': None,
+            'max_abs_err': float(conv_err[epilogue]), 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': conv_bound[0],
+            'bound_by': conv_bound[1],
+            'library_ms': conv_lib['[8,120,160,128]']}
+    for label, (m, k, n) in (('E5', (65536, 1152, 1152)),
+                             ('E6', (38400, 2304, 256))):
+        name, source, replaces, _, _ = EXPERIMENTS[label]
+        times, lib_ms = gemm[(m, k, n)]
+        bound = _bound(m * k + k * n + m * n * 4, 2.0 * m * k * n,
+                       INT8_OPS_PER_MS)
+        records[label] = {
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': None,
+            'max_abs_err': float(gemm_err[(m, k, n)]), 'ms': times[None][0], 'plain_ms': times[None][1],
+            'bound_ms': bound[0], 'bound_by': bound[1], 'library_ms': lib_ms}
+    fused_bound = _bound(65536 * 1152 * 2 + 1152 * 1152,
+                         2.0 * 65536 * 1152 * 1152, INT8_OPS_PER_MS)
+    print('experiment bounds: conv 3x3 [8,120,160,128]->128 {:.4f} ms ({}); '
+          'GEMM 65536x1152x1152 int32 {:.4f} ms ({}), fused int8 {:.4f} ms '
+          '({}); 38400x2304x256 int32 {:.4f} ms ({}); library call: '
+          'torch._int_mm (for the conv: of the materialized im2col patches, '
+          'no epilogue)'.format(
+              conv_bound[0], conv_bound[1], records['E5']['bound_ms'],
+              records['E5']['bound_by'], fused_bound[0], fused_bound[1],
+              records['E6']['bound_ms'], records['E6']['bound_by']),
+          flush=True)
+    return records
+
+
+def phase_experiments():
+    """The six experiment entry points through main() at batch 8; returns
+    {label: launches of its kernel}."""
+
+    import importlib
+
+    import torch
+
+    from megadetector_tpu_torch.experiments import _harness
+    from megadetector_tpu_torch.ops import (bottleneck_int8, cuda_nms,
+                                            l0_fused, silu_bf16)
+
+    launches = {}
+    for label, (_, source, _, _, module_name) in EXPERIMENTS.items():
+        module = importlib.import_module(
+            'megadetector_tpu_torch.experiments.' + module_name)
+        kernel = 'gemm_int8' if source == GEMM_SOURCE else 'conv3x3_int8_exp'
+        _reset_counts()
+        result = module.main(['--batch', '8', '--chain', '2', '--iters', '2'])
+        torch.cuda.synchronize()
+        totals = _harness.launch_counts()
+        others = (cuda_nms.launches, bottleneck_int8.launches,
+                  l0_fused.launches, silu_bf16.launches)
+        for rec in result['records']:
+            want = {k: rec['calls'] * rec['expect'].get(k, 0)
+                    for k in _harness.KERNELS}
+            if rec['launches'] != want:
+                raise AssertionError('{} {}: launches {}, expected {}'.format(
+                    label, rec['name'], rec['launches'], want))
+        summed = {k: sum(r['launches'][k] for r in result['records'])
+                  for k in _harness.KERNELS}
+        if summed != totals or any(others) or totals[kernel] == 0:
+            raise AssertionError(
+                '{}: launches {} in the run, {} in its variants, others {}'
+                .format(label, totals, summed, others))
+        launches[label] = totals[kernel]
+        print('{} entry point {}: {} variants, launches {} (each variant '
+              'exactly its declared kernels once per step)'.format(
+                  label, module_name, len(result['records']), totals),
+              flush=True)
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1163,10 +1412,20 @@ def main():
         phase_bf16_card_vs_cpu(detector, config, params)
         if '--profile' in sys.argv[1:]:
             phase_profile(detector, buckets)
+        del detector
+        torch.cuda.empty_cache()
+
+    # 14. the experiments' kernels vs plain
+    exp_records = phase_exp_kernels(device)
+
+    # 15. the experiment entry points
+    for label, n in phase_experiments().items():
+        exp_records[label]['launches'] = n
 
     print(card)
     print(json.dumps({'kernels': [record, conv_record, bottleneck_record,
-                                  stem_record, silu_record]}))
+                                  stem_record, silu_record] +
+                      [exp_records[label] for label in sorted(EXPERIMENTS)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -33,10 +33,42 @@
 // PyTorch's CUDA sigmoid, the requant as an IEEE division (not a
 // reciprocal multiply) and rintf (round half to even, like jnp.round and
 // torch.round).
+//
+// The same tile loop, as a template, also replaces the int8 experiments'
+// 3x3 conv kernels (md_conv3x3_int8_exp), which compute other functions
+// than the chain conv:
+//   experiments/exp_pallas_conv3x3.py  _conv3x3_kernel (E1)
+//   experiments/exp_pallas_conv3x3b.py _conv_kernel    (E2)
+//   experiments/exp_pallas_conv3x3c.py _conv_kernel    (E3)
+//   experiments/exp_pallas_conv3x3d.py _kernel         (E4)
+// Their rank3 / flat / im2col modes and band heights are TPU schedules of
+// one function: a 3x3 stride-1 SAME conv of rq(x), with
+//   rq(x) = clamp(rint(f32(x) * f32(in_ratio)), -127, 127)
+// applied to each staged x word on its way into shared memory (skipped at
+// in_ratio 1; rq(0) = 0 keeps the zero padding exact), and one of four
+// epilogues, each ending in md_requant_mul (a multiply by f32(1/y_scale),
+// as the experiments requantize):
+//   f32         q(silu(acc * scale + bias))                 (E1-E4)
+//   f32_nosilu  q(acc * scale + bias)                       (E2)
+//   bf16        a = bf16(f32(acc)), y = bf16(bf16(a * bf16(scale))
+//               + bf16(bias)), q(y * bf16(1 / d(y)))        (E3, E4)
+//   hybrid      y = acc * scale + bias (f32),
+//               q(y * (1 / d(bf16(y))))                     (E4)
+// with d(y) = bf16(1 + bf16(exp(-y))), rounded at E7's points
+// (bf16_epilogue.cuh), and the final product in f32: the JAX bodies
+// convert it (and, in hybrid, the sigmoid) to f32 at once, and XLA drops
+// the bf16 rounding before such a convert. s32 -> bf16 goes through f32
+// (two roundings), as XLA converts it; a single rounding
+// (__int2bfloat16_rn) differs above 2^24. The f32 affine keeps two
+// roundings, as the chain's does (XLA on the CPU contracts it into one
+// FMA, which moves the int8 result by 1 on rare elements). The input
+// requant costs about 25 instructions per staged word, paid again for
+// each tap and each block of 64 output channels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_epilogue.cuh"
 #include "int8_epilogue.cuh"
 
 namespace {
@@ -47,6 +79,11 @@ constexpr int kBKW = 16;       // K words (4 int8 each) per stage
 constexpr int kLds = kBKW + 1; // padded shared row stride, in words
 constexpr int kThreads = 256;
 
+// Epilogue kinds; kChain is the int8 chain's (int32 out when
+// requant == 0), the others the experiments' (ops/conv_int8.py
+// EXP_EPILOGUES holds the same codes)
+enum Epilogue { kChain = 0, kF32 = 1, kF32NoSilu = 2, kBf16 = 3, kHybrid = 4 };
+
 struct ConvArgs {
   const int8_t* x;
   const int8_t* wt;
@@ -56,8 +93,33 @@ struct ConvArgs {
   int batch, h, w, cin, cout, kh, kw, sh, sw, pt, pl, ho, wo;
   float y_scale;
   int requant;
+  float in_ratio;  // kRequantIn only
+  float inv_y;     // the experiments' epilogues only
 };
 
+// The experiments' epilogue of one int32 accumulator
+template <int kEpi>
+__device__ __forceinline__ int8_t exp_epilogue(int acc, float scale,
+                                               float bias, float inv_y) {
+  float y;
+  if constexpr (kEpi == kBf16) {
+    const float a = md_bf16_round(__int2float_rn(acc));
+    y = md_bf16_round(__fmul_rn(a, md_bf16_round(scale)));
+    y = md_bf16_round(__fadd_rn(y, md_bf16_round(bias)));
+    y = __fmul_rn(y, md_sigmoid_bf16(y));
+  } else {
+    y = md_affine(acc, scale, bias);
+    if constexpr (kEpi == kF32) {
+      y = md_silu(y);
+    } else if constexpr (kEpi == kHybrid) {
+      y = __fmul_rn(y, __fdiv_rn(1.0f, md_sigmoid_denominator_bf16(
+                               md_bf16_round(y))));
+    }
+  }
+  return md_requant_mul(y, inv_y);
+}
+
+template <bool kRequantIn, int kEpi>
 __global__ void __launch_bounds__(kThreads)
     conv_int8_kernel(const ConvArgs a) {
   __shared__ int As[kBM][kLds];
@@ -118,7 +180,14 @@ __global__ void __launch_bounds__(kThreads)
       const bool cok = cw < cin_words;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        As[ty + 16 * i][tx] = (cok && xrow[i]) ? __ldg(xrow[i] + cw) : 0;
+        if constexpr (kRequantIn) {
+          As[ty + 16 * i][tx] = (cok && xrow[i])
+                                    ? md_requant_x4(__ldg(xrow[i] + cw),
+                                                    a.in_ratio)
+                                    : 0;
+        } else {
+          As[ty + 16 * i][tx] = (cok && xrow[i]) ? __ldg(xrow[i] + cw) : 0;
+        }
         Bs[ty + 16 * i][tx] = (cok && wrow[i]) ? __ldg(wrow[i] + cw) : 0;
       }
       __syncthreads();
@@ -148,7 +217,10 @@ __global__ void __launch_bounds__(kThreads)
       const int n = n0 + tx + 16 * j;
       if (n >= a.cout) continue;
       const size_t o = (size_t)m * a.cout + n;
-      if (a.requant) {
+      if constexpr (kEpi != kChain) {
+        static_cast<int8_t*>(a.out)[o] =
+            exp_epilogue<kEpi>(acc[i][j], a.scale[n], a.bias[n], a.inv_y);
+      } else if (a.requant) {
         static_cast<int8_t*>(a.out)[o] = md_requant(
             md_silu(md_affine(acc[i][j], a.scale[n], a.bias[n])),
             a.y_scale);
@@ -156,6 +228,27 @@ __global__ void __launch_bounds__(kThreads)
         static_cast<int*>(a.out)[o] = acc[i][j];
       }
     }
+  }
+}
+
+template <bool kRequantIn, int kEpi>
+int launch(const ConvArgs& a, cudaStream_t stream) {
+  const long long m_total = (long long)a.batch * a.ho * a.wo;
+  if (m_total <= 0 || a.cout <= 0) return 0;
+  const dim3 grid((unsigned)((m_total + kBM - 1) / kBM),
+                  (unsigned)((a.cout + kBN - 1) / kBN));
+  conv_int8_kernel<kRequantIn, kEpi><<<grid, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRequantIn>
+int launch_exp(const ConvArgs& a, int epilogue, cudaStream_t stream) {
+  switch (epilogue) {
+    case kF32: return launch<kRequantIn, kF32>(a, stream);
+    case kF32NoSilu: return launch<kRequantIn, kF32NoSilu>(a, stream);
+    case kBf16: return launch<kRequantIn, kBf16>(a, stream);
+    case kHybrid: return launch<kRequantIn, kHybrid>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -169,15 +262,28 @@ int md_conv_int8(const int8_t* x, const int8_t* w, const float* scale,
                  int cin, int cout, int kh, int kw, int sh, int sw, int pt,
                  int pl, int ho, int wo, float y_scale, int requant,
                  void* stream) {
-  const long long m_total = (long long)batch * ho * wo;
-  if (m_total <= 0 || cout <= 0) return 0;
-  ConvArgs a{x,  w,  scale, bias, out, batch, h,  w_, cin, cout,
-             kh, kw, sh,    sw,   pt,  pl,    ho, wo, y_scale, requant};
-  const dim3 grid((unsigned)((m_total + kBM - 1) / kBM),
-                  (unsigned)((cout + kBN - 1) / kBN));
-  conv_int8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a);
-  return static_cast<int>(cudaGetLastError());
+  ConvArgs a{x,  w,  scale,   bias,    out,  batch, h,  w_, cin, cout,
+             kh, kw, sh,      sw,      pt,   pl,    ho, wo, y_scale,
+             requant, 1.0f, 1.0f};
+  return launch<false, kChain>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The experiments' conv: 3x3, stride 1, SAME (pads 1), int8 out.
+// requant_in != 0 requantizes x at in_ratio on the way in; inv_y is
+// f32(1 / y_scale); epilogue is kF32, kF32NoSilu, kBf16 or kHybrid.
+// Launches on [stream]. Returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for an unknown epilogue.
+int md_conv3x3_int8_exp(const int8_t* x, const int8_t* w, const float* scale,
+                        const float* bias, void* out, int batch, int h,
+                        int w_, int cin, int cout, int requant_in,
+                        float in_ratio, float inv_y, int epilogue,
+                        void* stream) {
+  ConvArgs a{x,  w, scale, bias, out, batch, h, w_, cin, cout, 3,
+             3,  1, 1,     1,    1,   h,     w_, 0.0f, 1,   in_ratio,
+             inv_y};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return requant_in ? launch_exp<true>(a, epilogue, s)
+                    : launch_exp<false>(a, epilogue, s);
 }
 
 }  // extern "C"

@@ -42,27 +42,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_epilogue.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ __nv_bfloat16 silu_one(float y) {
-  const float e = bf16_round(expf(-y));
-  const float d = bf16_round(__fadd_rn(1.0f, e));
-  const float s = bf16_round(__fdiv_rn(1.0f, d));
-  return __float2bfloat16_rn(__fmul_rn(y, s));
-}
 
 __device__ __forceinline__ float with_bias(__nv_bfloat16 x,
                                            const __nv_bfloat16* bias,
                                            unsigned ch) {
   const float xf = __bfloat162float(x);
   if (bias == nullptr) return xf;
-  return bf16_round(__fadd_rn(xf, __bfloat162float(bias[ch])));
+  return md_bf16_round(__fadd_rn(xf, __bfloat162float(bias[ch])));
 }
 
 // How the 8-element kernel finds the channels of its vector
@@ -88,24 +79,26 @@ __global__ void __launch_bounds__(kThreads)
   if (map == kNoBias) {
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      yo[k] = silu_one(__bfloat162float(xi[k]));
+      yo[k] = md_silu_bf16_one(__bfloat162float(xi[k]));
   } else if (map == kConsecutive) {
     const unsigned ch0 = i0 % c;
     uint4 bv = *reinterpret_cast<const uint4*>(bias + ch0);
     const __nv_bfloat16* bk = reinterpret_cast<const __nv_bfloat16*>(&bv);
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      yo[k] = silu_one(bf16_round(__fadd_rn(__bfloat162float(xi[k]),
-                                            __bfloat162float(bk[k]))));
+      yo[k] = md_silu_bf16_one(md_bf16_round(__fadd_rn(
+          __bfloat162float(xi[k]), __bfloat162float(bk[k]))));
   } else if (map == kShared) {
     const float b = __bfloat162float(bias[(i0 / inner) % c]);
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      yo[k] = silu_one(bf16_round(__fadd_rn(__bfloat162float(xi[k]), b)));
+      yo[k] = md_silu_bf16_one(
+          md_bf16_round(__fadd_rn(__bfloat162float(xi[k]), b)));
   } else {
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      yo[k] = silu_one(with_bias(xi[k], bias, ((i0 + k) / inner) % c));
+      yo[k] = md_silu_bf16_one(
+          with_bias(xi[k], bias, ((i0 + k) / inner) % c));
   }
   out[v] = res;
 }
@@ -118,7 +111,7 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const unsigned ch = bias ? (i / inner) % c : 0u;
-  out[i] = silu_one(with_bias(x[i], bias, ch));
+  out[i] = md_silu_bf16_one(with_bias(x[i], bias, ch));
 }
 
 }  // namespace

@@ -48,6 +48,12 @@ _FUNCTIONS = {
     'md_l0_fused': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, bias (or null), out, n, c, inner, stream
     'md_silu_bf16': [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # x, w, scale, bias, out, batch, h, w, cin, cout, requant_in, in_ratio,
+    # inv_y, epilogue, stream
+    'md_conv3x3_int8_exp': [_P, _P, _P, _P, _P] + [_I] * 6 + [_F, _F, _I,
+                                                             _P],
+    # a, b, out, m, n, k, requant, scale, stream
+    'md_gemm_int8': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

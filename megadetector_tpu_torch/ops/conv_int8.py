@@ -13,8 +13,12 @@ bounds it.
 Layouts: activations NHWC int8; weights [Cout, kh, kw, Cin] int8
 (prepare_weight, once at load); pads (top, bottom, left, right).
 
-conv_int8 takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises.
+conv3x3_int8_exp runs the same kernel's tile loop with an input requant
+and the int8 experiments' epilogues (experiments/exp_pallas_conv3x3*.py,
+E1-E4): see its docstring and the source note.
+
+conv_int8 and conv3x3_int8_exp take the plain version only for tensors on
+the CPU. For CUDA tensors they launch the kernel or raise.
 """
 
 import numpy as np
@@ -22,9 +26,16 @@ import torch
 import torch.nn.functional as F
 
 from megadetector_tpu_torch.ops import _build
+from megadetector_tpu_torch.ops.silu_bf16 import (
+    sigmoid_bf16_reference, sigmoid_denominator_bf16_reference)
 
 # Kernel launches made by conv_int8 (the plain version never counts)
 launches = 0
+# Kernel launches made by conv3x3_int8_exp
+exp_launches = 0
+
+# The experiments' epilogues and their codes in csrc/conv_int8.cu
+EXP_EPILOGUES = {'f32': 1, 'f32_nosilu': 2, 'bf16': 3, 'hybrid': 4}
 
 
 def prepare_weight(w_q_hwio):
@@ -52,6 +63,14 @@ def round_to_int8(y, scale):
     arithmetic (float32 division, round half to even)."""
 
     return torch.clamp(torch.round(y / scalar_like(scale, y)), -127,
+                       127).to(torch.int8)
+
+
+def multiply_to_int8(y, inv_scale):
+    """clamp(round(y * f32(inv_scale)), -127, 127) as int8: the int8
+    experiments' requant, a float32 multiply (not a division)."""
+
+    return torch.clamp(torch.round(y * scalar_like(inv_scale, y)), -127,
                        127).to(torch.int8)
 
 
@@ -89,6 +108,64 @@ def conv_int8_reference(x_q, w, scale, bias, stride, pads, y_scale=None):
     if y_scale is None:
         return acc
     return chain_epilogue_reference(acc, scale, bias, y_scale)
+
+
+def requant_input_reference(x_q, in_ratio):
+    """clamp(round(f32(x) * f32(in_ratio)), -127, 127) as int8, the
+    experiments' in-kernel input requant; x itself at in_ratio 1."""
+
+    if float(in_ratio) == 1.0:
+        return x_q
+    return multiply_to_int8(x_q.to(torch.float32), in_ratio)
+
+
+def exp_epilogue_reference(acc, scale, bias, y_scale, epilogue):
+    """
+    int32 accumulators [..., Cout] -> int8 through one of the experiments'
+    epilogues, rounding where their JAX bodies round on the CPU (y_scale's
+    reciprocal is taken in double, then rounded to float32):
+
+        f32         q(silu(acc * scale + bias))
+        f32_nosilu  q(acc * scale + bias)
+        bf16        a = bf16(f32(acc)); y = bf16(bf16(a * bf16(scale)) +
+                    bf16(bias)); q(y * bf16(1 / d(y)))
+        hybrid      y = acc * scale + bias; q(y * (1 / d(bf16(y))))
+
+    with q(y) = multiply_to_int8(y, 1 / y_scale), silu = y * sigmoid(y) in
+    float32, d(y) = bf16(1 + bf16(exp(-y))) and every unmarked step in
+    float32. XLA lowers a bf16 op to a float32 op and a rounding convert,
+    but drops the rounding where the graph converts the result straight
+    back to float32: so the last product of the bf16 epilogue and the
+    sigmoid of the hybrid one stay float32. s32 -> bf16 goes through
+    float32, two roundings, as XLA converts it.
+    """
+
+    if epilogue == 'bf16':
+        bf16 = torch.bfloat16
+        a = acc.to(torch.float32).to(bf16)
+        y = a * scale.to(bf16) + bias.to(bf16)
+        y = y.to(torch.float32) * sigmoid_bf16_reference(y).to(
+            torch.float32)
+    else:
+        y = acc.to(torch.float32) * scale + bias
+        if epilogue == 'f32':
+            y = y * torch.sigmoid(y)
+        elif epilogue == 'hybrid':
+            d = sigmoid_denominator_bf16_reference(y.to(torch.bfloat16))
+            y = y * torch.reciprocal(d.to(torch.float32))
+        elif epilogue != 'f32_nosilu':
+            raise ValueError('unknown epilogue {!r}; one of {}'.format(
+                epilogue, sorted(EXP_EPILOGUES)))
+    return multiply_to_int8(y, 1.0 / float(y_scale))
+
+
+def conv3x3_int8_exp_reference(x_q, w, scale, bias, in_ratio, y_scale,
+                               epilogue):
+    """Plain version of conv3x3_int8_exp (same arguments)."""
+
+    acc = conv_int32_reference(requant_input_reference(x_q, in_ratio), w,
+                               (1, 1), (1, 1, 1, 1))
+    return exp_epilogue_reference(acc, scale, bias, y_scale, epilogue)
 
 
 def _check_cuda(x_q, w, scale, bias, y_scale):
@@ -171,4 +248,59 @@ def conv_int8(x_q, w, scale, bias, stride, pads, y_scale=None):
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, 'md_conv_int8')
     launches += 1
+    return out
+
+
+def conv3x3_int8_exp(x_q, w, scale, bias, in_ratio, y_scale, epilogue='f32'):
+    """
+    The int8 experiments' 3x3 stride-1 SAME conv (E1-E4): the input
+    requantized at in_ratio (skipped at 1.0), int8 x int8 -> int32, then
+    one of EXP_EPILOGUES (exp_epilogue_reference), int8 out.
+
+    Args:
+        x_q: [B, H, W, Cin] int8 (Cin a multiple of 4 on the card)
+        w: [Cout, 3, 3, Cin] int8 (prepare_weight)
+        scale, bias: [Cout] float32
+        in_ratio: producer scale / x scale (Python float)
+        y_scale: the output grid (Python float)
+        epilogue: 'f32', 'f32_nosilu', 'bf16' or 'hybrid'
+
+    Returns:
+        [B, H, W, Cout] int8 at y_scale
+
+    CPU tensors run the plain version. CUDA tensors run the kernel (built
+    at first use); anything else raises.
+    """
+
+    global exp_launches
+
+    if epilogue not in EXP_EPILOGUES:
+        raise ValueError('conv3x3_int8_exp: unknown epilogue {!r}; one of '
+                         '{}'.format(epilogue, sorted(EXP_EPILOGUES)))
+    if x_q.device.type == 'cpu' and w.device.type == 'cpu':
+        return conv3x3_int8_exp_reference(x_q, w, scale, bias, in_ratio,
+                                          y_scale, epilogue)
+    if x_q.device.type != 'cuda':
+        raise ValueError('conv3x3_int8_exp: x on {}; need the CPU or a CUDA '
+                         'device'.format(x_q.device))
+    _check_cuda(x_q, w, scale, bias, y_scale)
+    if tuple(w.shape[1:3]) != (3, 3):
+        raise ValueError('conv3x3_int8_exp: need a 3x3 weight, got {}'.format(
+            tuple(w.shape)))
+    b, h, wd, cin = x_q.shape
+    cout = w.shape[0]
+    out = torch.empty((b, h, wd, cout), device=x_q.device, dtype=torch.int8)
+    if out.numel() == 0:
+        return out
+
+    lib = _build.load_library()
+    with torch.cuda.device(x_q.device):
+        err = lib.md_conv3x3_int8_exp(
+            x_q.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, h, wd, cin, cout,
+            int(float(in_ratio) != 1.0), float(np.float32(in_ratio)),
+            float(np.float32(1.0 / float(y_scale))), EXP_EPILOGUES[epilogue],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, err, 'md_conv3x3_int8_exp')
+    exp_launches += 1
     return out

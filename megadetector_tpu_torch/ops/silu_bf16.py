@@ -32,12 +32,26 @@ def _channel_view(bias, x):
     return bias.view((1, -1) + (1,) * (x.dim() - 2))
 
 
+def sigmoid_denominator_bf16_reference(y):
+    """1 + exp(-y) of a bf16 tensor as XLA computes it in bf16: exp and
+    1 + each computed in float and rounded to bf16."""
+
+    return 1 + torch.exp(-y)
+
+
+def sigmoid_bf16_reference(y):
+    """sigmoid of a bf16 tensor as XLA computes it in bf16: exp, 1 + and
+    1 / each computed in float and rounded to bf16."""
+
+    return torch.reciprocal(sigmoid_denominator_bf16_reference(y))
+
+
 def silu_bf16_reference(x, bias=None):
     """Plain version: [x] (+ bias over dim 1) then SiLU, as a chain of bf16
     torch ops, each computed in float and rounded to bf16."""
 
     y = x if bias is None else x + _channel_view(bias, x)
-    return y * torch.reciprocal(1 + torch.exp(-y))
+    return y * sigmoid_bf16_reference(y)
 
 
 def _is_dense(x):

@@ -1,6 +1,7 @@
 """
 The port on a CUDA card: the greedy-NMS, int8 conv, fused int8
-bottleneck, fused stem and bf16 epilogue kernels against their plain
+bottleneck, fused stem and bf16 epilogue kernels, and the int8
+experiments' conv (every epilogue) and GEMM kernels, against their plain
 versions, and the card's selection, NMS and detectors (float32, int8 chain
 and bf16) against the CPU's.
 
@@ -21,8 +22,8 @@ from megadetector_tpu_torch.models.convert_weights import save_checkpoint
 from megadetector_tpu_torch.models import yolov5
 from megadetector_tpu_torch.models.convert_weights import quantize_checkpoint
 from megadetector_tpu_torch.ops import (bottleneck_int8, conv_int8,
-                                        cuda_nms, decode, l0_fused, nms,
-                                        silu_bf16)
+                                        cuda_nms, decode, gemm_int8,
+                                        l0_fused, nms, silu_bf16)
 
 import torch_port_data as data
 
@@ -360,3 +361,99 @@ def test_bf16_detector_on_card_matches_cpu(cuda_device, tmp_path):
                      ref[..., 5:])
     assert np.percentile(d_score, 99) < 0.02
     assert np.percentile(np.abs(got[..., :2] - ref[..., :2]), 99) < 2.0
+
+
+@pytest.mark.parametrize('epilogue', sorted(conv_int8.EXP_EPILOGUES))
+@pytest.mark.parametrize('b,h,w,cin,cout,in_ratio', [
+    (2, 24, 40, 128, 128, 0.8531),
+    (1, 13, 21, 36, 72, 1.0),      # H, W, Cout off the tiles
+    (1, 9, 30, 516, 200, 0.8531),  # Cin off the 64-byte stage
+    (1, 5, 7, 4, 8, 1.25),
+])
+def test_exp_conv_kernel_identical_to_plain(cuda_device, b, h, w, cin, cout,
+                                            in_ratio, epilogue):
+    """The experiments' conv (E1-E4) at ragged shapes, every epilogue,
+    with and without the input requant: identical to the plain version on
+    the card; within the f32 bar of the CPU's (its sigmoid and exp differ
+    by an ulp from the card's), identical where the epilogue has no
+    float32 sigmoid."""
+
+    rng = np.random.RandomState(cin + cout + h)
+    x = _int8(rng, (b, h, w, cin))
+    wq = _int8(rng, (cout, 3, 3, cin))
+    scale = torch.from_numpy(rng.uniform(1e-6, 4e-6, cout).astype(
+        np.float32))
+    bias = torch.from_numpy(rng.uniform(-0.5, 0.5, cout).astype(np.float32))
+    dev = [t.to(cuda_device) for t in (x, wq, scale, bias)]
+    before = conv_int8.exp_launches
+    got = conv_int8.conv3x3_int8_exp(*dev, in_ratio, 0.043, epilogue)
+    torch.cuda.synchronize()
+    assert conv_int8.exp_launches == before + 1
+    assert got.dtype == torch.int8 and tuple(got.shape) == (b, h, w, cout)
+    ref_card = conv_int8.conv3x3_int8_exp_reference(*dev, in_ratio, 0.043,
+                                                    epilogue)
+    assert torch.equal(got, ref_card)
+    ref = conv_int8.conv3x3_int8_exp_reference(x, wq, scale, bias, in_ratio,
+                                               0.043, epilogue)
+    diff = (got.cpu().int() - ref.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+
+
+def test_exp_conv_template_keeps_the_chain_conv(cuda_device):
+    """At in_ratio 1 with the f32 epilogue, the experiments' conv and the
+    chain conv (B2) share the int32 sums; their int8 outputs differ only
+    where B2's division by y_scale and the multiply by f32(1 / y_scale)
+    round apart."""
+
+    rng = np.random.RandomState(4)
+    x = _int8(rng, (2, 16, 24, 64)).to(cuda_device)
+    wq, scale, bias = [t.to(cuda_device) for t in _conv_case(rng, 64, 64, 3)]
+    chain = conv_int8.conv_int8(x, wq, scale, bias, (1, 1), (1, 1, 1, 1),
+                                0.043)
+    exp = conv_int8.conv3x3_int8_exp(x, wq, scale, bias, 1.0, 0.043, 'f32')
+    diff = (chain.int() - exp.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize('requant', [None, 3e-4])
+@pytest.mark.parametrize('m,k,n', [(512, 1152, 512), (1000, 300, 72),
+                                   (37, 45, 29), (65, 130, 66), (1, 4, 4),
+                                   (4097, 2304, 256)])
+def test_gemm_kernel_identical_to_plain(cuda_device, m, k, n, requant):
+    """gemm_int8 (E5, E6) at the check shapes and off every tile (M, N, K
+    not multiples of 64; K and N not multiples of 4 take the byte loads):
+    identical to the plain version on the card and to numpy's int64
+    product."""
+
+    rng = np.random.RandomState(m + k + n)
+    a, b = _int8(rng, (m, k)), _int8(rng, (k, n))
+    before = gemm_int8.launches
+    got = gemm_int8.gemm_int8(a.to(cuda_device), b.to(cuda_device), requant)
+    torch.cuda.synchronize()
+    assert gemm_int8.launches == before + 1
+    ref_card = gemm_int8.gemm_int8_reference(a.to(cuda_device),
+                                             b.to(cuda_device), requant)
+    assert got.dtype == ref_card.dtype and torch.equal(got, ref_card)
+    want = a.numpy().astype(np.int64) @ b.numpy().astype(np.int64)
+    if requant is None:
+        assert np.array_equal(got.cpu().numpy(), want)
+    else:
+        assert torch.equal(got.cpu(), gemm_int8.gemm_int8_reference(
+            a, b, requant))
+
+
+def test_exp_kernels_reject_bad_inputs(cuda_device):
+    x = torch.zeros((1, 8, 8, 8), dtype=torch.int8, device=cuda_device)
+    s = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError, match='3x3'):
+        conv_int8.conv3x3_int8_exp(
+            x, torch.zeros((8, 1, 1, 8), dtype=torch.int8,
+                           device=cuda_device), s, s, 1.0, 0.1)
+    a = torch.zeros((8, 16), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        gemm_int8.gemm_int8(a, a)
+    with pytest.raises(ValueError):
+        gemm_int8.gemm_int8(a.float(), a.t().float())
+    with pytest.raises(ValueError):
+        gemm_int8.gemm_int8(a, a.t())
+

@@ -61,7 +61,15 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.visualization.visualization_utils',
                 'megadetector_tpu_torch.models.convert_weights',
                 'megadetector_tpu_torch.models.detector',
-                'megadetector_tpu_torch.detection.run_detector_batch'}
+                'megadetector_tpu_torch.detection.run_detector_batch',
+                'megadetector_tpu_torch.ops.gemm_int8',
+                'megadetector_tpu_torch.experiments._harness',
+                'megadetector_tpu_torch.experiments.exp_conv3x3',
+                'megadetector_tpu_torch.experiments.exp_conv3x3b',
+                'megadetector_tpu_torch.experiments.exp_conv3x3c',
+                'megadetector_tpu_torch.experiments.exp_conv3x3d',
+                'megadetector_tpu_torch.experiments.exp_int8_chain',
+                'megadetector_tpu_torch.experiments.exp_int8_matmul'}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
