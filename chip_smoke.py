@@ -24,10 +24,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   6. int8 kernels vs plain on the card, at yolov5l6 shapes of a 960x1280
      canvas, batch 8: the conv kernel on l1's 3x3 s2 64->128, a 3x3 s1
      128->128 at 120x160 and a 1x1 512->256 at 120x160 (int32 and int8
-     outputs), the bottleneck kernel at C 64 / 256 / 512 (240x320, 60x80,
-     15x20) with and without the residual; outputs must be identical; ms
-     per call of both, and of torch._int_mm on the 1x1 int32 case (the
-     same function: the conv kernel's library yardstick);
+     outputs), then on the most frequent shape of each chain-conv class
+     (l1; a 3x3 s1 and a 1x1 per stride level, from the model's own
+     geometry), with TOP/s and the share of the bound, and every one of
+     the 130 chain convs' shapes timed alone, summed per forward, under
+     the tiling ops/conv_int8.conv_tiling picks and under every other
+     16-byte tiling (each held to the picked one's output); the
+     bottleneck kernel at C 64 / 256 / 512 (240x320, 60x80, 15x20) with
+     and without the residual; outputs must be identical; ms per call of
+     both, and of torch._int_mm on the 1x1 int32 case (the same function:
+     the conv kernel's library yardstick);
   7. int8 main path: the port's quantize_checkpoint on phase 4's
      yolov5l6 (calibrated on two 320 px uniform images from
      RandomState(1)), load_detector on cuda with conv_backend xla, then
@@ -73,14 +79,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
  15. the six experiment entry points (megadetector_tpu_torch/experiments)
      through their main() at batch 8 with a chain of 2: every variant
      launches exactly the kernels it declares, once per step.
-With --profile, after phase 13: torch.profiler over one bf16 device
-program on a 960x1280 batch of 8 (device time by kernel, idle share).
+With --profile: torch.profiler over one device program on a 960x1280
+batch of 8 (device time by kernel, idle share), int8 under both backends
+in phase 7 and bf16 after phase 13.
 Then one JSON line with every kernel's record (time, plain time, bound,
 library yardstick, launches on the main path), and last the device line.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -118,6 +126,12 @@ EXPERIMENTS = {
            'experiments/exp_pallas_int8_matmul.py:73', None,
            'exp_int8_matmul'),
 }
+
+# The port's kernel functions (csrc/*.cu), for the profile's sums
+PORT_KERNELS = ('nms_mask_kernel', 'nms_sweep_kernel', 'conv_int8_kernel',
+                'bottleneck_int8_kernel', 'l0_fused_kernel',
+                'silu_bf16_vec8_kernel', 'silu_bf16_kernel',
+                'gemm_int8_kernel')
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) for bound_ms
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
@@ -453,13 +467,105 @@ def _int8_input(rng, device, shape):
         np.int8)).to(device)
 
 
-def phase_int8_kernels(device):
+def _conv_key(d):
+    return (d['h'], d['w'], d['cin'], d['cout'], d['k'], d['stride'],
+            d['pads'])
+
+
+def _conv_classes(chain):
+    """The int8 main path's chain convs by class: l1 (3x3 s2), then a 3x3
+    s1 and a 1x1 at each stride level; {class: most frequent shape key}
+    in forward order."""
+
+    import collections
+
+    members = {}
+    for d in chain:
+        if d['name'] == 'l1':
+            order, name = (0, 0), 'l1 3x3 s2'
+        elif d['stride'] == 1:
+            level = 960 // d['h']
+            order = (level, -d['k'])
+            name = '{0}x{0} s1 at stride {1}'.format(d['k'], level)
+        else:
+            continue
+        members.setdefault((order, name), []).append(_conv_key(d))
+    return collections.OrderedDict(
+        (name, collections.Counter(keys).most_common(1)[0][0])
+        for (_, name), keys in sorted(members.items()))
+
+
+def _conv_int8_ops(key, batch=8):
+    """(bytes, operations) of one chain conv: x, w, scale and bias read
+    once, the int8 output written once; 2 operations per int8 MAC."""
+
+    h, w, cin, cout, k, stride, pads = key
+    ho = (h + pads[0] + pads[1] - k) // stride + 1
+    wo = (w + pads[2] + pads[3] - k) // stride + 1
+    macs = batch * ho * wo * cout * k * k * cin
+    return (batch * h * w * cin + cout * k * k * cin + 8 * cout +
+            batch * ho * wo * cout, 2 * macs)
+
+
+def _sweep_tilings(x, w, scale, bias, key):
+    """Every 16-byte tiling of the conv kernel on one chain conv, each
+    held to the wrapper's output and timed through the C entry point (no
+    Python wrapper between launches: a 1x1 at 15x20 takes ~0.02 ms):
+    (conv_tiling's pick, {(bm, bn, bk): ms}), printed."""
+
+    import itertools
+
+    import torch
+
+    from megadetector_tpu_torch.ops import _build, conv_int8
+
+    h, w_, cin, cout, k, stride, pads = key
+    ho = (h + pads[0] + pads[1] - k) // stride + 1
+    wo = (w_ + pads[2] + pads[3] - k) // stride + 1
+    want = conv_int8.conv_int8(x, w, scale, bias, (stride, stride), pads,
+                               0.02)
+    out = torch.empty_like(want)
+    lib = _build.load_library()
+    times = {}
+    for bm, bn, bk in itertools.product((64, 128), (64, 128), (64, 128)):
+        if cin % bk:
+            continue
+        code = (conv_int8.INST_VEC16 |
+                (conv_int8.INST_BK128 if bk == 128 else 0) |
+                (conv_int8.INST_BM128 if bm == 128 else 0) |
+                (conv_int8.INST_BN128 if bn == 128 else 0))
+
+        def call():
+            _build.check_launch(lib, lib.md_conv_int8(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), 8, h, w_, cin, cout, k, k,
+                stride, stride, pads[0], pads[2], ho, wo, 0.02, 1, code,
+                torch.cuda.current_stream().cuda_stream), 'md_conv_int8')
+        call()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError('conv tiling {} differs on {}'.format(
+                (bm, bn, bk), key))
+        times[(bm, bn, bk)] = _time_ms(call, reps=20)
+    pick = tuple(conv_int8.conv_tiling(8 * ho * wo, cin, cout)[:3])
+    print('  tilings of [8,{},{},{}]->{} {}x{} s{} (bm/bn/bk ms): {}; '
+          'conv_tiling picks {}'.format(
+              h, w_, cin, cout, k, k, stride, ', '.join(
+                  '{}/{}/{} {:.4f}'.format(*t, ms)
+                  for t, ms in sorted(times.items())), pick), flush=True)
+    return pick, times
+
+
+def phase_int8_kernels(device, config):
     """Conv and bottleneck kernels vs their plain versions on the card at
     yolov5l6 shapes (960x1280 canvas, batch 8); returns their records."""
+
+    import collections
 
     import numpy as np
     import torch
 
+    from megadetector_tpu_torch.models.yolov5 import activated_conv_shapes
     from megadetector_tpu_torch.ops import bottleneck_int8, conv_int8
 
     rng = np.random.RandomState(6)
@@ -494,8 +600,13 @@ def phase_int8_kernels(device):
         plain_ms = _time_ms(lambda: conv_int8.conv_int8_reference(
             x, w, scale, bias, stride, pads, 0.02), reps=2, warmup=1)
         conv_ms[name] = (ms, plain_ms)
+        n_bytes, n_ops = _conv_int8_ops(shape[1:3] + (shape[3], cout, k,
+                                                      stride[0], pads))
+        bound = _bound(n_bytes, n_ops, INT8_OPS_PER_MS)
         print('conv kernel == plain (int32 and int8) on {}: kernel {:.4f} '
-              'ms, plain {:.4f} ms per call'.format(name, ms, plain_ms),
+              'ms ({:.1f} TOP/s, {:.3f} of the {:.4f} ms bound), plain '
+              '{:.4f} ms per call'.format(name, ms, n_ops / ms / 1e9,
+                                          bound[0] / ms, bound[0], plain_ms),
               flush=True)
         if k == 1:
             # the 1x1 int32 case is a GEMM: torch._int_mm (cuBLASLt, int8
@@ -512,12 +623,81 @@ def phase_int8_kernels(device):
                 x, w, scale, bias, stride, pads, None), reps=10)
             lib_ms = _time_ms(lambda: torch._int_mm(x2d, w2d), reps=10)
             conv_lib = (int32_ms, lib_ms)
-            print('  int32 on {}: kernel {:.4f} ms, torch._int_mm (same '
-                  'function, identical) {:.4f} ms'.format(name, int32_ms,
-                                                          lib_ms), flush=True)
+            # int32 out: 4 bytes an output instead of 1
+            m_out = x2d.shape[0] * cout
+            int32_bound = _bound(n_bytes + 3 * m_out - 8 * cout, n_ops,
+                                 INT8_OPS_PER_MS)
+            print('  int32 on {}: kernel {:.4f} ms ({:.1f} TOP/s, {:.3f} of '
+                  'the {:.4f} ms bound, {}), torch._int_mm (same function, '
+                  'identical) {:.4f} ms'.format(
+                      name, int32_ms, n_ops / int32_ms / 1e9,
+                      int32_bound[0] / int32_ms, int32_bound[0],
+                      int32_bound[1], lib_ms), flush=True)
             del x2d, w2d, lib
         del x, w, got, ref
         torch.cuda.empty_cache()
+
+    # Every chain conv shape of a 960x1280 batch of 8 (l0 stays float):
+    # the kernel's ms per shape under every tiling, and per class TOP/s
+    # and the bound's share after an identity check against the plain
+    # version
+    chain = activated_conv_shapes(config, 960, 1280, 8)[1:]
+    counts = collections.Counter(_conv_key(d) for d in chain)
+    classes = _conv_classes(chain)
+    shape_ms, best_ms = {}, {}
+    for key in counts:
+        h, w_, cin, cout, k, stride, pads = key
+        x = _int8_input(rng, device, (8, h, w_, cin))
+        w, scale, bias = _int8_conv_case(rng, device, cin, cout, k)
+        for name, class_key in classes.items():
+            if class_key != key:
+                continue
+            got = conv_int8.conv_int8(x, w, scale, bias, (stride, stride),
+                                      pads, 0.02)
+            torch.cuda.synchronize()
+            ref = conv_int8.conv_int8_reference(x, w, scale, bias,
+                                                (stride, stride), pads, 0.02)
+            conv_err = max(conv_err, int((got.long() - ref.long()).abs()
+                                         .max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    'conv kernel disagrees with its plain version on the '
+                    'class {} {}: {} of {} elements differ'.format(
+                        name, key, int((got != ref).sum()), got.numel()))
+        pick, times = _sweep_tilings(x, w, scale, bias, key)
+        shape_ms[key] = times[pick]
+        best_ms[key] = min(times.values())
+        del x, w
+    for name, key in classes.items():
+        h, w_, cin, cout, k, stride, pads = key
+        n_bytes, n_ops = _conv_int8_ops(key)
+        bound = _bound(n_bytes, n_ops, INT8_OPS_PER_MS)
+        ms = shape_ms[key]
+        print('conv kernel == plain, class {} ({} of the 130 chain convs): '
+              '[8,{},{},{}]->{} {}x{} s{}: {:.4f} ms, {:.1f} TOP/s, bound '
+              '{:.4f} ms ({}), {:.3f} of the bound'.format(
+                  name, counts[key], h, w_, cin, cout, k, k, stride, ms,
+                  n_ops / ms / 1e9, bound[0], bound[1], bound[0] / ms),
+              flush=True)
+    total_ms = sum(counts[key] * ms for key, ms in shape_ms.items())
+    total_ops = sum(counts[key] * _conv_int8_ops(key)[1] for key in counts)
+    kinds = collections.OrderedDict()
+    for key, ms in shape_ms.items():
+        kind = '{0}x{0} s{1}'.format(key[4], key[5])
+        n, t, ops = kinds.get(kind, (0, 0.0, 0))
+        kinds[kind] = (n + counts[key], t + counts[key] * ms,
+                       ops + counts[key] * _conv_int8_ops(key)[1])
+    print('conv kernel over the 130 chain convs of one 960x1280 batch of 8 '
+          '({} shapes, each timed alone at the tiling conv_tiling picks): '
+          '{:.3f} ms, {:.1f} TOP/s ({}); at the best tiling of each shape '
+          '{:.3f} ms'.format(
+              len(counts), total_ms, total_ops / total_ms / 1e9, ', '.join(
+                  '{} {} convs {:.3f} ms, {:.1f} TOP/s'.format(
+                      kind, n, t, ops / t / 1e9)
+                  for kind, (n, t, ops) in kinds.items()),
+              sum(counts[key] * ms for key, ms in best_ms.items())),
+          flush=True)
+    torch.cuda.empty_cache()
 
     bottleneck_ms = {}
     for c, h, w_ in ((64, 240, 320), (256, 60, 80), (512, 15, 20)):
@@ -596,7 +776,8 @@ def phase_int8_kernels(device):
     return conv_record, bottleneck_record
 
 
-def phase_int8_main_path(device, workdir, float_path, pairs, batch):
+def phase_int8_main_path(device, workdir, float_path, pairs, batch,
+                         profile=False):
     """The int8 chain through the port's entry points on the card, under
     both conv backends, and the forward's CUDA-event ms on [batch] (one
     960x1280 batch of 8); returns (int8 checkpoint path, {backend: (conv
@@ -670,6 +851,8 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch):
                   backend, n_det, batches, got[0], want_conv, batches,
                   got[1], want_fused, batches, rates[backend],
                   forward_ms[backend]), flush=True)
+        if profile:
+            phase_profile(detector, batch, 'int8 ' + backend)
     if detections['xla'] != detections['pallas']:
         raise AssertionError('int8 detections differ between the conv '
                              'backends')
@@ -1067,16 +1250,14 @@ def phase_bf16_card_vs_cpu(detector, config, params):
               d_score, d_xy), flush=True)
 
 
-def phase_profile(detector, buckets):
+def phase_profile(detector, batch, label):
     """torch.profiler over one device program (forward, selection, NMS)
-    on a 960x1280 batch of 8: device time by kernel and the idle share."""
+    on [batch] (a 960x1280 batch of 8): device time by kernel and the idle
+    share."""
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    batch = np.stack([info['img_processed']
-                      for info in buckets[(960, 1280)]])
     detector.run_program(batch, 0.005, 0.45)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1099,13 +1280,23 @@ def phase_profile(detector, buckets):
               if e.device_type == DeviceType.CUDA and device_us(e) > 0 and
               not e.key.startswith('Activity Buffer')]
     busy_ms = sum(device_us(e) for e in events) / 1e3
-    print('profile, bf16 device program on a 960x1280 batch of 8: wall '
+    print('profile, {} device program on a 960x1280 batch of 8: wall '
           '{:.3f} ms (profiler on), device busy {:.3f} ms, idle share '
-          '{:.3f}'.format(wall_ms, busy_ms, 1.0 - busy_ms / wall_ms),
+          '{:.3f}'.format(label, wall_ms, busy_ms, 1.0 - busy_ms / wall_ms),
           flush=True)
     for e in sorted(events, key=device_us, reverse=True)[:16]:
         print('  {:>9.3f} ms  {:>5d} x  {}'.format(
             device_us(e) / 1e3, e.count, e.key[:90]), flush=True)
+    # The port's kernels, every instance of a template summed
+    sums = {}
+    for e in events:
+        for name in PORT_KERNELS:
+            if re.search(r'(^|[\s:]){}[<(]'.format(name), e.key):
+                ms, n = sums.get(name, (0.0, 0))
+                sums[name] = (ms + device_us(e) / 1e3, n + e.count)
+    print('  the port\'s kernels: {}'.format(', '.join(
+        '{} {:.3f} ms over {} launches'.format(name, ms, n)
+        for name, (ms, n) in sorted(sums.items()))), flush=True)
 
 
 def _uniform(rng, device, shape, lo, hi):
@@ -1362,11 +1553,12 @@ def main():
         torch.cuda.empty_cache()
 
         # 6. int8 kernels vs plain
-        conv_record, bottleneck_record = phase_int8_kernels(device)
+        conv_record, bottleneck_record = phase_int8_kernels(device, config)
 
         # 7. int8 main path
         q_path, counts, rates, forward_ms, detector = phase_int8_main_path(
-            device, workdir, float_path, pairs, batch)
+            device, workdir, float_path, pairs, batch,
+            profile='--profile' in sys.argv[1:])
         conv_record['launches'] = counts['xla'][0]
         bottleneck_record['launches'] = counts['pallas'][1]
         print('int8 main path throughput on {}: {:.3f} images/s '
@@ -1411,7 +1603,7 @@ def main():
         # 13. bf16 card vs CPU
         phase_bf16_card_vs_cpu(detector, config, params)
         if '--profile' in sys.argv[1:]:
-            phase_profile(detector, buckets)
+            phase_profile(detector, batch, 'bf16')
         del detector
         torch.cuda.empty_cache()
 

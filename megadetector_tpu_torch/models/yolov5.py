@@ -652,3 +652,40 @@ class YoloV5(nn.Module):
             _decode_level(raw, config.anchors[lvl],
                           float(config.strides[lvl]), config.num_outputs)
             for lvl, raw in enumerate(heads)], dim=1)
+
+
+def activated_conv_shapes(config, height, width, batch=1):
+    """
+    The geometry of every activated conv of [config]'s network on a
+    [batch, height, width] input, in forward order (l0 first, then the
+    convs the int8 chain quantizes), from a forward on the meta device (no
+    weights, no arithmetic). Returns dicts with name (the parameter path),
+    batch, h, w (input), cin, cout, k, stride, pads (top, bottom, left,
+    right), ho and wo.
+    """
+
+    with torch.device('meta'):
+        model = YoloV5(config).eval()
+    names = {m: n for n, m in model.named_modules()}
+    shapes = []
+
+    def record(module, inputs, output):
+        _, cin, h, w = inputs[0].shape
+        _, cout, ho, wo = output.shape
+        k = module.weight.shape[2]
+        shapes.append({
+            'name': names[module][len('layers.'):], 'batch': batch, 'h': h,
+            'w': w, 'cin': cin, 'cout': cout, 'k': k,
+            'stride': module.stride, 'pads': q.conv_pads(module.padding, k),
+            'ho': ho, 'wo': wo})
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if type(m) is Conv and m.act]
+    try:
+        with torch.inference_mode():
+            model(torch.zeros((batch, height, width, 3), device='meta'),
+                  decode=False)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return shapes

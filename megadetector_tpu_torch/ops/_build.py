@@ -38,8 +38,8 @@ _F = ctypes.c_float
 _FUNCTIONS = {
     'md_greedy_nms': [_P, _P, _P, _P, _I, _I, _F, _P],
     # x, w, scale, bias, out, batch, h, w, cin, cout, kh, kw, sh, sw,
-    # pad_top, pad_left, ho, wo, y_scale, requant, stream
-    'md_conv_int8': [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _P],
+    # pad_top, pad_left, ho, wo, y_scale, requant, instance, stream
+    'md_conv_int8': [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _I, _P],
     # x, w1, scale1, bias1, mid_scale, w2, scale2, bias2, cv2_scale,
     # s_in, out_scale, shortcut, out, batch, h, w, c, stream
     'md_bottleneck_int8': [_P, _P, _P, _P, _F, _P, _P, _P, _F, _F, _F, _I,
@@ -49,9 +49,9 @@ _FUNCTIONS = {
     # x, bias (or null), out, n, c, inner, stream
     'md_silu_bf16': [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     # x, w, scale, bias, out, batch, h, w, cin, cout, requant_in, in_ratio,
-    # inv_y, epilogue, stream
+    # inv_y, epilogue, instance, stream
     'md_conv3x3_int8_exp': [_P, _P, _P, _P, _P] + [_I] * 6 + [_F, _F, _I,
-                                                             _P],
+                                                             _I, _P],
     # a, b, out, m, n, k, requant, scale, stream
     'md_gemm_int8': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }

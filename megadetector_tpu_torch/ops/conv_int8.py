@@ -6,9 +6,10 @@ Replaces megadetector_tpu/ops/pallas_conv.py conv3x3_chain / _kernel (the
 3x3 stride-1 SAME instance) and runs every other conv of the chain too (1x1
 and 3x3 stride 2: the XLA branch of quantization.chained_conv), so on a
 card no chain conv runs outside a hand-written kernel. The kernel is an
-implicit GEMM accumulating __dp4a into int32 with the chain epilogue
-(*scale + bias, SiLU, requant to int8) fused; see the source note for what
-bounds it.
+implicit GEMM on the int8 tensor cores (wgmma, fed by a cp.async ring in
+shared memory) with the chain epilogue (*scale + bias, SiLU, requant to
+int8) fused; see the source note for what bounds it. conv_tiling picks its
+instance (tile and copy width) for each call.
 
 Layouts: activations NHWC int8; weights [Cout, kh, kw, Cin] int8
 (prepare_weight, once at load); pads (top, bottom, left, right).
@@ -20,6 +21,8 @@ E1-E4): see its docstring and the source note.
 conv_int8 and conv3x3_int8_exp take the plain version only for tensors on
 the CPU. For CUDA tensors they launch the kernel or raise.
 """
+
+import collections
 
 import numpy as np
 import torch
@@ -36,6 +39,55 @@ exp_launches = 0
 
 # The experiments' epilogues and their codes in csrc/conv_int8.cu
 EXP_EPILOGUES = {'f32': 1, 'f32_nosilu': 2, 'bf16': 3, 'hybrid': 4}
+
+# The H100's streaming multiprocessors: a grid with fewer blocks leaves
+# some idle
+SMS = 132
+
+# csrc/conv_int8.cu's instance bits
+INST_VEC16, INST_BK128, INST_BM128, INST_BN128 = 1, 2, 4, 8
+
+ConvTiling = collections.namedtuple('ConvTiling', 'bm bn bk vec code')
+
+
+def conv_tiling(m, cin, cout, aligned16=True):
+    """
+    The conv kernel's instance for an [m, cout] output over Cin channels:
+
+        vec 16 (16-byte cp.async) when Cin % 16 == 0 and x and w are
+            16-byte aligned ([aligned16]), else 4 (four 4-byte words a
+            chunk)
+        bk  128 (K bytes per stage) when vec is 16 and Cin % 128 == 0,
+            else 64
+        bn  64 when Cout <= 64, else 128
+        bm  128 when that grid has at least SMS blocks, else 64 (the
+            15x20 and 30x40 levels' few pixels; no split-K, which would
+            break the fused epilogue)
+
+    Returns a ConvTiling whose code is the kernel's instance code.
+    """
+
+    vec = 16 if cin % 16 == 0 and aligned16 else 4
+    bk = 128 if vec == 16 and cin % 128 == 0 else 64
+    bn = 64 if cout <= 64 else 128
+    bm = 128 if conv_grid(m, cout, 128, bn) >= SMS else 64
+    code = ((INST_VEC16 if vec == 16 else 0) |
+            (INST_BK128 if bk == 128 else 0) |
+            (INST_BM128 if bm == 128 else 0) |
+            (INST_BN128 if bn == 128 else 0))
+    return ConvTiling(bm, bn, bk, vec, code)
+
+
+def conv_grid(m, cout, bm, bn):
+    """Blocks of the kernel's grid for an [m, cout] output in bm x bn
+    tiles."""
+
+    return -(-m // bm) * -(-cout // bn)
+
+
+def _tiling_for(x_q, w, m):
+    return conv_tiling(m, x_q.shape[3], w.shape[0],
+                       x_q.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def prepare_weight(w_q_hwio):
@@ -245,6 +297,7 @@ def conv_int8(x_q, w, scale, bias, stride, pads, y_scale=None):
             x_q.data_ptr(), w.data_ptr(), sp, bp, out.data_ptr(), b, h, wd,
             cin, cout, kh, kw, int(stride[0]), int(stride[1]), int(pads[0]),
             int(pads[2]), ho, wo, ys, int(y_scale is not None),
+            _tiling_for(x_q, w, b * ho * wo).code,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, 'md_conv_int8')
     launches += 1
@@ -300,6 +353,7 @@ def conv3x3_int8_exp(x_q, w, scale, bias, in_ratio, y_scale, epilogue='f32'):
             out.data_ptr(), b, h, wd, cin, cout,
             int(float(in_ratio) != 1.0), float(np.float32(in_ratio)),
             float(np.float32(1.0 / float(y_scale))), EXP_EPILOGUES[epilogue],
+            _tiling_for(x_q, w, b * h * wd).code,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, 'md_conv3x3_int8_exp')
     exp_launches += 1

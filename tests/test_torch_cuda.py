@@ -154,20 +154,35 @@ def _conv_case(rng, cin, cout, k):
     return w, scale, bias
 
 
-@pytest.mark.parametrize('b,h,w,cin,cout,k,stride,pads', [
-    (2, 16, 16, 128, 128, 3, (1, 1), (1, 1, 1, 1)),
-    (1, 13, 21, 36, 72, 3, (1, 1), (1, 1, 1, 1)),
-    (2, 17, 23, 64, 96, 3, (2, 2), (1, 1, 1, 1)),
-    (1, 9, 30, 516, 200, 1, (1, 1), (0, 0, 0, 0)),
-    (1, 8, 12, 4, 8, 6, (2, 2), (2, 2, 2, 2)),
-    (1, 10, 11, 24, 40, 3, (2, 1), (1, 1, 1, 0)),
+# The last column is the instance conv_tiling picks, (bm, bn, bk, vec):
+# M off both tiles ([1,13,21], [3,15,20]), Cout 8 to 1024, Cin 4 / 24 /
+# 36 / 516 on 4-byte copies and 64 / 128 / 768 / 1024 on 16-byte ones,
+# a long K (3x3 over 1024), and both tiles of the small-grid rule
+@pytest.mark.parametrize('b,h,w,cin,cout,k,stride,pads,tiling', [
+    (2, 16, 16, 128, 128, 3, (1, 1), (1, 1, 1, 1), (64, 128, 128, 16)),
+    (1, 13, 21, 36, 72, 3, (1, 1), (1, 1, 1, 1), (64, 128, 64, 4)),
+    (2, 17, 23, 64, 96, 3, (2, 2), (1, 1, 1, 1), (64, 128, 64, 16)),
+    (1, 9, 30, 516, 200, 1, (1, 1), (0, 0, 0, 0), (64, 128, 64, 4)),
+    (1, 8, 12, 4, 8, 6, (2, 2), (2, 2, 2, 2), (64, 64, 64, 4)),
+    (1, 10, 11, 24, 40, 3, (2, 1), (1, 1, 1, 0), (64, 64, 64, 4)),
+    (3, 15, 20, 768, 1024, 1, (1, 1), (0, 0, 0, 0), (64, 128, 128, 16)),
+    (1, 15, 20, 1024, 128, 3, (1, 1), (1, 1, 1, 1), (64, 128, 128, 16)),
+    (4, 64, 66, 64, 64, 1, (1, 1), (0, 0, 0, 0), (128, 64, 64, 16)),
+    (2, 60, 80, 128, 256, 3, (1, 1), (1, 1, 1, 1), (128, 128, 128, 16)),
+    (1, 33, 41, 256, 64, 3, (2, 2), (1, 1, 1, 1), (64, 64, 128, 16)),
+    (4, 64, 66, 64, 128, 1, (1, 1), (0, 0, 0, 0), (128, 128, 64, 16)),
+    (4, 64, 66, 36, 100, 1, (1, 1), (0, 0, 0, 0), (128, 128, 64, 4)),
 ])
 def test_conv_kernel_identical_to_plain(cuda_device, b, h, w, cin, cout, k,
-                                        stride, pads):
+                                        stride, pads, tiling):
     rng = np.random.RandomState(cin + cout)
     x = _int8(rng, (b, h, w, cin))
     wq, scale, bias = _conv_case(rng, cin, cout, k)
     dev = [t.to(cuda_device) for t in (x, wq, scale, bias)]
+    ho = (h + pads[0] + pads[1] - k) // stride[0] + 1
+    wo = (w + pads[2] + pads[3] - k) // stride[1] + 1
+    assert tuple(conv_int8.conv_tiling(b * ho * wo, cin, cout)[:4]) == \
+        tiling
     for y_scale in (None, 0.013):
         before = conv_int8.launches
         got = conv_int8.conv_int8(*dev, stride, pads, y_scale)
@@ -186,6 +201,49 @@ def test_conv_kernel_identical_to_plain(cuda_device, b, h, w, cin, cout, k,
             diff = (got.cpu().int() - ref.int()).abs()
             assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) \
                 <= 1e-3
+
+
+def test_conv_kernel_misaligned_view(cuda_device):
+    """x 4 bytes past a 16-byte boundary (a contiguous view into a larger
+    buffer): the wrapper takes the 4-byte instance and the result is
+    identical; the kernel refuses the 16-byte instance for it."""
+
+    from megadetector_tpu_torch.ops import _build
+
+    rng = np.random.RandomState(11)
+    x = _int8(rng, (2, 9, 11, 64))
+    wq, scale, bias = [t.to(cuda_device) for t in _conv_case(rng, 64, 72, 3)]
+    buf = torch.zeros(x.numel() + 4, dtype=torch.int8, device=cuda_device)
+    xv = buf[4:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 == 4
+    assert conv_int8.conv_tiling(2 * 9 * 11, 64, 72, False).vec == 4
+    for y_scale in (None, 0.013):
+        before = conv_int8.launches
+        got = conv_int8.conv_int8(xv, wq, scale, bias, (1, 1), (1, 1, 1, 1),
+                                  y_scale)
+        torch.cuda.synchronize()
+        assert conv_int8.launches == before + 1
+        assert torch.equal(got, conv_int8.conv_int8_reference(
+            xv, wq, scale, bias, (1, 1), (1, 1, 1, 1), y_scale))
+    got = conv_int8.conv3x3_int8_exp(xv, wq, scale, bias, 0.8531, 0.043,
+                                     'hybrid')
+    assert torch.equal(got, conv_int8.conv3x3_int8_exp_reference(
+        xv, wq, scale, bias, 0.8531, 0.043, 'hybrid'))
+
+    lib = _build.load_library()
+    out = torch.empty((2, 9, 11, 72), dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.md_conv_int8(xv.data_ptr(), wq.data_ptr(), 0, 0, out.data_ptr(),
+                           2, 9, 11, 64, 72, 3, 3, 1, 1, 1, 1, 9, 11, 0.0, 0,
+                           conv_int8.INST_VEC16, stream)
+    assert err != 0
+    err = lib.md_conv3x3_int8_exp(
+        xv.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), 2, 9, 11, 64, 72, 0, 1.0, 1.0, 1,
+        conv_int8.INST_VEC16 | conv_int8.INST_BK128, stream)
+    assert err != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize('shortcut', [True, False])
@@ -369,6 +427,9 @@ def test_bf16_detector_on_card_matches_cpu(cuda_device, tmp_path):
     (1, 13, 21, 36, 72, 1.0),      # H, W, Cout off the tiles
     (1, 9, 30, 516, 200, 0.8531),  # Cin off the 64-byte stage
     (1, 5, 7, 4, 8, 1.25),
+    (3, 15, 20, 64, 40, 0.8531),   # 16-byte copies, 64-byte stages
+    (1, 12, 17, 768, 1024, 1.0),   # Cout 1024, 128-byte stages
+    (2, 48, 96, 128, 256, 0.8531),  # BM 128 (two warpgroups)
 ])
 def test_exp_conv_kernel_identical_to_plain(cuda_device, b, h, w, cin, cout,
                                             in_ratio, epilogue):
