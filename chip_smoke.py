@@ -30,20 +30,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      the 130 chain convs' shapes timed alone, summed per forward, under
      the tiling ops/conv_int8.conv_tiling picks and under every other
      16-byte tiling (each held to the picked one's output); the
-     bottleneck kernel at C 64 / 256 / 512 (240x320, 60x80, 15x20) with
-     and without the residual; outputs must be identical; ms per call of
-     both, and of torch._int_mm on the 1x1 int32 case (the same function:
-     the conv kernel's library yardstick);
+     bottleneck kernel on every distinct bottleneck shape of a 960x1280
+     and a 768x1280 batch of 8 (C 64 to 512), with and without the
+     residual, against its plain version and the unfused pair of conv
+     kernels (residual in torch), with kernel and unfused ms, TOP/s, the
+     bound's share, the tiling bottleneck_tiling picks or 'unfused', and
+     the routed sum over each canvas's 42 bottlenecks; outputs must be
+     identical; ms per call of both, and of torch._int_mm on the 1x1
+     int32 case (the same function: the conv kernel's library
+     yardstick);
   7. int8 main path: the port's quantize_checkpoint on phase 4's
      yolov5l6 (calibrated on two 320 px uniform images from
      RandomState(1)), load_detector on cuda with conv_backend xla, then
      pallas, load_and_run_detector_batch over the same 16 images and
      write_results_to_file; the MD JSON is checked, the conv kernel must
-     launch once per chain conv of every batch (under pallas: once per
-     chain conv outside the bottlenecks) and the bottleneck kernel once
-     per bottleneck of every batch (pallas) or never (xla), and the two
-     backends' detections must be identical; images/s of a second, timed
-     pass of each;
+     launch once per chain conv of each of the two batches (260) under
+     xla; under pallas the bottleneck kernel once per bottleneck that
+     bottleneck_tiling fuses (r = 36 of 42 a batch at both canvases) and
+     the conv kernel 260 - 4 r times; the two backends' detections must
+     be identical; images/s of a second, timed pass of each, and both
+     backends' forward ms side by side;
   8. card vs CPU, int8 forward at 320 px, batch 2: decoded obj*cls
      scores p99 |d| < 0.02 and xy p99 |d| < 2 px (the bounds of the JAX
      package's int8-vs-float test);
@@ -556,6 +562,141 @@ def _sweep_tilings(x, w, scale, bias, key):
     return pick, times
 
 
+def _bottleneck_ops(key, batch=8):
+    """(bytes, operations) of one bottleneck [batch, h, w, c]: x, w1, w2
+    and the four float vectors read once, out written once; 10 C^2 MACs
+    a pixel, 2 operations each."""
+
+    h, w, c = key
+    pixels = batch * h * w
+    return pixels * c * 2 + 10 * c * c + 16 * c, 2 * pixels * 10 * c * c
+
+
+def _bottleneck_counts(config, height, width, batch=8):
+    """{(h, w, c): bottlenecks of that shape} of one [batch, height,
+    width] forward, from the model's own geometry (each bottleneck's cv1
+    is a 1x1 C->C)."""
+
+    import collections
+
+    from megadetector_tpu_torch.models.yolov5 import activated_conv_shapes
+
+    return collections.Counter(
+        (d['h'], d['w'], d['cin'])
+        for d in activated_conv_shapes(config, height, width, batch)
+        if '.m' in d['name'] and d['name'].endswith('cv1'))
+
+
+def _fused_per_batch(config, canvases, batch=8):
+    """Bottlenecks that routing (bottleneck_tiling) fuses in one batch at
+    each canvas: {canvas: (fused, all)}."""
+
+    from megadetector_tpu_torch.ops import bottleneck_int8
+
+    out = {}
+    for height, width in canvases:
+        counts = _bottleneck_counts(config, height, width, batch)
+        out[(height, width)] = (
+            sum(n for (h, w, c), n in counts.items()
+                if bottleneck_int8.bottleneck_tiling(batch, h, w, c)),
+            sum(counts.values()))
+    return out
+
+
+def _bottleneck_shapes(rng, device, config):
+    """The bottleneck kernel on every distinct yolov5l6 bottleneck shape of
+    a 960x1280 and a 768x1280 batch of 8, with and without the residual:
+    identical to its plain version and to the unfused pair of conv kernels
+    (with the residual requant in torch); ms of both, the bound, the
+    tiling bottleneck_tiling picks (or 'unfused'), and over the 42
+    bottlenecks of each canvas the sum of the routed times. Returns
+    ({(h, w, c): (kernel ms, plain ms or None)}, max |err|)."""
+
+    import torch
+
+    from megadetector_tpu_torch.ops import bottleneck_int8, conv_int8
+
+    canvases = ((960, 1280), (768, 1280))
+    counts = {hw: _bottleneck_counts(config, *hw) for hw in canvases}
+    keys = sorted({k for cnt in counts.values() for k in cnt},
+                  key=lambda k: (k[2], -k[0]))
+    times, err = {}, 0
+    for key in keys:
+        h, w_, c = key
+        x = _int8_input(rng, device, (8, h, w_, c))
+        w1, s1, b1 = _int8_conv_case(rng, device, c, c, 1)
+        w2, s2, b2 = _int8_conv_case(rng, device, c, c, 3)
+        plain_h2 = bottleneck_int8.bottleneck_int8_reference(
+            x, w1, s1, b1, 0.021, w2, s2, b2, 0.033, 0.007, False)[0]
+
+        def unfused(shortcut):
+            h1 = conv_int8.conv_int8(x, w1, s1, b1, (1, 1), (0, 0, 0, 0),
+                                     0.021)
+            h2 = conv_int8.conv_int8(h1, w2, s2, b2, (1, 1), (1, 1, 1, 1),
+                                     0.033)
+            if not shortcut:
+                return h2
+            return bottleneck_int8.residual_requant(x, 0.007, h2, 0.033)[0]
+        for shortcut in (True, False):
+            args = (x, w1, s1, b1, 0.021, w2, s2, b2, 0.033, 0.007,
+                    shortcut)
+            got, got_scale = bottleneck_int8.bottleneck_int8(*args)
+            torch.cuda.synchronize()
+            ref = plain_h2 if not shortcut else \
+                bottleneck_int8.residual_requant(x, 0.007, plain_h2,
+                                                 0.033)[0]
+            err = max(err, int((got.long() - ref.long()).abs().max()))
+            name = 'C={} [8,{},{}] shortcut={}'.format(c, h, w_, shortcut)
+            if got_scale != ((0.007 + 0.033) if shortcut else 0.033) or \
+                    not torch.equal(got, ref):
+                raise AssertionError(
+                    'bottleneck kernel disagrees with its plain version on '
+                    '{}: {} of {} elements differ'.format(
+                        name, int((got != ref).sum()), got.numel()))
+            if not torch.equal(unfused(shortcut), got):
+                raise AssertionError('fused and unfused kernels differ on '
+                                     '{}'.format(name))
+        args = (x, w1, s1, b1, 0.021, w2, s2, b2, 0.033, 0.007, True)
+        ms = _time_ms(lambda: bottleneck_int8.bottleneck_int8(*args),
+                      reps=20)
+        unfused_ms = _time_ms(lambda: unfused(True), reps=20)
+        plain_ms = None
+        if key == (60, 80, 256):
+            plain_ms = _time_ms(
+                lambda: bottleneck_int8.bottleneck_int8_reference(*args),
+                reps=2, warmup=1)
+        times[key] = (ms, plain_ms, unfused_ms)
+        n_bytes, n_ops = _bottleneck_ops(key)
+        bound = _bound(n_bytes, n_ops, INT8_OPS_PER_MS)
+        tiling = bottleneck_int8.bottleneck_tiling(8, h, w_, c)
+        print('bottleneck kernel == plain == unfused conv pair (both '
+              'residuals) on C={} [8,{},{}]: kernel {:.4f} ms ({:.1f} '
+              'TOP/s, {:.3f} of the {:.4f} ms bound, {}), unfused {:.4f} ms'
+              '{}; {} blocks; routed {}'.format(
+                  c, h, w_, ms, n_ops / ms / 1e9, bound[0] / ms, bound[0],
+                  bound[1], unfused_ms,
+                  '' if plain_ms is None else
+                  ', plain {:.4f} ms'.format(plain_ms),
+                  bottleneck_int8.bottleneck_grid(8, h, w_),
+                  'fused (bn {}, vec {})'.format(tiling.bn, tiling.vec)
+                  if tiling else 'unfused'), flush=True)
+        del x, w1, w2, got, ref, plain_h2
+        torch.cuda.empty_cache()
+    for hw, cnt in counts.items():
+        routed = sum(n * (times[k][0] if bottleneck_int8.bottleneck_tiling(
+            8, *k) else times[k][2]) for k, n in cnt.items())
+        fused = sum(n * times[k][0] for k, n in cnt.items())
+        unfused = sum(n * times[k][2] for k, n in cnt.items())
+        print('bottleneck sum over the {} bottlenecks of a {}x{} batch of '
+              '8, each shape timed alone: routed {:.3f} ms ({} fused), all '
+              'fused {:.3f} ms, all unfused {:.3f} ms'.format(
+                  sum(cnt.values()), hw[0], hw[1], routed,
+                  sum(n for k, n in cnt.items()
+                      if bottleneck_int8.bottleneck_tiling(8, *k)),
+                  fused, unfused), flush=True)
+    return {k: (v[0], v[1]) for k, v in times.items()}, err
+
+
 def phase_int8_kernels(device, config):
     """Conv and bottleneck kernels vs their plain versions on the card at
     yolov5l6 shapes (960x1280 canvas, batch 8); returns their records."""
@@ -577,7 +718,7 @@ def phase_int8_kernels(device, config):
         ('1x1 [8,120,160,512]->256', (8, 120, 160, 512), 256, 1,
          (1, 1), (0, 0, 0, 0)),
     ]
-    conv_ms, conv_err, bottleneck_err = {}, 0, 0
+    conv_ms, conv_err = {}, 0
     for name, shape, cout, k, stride, pads in conv_cases:
         x = _int8_input(rng, device, shape)
         w, scale, bias = _int8_conv_case(rng, device, shape[3], cout, k)
@@ -699,51 +840,7 @@ def phase_int8_kernels(device, config):
           flush=True)
     torch.cuda.empty_cache()
 
-    bottleneck_ms = {}
-    for c, h, w_ in ((64, 240, 320), (256, 60, 80), (512, 15, 20)):
-        x = _int8_input(rng, device, (8, h, w_, c))
-        w1, s1, b1 = _int8_conv_case(rng, device, c, c, 1)
-        w2, s2, b2 = _int8_conv_case(rng, device, c, c, 3)
-        for shortcut in (True, False):
-            args = (x, w1, s1, b1, 0.021, w2, s2, b2, 0.033, 0.007,
-                    shortcut)
-            got, got_scale = bottleneck_int8.bottleneck_int8(*args)
-            torch.cuda.synchronize()
-            ref, ref_scale = bottleneck_int8.bottleneck_int8_reference(*args)
-            bottleneck_err = max(bottleneck_err, int(
-                (got.long() - ref.long()).abs().max()))
-            name = 'C={} [8,{},{}] shortcut={}'.format(c, h, w_, shortcut)
-            if got_scale != ref_scale or not torch.equal(got, ref):
-                raise AssertionError(
-                    'bottleneck kernel disagrees with its plain version on '
-                    '{}: {} of {} elements differ'.format(
-                        name, int((got != ref).sum()), got.numel()))
-            ms = _time_ms(lambda: bottleneck_int8.bottleneck_int8(*args),
-                          reps=10)
-            plain_ms = _time_ms(
-                lambda: bottleneck_int8.bottleneck_int8_reference(*args),
-                reps=2, warmup=1)
-            bottleneck_ms[name] = (ms, plain_ms)
-            line = 'bottleneck kernel == plain on {}: kernel {:.4f} ms, ' \
-                'plain {:.4f} ms per call'.format(name, ms, plain_ms)
-            if shortcut:
-                # the same bottleneck unfused: two conv kernel launches and
-                # the residual requant in torch (the conv_backend=xla route)
-                def unfused():
-                    h1 = conv_int8.conv_int8(x, w1, s1, b1, (1, 1),
-                                             (0, 0, 0, 0), 0.021)
-                    h2 = conv_int8.conv_int8(h1, w2, s2, b2, (1, 1),
-                                             (1, 1, 1, 1), 0.033)
-                    return bottleneck_int8.residual_requant(x, 0.007, h2,
-                                                            0.033)
-                if not torch.equal(unfused()[0], got):
-                    raise AssertionError('fused and unfused kernels differ '
-                                         'on {}'.format(name))
-                line += '; unfused through the conv kernel (identical) ' \
-                    '{:.4f} ms'.format(_time_ms(unfused, reps=10))
-            print(line, flush=True)
-        del x, got, ref
-        torch.cuda.empty_cache()
+    bottleneck_ms, bottleneck_err = _bottleneck_shapes(rng, device, config)
 
     ms, plain_ms = conv_ms['3x3 s1 [8,120,160,128]->128']
     # int8 x, w in; scale, bias; int8 out; 2 ops per int8 MAC
@@ -756,10 +853,8 @@ def phase_int8_kernels(device, config):
                    'ms': ms, 'plain_ms': plain_ms,
                    'bound_ms': conv_bound[0], 'bound_by': conv_bound[1],
                    'library_ms': conv_lib[1]}
-    ms, plain_ms = bottleneck_ms['C=256 [8,60,80] shortcut=True']
-    pixels = 8 * 60 * 80
-    fused_bound = _bound(pixels * 256 * 2 + 256 * 256 * 10 + 256 * 16,
-                         2 * pixels * 256 * 256 * 10, INT8_OPS_PER_MS)
+    ms, plain_ms = bottleneck_ms[(60, 80, 256)]
+    fused_bound = _bound(*_bottleneck_ops((60, 80, 256)), INT8_OPS_PER_MS)
     bottleneck_record = {'name': 'bottleneck_int8', 'route': 'cuda',
                          'source': BOTTLENECK_SOURCE,
                          'replaces': BOTTLENECK_REPLACES, 'launches': None,
@@ -774,6 +869,25 @@ def phase_int8_kernels(device, config):
               conv_bound[0], conv_bound[1], fused_bound[0], fused_bound[1],
               conv_lib[1], conv_lib[0]), flush=True)
     return conv_record, bottleneck_record
+
+
+def _int8_launches(detector, backend):
+    """The exact (conv, bottleneck) kernel launches of the int8 chain over
+    the main path's two batches (a 960x1280 and a 768x1280 canvas): under
+    pallas, r fused bottlenecks a batch (bottleneck_tiling) launch the
+    bottleneck kernel r times and take 2 r convs off the conv kernel's 130
+    a batch; under xla every chain conv runs the conv kernel. Returns
+    (want, a note on the routing)."""
+
+    from megadetector_tpu_torch.models.yolov5 import QConv
+
+    n_qconv = sum(isinstance(m, QConv) for m in detector.model.modules())
+    per_batch = _fused_per_batch(detector.config, ((960, 1280), (768, 1280)))
+    fused = sum(r for r, _ in per_batch.values()) if backend != 'xla' else 0
+    note = ', '.join('{}x{}: {} of {} bottlenecks fused'.format(
+        h, w, r if backend != 'xla' else 0, n)
+        for (h, w), (r, n) in per_batch.items())
+    return (2 * n_qconv - 2 * fused, fused), note
 
 
 def phase_int8_main_path(device, workdir, float_path, pairs, batch,
@@ -792,7 +906,6 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
         load_and_run_detector_batch
     from megadetector_tpu_torch.models.convert_weights import \
         quantize_checkpoint
-    from megadetector_tpu_torch.models.yolov5 import Bottleneck, QConv
     from megadetector_tpu_torch.ops import bottleneck_int8, conv_int8
 
     q_path = os.path.join(workdir, 'md_smoke_int8.npz')
@@ -808,13 +921,7 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
     for backend in ('xla', 'pallas'):
         detector = load_detector(q_path, device=device, detector_options={
             'pad_batches_to': 8, 'conv_backend': backend})
-        modules = list(detector.model.modules())
-        n_qconv = sum(isinstance(m, QConv) for m in modules)
-        n_bottleneck = sum(isinstance(m, Bottleneck) for m in modules)
-        if backend == 'pallas':
-            want_conv, want_fused = n_qconv - 2 * n_bottleneck, n_bottleneck
-        else:
-            want_conv, want_fused = n_qconv, 0
+        want, routing = _int8_launches(detector, backend)
 
         detector.programs_run = 0
         conv_int8.launches = 0
@@ -823,12 +930,11 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
         torch.cuda.synchronize()
         got = (conv_int8.launches, bottleneck_int8.launches)
         batches = detector.programs_run
-        if batches < 2 or got != (want_conv * batches, want_fused * batches):
+        if batches != 2 or got != want:
             raise AssertionError(
-                'int8 {}: {} batches, kernel launches (conv, bottleneck) {}, '
-                'expected ({} x {}, {} x {})'.format(
-                    backend, batches, got, want_conv, batches, want_fused,
-                    batches))
+                'int8 {}: {} batches (want 2), kernel launches (conv, '
+                'bottleneck) {}, expected {} ({})'.format(
+                    backend, batches, got, want, routing))
         counts[backend] = got
         n_det = _write_and_check(results, pairs, q_path, os.path.join(
             workdir, 'smoke_int8_{}.json'.format(backend)))
@@ -844,13 +950,12 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
             forward_ms[backend] = _time_ms(
                 lambda: detector.model(x, decode=False), reps=5)
         print('int8 main path, conv_backend={}: 16 images, {} detections, '
-              '{} device batches; conv kernel {} launches ({} chain convs '
-              'x {}), bottleneck kernel {} ({} x {}); {:.3f} images/s '
-              'through load_and_run_detector_batch (second pass); forward '
-              '{:.3f} ms per 960x1280 batch of 8'.format(
-                  backend, n_det, batches, got[0], want_conv, batches,
-                  got[1], want_fused, batches, rates[backend],
-                  forward_ms[backend]), flush=True)
+              '{} device batches; conv kernel {} launches, bottleneck '
+              'kernel {} ({}); {:.3f} images/s through '
+              'load_and_run_detector_batch (second pass); forward {:.3f} ms '
+              'per 960x1280 batch of 8'.format(
+                  backend, n_det, batches, got[0], got[1], routing,
+                  rates[backend], forward_ms[backend]), flush=True)
         if profile:
             phase_profile(detector, batch, 'int8 ' + backend)
     if detections['xla'] != detections['pallas']:
@@ -1075,34 +1180,26 @@ def phase_int8_bf16_main_path(device, workdir, q_path, pairs, batch):
     from megadetector_tpu_torch.detection.run_detector import load_detector
     from megadetector_tpu_torch.detection.run_detector_batch import \
         load_and_run_detector_batch
-    from megadetector_tpu_torch.models.yolov5 import Bottleneck, QConv
 
     rates, forward_ms, detections = {}, {}, {}
     for backend in ('xla', 'pallas'):
         detector = load_detector(q_path, device=device, detector_options={
             'pad_batches_to': 8, 'conv_backend': backend,
             'dtype': 'bfloat16'})
-        modules = list(detector.model.modules())
-        n_qconv = sum(isinstance(m, QConv) for m in modules)
-        n_bottleneck = sum(isinstance(m, Bottleneck) for m in modules)
-        if backend == 'pallas':
-            want_conv, want_fused = n_qconv - 2 * n_bottleneck, n_bottleneck
-        else:
-            want_conv, want_fused = n_qconv, 0
+        (want_conv, want_fused), routing = _int8_launches(detector,
+                                                          backend)
         detector.programs_run = 0
         _reset_counts()
         results = load_and_run_detector_batch(detector, pairs, batch_size=8)
         nms, conv, fused, stem, silu = _counts()
         batches = detector.programs_run
-        if batches < 2 or (conv, fused, stem, silu) != (
-                want_conv * batches, want_fused * batches, batches, 0) or \
-                nms < batches:
+        if batches != 2 or (conv, fused, stem, silu) != (
+                want_conv, want_fused, batches, 0) or nms < batches:
             raise AssertionError(
-                'int8 + bf16 {}: {} batches; launches conv {} (want {} x '
-                '{}), bottleneck {} (want {} x {}), stem {}, bf16 epilogue {}'
-                ', nms {}'.format(backend, batches, conv, want_conv, batches,
-                                  fused, want_fused, batches, stem, silu,
-                                  nms))
+                'int8 + bf16 {}: {} batches (want 2); launches conv {} (want '
+                '{}), bottleneck {} (want {}; {}), stem {}, bf16 epilogue {}'
+                ', nms {}'.format(backend, batches, conv, want_conv, fused,
+                                  want_fused, routing, stem, silu, nms))
         n_det = _write_and_check(results, pairs, q_path, os.path.join(
             workdir, 'smoke_int8_bf16_{}.json'.format(backend)))
         detections[backend] = results

@@ -10,7 +10,9 @@
 //    64-byte rows: c ^ ((r >> 1) & 3)   (8-row atom of 512 bytes)
 // on the absolute shared address, so every tile starts on a 1024-byte
 // boundary. md_swizzle computes it; the hardware applies the same
-// function when wgmma reads through a descriptor.
+// function when wgmma reads through a descriptor. A tile that is read
+// through windows shifted by whole rows (bottleneck_int8.cu's h1) uses
+// the layout without swizzle instead (md_smem_desc_interleave).
 //
 // wgmma's accumulators: in an m64nN tile, warp w (0-3) of the warpgroup
 // and lane l hold, for j < N / 8, d[4 j + 2 h + q] = D[16 w + l / 4 +
@@ -45,6 +47,24 @@ __device__ __forceinline__ uint64_t md_smem_desc(uint32_t addr) {
   constexpr uint64_t kSbo = (8 * kRowBytes) >> 4;
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
          (kSbo << 32) | (kLayout << 62);
+}
+
+// The descriptor of a K-major tile without swizzle (layout 0, PTX's
+// "interleave" mode) at shared address [addr]: core matrices of 8 rows x
+// 16 K bytes, each 128 contiguous bytes (row r at r * 16); the core
+// matrix of the next 16 K bytes lies [lbo] bytes on (leading byte offset,
+// bits 16-29), that of the next 8 rows [sbo] bytes on (stride byte
+// offset, bits 32-45). In CuTe's terms the tile is ((8, m), (16, 2)) :
+// ((16, sbo), (1, lbo)) in bytes. No address bits are XORed, so the start
+// may be any 16-byte boundary: a window shifted by whole rows is again a
+// valid tile. One k32 step covers two core matrices in K, so the next
+// step starts 2 * lbo bytes on.
+__device__ __forceinline__ uint64_t md_smem_desc_interleave(uint32_t addr,
+                                                            uint32_t lbo,
+                                                            uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
 // cp.async of 16 (or 4) bytes global -> shared; src_bytes 0 writes zeros
@@ -104,14 +124,16 @@ __device__ __forceinline__ void md_fence_acc(int (&d)[kN]) {
 }
 
 // d (64 x N, s32) += A (64 x 32, s8, K-major) * B (N x 32, s8, K-major)^T,
-// both read from shared memory through descriptors
+// both read from shared memory through descriptors; with accumulate 0,
+// d = A * B^T (wgmma's scale-d), which starts a sum without writing the
+// accumulators outside wgmma
 template <int kN>
 struct MdWgmmaS8;
 
 template <>
 struct MdWgmmaS8<64> {
   __device__ __forceinline__ static void mma(int (&d)[32], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
@@ -127,14 +149,14 @@ struct MdWgmmaS8<64> {
           "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
           "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
           "+r"(d[30]), "+r"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(accumulate));
   }
 };
 
 template <>
 struct MdWgmmaS8<128> {
   __device__ __forceinline__ static void mma(int (&d)[64], uint64_t a,
-                                             uint64_t b) {
+                                             uint64_t b, int accumulate = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
@@ -160,6 +182,6 @@ struct MdWgmmaS8<128> {
           "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
           "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
           "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(accumulate));
   }
 };

@@ -50,20 +50,29 @@ def resolve_model_file(model_file):
     return converted
 
 
-def load_detector(model_file, detector_options=None, device=None,
-                  verbose=False):
+def load_detector(model_file, force_cpu=False, detector_options=None,
+                  verbose=False, *, device=None):
     """
     Load a TorchDetector from a converted checkpoint (.npz + metadata, or
     a folder with weights.npz + metadata.json) or a known model name.
+    The positional arguments are the JAX package's load_detector's.
 
     Args:
         model_file: checkpoint path or known model name
+        force_cpu: run on the CPU (device 'cpu')
         detector_options: dict of TorchDetector options
-        device: 'cuda', 'cuda:N', 'cpu' or None (CUDA); CUDA without a
-            card raises, so the CPU needs 'cpu' (or force_cpu)
         verbose: print load details
+        device: keyword only: 'cuda', 'cuda:N', 'cpu' or None (CUDA, or
+            the CPU with force_cpu); CUDA without a card raises, so the
+            CPU needs 'cpu' (or force_cpu). A device other than the CPU
+            together with force_cpu raises ValueError.
     """
 
+    if force_cpu:
+        if device is not None and str(device) != 'cpu':
+            raise ValueError('load_detector: force_cpu=True contradicts '
+                             'device={!r}'.format(device))
+        device = 'cpu'
     model_file = resolve_model_file(model_file)
     if model_file.endswith(('.pt', '.pb', '.mdpkg')):
         raise NotImplementedError(

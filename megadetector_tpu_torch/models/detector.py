@@ -87,7 +87,8 @@ PARSED_OPTIONS = ('compatibility_mode', 'canvas_mode', 'max_canvases',
                   'pad_batches_to', 'use_model_native_classes', 'dtype',
                   'force_cpu', 'preprocess_mode', 'staging_multiple',
                   'max_staging_side', 'bf16_resize', 'conv_backend', 'mesh',
-                  'xla_compiler_options')
+                  'xla_compiler_options', 'arch', 'fused_decode',
+                  'preprocess_only', 'batch_axis')
 
 
 def reraise_programming_errors():
@@ -133,6 +134,10 @@ def _check_options(options):
     refused = []
     if options.get('mesh') is not None:
         refused.append('mesh')
+    if options.get('batch_axis') is not None:
+        refused.append('batch_axis')
+    if _to_bool(options.get('preprocess_only', False)):
+        refused.append('preprocess_only')
     if options.get('xla_compiler_options'):
         refused.append('xla_compiler_options')
     if refused:
@@ -170,10 +175,17 @@ class TorchDetector:
             device letterbox's matmul operands to bf16 (default true)
         conv_backend: 'xla' (default; int8 bottleneck convs on the conv
             kernel) or 'pallas' / 'pallas-interpret' (int8 bottlenecks on
-            the fused bottleneck kernel); no effect on float checkpoints
+            the fused bottleneck kernel where its tiling takes the shape);
+            no effect on float checkpoints
+        arch: override the checkpoint metadata's architecture
+        fused_decode: select candidates from the raw head logits (default
+            true outside the strict modes) or from the decoded forward
+            (then batched_nms)
     Accepted as no-ops: folded_early, folded_h2, approx_select, select_cm,
-    stem_gemm, bottleneck_variant. Refused (NotImplementedError): mesh,
-    xla_compiler_options, and augment=True at inference.
+    stem_gemm, bottleneck_variant, and preprocess_only=false. Refused
+    (NotImplementedError): mesh and batch_axis (multi-card), a true
+    preprocess_only (the loader pool), xla_compiler_options, and
+    augment=True at inference.
     """
 
     def __init__(self, model_path, detector_options=None, verbose=False,
@@ -227,7 +239,7 @@ class TorchDetector:
         params, metadata = load_checkpoint(model_path)
         metadata = metadata or {}
         self.config = yolov5.YoloV5Config(
-            metadata.get('arch', 'yolov5l6'),
+            options.get('arch', metadata.get('arch', 'yolov5l6')),
             num_classes=int(metadata.get('num_classes', 3)),
             anchors=metadata.get('anchors', None))
         self.conv_backend = str(options.get('conv_backend',
@@ -242,8 +254,9 @@ class TorchDetector:
                     self.compute_dtype, fused_stem=not strict).eval().to(
                         self.device)
         # Fused selection from raw head logits; strict modes run the
-        # decoded forward + batched_nms instead
-        self._fused_decode = not strict
+        # decoded forward + batched_nms instead, unless the option says
+        self._fused_decode = _to_bool(options.get('fused_decode',
+                                                  not strict))
         self.letterbox_stride = int(self.config.max_stride)
         self.default_image_size = int(options.get(
             'image_size', metadata.get('image_size', 1280)))

@@ -41,7 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from megadetector_tpu_torch.models.convert_weights import params_to_torch
-from megadetector_tpu_torch.ops import l0_fused
+from megadetector_tpu_torch.ops import bottleneck_int8, l0_fused
 from megadetector_tpu_torch.ops import quantization as q
 from megadetector_tpu_torch.ops.conv_int8 import scalar_like
 from megadetector_tpu_torch.ops.quantization import QTensor
@@ -395,7 +395,9 @@ class QConv(nn.Module):
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (-> residual add). With [fused] and both convs chained,
-    a QTensor input runs the fused bottleneck kernel."""
+    a QTensor input whose shape ops/bottleneck_int8.bottleneck_tiling
+    takes runs the fused bottleneck kernel; every other one runs the two
+    convs and the add, which give the same output."""
 
     def __init__(self, c, shortcut, fused=False):
         super().__init__()
@@ -408,7 +410,8 @@ class Bottleneck(nn.Module):
         cv1, cv2 = self.cv1, self.cv2
         if self.fused and isinstance(x, QTensor) and \
                 isinstance(cv1, QConv) and isinstance(cv2, QConv) and \
-                cv1.y_scale is not None and cv2.y_scale is not None:
+                cv1.y_scale is not None and cv2.y_scale is not None and \
+                bottleneck_int8.bottleneck_tiling(*x.q.shape) is not None:
             return q.fused_bottleneck(
                 x, cv1.weight, cv1.w_scale, cv1.bias, cv1.y_scale,
                 cv2.weight, cv2.w_scale, cv2.bias, cv2.y_scale,

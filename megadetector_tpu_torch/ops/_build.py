@@ -41,9 +41,9 @@ _FUNCTIONS = {
     # pad_top, pad_left, ho, wo, y_scale, requant, instance, stream
     'md_conv_int8': [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _I, _P],
     # x, w1, scale1, bias1, mid_scale, w2, scale2, bias2, cv2_scale,
-    # s_in, out_scale, shortcut, out, batch, h, w, c, stream
+    # s_in, out_scale, shortcut, out, batch, h, w, c, instance, stream
     'md_bottleneck_int8': [_P, _P, _P, _P, _F, _P, _P, _P, _F, _F, _F, _I,
-                           _P, _I, _I, _I, _I, _P],
+                           _P, _I, _I, _I, _I, _I, _P],
     # x, w, bias, out, batch, h, w, c, stream
     'md_l0_fused': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, bias (or null), out, n, c, inner, stream

@@ -3,37 +3,108 @@ Fused int8 CSP bottleneck (1x1 C->C, 3x3 C->C SAME, optional residual):
 the CUDA kernel (csrc/bottleneck_int8.cu) and its plain PyTorch version.
 
 Replaces megadetector_tpu/ops/pallas_bottleneck.py bottleneck_chain /
-_kernel ('taps' schedule). The kernel keeps the int8 h1 tile (with its
-one-pixel halo) in shared memory, so h1 never reaches device memory; see
-the source note for the design and what bounds it. Its output is the
-unfused chain's, bit for bit: the plain version IS the unfused chain
-(conv_int8_reference twice, then qt_add's dequant-add-requant).
+_kernel ('taps' schedule). The kernel runs both convs on the int8 tensor
+cores (wgmma) and keeps the int8 h1 tile (with its one-pixel halo) in
+shared memory, so h1 never reaches device memory; see the source note for
+the design and what bounds it. Its output is the unfused chain's, bit for
+bit: the plain version IS the unfused chain (conv_int8_reference twice,
+then qt_add's dequant-add-requant).
+
+kernel_tiling picks the kernel's instance from C and alignment, or None
+where the kernel cannot run (C not a multiple of 4, or an h1 tile too
+large for shared memory). bottleneck_tiling adds the grid: None also where
+the 16 x 8 pixel tiles would leave most of the card idle. The model
+(models/yolov5.py Bottleneck) runs the unfused convs wherever
+bottleneck_tiling is None, decided from the shape before any launch.
 
 bottleneck_int8 takes the plain version only for tensors on the CPU. For
 CUDA tensors it launches the kernel or raises.
 """
 
+import collections
+
 import torch
 
 from megadetector_tpu_torch.ops import _build
-from megadetector_tpu_torch.ops.conv_int8 import (conv_int8_reference,
+from megadetector_tpu_torch.ops.conv_int8 import (SMS, conv_int8_reference,
                                                   round_to_int8,
                                                   scalar_like)
 
 # Kernel launches made by bottleneck_int8 (the plain version never counts)
 launches = 0
 
-# Shared memory a block may use on sm_90, and the kernel's static part
-_MAX_SMEM = 232448
-_STATIC_SMEM = 2 * 64 * 17 * 4
-_HALO_PIXELS = 10 * 18
+# csrc/bottleneck_int8.cu: the output tile (rows, columns) a block owns,
+# its halo's pixels, the ring's bytes, the K bytes of a stage, the
+# 1024-byte alignment slack, and the shared memory a block may use on sm_90
+TILE = (16, 8)
+HALO_PIXELS = (TILE[0] + 2) * (TILE[1] + 2)
+RING_BYTES = 64 * 1024
+BK = 64
+_ALIGN = 1024
+MAX_SMEM = 232448
+
+# csrc/bottleneck_int8.cu's instance bits
+INST_VEC16, INST_BN128 = 1, 2
+
+# Fewer blocks than this leave more than half the SMs idle for the whole
+# launch; bottleneck_tiling routes such shapes to the unfused convs, whose
+# grids split the same pixels into 64-row tiles
+MIN_BLOCKS = SMS // 2
+
+BottleneckTiling = collections.namedtuple('BottleneckTiling',
+                                          'bn vec smem code')
 
 
-def h1_tile_bytes(c):
-    """Dynamic shared memory of the kernel's h1 tile for C channels."""
+def smem_bytes(c):
+    """Shared memory of one block at C channels: the ring (whose start
+    also holds phase 2's staging tile) and h1 [180 pixels][C rounded up to
+    BK] (csrc/bottleneck_int8.cu smem_bytes)."""
 
-    words = ((c // 4 + 15) // 16) * 16 + 1
-    return _HALO_PIXELS * words * 4
+    return _ALIGN + RING_BYTES + HALO_PIXELS * (-(-c // BK) * BK)
+
+
+def kernel_tiling(c, aligned16=True):
+    """
+    The kernel's instance for C channels:
+
+        vec 16 (16-byte copies and stores) when C % 16 == 0 and the
+            tensors are 16-byte aligned ([aligned16]), else 4
+        bn  64 when C <= 64, else 128 (output channels an N chunk)
+
+    Returns a BottleneckTiling (with the block's shared memory and the
+    kernel's instance code), or None where the kernel cannot run: C not a
+    positive multiple of 4, or a block over MAX_SMEM (C above 896).
+    """
+
+    if c <= 0 or c % 4:
+        return None
+    vec = 16 if c % 16 == 0 and aligned16 else 4
+    bn = 64 if c <= 64 else 128
+    smem = smem_bytes(c)
+    if smem > MAX_SMEM:
+        return None
+    code = ((INST_VEC16 if vec == 16 else 0) |
+            (INST_BN128 if bn == 128 else 0))
+    return BottleneckTiling(bn, vec, smem, code)
+
+
+def bottleneck_grid(b, h, w):
+    """Blocks of the kernel's grid for a [b, h, w] image batch."""
+
+    return b * -(-h // TILE[0]) * -(-w // TILE[1])
+
+
+def bottleneck_tiling(b, h, w, c):
+    """The kernel's tiling for a [b, h, w, c] bottleneck, or None where it
+    cannot beat the two unfused conv launches: kernel_tiling is None, or
+    the grid has fewer than MIN_BLOCKS blocks (at 960x1280 and 768x1280,
+    batch 8: the C = 512 level, 24 blocks). Splitting N over blocks would
+    recompute h1 once per split, so small grids are routed, not split."""
+
+    tiling = kernel_tiling(c)
+    if tiling is None or bottleneck_grid(b, h, w) < MIN_BLOCKS:
+        return None
+    return tiling
 
 
 def residual_requant(x_q, s_in, h_q, h_scale):
@@ -68,8 +139,8 @@ def bottleneck_int8(x_q, w1, scale1, bias1, mid_scale, w2, scale2, bias2,
     silu-conv3x3(h) at cv2_scale; out = qt_add(x, h) or h.
 
     Args:
-        x_q: [B, H, W, C] int8 at scale s_in (C a multiple of 4 on the
-            card)
+        x_q: [B, H, W, C] int8 at scale s_in (on the card C a multiple
+            of 4 that kernel_tiling takes: up to 896)
         w1: [C, 1, 1, C] int8; scale1 [C] f32 = w1_scale * s_in; bias1 [C]
         mid_scale: cv1's y_scale (Python float)
         w2: [C, 3, 3, C] int8; scale2 [C] f32 = w2_scale * mid_scale;
@@ -111,14 +182,17 @@ def bottleneck_int8(x_q, w1, scale1, bias1, mid_scale, w2, scale2, bias2,
     if c % 4 != 0:
         raise ValueError('bottleneck_int8: C={} is not a multiple of 4'
                          .format(c))
-    if h1_tile_bytes(c) + _STATIC_SMEM > _MAX_SMEM:
-        raise ValueError('bottleneck_int8: C={} does not fit the h1 tile in '
-                         'shared memory'.format(c))
     if not all(t.is_contiguous() for t in args):
         raise ValueError('bottleneck_int8: inputs must be contiguous')
     if x_q.data_ptr() % 4 or w1.data_ptr() % 4 or w2.data_ptr() % 4:
         raise ValueError('bottleneck_int8: x, w1 and w2 must be 4-byte '
                          'aligned')
+    tiling = kernel_tiling(c, all(t.data_ptr() % 16 == 0
+                                  for t in (x_q, w1, w2)))
+    if tiling is None:
+        raise ValueError('bottleneck_int8: C={} does not fit the h1 tile in '
+                         'shared memory ({} bytes a block, {} allowed)'
+                         .format(c, smem_bytes(c), MAX_SMEM))
 
     out_scale = (s_in + cv2_scale) if shortcut else cv2_scale
     out = torch.empty_like(x_q)
@@ -131,7 +205,7 @@ def bottleneck_int8(x_q, w1, scale1, bias1, mid_scale, w2, scale2, bias2,
             bias1.data_ptr(), float(mid_scale), w2.data_ptr(),
             scale2.data_ptr(), bias2.data_ptr(), float(cv2_scale),
             float(s_in), float(out_scale), int(bool(shortcut)),
-            out.data_ptr(), b, h, w, c,
+            out.data_ptr(), b, h, w, c, tiling.code,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, 'md_bottleneck_int8')
     launches += 1

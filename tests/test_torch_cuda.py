@@ -246,12 +246,25 @@ def test_conv_kernel_misaligned_view(cuda_device):
     torch.cuda.synchronize()
 
 
+# Every instance of the bottleneck kernel (bn, vec) at its edges: H and W
+# off the 16 x 8 tile, a 1-pixel-high image, K and N tails (C 36, 144,
+# 516 on 4-byte words or a 16-wide last N chunk), the yolov5l6 levels'
+# C (the C = 512 level is routed unfused, but the kernel takes it), and
+# the largest C that fits shared memory
 @pytest.mark.parametrize('shortcut', [True, False])
-@pytest.mark.parametrize('b,h,w,c', [(2, 12, 16, 128), (1, 9, 8, 128),
-                                     (1, 60, 8, 64), (2, 17, 35, 36),
-                                     (1, 5, 7, 516)])
+@pytest.mark.parametrize('b,h,w,c,tiling', [
+    (2, 12, 16, 128, (128, 16)), (1, 9, 8, 128, (128, 16)),
+    (1, 60, 8, 64, (64, 16)), (2, 17, 35, 36, (64, 4)),
+    (1, 5, 7, 516, (128, 4)), (1, 1, 9, 144, (128, 16)),
+    (2, 33, 20, 256, (128, 16)), (1, 23, 17, 384, (128, 16)),
+    (2, 15, 20, 512, (128, 16)), (1, 6, 10, 896, (128, 16)),
+    (1, 3, 1, 48, (64, 16))])
 def test_bottleneck_kernel_identical_to_plain(cuda_device, b, h, w, c,
-                                              shortcut):
+                                              tiling, shortcut):
+    """The kernel against its plain version and against the unfused pair
+    of conv kernels with the residual in torch (conv_backend xla's
+    route): identical."""
+
     rng = np.random.RandomState(c + h)
     x = _int8(rng, (b, h, w, c))
     w1, scale1, bias1 = _conv_case(rng, c, c, 1)
@@ -259,6 +272,7 @@ def test_bottleneck_kernel_identical_to_plain(cuda_device, b, h, w, c,
     args = (x, w1, scale1, bias1, 0.021, w2, scale2, bias2, 0.033,
             0.007, shortcut)
     dev = [a.to(cuda_device) if torch.is_tensor(a) else a for a in args]
+    assert tuple(bottleneck_int8.kernel_tiling(c)[:2]) == tiling
     before = bottleneck_int8.launches
     got, got_scale = bottleneck_int8.bottleneck_int8(*dev)
     torch.cuda.synchronize()
@@ -266,6 +280,55 @@ def test_bottleneck_kernel_identical_to_plain(cuda_device, b, h, w, c,
     ref, ref_scale = bottleneck_int8.bottleneck_int8_reference(*dev)
     assert got_scale == ref_scale
     assert torch.equal(got, ref)
+    h1 = conv_int8.conv_int8(dev[0], dev[1], dev[2], dev[3], (1, 1),
+                             (0, 0, 0, 0), 0.021)
+    h2 = conv_int8.conv_int8(h1, dev[5], dev[6], dev[7], (1, 1),
+                             (1, 1, 1, 1), 0.033)
+    if shortcut:
+        h2 = bottleneck_int8.residual_requant(dev[0], 0.007, h2, 0.033)[0]
+    assert torch.equal(got, h2)
+
+
+def test_bottleneck_kernel_misaligned_view(cuda_device):
+    """x 4 bytes past a 16-byte boundary: the wrapper takes the 4-byte
+    instance and the result is identical; the kernel refuses the 16-byte
+    instance for it, and a C whose h1 tile does not fit raises."""
+
+    from megadetector_tpu_torch.ops import _build
+
+    rng = np.random.RandomState(12)
+    c = 64
+    x = _int8(rng, (2, 9, 11, c))
+    w1, s1, b1 = [t.to(cuda_device) for t in _conv_case(rng, c, c, 1)]
+    w2, s2, b2 = [t.to(cuda_device) for t in _conv_case(rng, c, c, 3)]
+    buf = torch.zeros(x.numel() + 4, dtype=torch.int8, device=cuda_device)
+    xv = buf[4:].view(x.shape)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 == 4
+    assert bottleneck_int8.kernel_tiling(c, False).vec == 4
+    args = (xv, w1, s1, b1, 0.021, w2, s2, b2, 0.033, 0.007, True)
+    got, _ = bottleneck_int8.bottleneck_int8(*args)
+    assert torch.equal(got, bottleneck_int8.bottleneck_int8_reference(
+        *args)[0])
+
+    lib = _build.load_library()
+    out = torch.empty_like(xv)
+    err = lib.md_bottleneck_int8(
+        xv.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(), 0.021,
+        w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), 0.033, 0.007, 0.04, 1,
+        out.data_ptr(), 2, 9, 11, c, bottleneck_int8.INST_VEC16,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    torch.cuda.synchronize()
+    big = torch.zeros((1, 4, 4, 900), dtype=torch.int8, device=cuda_device)
+    wb1 = torch.zeros((900, 1, 1, 900), dtype=torch.int8,
+                      device=cuda_device)
+    wb2 = torch.zeros((900, 3, 3, 900), dtype=torch.int8,
+                      device=cuda_device)
+    sb = torch.ones(900, device=cuda_device)
+    with pytest.raises(ValueError, match='does not fit'):
+        bottleneck_int8.bottleneck_int8(big, wb1, sb, sb, 0.1, wb2, sb, sb,
+                                        0.1, 0.1, True)
 
 
 def test_int8_kernels_reject_bad_inputs(cuda_device):
@@ -285,7 +348,9 @@ def test_int8_kernels_reject_bad_inputs(cuda_device):
 
 def test_int8_detector_on_card_matches_cpu(cuda_device, tmp_path):
     """The int8 yolov5s6 on the card: both conv backends give identical
-    detections and launch their kernels; the forward agrees with the
+    detections and launch their kernels, the bottleneck kernel exactly
+    once per bottleneck that routing fuses and the conv kernel for every
+    other chain conv; the forward agrees with the
     CPU's within the int8-vs-float bounds of the JAX package's
     test_int8_chain_close_to_float (the float l0 sums in another order on
     the card, which can move an l1 input across a rounding boundary)."""
@@ -303,14 +368,31 @@ def test_int8_detector_on_card_matches_cpu(cuda_device, tmp_path):
     for backend in ('xla', 'pallas'):
         detector = run_detector.load_detector(
             q_path, device='cuda', detector_options={'conv_backend': backend})
+        modules = list(detector.model.modules())
+        n_qconv = sum(isinstance(m, yolov5.QConv) for m in modules)
+        shapes = []
+        hooks = [m.register_forward_pre_hook(
+            lambda _, inputs: shapes.append(tuple(inputs[0].q.shape)))
+            for m in modules if isinstance(m, yolov5.Bottleneck)]
         conv_before = conv_int8.launches
         fused_before = bottleneck_int8.launches
         results[backend] = detector.generate_detections_one_batch(
             imgs, ['im{}'.format(i) for i in range(len(imgs))],
             detection_threshold=0.005)
-        assert conv_int8.launches > conv_before
-        assert (bottleneck_int8.launches > fused_before) == \
-            (backend == 'pallas')
+        for hook in hooks:
+            hook.remove()
+        # routing: a bottleneck runs fused where bottleneck_tiling takes
+        # its shape, else as two conv launches
+        forwards = len(shapes) // sum(isinstance(m, yolov5.Bottleneck)
+                                      for m in modules)
+        fused = 0
+        if backend == 'pallas':
+            fused = sum(bottleneck_int8.bottleneck_tiling(*shape) is not None
+                        for shape in shapes)
+            assert 0 < fused < len(shapes)
+        assert bottleneck_int8.launches - fused_before == fused
+        assert conv_int8.launches - conv_before == \
+            n_qconv * forwards - 2 * fused
     assert results['xla'] == results['pallas']
     assert sum(len(r['detections']) for r in results['xla']) > 0
 

@@ -1,0 +1,161 @@
+"""
+The detector options and the load_detector signature that the port
+shares with the JAX package, held to the JAX detector on the CPU:
+
+- arch overrides the checkpoint metadata's architecture;
+- fused_decode picks the selection path as the JAX detector does (default
+  on outside the strict modes, either way on request);
+- preprocess_only (true) and batch_axis are refused with
+  NotImplementedError, as mesh is;
+- load_detector(model_file, force_cpu=False, detector_options=None,
+  verbose=False), with device keyword-only.
+
+Each parity case runs the port's and the JAX package's
+load_and_run_detector_batch on the same yolov5n .npz and image folder and
+compares them under md_tests.compare_results at the golden tolerances, as
+tests/test_torch_detector.py does.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from PIL import Image
+
+from megadetector_tpu.detection import run_detector_batch as jax_batch
+from megadetector_tpu.utils import md_tests
+from megadetector_tpu_torch.detection import run_detector, \
+    run_detector_batch
+from megadetector_tpu_torch.models.convert_weights import save_checkpoint
+
+import torch_port_data as data
+
+BATCH = 4
+
+
+@pytest.fixture(scope='module')
+def option_inputs(tmp_path_factory):
+    """(root, image folder, yolov5n model, the same weights under metadata
+    that names yolov5s)."""
+
+    root = tmp_path_factory.mktemp('torch_options')
+    images = data.images()
+    folder = root / 'images'
+    folder.mkdir()
+    for i, img in enumerate(images):
+        Image.fromarray(img).save(str(folder / 'im{:02d}.png'.format(i)))
+    params = data.sharpened_params(images)
+    model = str(root / 'md_v5a.0.0_test.npz')
+    save_checkpoint(params, model, data.METADATA)
+    mislabeled = str(root / 'md_mislabeled.npz')
+    save_checkpoint(params, mislabeled, dict(data.METADATA, arch='yolov5s'))
+    return root, str(folder), model, mislabeled
+
+
+def _assert_matches_jax(root, folder, model, options, tag):
+    ours = run_detector_batch.load_and_run_detector_batch(
+        model, folder, batch_size=BATCH, quiet=True, device='cpu',
+        detector_options=options)
+    # use_mesh off: the test session's 8 virtual CPU devices would
+    # otherwise round the JAX package's batch up to 8
+    ref = jax_batch.load_and_run_detector_batch(
+        model, folder, batch_size=BATCH, quiet=True, loader_workers=1,
+        detector_options=dict(options, force_cpu=True, use_mesh='false'))
+    ours_out = run_detector_batch.write_results_to_file(
+        ours, str(root / 'ours_{}.json'.format(tag)),
+        relative_path_base=folder, detector_file=model)
+    ref_out = jax_batch.write_results_to_file(
+        ref, str(root / 'ref_{}.json'.format(tag)),
+        relative_path_base=folder, detector_file=model)
+    counts = [len(im['detections']) for im in ours_out['images']]
+    assert all(0 < n < 300 for n in counts), counts
+    result = md_tests.compare_results(ref_out, ours_out,
+                                      data.golden_options())
+    assert result['n_images_compared'] == len(data.SIZES)
+    assert result['errors'] == [], result['errors'][:5]
+
+
+@pytest.mark.parametrize('mode,fused', [('classic', 'false'),
+                                        ('classic-strict', 'true')])
+def test_fused_decode_matches_jax(option_inputs, mode, fused):
+    """fused_decode against the mode's default: false outside the strict
+    modes runs the decoded forward and batched_nms, true in classic-strict
+    the fused selection; the JAX detector does the same."""
+
+    root, folder, model, _ = option_inputs
+    options = {'compatibility_mode': mode, 'fused_decode': fused}
+    detector = run_detector.load_detector(model, device='cpu',
+                                          detector_options=options)
+    assert detector._fused_decode == (fused == 'true')
+    default = run_detector.load_detector(model, device='cpu',
+                                         detector_options={
+                                             'compatibility_mode': mode})
+    assert default._fused_decode == (mode == 'classic')
+    _assert_matches_jax(root, folder, model, options,
+                        'fused_{}_{}'.format(mode, fused))
+
+
+def test_arch_override_matches_jax(option_inputs):
+    """arch replaces the metadata's architecture: weights saved under a
+    wrong arch load and detect as the JAX detector does with the same
+    override; without it the port refuses the weights."""
+
+    root, folder, _, mislabeled = option_inputs
+    detector = run_detector.load_detector(
+        mislabeled, device='cpu', detector_options={'arch': 'yolov5n'})
+    assert detector.config.arch == 'yolov5n'
+    with pytest.raises(RuntimeError):
+        run_detector.load_detector(mislabeled, device='cpu')
+    _assert_matches_jax(root, folder, mislabeled, {'arch': 'yolov5n'},
+                        'arch')
+
+
+@pytest.mark.parametrize('options', [{'preprocess_only': 'true'},
+                                     {'batch_axis': 'data'}])
+def test_unported_multicard_and_loader_options_are_refused(option_inputs,
+                                                           options):
+    _, _, model, _ = option_inputs
+    with pytest.raises(NotImplementedError, match=list(options)[0]):
+        run_detector.load_detector(model, device='cpu',
+                                   detector_options=options)
+
+
+def test_preprocess_only_false_is_the_default(option_inputs):
+    _, _, model, _ = option_inputs
+    img = data.images()[4]
+    base = run_detector.load_detector(model, device='cpu')
+    same = run_detector.load_detector(
+        model, device='cpu', detector_options={'preprocess_only': 'false'})
+    assert same.generate_detections_one_image(img, 'a', 0.005) == \
+        base.generate_detections_one_image(img, 'a', 0.005)
+
+
+@pytest.mark.parametrize('call', ['positional', 'keyword'])
+def test_load_detector_force_cpu(option_inputs, call):
+    """force_cpu is load_detector's second argument, as in the JAX
+    package: load_detector(m, True) and load_detector(m, force_cpu=True)
+    both load on the CPU."""
+
+    _, _, model, _ = option_inputs
+    if call == 'positional':
+        detector = run_detector.load_detector(model, True)
+    else:
+        detector = run_detector.load_detector(model, force_cpu=True)
+    assert detector.device == torch.device('cpu')
+    assert next(detector.model.parameters()).device.type == 'cpu'
+    r = detector.generate_detections_one_image(data.images()[0], 'a', 0.005)
+    assert r['file'] == 'a' and np.isfinite(
+        [d['conf'] for d in r['detections']]).all()
+
+
+def test_load_detector_device_is_keyword_only(option_inputs):
+    """device cannot be passed by position (the JAX signature's fourth
+    argument is verbose), and contradicting force_cpu raises."""
+
+    _, _, model, _ = option_inputs
+    with pytest.raises(TypeError):
+        run_detector.load_detector(model, False, None, False, 'cpu')
+    with pytest.raises(ValueError, match='force_cpu'):
+        run_detector.load_detector(model, True, device='cuda')
+    detector = run_detector.load_detector(model, True, device='cpu')
+    assert detector.device == torch.device('cpu')
