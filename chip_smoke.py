@@ -11,7 +11,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   3. kernel vs plain: the greedy-NMS kernel against its plain PyTorch
      version on the card (B=8, K in 512/2048/8192, plus a suppression
      chain, exact duplicates and invalid slots); keep masks must be
-     identical; ms per call of both;
+     identical; ms per call of both, and the kernel's split between its
+     mask pass and its sweep (torch.profiler, by kernel name);
   4. main path: yolov5l6 (MDv5a's architecture, nc=3, full width, random
      weights from seed 0) saved as .npz, load_detector on cuda,
      load_and_run_detector_batch over 16 synthetic 4:3 and 16:9 images
@@ -57,7 +58,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      batch of 8: the fused stem on u8 [8,960,1280,3] -> [8,480,640,64]
      with the model's l0 weights, the bf16 epilogue (bias + SiLU) on l1's
      output [8,128,240,320] and on a [8,1024,15,20] tensor, both
-     channels_last; outputs must be bit-identical; ms of kernel, plain
+     channels_last; the epilogue must be bit-identical, the stem (whose
+     tensor cores sum the taps in another order) within
+     ops/l0_fused.plain_bar: 1 bf16 ulp or 1e-5, on at most 1e-3 of the
+     elements, with the count that differs printed; ms of kernel, plain
      version and the library yardstick (cuDNN's bf16 conv of the
      normalized batch for the stem, F.silu for the epilogue);
  10. bf16 main path: phase 4's yolov5l6 with dtype bf16 through
@@ -188,6 +192,37 @@ def _nms_case(rng, b, k, n_classes=3, canvas=1280.0):
     return boxes, valid
 
 
+def _nms_split(boxes, valid, thresh, reps=5):
+    """(mask pass ms, sweep ms) per call of the NMS kernel, from
+    torch.profiler's device time by kernel name; None where the profiler
+    saw no device time."""
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from megadetector_tpu_torch.ops import cuda_nms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cuda_nms.greedy_nms_keep(boxes, valid, thresh)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, 'self_device_time_total',
+                     getattr(e, 'self_cuda_time_total', 0.0))
+        for name in ('nms_mask_kernel', 'nms_sweep_kernel'):
+            if re.search(r'(^|[\s:]){}[<(]'.format(name), e.key):
+                split[name] = split.get(name, 0.0) + us / 1e3 / reps
+    if not split:
+        return None
+    return split.get('nms_mask_kernel', 0.0), split.get('nms_sweep_kernel',
+                                                        0.0)
+
+
 def phase_kernel(device):
     """Kernel vs plain version on the card; returns the kernel record."""
 
@@ -247,6 +282,11 @@ def phase_kernel(device):
             timings[k] = (ms, plain_ms)
             line += '; kernel {:.4f} ms, plain {:.4f} ms per call'.format(
                 ms, plain_ms)
+            split = _nms_split(boxes, valid, thresh)
+            line += ('; mask pass {:.4f} ms, sweep {:.4f} ms (profiler)'
+                     .format(*split) if split else
+                     '; mask / sweep split not measured (the profiler saw no '
+                     'device time)')
         print(line, flush=True)
         del boxes, valid, got, ref
         torch.cuda.empty_cache()
@@ -1018,12 +1058,16 @@ def phase_bf16_kernels(device, params):
     got = l0_fused.l0_fused(images, w, b)
     torch.cuda.synchronize()
     ref = l0_fused.l0_fused_reference(images, w, b)
-    if tuple(got.shape) != (8, 480, 640, 64) or \
-            not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+    if tuple(got.shape) != (8, 480, 640, 64):
+        raise AssertionError('stem kernel shape {}'.format(tuple(got.shape)))
+    stem_differ, stem_err, stem_outside = l0_fused.plain_bar(got, ref)
+    if stem_outside or stem_differ > l0_fused.DIFF_SHARE * got.numel():
         raise AssertionError(
-            'stem kernel disagrees with its plain version: {} of {} '
-            'elements differ'.format(int((got != ref).sum()), got.numel()))
-    stem_err = float((got.float() - ref.float()).abs().max())
+            'stem kernel outside its bar against the plain version: {} of {} '
+            'elements differ (at most {:g} allowed), {} by more than 1 bf16 '
+            'ulp and {:g}; max |d| {:.3e}'.format(
+                stem_differ, got.numel(), l0_fused.DIFF_SHARE * got.numel(),
+                stem_outside, l0_fused.ABS_FLOOR, stem_err))
     stem_ms = _time_ms(lambda: l0_fused.l0_fused(images, w, b), reps=10)
     stem_plain_ms = _time_ms(
         lambda: l0_fused.l0_fused_reference(images, w, b), reps=2, warmup=1)
@@ -1037,11 +1081,14 @@ def phase_bf16_kernels(device, params):
     macs = 8 * 480 * 640 * 64 * 108
     stem_bound = _bound(images.numel() + got.numel() * 2 + w.numel() * 2 +
                         b.numel() * 4, 2 * macs, BF16_OPS_PER_MS)
-    print('stem kernel == plain (bit-identical) on u8 [8,960,1280,3] -> '
-          '[8,480,640,64] bf16: kernel {:.4f} ms, plain {:.4f} ms, cuDNN bf16 '
-          'conv of the normalized batch {:.4f} ms, bound {:.4f} ms ({}; {:.1f} '
-          'G MAC)'.format(stem_ms, stem_plain_ms, stem_lib_ms, stem_bound[0],
-                          stem_bound[1], macs / 1e9), flush=True)
+    print('stem kernel within its bar of plain on u8 [8,960,1280,3] -> '
+          '[8,480,640,64] bf16: {} of {} elements differ ({:.2e}; max |d| '
+          '{:.3e}, none beyond 1 bf16 ulp or {:g}); kernel {:.4f} ms, plain '
+          '{:.4f} ms, cuDNN bf16 conv of the normalized batch {:.4f} ms, '
+          'bound {:.4f} ms ({}; {:.1f} G MAC)'.format(
+              stem_differ, got.numel(), stem_differ / got.numel(), stem_err,
+              l0_fused.ABS_FLOOR, stem_ms, stem_plain_ms, stem_lib_ms,
+              stem_bound[0], stem_bound[1], macs / 1e9), flush=True)
     del images, got, ref, x16
     torch.cuda.empty_cache()
 

@@ -36,7 +36,9 @@ _F = ctypes.c_float
 # C entry points of the library: name -> argtypes (each returns an int,
 # cudaGetLastError() after its launches)
 _FUNCTIONS = {
-    'md_greedy_nms': [_P, _P, _P, _P, _I, _I, _F, _P],
+    # boxes, valid, mask, keep, batch, k, m, m_hi, m_lo, tie_up, stream
+    'md_greedy_nms': [_P, _P, _P, _P, _I, _I, ctypes.c_double, _F, _F, _I,
+                      _P],
     # x, w, scale, bias, out, batch, h, w, cin, cout, kh, kw, sh, sw,
     # pad_top, pad_left, ho, wo, y_scale, requant, instance, stream
     'md_conv_int8': [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _I, _P],

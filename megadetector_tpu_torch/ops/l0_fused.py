@@ -7,8 +7,14 @@ prepare_l0_weights: uint8 images -> /255 -> l0's 6x6 stride-2 conv (pad 2)
 -> f32 bias -> SiLU -> bf16, with the /255 folded into bf16 weights. The
 TPU kernel works on the width-folded layout ([B, H, W/4, 12] input, a
 216-wide im2col with half its taps zero, a folded [B, H/2, W/4, 2C]
-output); this one computes the unfolded stem from NHWC bytes and returns
-[B, H/2, W/2, C].
+output); this one computes the unfolded stem from NHWC bytes as a GEMM on
+the tensor cores (mma.sync bf16, K = 108 taps padded to 112) and returns
+[B, H/2, W/2, C]. The constants below restate the kernel's tiling for the
+CPU tests (tests/test_torch_l0_tiling.py).
+
+The tensor cores sum the 108 products in another order than the plain
+version, so kernel and plain version agree within plain_bar, not bit for
+bit.
 
 l0_fused takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises.
@@ -23,6 +29,26 @@ from megadetector_tpu_torch.ops import _build
 launches = 0
 
 TAPS = 108  # 6 x 6 x 3
+
+# csrc/l0_fused.cu: a tile of TILE_ROWS x TILE_COLS output pixels (K, the
+# 108 taps, padded to seven k16 steps), channels GROUP at a time, the bf16
+# input patch (PATCH_ROWS rows of PATCH_ELEMS elements, PATCH_STRIDE
+# 32-bit words apart), a raw row's 16-byte pieces, a staged pixel's 32-bit
+# words
+TILE_ROWS = 4
+TILE_COLS = 64
+GROUP = 64
+PATCH_ROWS = 2 * TILE_ROWS + 4
+PATCH_ELEMS = (2 * TILE_COLS + 4) * 3
+PATCH_STRIDE = 216
+RAW_PIECES = 26
+STAGE_WORDS = GROUP // 2 + 4
+
+# The kernel's bar against the plain version: each element within one bf16
+# ulp of the larger magnitude, or within ABS_FLOOR where the sum cancels
+# to near 0, and at most DIFF_SHARE of the elements differing at all
+ABS_FLOOR = 1e-5
+DIFF_SHARE = 1e-3
 
 
 def prepare_l0_weights(node):
@@ -82,6 +108,25 @@ def l0_fused_reference(images_u8, w, bias):
                 acc.addcmul_(tap[..., None], wf[(ky * 6 + kx) * 3 + ch])
     y = acc + bias
     return (y * torch.sigmoid(y)).to(torch.bfloat16)
+
+
+def plain_bar(got, ref):
+    """
+    The kernel's output against the plain version's (bf16 tensors of one
+    shape): (elements that differ, largest |difference|, elements outside
+    the bar: more than one bf16 ulp of the larger magnitude and more than
+    ABS_FLOOR). The kernel passes when the last is 0 and the first is at
+    most DIFF_SHARE of the elements.
+    """
+
+    a, b = got.float(), ref.float()
+    diff = (a - b).abs()
+    # one bf16 ulp of m = mant * 2^e (mant in [0.5, 1)) is 2^(e - 8)
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(diff), e - 8)
+    outside = (diff > ulp) & (diff > ABS_FLOOR)
+    return (int((diff > 0).sum()), float(diff.max()) if diff.numel() else
+            0.0, int(outside.sum()))
 
 
 def l0_fused(images_u8, w, bias):

@@ -86,6 +86,32 @@ def test_kernel_chain_duplicates_invalid(cuda_device):
     assert not keep[:, 1].any() and not keep[:, 64].any()
 
 
+def test_kernel_segmented_sweep_and_invalid_images(cuda_device):
+    """K = 16383 (256 mask words a row: the sweep walks each chunk's tile
+    in two ring stages; K not a multiple of 64), against the plain
+    version on the card; and an image with no valid slot beside one with
+    all valid."""
+
+    boxes, valid = _offset_boxes(np.random.RandomState(16383), 1, 16383)
+    boxes_d = torch.from_numpy(boxes).to(cuda_device)
+    valid_d = torch.from_numpy(valid).to(cuda_device)
+    before = cuda_nms.launches
+    keep = cuda_nms.greedy_nms_keep(boxes_d, valid_d, 0.45)
+    torch.cuda.synchronize()
+    assert cuda_nms.launches == before + 1
+    ref = cuda_nms.greedy_nms_keep_reference(boxes_d, valid_d, 0.45)
+    assert torch.equal(keep, ref)
+    assert 0 < int(keep.sum()) < int(valid_d.sum())
+    del boxes_d, valid_d, keep, ref
+    torch.cuda.empty_cache()
+
+    boxes, valid = _offset_boxes(np.random.RandomState(2), 2, 300)
+    valid[0] = False
+    valid[1] = True
+    keep = _kernel_vs_plain(cuda_device, boxes, valid, 0.45)
+    assert not keep[0].any() and keep[1].any()
+
+
 def test_kernel_rejects_bad_inputs(cuda_device):
     boxes = torch.zeros((2, 16, 4), device=cuda_device)
     valid = torch.ones((2, 16), dtype=torch.bool, device=cuda_device)
@@ -411,8 +437,12 @@ def test_int8_detector_on_card_matches_cpu(cuda_device, tmp_path):
 
 @pytest.mark.parametrize('b,h,w,c', [(2, 64, 96, 64), (1, 70, 134, 16),
                                      (1, 32, 66, 32), (2, 18, 200, 80),
-                                     (1, 8, 10, 256)])
+                                     (1, 8, 10, 256), (8, 96, 128, 64)])
 def test_l0_fused_kernel_identical_to_plain(cuda_device, b, h, w, c):
+    """The tensor cores sum the taps in another order than the plain
+    version: within l0_fused.plain_bar (1 bf16 ulp or 1e-5, on at most
+    1e-3 of the elements)."""
+
     rng = np.random.RandomState(c + h)
     images = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3),
                                           dtype=np.uint8))
@@ -427,7 +457,11 @@ def test_l0_fused_kernel_identical_to_plain(cuda_device, b, h, w, c):
     ref = l0_fused.l0_fused_reference(*dev)
     assert got.dtype == torch.bfloat16 and got.shape == (b, h // 2, w // 2,
                                                          c)
-    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    differ, max_abs, outside = l0_fused.plain_bar(got, ref)
+    print('stem C={} [{},{},{}]: {} of {} elements differ, max |d| {:.3e}'
+          .format(c, b, h, w, differ, got.numel(), max_abs))
+    assert outside == 0
+    assert differ <= l0_fused.DIFF_SHARE * got.numel()
     cpu = l0_fused.l0_fused_reference(images, wt, bias)
     diff = (got.cpu().float() - cpu.float()).abs()
     assert float(diff.max()) <= 2 ** -6 * max(1.0, float(cpu.float().abs()
