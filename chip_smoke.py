@@ -7,7 +7,9 @@ Smoke run of the PyTorch port (megadetector_tpu_torch) on one CUDA card.
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. device: torch/CUDA versions and the card's name and power limit;
      TF32 off so float32 is float32;
-  2. build: nvcc compiles megadetector_tpu_torch/csrc/*.cu;
+  2. build: nvcc compiles megadetector_tpu_torch/csrc/*.cu; ptxas's
+     register lines, and its C7520 / C7514 lines (a kernel whose wgmma it
+     serialized), are printed: the GEMM kernel must have none;
   3. kernel vs plain: the greedy-NMS kernel against its plain PyTorch
      version on the card (B=8, K in 512/2048/8192, plus a suppression
      chain, exact duplicates and invalid slots); keep masks must be
@@ -82,16 +84,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      (120x160x128, 60x80x256, 30x40x512), every epilogue (f32,
      f32_nosilu, bf16, hybrid), in_ratio 0.8531 and 1.0, at the
      experiments' scales and at scales that spread the outputs over the
-     int8 range; the GEMM (E5, E6) at 65536x1152x1152 and 38400x2304x256,
-     int32 and fused int8; outputs must be identical; ms of kernel, plain
-     version and the yardsticks (im2col + torch._int_mm + plain epilogue,
-     requant pass + B2; torch._int_mm);
+     int8 range; the GEMM (E5, E6) at 65536x1152x1152, 38400x2304x256
+     and 4096x2048x2048, int32 and fused int8, with each one's tiles,
+     bound and share of the bound (of its device time, replayed from a
+     CUDA graph); outputs must be identical; ms of kernel, plain version
+     and the yardsticks (im2col + torch._int_mm + plain epilogue, requant
+     pass + B2; torch._int_mm);
  15. the six experiment entry points (megadetector_tpu_torch/experiments)
      through their main() at batch 8 with a chain of 2: every variant
      launches exactly the kernels it declares, once per step.
 With --profile: torch.profiler over one device program on a 960x1280
 batch of 8 (device time by kernel, idle share), int8 under both backends
-in phase 7 and bf16 after phase 13.
+in phase 7 and bf16 after phase 13; each window runs the program twice
+and reads the second, and the port's kernels there must show exactly the
+launches their wrappers counted.
 Then one JSON line with every kernel's record (time, plain time, bound,
 library yardstick, launches on the main path), and last the device line.
 """
@@ -143,6 +149,11 @@ PORT_KERNELS = ('nms_mask_kernel', 'nms_sweep_kernel', 'conv_int8_kernel',
                 'silu_bf16_vec8_kernel', 'silu_bf16_kernel',
                 'gemm_int8_kernel')
 
+# The GEMM shapes of phase 14: E5's (M = 1024 x batch 64, K = N = 1152),
+# E6's conv-as-matmul (M = 4800 x batch 8, K = 2304, N = 256) and E6's
+# square-ish 4096x2048x2048
+GEMM_SHAPES = ((65536, 1152, 1152), (38400, 2304, 256), (4096, 2048, 2048))
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) for bound_ms
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 INT8_OPS_PER_MS = 1979e12 / 1e3
@@ -157,6 +168,15 @@ def _bound(n_bytes, n_ops, ops_per_ms):
     t_bytes = n_bytes / HBM_BYTES_PER_MS
     t_ops = n_ops / ops_per_ms
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _gemm_bound(m, k, n, requant):
+    """_bound of [M, K] s8 @ [K, N] s8: a and b read once, the int32 (or,
+    with a requant, int8) output written once, 2 MKN int8 operations."""
+
+    out_bytes = 4 if requant is None else 1
+    return _bound(m * k + k * n + m * n * out_bytes, 2.0 * m * k * n,
+                  INT8_OPS_PER_MS)
 
 
 def _time_ms(fn, reps, warmup=2):
@@ -175,6 +195,36 @@ def _time_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps=10):
+    """Mean device ms per call of fn(): [reps] calls captured in a CUDA
+    graph and replayed (CUDA events), so the host's work per call (the
+    wrapper's checks, allocations, tensor maps, launches) is not timed."""
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
 
 
 def _nms_case(rng, b, k, n_classes=3, canvas=1280.0):
@@ -1396,51 +1446,84 @@ def phase_bf16_card_vs_cpu(detector, config, params):
 
 def phase_profile(detector, batch, label):
     """torch.profiler over one device program (forward, selection, NMS)
-    on [batch] (a 960x1280 batch of 8): device time by kernel and the idle
-    share."""
+    on [batch] (a 960x1280 batch of 8): device time by kernel, the idle
+    share, and the port's kernels, whose profiled launches must equal the
+    launches their wrappers counted in that program.
+
+    The window holds two runs of the program and only the second is read
+    (the device activities that start inside its record_function range):
+    in a process that has worked for minutes, the profiler drops the
+    device activities of a window's first milliseconds (a one-kernel
+    window records nothing; of two programs only the second one's stem
+    and host-to-device copy), which is why earlier tables lacked the
+    fused stem."""
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    detector.run_program(batch, 0.005, 0.45)
-    torch.cuda.synchronize()
+    from megadetector_tpu_torch.ops import (bottleneck_int8, conv_int8,
+                                            cuda_nms, l0_fused, silu_bf16)
+
+    modules = {'nms_mask_kernel': cuda_nms, 'nms_sweep_kernel': cuda_nms,
+               'conv_int8_kernel': conv_int8,
+               'bottleneck_int8_kernel': bottleneck_int8,
+               'l0_fused_kernel': l0_fused, 'silu_bf16': silu_bf16}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        start = time.time()
         detector.run_program(batch, 0.005, 0.45)
         torch.cuda.synchronize()
-        wall_ms = (time.time() - start) * 1e3
+        before = {name: m.launches for name, m in modules.items()}
+        with record_function('measured program'):
+            start = time.time()
+            detector.run_program(batch, 0.005, 0.45)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - start) * 1e3
+    counted = {name: m.launches - before[name] for name, m in modules.items()}
 
-    from torch.autograd import DeviceType
-
-    def device_us(e):
-        return getattr(e, 'self_device_time_total',
-                       getattr(e, 'self_cuda_time_total', 0.0))
-
-    # Device activities only (kernels, copies): the host ops that launch
-    # them carry the same time again, and the profiler's own buffer
-    # requests are not work of the program
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and device_us(e) > 0 and
-              not e.key.startswith('Activity Buffer')]
-    busy_ms = sum(device_us(e) for e in events) / 1e3
+    events = prof.events()
+    window = next(e.time_range for e in events
+                  if e.name == 'measured program' and
+                  e.device_type == DeviceType.CPU)
+    # Device activities (kernels, copies) of the measured program, by
+    # name; the range's own device-side annotation and the profiler's
+    # buffer requests are not work of it
+    by_name = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and
+                window.start <= e.time_range.start <= window.end and
+                e.name != 'measured program' and
+                not e.name.startswith('Activity Buffer')):
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
     print('profile, {} device program on a 960x1280 batch of 8: wall '
           '{:.3f} ms (profiler on), device busy {:.3f} ms, idle share '
           '{:.3f}'.format(label, wall_ms, busy_ms, 1.0 - busy_ms / wall_ms),
           flush=True)
-    for e in sorted(events, key=device_us, reverse=True)[:16]:
-        print('  {:>9.3f} ms  {:>5d} x  {}'.format(
-            device_us(e) / 1e3, e.count, e.key[:90]), flush=True)
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :16]:
+        print('  {:>9.3f} ms  {:>5d} x  {}'.format(us / 1e3, n, name[:90]),
+              flush=True)
     # The port's kernels, every instance of a template summed
     sums = {}
-    for e in events:
+    for key, (us, n) in by_name.items():
         for name in PORT_KERNELS:
-            if re.search(r'(^|[\s:]){}[<(]'.format(name), e.key):
-                ms, n = sums.get(name, (0.0, 0))
-                sums[name] = (ms + device_us(e) / 1e3, n + e.count)
+            if re.search(r'(^|[\s:]){}[<(]'.format(name), key):
+                ms, count = sums.get(name, (0.0, 0))
+                sums[name] = (ms + us / 1e3, count + n)
     print('  the port\'s kernels: {}'.format(', '.join(
         '{} {:.3f} ms over {} launches'.format(name, ms, n)
         for name, (ms, n) in sorted(sums.items()))), flush=True)
+    # silu_bf16 launches one of its two kernels a call
+    sums['silu_bf16'] = (0.0, sum(sums.get(name, (0.0, 0))[1] for name in (
+        'silu_bf16_vec8_kernel', 'silu_bf16_kernel')))
+    missing = {name: (n, sums.get(name, (0.0, 0))[1])
+               for name, n in counted.items()
+               if sums.get(name, (0.0, 0))[1] != n}
+    if missing:
+        raise AssertionError('{} profile: kernel launches counted vs '
+                             'profiled {}'.format(label, missing))
 
 
 def _uniform(rng, device, shape, lo, hi):
@@ -1521,10 +1604,10 @@ def phase_exp_kernels(device):
         torch.cuda.empty_cache()
 
     gemm, gemm_err = {}, {}
-    for m, k, n in ((65536, 1152, 1152), (38400, 2304, 256)):
+    for m, k, n in GEMM_SHAPES:
         a = _int8_input(rng, device, (m, k))
         b = _int8_input(rng, device, (k, n))
-        times = {}
+        times, graph_ms = {}, {}
         for requant in (None, 3e-4):
             got = gemm_int8.gemm_int8(a, b, requant)
             torch.cuda.synchronize()
@@ -1541,13 +1624,25 @@ def phase_exp_kernels(device):
                 _time_ms(lambda: gemm_int8.gemm_int8(a, b, requant), reps=10),
                 _time_ms(lambda: gemm_int8.gemm_int8_reference(a, b, requant),
                          reps=2, warmup=1))
+            graph_ms[requant] = _graph_ms(
+                lambda: gemm_int8.gemm_int8(a, b, requant))
             del got, ref
         lib_ms = _time_ms(lambda: torch._int_mm(a, b), reps=10)
         gemm[(m, k, n)] = (times, lib_ms)
-        print('GEMM kernel == plain at {}x{}x{}: int32 {:.4f} ms (plain '
-              '{:.4f}), fused int8 {:.4f} ms (plain {:.4f}); torch._int_mm '
-              '{:.4f} ms'.format(m, k, n, *times[None], *times[3e-4], lib_ms),
-              flush=True)
+        bounds = {requant: _gemm_bound(m, k, n, requant)
+                  for requant in (None, 3e-4)}
+        tiling = gemm_int8.gemm_tiling(m, k, n)
+        print('GEMM kernel == plain at {}x{}x{} ({} tiles of 128x128, grid '
+              '{}), ms a call back to back (device ms replayed from a CUDA '
+              'graph): int32 {:.4f} ({:.4f}; plain {:.4f}; bound {:.4f} ms '
+              'of {}, share {:.3f} of the device ms), fused int8 {:.4f} '
+              '({:.4f}; plain {:.4f}; bound {:.4f} ms of {}, share {:.3f}); '
+              'torch._int_mm {:.4f} ms'.format(
+                  m, k, n, tiling.tiles, tiling.grid, times[None][0],
+                  graph_ms[None], times[None][1], *bounds[None],
+                  bounds[None][0] / graph_ms[None], times[3e-4][0],
+                  graph_ms[3e-4], times[3e-4][1], *bounds[3e-4],
+                  bounds[3e-4][0] / graph_ms[3e-4], lib_ms), flush=True)
         del a, b
         torch.cuda.empty_cache()
 
@@ -1566,19 +1661,16 @@ def phase_exp_kernels(device):
             'plain_ms': plain_ms, 'bound_ms': conv_bound[0],
             'bound_by': conv_bound[1],
             'library_ms': conv_lib['[8,120,160,128]']}
-    for label, (m, k, n) in (('E5', (65536, 1152, 1152)),
-                             ('E6', (38400, 2304, 256))):
+    for label, (m, k, n) in (('E5', GEMM_SHAPES[0]), ('E6', GEMM_SHAPES[1])):
         name, source, replaces, _, _ = EXPERIMENTS[label]
         times, lib_ms = gemm[(m, k, n)]
-        bound = _bound(m * k + k * n + m * n * 4, 2.0 * m * k * n,
-                       INT8_OPS_PER_MS)
+        bound = _gemm_bound(m, k, n, None)
         records[label] = {
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': None,
             'max_abs_err': float(gemm_err[(m, k, n)]), 'ms': times[None][0], 'plain_ms': times[None][1],
             'bound_ms': bound[0], 'bound_by': bound[1], 'library_ms': lib_ms}
-    fused_bound = _bound(65536 * 1152 * 2 + 1152 * 1152,
-                         2.0 * 65536 * 1152 * 1152, INT8_OPS_PER_MS)
+    fused_bound = _gemm_bound(*GEMM_SHAPES[0], 3e-4)
     print('experiment bounds: conv 3x3 [8,120,160,128]->128 {:.4f} ms ({}); '
           'GEMM 65536x1152x1152 int32 {:.4f} ms ({}), fused int8 {:.4f} ms '
           '({}); 38400x2304x256 int32 {:.4f} ms ({}); library call: '
@@ -1670,9 +1762,17 @@ def main():
     print('build: {:.1f} s (nvcc {:.1f} s) -> {}'.format(
         time.time() - start, _build.build_seconds or 0.0,
         os.path.relpath(_build.library_path())), flush=True)
+    serialized = []
     for line in _build.build_log.splitlines():
         if 'registers' in line or 'spill' in line or 'smem' in line:
             print('  ptxas: ' + line.strip())
+        if 'C7520' in line or 'C7514' in line:
+            # ptxas serialized a kernel's wgmma (issued in divergent code,
+            # or accumulators read between issue and wait)
+            print('  ptxas: ' + line.strip())
+            serialized.append(line)
+    if any('gemm_int8' in line for line in serialized):
+        raise AssertionError('ptxas serialized the GEMM kernel\'s wgmma')
 
     # 3. kernel vs plain
     record = phase_kernel(device)

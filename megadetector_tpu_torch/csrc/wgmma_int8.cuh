@@ -1,6 +1,8 @@
 // Hopper (sm_90a) primitives for int8 tensor-core tile loops: cp.async
 // zero-fill copies into a shared-memory ring, the async-proxy fence, the
-// wgmma shared-memory descriptor and the s8 x s8 -> s32 warpgroup MMA.
+// wgmma shared-memory descriptor and the s8 x s8 -> s32 warpgroup MMA
+// (N = 64, 128), and TMA tile loads with the mbarriers that track
+// them.
 //
 // Tiles are K-major (each row of M or N holds [row_bytes] consecutive K
 // bytes), as int8 wgmma requires, in the 64- or 128-byte swizzled layout
@@ -185,3 +187,106 @@ struct MdWgmmaS8<128> {
         : "l"(a), "l"(b), "r"(accumulate));
   }
 };
+
+// ---- TMA loads and mbarriers (gemm_int8.cu's ring) ----
+
+// Initialise the mbarrier at shared address [bar] for [count] arrivals a
+// phase; one thread, then md_fence_mbarrier_init and a block barrier
+__device__ __forceinline__ void md_mbarrier_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void md_fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void md_mbarrier_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arrive and add [bytes] to the phase's expected transaction count: the
+// phase completes once the arrivals are in and that many bytes have landed
+__device__ __forceinline__ void md_mbarrier_arrive_expect_tx(uint32_t bar,
+                                                             uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity [parity] has completed (the barrier's
+// current phase has the other parity). A fresh barrier is in phase 0, so
+// a wait on parity 1 passes at once: a ring's producer waits on its empty
+// barriers with the parity of its pass through the ring flipped
+__device__ __forceinline__ void md_mbarrier_wait(uint32_t bar,
+                                                 uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box of a 2-D tensor map (a CUtensorMap kernel parameter) at
+// element coordinates (c0 innermost, c1) into shared memory at [dst],
+// completing [bytes of the box] on the mbarrier [bar]; out-of-bounds
+// elements land as zeros and still count
+__device__ __forceinline__ void md_tma_load_2d(uint32_t dst,
+                                               const void* tensor_map,
+                                               uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(bar), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// TMA store: the box of a 2-D tensor map at (c0, c1) from shared memory
+// at [src] (laid out as the map's swizzle says), in this thread's current
+// bulk group; elements out of bounds are not written
+__device__ __forceinline__ void md_tma_store_2d(const void* tensor_map,
+                                                uint32_t src, int c0,
+                                                int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(
+                                      tensor_map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void md_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void md_bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void md_prefetch_tensor_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Named barrier [id] (1-15) over [threads] threads (a multiple of 32):
+// wait until that many threads have arrived
+__device__ __forceinline__ void md_named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at named barrier [id] without waiting (the other threads of its
+// count wait there with md_named_barrier)
+__device__ __forceinline__ void md_named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}

@@ -54,8 +54,8 @@ _FUNCTIONS = {
     # inv_y, epilogue, instance, stream
     'md_conv3x3_int8_exp': [_P, _P, _P, _P, _P] + [_I] * 6 + [_F, _F, _I,
                                                              _I, _P],
-    # a, b, out, m, n, k, requant, scale, stream
-    'md_gemm_int8': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # a, b, out, bt, ap (or null), m, n, k, requant, scale, grid, stream
+    'md_gemm_int8': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

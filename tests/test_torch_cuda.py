@@ -595,12 +595,16 @@ def test_exp_conv_template_keeps_the_chain_conv(cuda_device):
 @pytest.mark.parametrize('requant', [None, 3e-4])
 @pytest.mark.parametrize('m,k,n', [(512, 1152, 512), (1000, 300, 72),
                                    (37, 45, 29), (65, 130, 66), (1, 4, 4),
-                                   (4097, 2304, 256)])
+                                   (4097, 2304, 256), (300, 1000, 200),
+                                   (129, 16, 257), (2000, 4096, 129),
+                                   (17000, 160, 700), (5, 0, 7)])
 def test_gemm_kernel_identical_to_plain(cuda_device, m, k, n, requant):
     """gemm_int8 (E5, E6) at the check shapes and off every tile (M, N, K
-    not multiples of 64; K and N not multiples of 4 take the byte loads):
-    identical to the plain version on the card and to numpy's int64
-    product."""
+    not multiples of the tile; K % 16 != 0 and K = 0 take the pad
+    pre-pass; M < 64 and N below the tile's width; N % 4 != 0 takes the
+    element stores; 17000x160x700 has more tiles than the persistent grid
+    has blocks): identical to the plain version on the card and to numpy's
+    int64 product."""
 
     rng = np.random.RandomState(m + k + n)
     a, b = _int8(rng, (m, k)), _int8(rng, (k, n))
@@ -617,6 +621,26 @@ def test_gemm_kernel_identical_to_plain(cuda_device, m, k, n, requant):
     else:
         assert torch.equal(got.cpu(), gemm_int8.gemm_int8_reference(
             a, b, requant))
+
+
+@pytest.mark.parametrize('requant', [None, 3e-4])
+def test_gemm_kernel_misaligned_view(cuda_device, requant):
+    """a at a storage offset that is not 16-byte aligned (TMA cannot read
+    it in place: the pad pre-pass copies it): identical to the plain
+    version."""
+
+    rng = np.random.RandomState(5)
+    m, k, n = 333, 512, 384
+    flat = _int8(rng, (m * k + 1,)).to(cuda_device)
+    a = flat[1:].view(m, k)
+    b = _int8(rng, (k, n)).to(cuda_device)
+    assert a.is_contiguous() and a.data_ptr() % 16
+    assert gemm_int8.gemm_tiling(m, k, n, aligned=False).pad_a
+    before = gemm_int8.launches
+    got = gemm_int8.gemm_int8(a, b, requant)
+    torch.cuda.synchronize()
+    assert gemm_int8.launches == before + 1
+    assert torch.equal(got, gemm_int8.gemm_int8_reference(a, b, requant))
 
 
 def test_exp_kernels_reject_bad_inputs(cuda_device):
