@@ -20,7 +20,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      load_and_run_detector_batch over 16 synthetic 4:3 and 16:9 images
      (two auto canvases, batch 8), write_results_to_file; the MD JSON is
      checked and the NMS kernel's launch count must cover every device
-     batch; images/s of a second, timed pass;
+     batch; images/s of a timed, replayed pass;
   5. card vs CPU: the same yolov5l6 forward on a 320 px batch of 2;
      heads agree to max |d| <= 1e-3 * max |ref| (cuDNN sums in another
      order than the CPU, even with TF32 off);
@@ -51,7 +51,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      xla; under pallas the bottleneck kernel once per bottleneck that
      bottleneck_tiling fuses (r = 36 of 42 a batch at both canvases) and
      the conv kernel 260 - 4 r times; the two backends' detections must
-     be identical; images/s of a second, timed pass of each, and both
+     be identical; images/s of a timed, replayed pass of each, and both
      backends' forward ms side by side;
   8. card vs CPU, int8 forward at 320 px, batch 2: decoded obj*cls
      scores p99 |d| < 0.02 and xy p99 |d| < 2 px (the bounds of the JAX
@@ -69,7 +69,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
  10. bf16 main path: phase 4's yolov5l6 with dtype bf16 through
      load_and_run_detector_batch over the same 16 images, batch 8; the
      stem must launch once per batch and the bf16 epilogue once per
-     activated conv after l0 per batch; images/s of a second pass and the
+     activated conv after l0 per batch; images/s of a replayed pass and the
      forward's CUDA-event ms on one 960x1280 batch of 8;
  11. int8 with dtype bf16 under conv_backend xla and pallas: the stem once
      per batch, the int8 kernels as in phase 7, no bf16 epilogue;
@@ -92,12 +92,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      pass + B2; torch._int_mm);
  15. the six experiment entry points (megadetector_tpu_torch/experiments)
      through their main() at batch 8 with a chain of 2: every variant
-     launches exactly the kernels it declares, once per step.
+     launches exactly the kernels it declares, once per step;
+ 16. the program cache (models/program_cache.py), after phases 4, 7 (both
+     backends) and 10: on a 960x1280 batch of 8 the program eager and
+     replayed from its CUDA graphs must be identical; forward and
+     selection + NMS ms eager and replayed, the whole program's wall ms
+     both ways, the peak device memory; after phase 4 also the host copy
+     of that batch, pageable against pinned;
+ 17. test-time augmentation, after phase 13: augment=True over the 16
+     images for float32, int8 (pallas) and bf16, launches per TTA pass
+     exact, replay identical to eager, the augment program's ms against
+     the plain one's, TTA on the card against the CPU at 320 px.
+Phases 4, 7 and 10-12 count two passes over the images: the first runs
+each program eagerly (its first call), the second captures the programs
+into CUDA graphs and replays them; launches must be equal and detections
+identical; images/s come from a third pass, all replays.
 With --profile: torch.profiler over one device program on a 960x1280
 batch of 8 (device time by kernel, idle share), int8 under both backends
-in phase 7 and bf16 after phase 13; each window runs the program twice
-and reads the second, and the port's kernels there must show exactly the
-launches their wrappers counted.
+in phase 7 and bf16 after phase 13, each replayed and eager; each window
+runs the program twice and reads the second, and the port's kernels
+there must show exactly the launches their wrappers counted.
 Then one JSON line with every kernel's record (time, plain time, bound,
 library yardstick, launches on the main path), and last the device line.
 """
@@ -422,11 +436,8 @@ def phase_main_path(device, workdir, config, params):
     import torch
 
     from megadetector_tpu_torch.detection.run_detector import load_detector
-    from megadetector_tpu_torch.detection.run_detector_batch import \
-        load_and_run_detector_batch
     from megadetector_tpu_torch.models.convert_weights import \
         save_checkpoint
-    from megadetector_tpu_torch.ops import cuda_nms
 
     model_path = os.path.join(workdir, 'md_smoke_{}.npz'.format(config.arch))
     save_checkpoint(params, model_path, {
@@ -439,12 +450,9 @@ def phase_main_path(device, workdir, config, params):
     pairs = [('smoke/img_{:02d}.jpg'.format(i), img)
              for i, img in enumerate(_synthetic_images(rng))]
 
-    cuda_nms.launches = 0
-    detector.programs_run = 0
-    results = load_and_run_detector_batch(detector, pairs, batch_size=8)
-    torch.cuda.synchronize()
-    launches = cuda_nms.launches
-    batches = detector.programs_run
+    results, counts, batches, e2e = _eager_then_replayed(
+        detector, pairs, 'float32 main path')
+    launches = counts[0]
 
     n_det = _write_and_check(results, pairs, model_path,
                              os.path.join(workdir, 'smoke_results.json'))
@@ -456,13 +464,7 @@ def phase_main_path(device, workdir, config, params):
           'kernel launches, {} images past the 8192 capacity'.format(
               n_det, batches, launches, truncated), flush=True)
 
-    # Timed second pass through the same entry point (host letterbox
-    # included), then the device program alone on letterboxed batches
-    start = time.time()
-    load_and_run_detector_batch(detector, pairs, batch_size=8, quiet=True)
-    torch.cuda.synchronize()
-    e2e = len(pairs) / (time.time() - start)
-
+    # The device program alone on letterboxed batches (replayed)
     infos = [detector.preprocess_image(img, image_id=name)
              for name, img in pairs]
     buckets = {}
@@ -992,11 +994,8 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
     import torch
 
     from megadetector_tpu_torch.detection.run_detector import load_detector
-    from megadetector_tpu_torch.detection.run_detector_batch import \
-        load_and_run_detector_batch
     from megadetector_tpu_torch.models.convert_weights import \
         quantize_checkpoint
-    from megadetector_tpu_torch.ops import bottleneck_int8, conv_int8
 
     q_path = os.path.join(workdir, 'md_smoke_int8.npz')
     start = time.time()
@@ -1007,34 +1006,25 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
     print('int8 checkpoint: quantize_checkpoint calibrated on the card in '
           '{:.1f} s'.format(time.time() - start), flush=True)
 
-    counts, rates, forward_ms, detections = {}, {}, {}, {}
+    launches, rates, forward_ms, detections = {}, {}, {}, {}
     for backend in ('xla', 'pallas'):
+        torch.cuda.reset_peak_memory_stats()
         detector = load_detector(q_path, device=device, detector_options={
             'pad_batches_to': 8, 'conv_backend': backend})
         want, routing = _int8_launches(detector, backend)
 
-        detector.programs_run = 0
-        conv_int8.launches = 0
-        bottleneck_int8.launches = 0
-        results = load_and_run_detector_batch(detector, pairs, batch_size=8)
-        torch.cuda.synchronize()
-        got = (conv_int8.launches, bottleneck_int8.launches)
-        batches = detector.programs_run
+        results, counts, batches, rates[backend] = _eager_then_replayed(
+            detector, pairs, 'int8 {}'.format(backend))
+        got = counts[1:3]
         if batches != 2 or got != want:
             raise AssertionError(
                 'int8 {}: {} batches (want 2), kernel launches (conv, '
                 'bottleneck) {}, expected {} ({})'.format(
                     backend, batches, got, want, routing))
-        counts[backend] = got
+        launches[backend] = got
         n_det = _write_and_check(results, pairs, q_path, os.path.join(
             workdir, 'smoke_int8_{}.json'.format(backend)))
         detections[backend] = results
-
-        start = time.time()
-        load_and_run_detector_batch(detector, pairs, batch_size=8,
-                                    quiet=True)
-        torch.cuda.synchronize()
-        rates[backend] = len(pairs) / (time.time() - start)
         with torch.inference_mode():
             x = torch.from_numpy(batch).to(device).float() / 255.0
             forward_ms[backend] = _time_ms(
@@ -1042,18 +1032,19 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
         print('int8 main path, conv_backend={}: 16 images, {} detections, '
               '{} device batches; conv kernel {} launches, bottleneck '
               'kernel {} ({}); {:.3f} images/s through '
-              'load_and_run_detector_batch (second pass); forward {:.3f} ms '
-              'per 960x1280 batch of 8'.format(
+              'load_and_run_detector_batch (third pass, replayed); forward '
+              '{:.3f} ms per 960x1280 batch of 8 (eager)'.format(
                   backend, n_det, batches, got[0], got[1], routing,
                   rates[backend], forward_ms[backend]), flush=True)
+        phase_program_cache(detector, batch, 'int8 ' + backend)
         if profile:
-            phase_profile(detector, batch, 'int8 ' + backend)
+            _profile_both(detector, batch, 'int8 ' + backend)
     if detections['xla'] != detections['pallas']:
         raise AssertionError('int8 detections differ between the conv '
                              'backends')
     print('int8 detections identical under conv_backend xla and pallas',
           flush=True)
-    return q_path, counts, rates, forward_ms, detector
+    return q_path, launches, rates, forward_ms, detector
 
 
 def phase_int8_card_vs_cpu(q_path, detector):
@@ -1217,6 +1208,295 @@ def _counts():
             l0_fused.launches, silu_bf16.launches)
 
 
+def _eager_then_replayed(detector, pairs, label):
+    """
+    load_and_run_detector_batch over [pairs] at batch 8, three times. The
+    first pass is each program's first call (eager), the second captures
+    every program into a CUDA graph and replays it, and both are counted:
+    their kernel launches (_counts) and device batches must be equal and
+    their results identical. The third pass, all replays, is timed.
+    Returns (results, launches, device batches, images/s of the third).
+    """
+
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+
+    passes = []
+    for _ in range(2):
+        detector.programs_run = 0
+        _reset_counts()
+        results = load_and_run_detector_batch(detector, pairs, batch_size=8,
+                                              quiet=True)
+        passes.append((results, _counts(), detector.programs_run))
+    (eager, eager_counts, batches), (replayed, counts, replayed_batches) = \
+        passes
+    if (counts, replayed_batches) != (eager_counts, batches):
+        raise AssertionError(
+            '{}: launches (nms, conv, bottleneck, stem, silu) and batches '
+            'eager {} {}, replayed {} {}'.format(
+                label, eager_counts, batches, counts, replayed_batches))
+    if replayed != eager:
+        raise AssertionError('{}: the replayed programs\' detections differ '
+                             'from the eager programs\''.format(label))
+    if detector._programs.replays == 0:
+        raise AssertionError('{}: no program was replayed'.format(label))
+    start = time.time()
+    load_and_run_detector_batch(detector, pairs, batch_size=8, quiet=True)
+    torch.cuda.synchronize()
+    rate = len(pairs) / (time.time() - start)
+    print('{}: replayed programs identical to eager over {} images ({} '
+          'graphs captured, {} replays); launches equal in both passes'
+          .format(label, len(pairs), detector._programs.captures,
+                  detector._programs.replays), flush=True)
+    return eager, eager_counts, batches, rate
+
+
+def _copy_ms(batch):
+    """(pageable, pinned) ms of the host -> device copy of [batch]."""
+
+    import torch
+
+    pageable = torch.from_numpy(batch)
+    pinned = torch.empty(pageable.shape, dtype=pageable.dtype,
+                         pin_memory=True)
+    pinned.copy_(pageable)
+    dst = torch.empty(pageable.shape, dtype=pageable.dtype, device='cuda')
+    return (_time_ms(lambda: dst.copy_(pageable), reps=10),
+            _time_ms(lambda: dst.copy_(pinned, non_blocking=True), reps=10))
+
+
+def phase_program_cache(detector, batch, label):
+    """
+    16. The program cache on [batch] (a 960x1280 batch of 8), after the
+    configuration's main path: the device program eager (_cuda_graphs
+    off) and replayed must give identical outputs at the same capacity;
+    CUDA-event ms of the forward and of selection + NMS at that capacity,
+    eager and replayed (the graph alone); wall ms of the whole program
+    (copy in, escalation read, outputs read) both ways; the peak device
+    memory since the configuration's detector was loaded.
+    """
+
+    import numpy as np
+    import torch
+
+    b, h, w = batch.shape[:3]
+    detector._cuda_graphs = False
+    eager, topk = detector.run_program(batch, 0.005, 0.45)
+    detector._cuda_graphs = True
+    for _ in range(3):
+        replayed, capacity = detector.run_program(batch, 0.005, 0.45)
+        if capacity != topk or sorted(replayed) != sorted(eager) or any(
+                not np.array_equal(replayed[k], eager[k]) for k in eager):
+            raise AssertionError('{}: the replayed program differs from '
+                                 'the eager one'.format(label))
+
+    def program_ms(graphs, reps=5):
+        detector._cuda_graphs = graphs
+        detector.run_program(batch, 0.005, 0.45)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(reps):
+            detector.run_program(batch, 0.005, 0.45)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3 / reps
+
+    key = ('forward', b, h, w, detector._fused_decode)
+    forward = detector._programs.entries[key]
+    select = detector._programs.entries[key + ('select', topk, 0.005, 0.45)]
+    x = torch.from_numpy(batch).to(detector.device)
+    with torch.inference_mode():
+        heads = detector._forward(x)
+        numbers = {
+            'forward_eager': _time_ms(lambda: detector._forward(x), reps=5),
+            'forward_replay': _time_ms(forward.graph.replay, reps=5),
+            'select_eager': _time_ms(lambda: detector._select_and_suppress(
+                topk, 0.005, 0.45, *heads), reps=5),
+            'select_replay': _time_ms(select.graph.replay, reps=5)}
+    del heads, x
+    numbers['program_eager'] = program_ms(False)
+    numbers['program_replay'] = program_ms(True)
+    numbers['peak_allocated_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    numbers['peak_reserved_gb'] = torch.cuda.max_memory_reserved() / 1e9
+    print('program cache, {}, 960x1280 batch of 8 (capacity {}): replay '
+          'identical to eager; forward {:.3f} ms eager, {:.3f} replayed; '
+          'select + NMS {:.3f} / {:.3f}; whole program (copy in, reads) '
+          '{:.3f} ms eager, {:.3f} replayed; {} graphs; peak device memory '
+          '{:.2f} GB allocated, {:.2f} GB reserved'.format(
+              label, topk, numbers['forward_eager'],
+              numbers['forward_replay'], numbers['select_eager'],
+              numbers['select_replay'], numbers['program_eager'],
+              numbers['program_replay'], detector._programs.captures,
+              numbers['peak_allocated_gb'], numbers['peak_reserved_gb']),
+          flush=True)
+
+
+def _pass_launches(detector):
+    """Per-model-call launch deltas of an eager program (forward hooks on
+    the network; a replay runs no hook)."""
+
+    from megadetector_tpu_torch.models import program_cache
+
+    calls = []
+    before = []
+
+    def pre(module, inputs):
+        before.append(program_cache.read_counters())
+
+    def post(module, inputs, output):
+        calls.append([a - b for a, b in zip(program_cache.read_counters(),
+                                            before.pop())])
+
+    hooks = [detector.model.register_forward_pre_hook(pre),
+             detector.model.register_forward_hook(post)]
+    return calls, hooks
+
+
+def phase_tta(device, workdir, float_path, q_path, pairs, batch,
+              canvases=((960, 1280), (768, 1280))):
+    """
+    17. Test-time augmentation: augment=True through
+    load_and_run_detector_batch over the 16 images, yolov5l6 at full
+    width, float32, int8 under pallas and bf16: an eager pass whose model
+    calls are counted pass by pass (each kernel's launches per TTA pass
+    exact: NMS once a batch on the merged candidates; the int8 kernels per
+    pass canvas as routing fuses; the stem on pass 1 only, the bf16
+    epilogue after every activated conv but pass 1's l0), then a replayed
+    pass with the same launches and identical detections; the MD JSON is
+    checked; wall ms of the augment program against the plain program on
+    [batch], both replayed; then TTA on the card against the CPU at 320
+    px, batch 2, within phase 5's bar (float32) and phases 8 and 13's
+    (int8, bf16). [canvases]: the canvases of [pairs]' two batches, in the
+    order they run.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+    from megadetector_tpu_torch.models.detector import (
+        tta_concatenated_predictions, tta_passes)
+    from megadetector_tpu_torch.models.yolov5 import QConv
+
+    configs = (('float32', float_path, {}),
+               ('int8 pallas', q_path, {'conv_backend': 'pallas'}),
+               ('bf16', float_path, {'dtype': 'bfloat16'}))
+    ms = {}
+    for label, path, options in configs:
+        torch.cuda.reset_peak_memory_stats()
+        detector = load_detector(path, device=device, detector_options=dict(
+            options, pad_batches_to=8))
+        model = detector.model
+        n_qconv = sum(isinstance(m, QConv) for m in model.modules())
+        n_act = _n_activated_convs(model)
+        # Expected launches a model call, by pass canvas: (nms, conv,
+        # bottleneck, stem, silu)
+        want = {}
+        for h, w in canvases:
+            for i, (_, _, _, _, ph, pw) in enumerate(
+                    tta_passes(h, w, detector.letterbox_stride)):
+                fused = 0
+                if label.startswith('int8'):
+                    fused = _fused_per_batch(detector.config,
+                                             ((ph, pw),))[(ph, pw)][0]
+                bf16 = label == 'bf16'
+                want[(h, w, i)] = (
+                    0, n_qconv - 2 * fused, fused, int(bf16 and i == 0),
+                    (n_act - (i == 0)) if bf16 else 0)
+        calls, hooks = _pass_launches(detector)
+        detector.programs_run = 0
+        _reset_counts()
+        eager = load_and_run_detector_batch(detector, pairs, batch_size=8,
+                                            quiet=True, augment=True)
+        eager_counts = _counts()
+        for hook in hooks:
+            hook.remove()
+        got = [tuple(c[i] for i in (0, 1, 3, 4, 5)) for c in calls]
+        expected = [want[(h, w, i)] for h, w in canvases for i in range(3)]
+        if detector.programs_run != 2 or got != expected or \
+                eager_counts[0] != 2:
+            raise AssertionError(
+                'TTA {}: {} programs; launches per pass (nms, conv, '
+                'bottleneck, stem, silu) {}, expected {}; NMS {}'.format(
+                    label, detector.programs_run, got, expected,
+                    eager_counts[0]))
+        _reset_counts()
+        replayed = load_and_run_detector_batch(detector, pairs, batch_size=8,
+                                               quiet=True, augment=True)
+        if _counts() != eager_counts or replayed != eager:
+            raise AssertionError('TTA {}: replayed launches {} vs eager {}, '
+                                 'or detections differ'.format(
+                                     label, _counts(), eager_counts))
+        n_det = _write_and_check(eager, pairs, path, os.path.join(
+            workdir, 'smoke_tta_{}.json'.format(label.replace(' ', '_'))))
+
+        def wall(augment, reps=3):
+            detector.run_program(batch, 0.005, 0.45, augment=augment)
+            detector.run_program(batch, 0.005, 0.45, augment=augment)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(reps):
+                detector.run_program(batch, 0.005, 0.45, augment=augment)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - start) * 1e3 / reps
+
+        ms[label] = (wall(True), wall(False))
+        print('TTA {}: 16 images, {} detections, 2 augment programs; '
+              'launches per pass (nms, conv, bottleneck, stem, silu) at '
+              '{}x{}: {}, at {}x{}: {}, NMS once a batch; replayed identical '
+              'to eager; augment program {:.3f} ms, plain program {:.3f} ms '
+              '(x{:.2f}) on a {}x{} batch of {}, replayed; peak device '
+              'memory {:.2f} GB allocated, {:.2f} GB reserved'.format(
+                  label, n_det, *canvases[0], expected[:3], *canvases[1],
+                  expected[3:], ms[label][0],
+                  ms[label][1], ms[label][0] / ms[label][1],
+                  *batch.shape[1:3], batch.shape[0],
+                  torch.cuda.max_memory_allocated() / 1e9,
+                  torch.cuda.max_memory_reserved() / 1e9), flush=True)
+
+        # Card against the CPU at 320 px, batch 2
+        x = torch.from_numpy(np.random.RandomState(2).randint(
+            0, 256, (2, 320, 320, 3), dtype=np.uint8))
+        cpu = load_detector(path, device='cpu', detector_options=options)
+        dtype = detector.compute_dtype
+        with torch.inference_mode():
+            ref = tta_concatenated_predictions(
+                detector.config, cpu.model, x, 320, 320, 64, dtype).numpy()
+            got_pred = tta_concatenated_predictions(
+                detector.config, model, x.to(device), 320, 320, 64,
+                dtype).cpu().numpy()
+        if got_pred.shape != ref.shape or not np.isfinite(got_pred).all():
+            raise AssertionError('TTA {} card vs CPU: shape {} vs {} or '
+                                 'non-finite'.format(label, got_pred.shape,
+                                                     ref.shape))
+        score = (lambda p: p[..., 4:5] * p[..., 5:])
+        d_score = np.abs(score(got_pred) - score(ref))
+        d_xy = np.abs(got_pred[..., :2] - ref[..., :2])
+        if label == 'float32':
+            worst = max(d_score.max() / np.abs(score(ref)).max(),
+                        d_xy.max() / np.abs(ref[..., :2]).max())
+            if worst > 1e-3:
+                raise AssertionError('TTA float32 card vs CPU: max |d| / '
+                                     'max |ref| {} (limit 1e-3)'.format(worst))
+            note = 'max |d| / max |ref| {:.3e} (limit 1e-3)'.format(worst)
+        else:
+            p_score = np.percentile(d_score, 99)
+            p_xy = np.percentile(d_xy, 99)
+            if not (p_score < 0.02 and p_xy < 2.0):
+                raise AssertionError('TTA {} card vs CPU: score p99 {} '
+                                     '(limit 0.02), xy p99 {} px (limit 2)'
+                                     .format(label, p_score, p_xy))
+            note = 'score p99 |d| {:.3e} (limit 0.02), xy p99 |d| {:.3e} ' \
+                'px (limit 2)'.format(p_score, p_xy)
+        print('TTA {} card vs CPU at 320 px, batch 2 (decoded, three '
+              'passes): {}'.format(label, note), flush=True)
+        del detector, model, cpu
+        torch.cuda.empty_cache()
+
+
 def _forward_ms(detector, batch):
     import torch
 
@@ -1232,17 +1512,14 @@ def phase_bf16_main_path(device, workdir, float_path, pairs, batch):
     import torch
 
     from megadetector_tpu_torch.detection.run_detector import load_detector
-    from megadetector_tpu_torch.detection.run_detector_batch import \
-        load_and_run_detector_batch
 
+    torch.cuda.reset_peak_memory_stats()
     detector = load_detector(float_path, device=device, detector_options={
         'pad_batches_to': 8, 'dtype': 'bfloat16'})
     n_epilogue = _n_activated_convs(detector.model) - 1
-    detector.programs_run = 0
-    _reset_counts()
-    results = load_and_run_detector_batch(detector, pairs, batch_size=8)
-    nms, conv, fused, stem, silu = _counts()
-    batches = detector.programs_run
+    results, counts, batches, rate = _eager_then_replayed(
+        detector, pairs, 'bf16 main path')
+    nms, conv, fused, stem, silu = counts
     if batches < 2 or stem != batches or silu != n_epilogue * batches or \
             nms < batches or conv or fused:
         raise AssertionError(
@@ -1252,18 +1529,15 @@ def phase_bf16_main_path(device, workdir, float_path, pairs, batch):
                 fused))
     n_det = _write_and_check(results, pairs, float_path, os.path.join(
         workdir, 'smoke_bf16.json'))
-    start = time.time()
-    load_and_run_detector_batch(detector, pairs, batch_size=8, quiet=True)
-    torch.cuda.synchronize()
-    rate = len(pairs) / (time.time() - start)
     fwd = _forward_ms(detector, batch)
     print('bf16 main path: 16 images, {} detections, {} device batches; stem '
           'kernel {} launches (1 x {}), bf16 epilogue {} ({} activated convs '
           'after l0 x {}), NMS {}; {:.3f} images/s through '
-          'load_and_run_detector_batch (second pass); forward {:.3f} ms per '
-          '960x1280 batch of 8 (uint8 in)'.format(
+          'load_and_run_detector_batch (third pass, replayed); forward '
+          '{:.3f} ms per 960x1280 batch of 8 (uint8 in, eager)'.format(
               n_det, batches, stem, batches, silu, n_epilogue, batches, nms,
               rate, fwd), flush=True)
+    phase_program_cache(detector, batch, 'bf16')
     return stem, silu, rate, fwd, detector
 
 
@@ -1275,8 +1549,6 @@ def phase_int8_bf16_main_path(device, workdir, q_path, pairs, batch):
     import torch
 
     from megadetector_tpu_torch.detection.run_detector import load_detector
-    from megadetector_tpu_torch.detection.run_detector_batch import \
-        load_and_run_detector_batch
 
     rates, forward_ms, detections = {}, {}, {}
     for backend in ('xla', 'pallas'):
@@ -1285,11 +1557,9 @@ def phase_int8_bf16_main_path(device, workdir, q_path, pairs, batch):
             'dtype': 'bfloat16'})
         (want_conv, want_fused), routing = _int8_launches(detector,
                                                           backend)
-        detector.programs_run = 0
-        _reset_counts()
-        results = load_and_run_detector_batch(detector, pairs, batch_size=8)
-        nms, conv, fused, stem, silu = _counts()
-        batches = detector.programs_run
+        results, counts, batches, rates[backend] = _eager_then_replayed(
+            detector, pairs, 'int8 + bf16 {}'.format(backend))
+        nms, conv, fused, stem, silu = counts
         if batches != 2 or (conv, fused, stem, silu) != (
                 want_conv, want_fused, batches, 0) or nms < batches:
             raise AssertionError(
@@ -1300,16 +1570,11 @@ def phase_int8_bf16_main_path(device, workdir, q_path, pairs, batch):
         n_det = _write_and_check(results, pairs, q_path, os.path.join(
             workdir, 'smoke_int8_bf16_{}.json'.format(backend)))
         detections[backend] = results
-        start = time.time()
-        load_and_run_detector_batch(detector, pairs, batch_size=8,
-                                    quiet=True)
-        torch.cuda.synchronize()
-        rates[backend] = len(pairs) / (time.time() - start)
         forward_ms[backend] = _forward_ms(detector, batch)
         print('int8 + bf16 main path, conv_backend={}: {} detections, {} '
               'batches; stem {} launches, conv {}, bottleneck {}, bf16 '
-              'epilogue {}; {:.3f} images/s (second pass); forward {:.3f} ms '
-              'per 960x1280 batch of 8'.format(
+              'epilogue {}; {:.3f} images/s (third pass, replayed); forward '
+              '{:.3f} ms per 960x1280 batch of 8 (eager)'.format(
                   backend, n_det, batches, stem, conv, fused, silu,
                   rates[backend], forward_ms[backend]), flush=True)
         del detector
@@ -1343,8 +1608,6 @@ def phase_device_preprocess(device, workdir, float_path, pairs,
     import torch
 
     from megadetector_tpu_torch.detection.run_detector import load_detector
-    from megadetector_tpu_torch.detection.run_detector_batch import \
-        load_and_run_detector_batch
     from megadetector_tpu_torch.ops import boxes, preprocess_device
 
     # The device letterbox against the host letterbox's canvas
@@ -1383,12 +1646,12 @@ def phase_device_preprocess(device, workdir, float_path, pairs,
             'pad_batches_to': 8, 'preprocess_mode': 'device',
             'dtype': dtype})
         n_act = _n_activated_convs(detector.model)
-        detector.programs_run = detector.identity_programs_run = 0
-        _reset_counts()
-        results = load_and_run_detector_batch(detector, all_pairs,
-                                              batch_size=8)
-        nms, conv, fused, stem, silu = _counts()
-        batches = detector.programs_run
+        detector.identity_programs_run = 0
+        results, counts, batches, rates[dtype] = _eager_then_replayed(
+            detector, all_pairs, 'device preprocess {}'.format(dtype))
+        nms, conv, fused, stem, silu = counts
+        # The identity batch ran in both counted passes
+        detector.identity_programs_run //= 2
         want_silu = n_act * batches if dtype == 'bfloat16' else 0
         if batches < 3 or detector.identity_programs_run < 1 or stem or \
                 silu != want_silu or nms < batches:
@@ -1400,15 +1663,10 @@ def phase_device_preprocess(device, workdir, float_path, pairs,
         n_det = _write_and_check(results, all_pairs, float_path,
                                  os.path.join(workdir, 'smoke_device_{}.json'
                                               .format(dtype)))
-        start = time.time()
-        load_and_run_detector_batch(detector, all_pairs, batch_size=8,
-                                    quiet=True)
-        torch.cuda.synchronize()
-        rates[dtype] = len(all_pairs) / (time.time() - start)
         print('device preprocess, {}: 24 images, {} detections, {} batches '
               '({} on the identity path); bf16 epilogue {} launches, stem {}, '
               'NMS {}; {:.3f} images/s through load_and_run_detector_batch '
-              '(second pass)'.format(dtype, n_det, batches,
+              '(third pass, replayed)'.format(dtype, n_det, batches,
                                      detector.identity_programs_run, silu,
                                      stem, nms, rates[dtype]), flush=True)
         del detector
@@ -1442,6 +1700,17 @@ def phase_bf16_card_vs_cpu(detector, config, params):
     print('bf16 card vs CPU yolov5l6 at 320 px: decoded score p99 |d| '
           '{:.3e} (limit 0.02), xy p99 |d| {:.3e} px (limit 2)'.format(
               d_score, d_xy), flush=True)
+
+
+def _profile_both(detector, batch, label):
+    """phase_profile of the replayed program, then of the eager one."""
+
+    phase_profile(detector, batch, label + ' (replayed)')
+    detector._cuda_graphs = False
+    try:
+        phase_profile(detector, batch, label + ' (eager)')
+    finally:
+        detector._cuda_graphs = True
 
 
 def phase_profile(detector, batch, label):
@@ -1781,6 +2050,7 @@ def main():
     params = init_params(config, seed=0)
     with tempfile.TemporaryDirectory() as workdir:
         # 4. main path
+        torch.cuda.reset_peak_memory_stats()
         launches, e2e, device_rate, detector, buckets, float_path, pairs = \
             phase_main_path(device, workdir, config, params)
         record['launches'] = launches
@@ -1790,6 +2060,14 @@ def main():
               'letterboxed batches; 1280 px auto canvases, batch 8, '
               'float32'.format(card, e2e, device_rate), flush=True)
         batch, float_fwd = phase_breakdown(detector, buckets)
+
+        # 16. the program cache (float32; the other configurations after
+        # their main paths), and the host copy
+        phase_program_cache(detector, batch, 'float32')
+        pageable_ms, pinned_ms = _copy_ms(batch)
+        print('host -> device copy of the uint8 960x1280 batch of 8 ({:.1f} '
+              'MB): {:.3f} ms pageable, {:.3f} ms pinned'.format(
+                  batch.nbytes / 1e6, pageable_ms, pinned_ms), flush=True)
 
         # 5. card vs CPU
         phase_card_vs_cpu(detector, config, params)
@@ -1847,9 +2125,12 @@ def main():
         # 13. bf16 card vs CPU
         phase_bf16_card_vs_cpu(detector, config, params)
         if '--profile' in sys.argv[1:]:
-            phase_profile(detector, batch, 'bf16')
+            _profile_both(detector, batch, 'bf16')
         del detector
         torch.cuda.empty_cache()
+
+        # 17. test-time augmentation
+        phase_tta(device, workdir, float_path, q_path, pairs, batch)
 
     # 14. the experiments' kernels vs plain
     exp_records = phase_exp_kernels(device)

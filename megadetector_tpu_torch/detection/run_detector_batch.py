@@ -10,13 +10,21 @@ and failure semantics. Inputs are file paths, a folder, a .json/.txt list
 file, or in-memory (image_id, HWC uint8 array) pairs. JPEG decoding goes
 through PIL, imported only when there are files to decode.
 
-Not in this slice: checkpoint/resume, the async loader pool, multi-GPU.
+A long run checkpoints every N images to a JSON file ({'checkpoint':
+[image dicts]}, the JAX package's format) and resumes from it (results=;
+the CLI's --resume_from_checkpoint, 'auto' taking the newest
+md_checkpoint*.json beside the output); images already in the results are
+skipped. augment runs the detector's test-time augmentation.
+
+Not here yet: the async loader pool, timestamps and EXIF, overwrite
+handling, the native loader, multi-GPU.
 """
 
 import argparse
 import copy
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -62,6 +70,12 @@ def _load_and_preprocess(detector, item, image_size=None):
         return image_id, FAILURE_IMAGE_OPEN
 
 
+def _item_id(item):
+    """The image id of an input: the path, or a pair's image_id."""
+
+    return item[0] if isinstance(item, (tuple, list)) else item
+
+
 def _enumerate_inputs(image_file_names):
     """A folder, a .json/.txt list file or one path -> list of inputs."""
 
@@ -74,39 +88,99 @@ def _enumerate_inputs(image_file_names):
     return [image_file_names]
 
 
+#%% Checkpointing
+#
+# The file format is contractual: {'checkpoint': [image dicts]}
+
+
+def write_checkpoint(checkpoint_path, results):
+    """
+    Write [results] to [checkpoint_path], first backing up any previous
+    checkpoint to '<path>_tmp' so a mid-write crash can't lose both.
+    """
+
+    checkpoint_tmp_path = None
+    if os.path.isfile(checkpoint_path):
+        checkpoint_tmp_path = checkpoint_path + '_tmp'
+        shutil.copyfile(checkpoint_path, checkpoint_tmp_path)
+
+    ct_utils.write_json(checkpoint_path,
+                        {'checkpoint': [r for r in results
+                                        if r is not None]},
+                        force_str=True)
+
+    if checkpoint_tmp_path is not None:
+        os.remove(checkpoint_tmp_path)
+
+
+def load_checkpoint(checkpoint_path):
+    """Read a checkpoint file; returns the list of image results."""
+
+    with open(checkpoint_path) as f:
+        saved = json.load(f)
+    if 'checkpoint' not in saved:
+        raise ValueError('Checkpoint file {} is invalid (no "checkpoint" '
+                         'field)'.format(checkpoint_path))
+    return saved['checkpoint']
+
+
+#%% Main API
+
+
 def load_and_run_detector_batch(model_file,
                                 image_file_names,
+                                checkpoint_path=None,
                                 confidence_threshold=None,
+                                checkpoint_frequency=-1,
+                                results=None,
                                 quiet=False,
                                 image_size=None,
                                 batch_size=8,
+                                augment=False,
                                 include_image_size=False,
                                 detector_options=None,
+                                *,
                                 device=None):
     """
-    Run a detector over images; returns MD-format image dicts in input
-    order.
+    Run a detector over images; returns [results] followed by the new
+    MD-format image dicts in input order (the arguments the port shares
+    with the JAX package's function are in its order).
 
     Args:
         model_file: checkpoint path, known model name, or a detector
             object (anything with preprocess_image)
         image_file_names: list of image paths or (image_id, HWC uint8
             array) pairs, or a folder, or a .json/.txt list file
+        checkpoint_path: JSON checkpoint destination (enables resume)
         confidence_threshold: output confidence floor (default 0.005)
+        checkpoint_frequency: write a checkpoint every N images and at the
+            end (-1: off)
+        results: results already made (a loaded checkpoint); their images
+            are skipped, and the list is extended and returned
         quiet: no summary line
         image_size: override the model's inference canvas
         batch_size: images per device program
+        augment: test-time augmentation (multi-scale + flip passes merged
+            before NMS); needs host preprocessing
         include_image_size: add 'height'/'width' of the original image
         detector_options: dict of TorchDetector options (pad_batches_to
             defaults to batch_size)
-        device: as load_detector
+        device: keyword only; as load_detector
     """
 
     if confidence_threshold is None:
         confidence_threshold = DEFAULT_OUTPUT_CONFIDENCE_THRESHOLD
-    items = _enumerate_inputs(image_file_names)
+    if results is None:
+        results = []
+    all_items = _enumerate_inputs(image_file_names)
+    already_processed = set(r['file'] for r in results)
+    items = [item for item in all_items
+             if _item_id(item) not in already_processed]
+    if len(items) < len(all_items) and not quiet:
+        print('Bypassing {} already-processed images'.format(
+            len(all_items) - len(items)))
     if len(items) == 0:
-        return []
+        return results
 
     if hasattr(model_file, 'preprocess_image'):
         detector = model_file
@@ -120,20 +194,23 @@ def load_and_run_detector_batch(model_file,
     start = time.time()
     new_results = [None] * len(items)
     pending = {}  # canvas shape -> list of (index, image_id, info)
+    images_since_checkpoint = 0
 
     def flush_bucket(bucket):
+        nonlocal images_since_checkpoint
         if len(bucket) == 0:
             return
         batch_results = detector.generate_detections_one_batch(
             [p[2] for p in bucket], [p[1] for p in bucket],
             detection_threshold=confidence_threshold,
-            image_size=image_size)
+            image_size=image_size, augment=augment)
         for (idx, _, info), r in zip(bucket, batch_results):
             if include_image_size:
                 shape = info.get('original_shape', info['scaling_shape'])
                 r['height'] = int(shape[0])
                 r['width'] = int(shape[1])
             new_results[idx] = r
+        images_since_checkpoint += len(bucket)
         bucket.clear()
 
     def flush_all_pending():
@@ -173,13 +250,26 @@ def load_and_run_detector_batch(model_file,
         bucket.append((idx, image_id, info))
         if len(bucket) >= batch_size:
             flush_bucket(bucket)
+
+        if checkpoint_frequency > 0 and checkpoint_path is not None and \
+                images_since_checkpoint >= checkpoint_frequency:
+            flush_all_pending()
+            done = [r for r in new_results if r is not None]
+            write_checkpoint(checkpoint_path, results + done)
+            if not quiet:
+                print('Wrote checkpoint after {} images'.format(len(done)))
+            images_since_checkpoint = 0
     flush_all_pending()
 
     if not quiet:
         elapsed = time.time() - start
         print('Finished inference for {} images in {:.1f}s'.format(
             len(items), elapsed))
-    return new_results
+    results.extend(new_results)
+    # A final checkpoint, so a crash after inference loses nothing
+    if checkpoint_frequency > 0 and checkpoint_path is not None:
+        write_checkpoint(checkpoint_path, results)
+    return results
 
 
 def write_results_to_file(results,
@@ -271,7 +361,8 @@ def write_results_to_file(results,
     return final_output
 
 
-def main():
+def main(argv=None):
+    """The CLI; [argv] defaults to sys.argv[1:]."""
 
     parser = argparse.ArgumentParser(
         description='Run MegaDetector (PyTorch port) on a folder or list of '
@@ -291,9 +382,19 @@ def main():
     parser.add_argument('--quiet', action='store_true')
     parser.add_argument('--image_size', type=int, default=None)
     parser.add_argument('--batch_size', type=int, default=8)
+    parser.add_argument('--augment', action='store_true',
+                        help='test-time augmentation (multi-scale + '
+                             'flip passes merged before NMS)')
     parser.add_argument('--threshold', type=float, default=None,
                         help='output confidence floor (default {})'.format(
                             DEFAULT_OUTPUT_CONFIDENCE_THRESHOLD))
+    parser.add_argument('--checkpoint_frequency', type=int, default=-1)
+    parser.add_argument('--checkpoint_path', default=None)
+    parser.add_argument('--resume_from_checkpoint', default=None,
+                        help='checkpoint file to resume from, or "auto"')
+    parser.add_argument('--allow_checkpoint_overwrite',
+                        action='store_true',
+                        help='accepted for compatibility; no effect')
     parser.add_argument('--device', default=None,
                         help='cuda, cuda:N or cpu (default: cuda, which '
                              'needs a card)')
@@ -302,11 +403,16 @@ def main():
                              'the default label map (implies '
                              'use_model_native_classes)')
     parser.add_argument('--detector_options', nargs='*', default=None)
+    parser.add_argument('--previous_results_file', default=None,
+                        help='merge results for already-processed images '
+                             'from this file')
 
-    if len(sys.argv[1:]) == 0:
+    if argv is None:
+        argv = sys.argv[1:]
+    if len(argv) == 0:
         parser.print_help()
         parser.exit()
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     detector_options = ct_utils.parse_kvp_list(args.detector_options)
     custom_category_map = None
@@ -324,10 +430,50 @@ def main():
         source_folder = None
     print('Running detector on {} images'.format(len(image_file_names)))
 
+    # Resume support
+    results = []
+    checkpoint_path = args.checkpoint_path
+    if args.checkpoint_frequency > 0 and checkpoint_path is None:
+        output_dir = os.path.dirname(os.path.abspath(args.output_file))
+        checkpoint_path = os.path.join(
+            output_dir, 'md_checkpoint_{}.json'.format(
+                datetime.now().strftime('%Y%m%d%H%M%S')))
+    if args.resume_from_checkpoint is not None:
+        if args.resume_from_checkpoint == 'auto':
+            output_dir = os.path.dirname(os.path.abspath(args.output_file))
+            candidates = sorted(
+                fn for fn in os.listdir(output_dir)
+                if fn.startswith('md_checkpoint') and fn.endswith('.json'))
+            if not candidates:
+                raise ValueError('No checkpoint files found in {} for '
+                                 '"auto" resume'.format(output_dir))
+            resume_file = os.path.join(output_dir, candidates[-1])
+        else:
+            resume_file = args.resume_from_checkpoint
+        results = load_checkpoint(resume_file)
+        print('Restored {} results from checkpoint {}'.format(
+            len(results), resume_file))
+        if checkpoint_path is None:
+            checkpoint_path = resume_file
+
+    # Merge previous results
+    if args.previous_results_file is not None:
+        with open(args.previous_results_file) as f:
+            previous = json.load(f)
+        prev_images = previous.get('images', [])
+        if source_folder is not None:
+            for im in prev_images:
+                im['file'] = os.path.join(source_folder, im['file'])
+        results.extend(prev_images)
+        print('Merged {} previous results'.format(len(prev_images)))
+
     results = load_and_run_detector_batch(
         args.detector_file, image_file_names,
-        confidence_threshold=args.threshold, quiet=args.quiet,
-        image_size=args.image_size, batch_size=args.batch_size,
+        checkpoint_path=checkpoint_path,
+        confidence_threshold=args.threshold,
+        checkpoint_frequency=args.checkpoint_frequency, results=results,
+        quiet=args.quiet, image_size=args.image_size,
+        batch_size=args.batch_size, augment=args.augment,
         include_image_size=args.include_image_size,
         detector_options=detector_options, device=args.device)
 
@@ -338,6 +484,11 @@ def main():
         detector_file=args.detector_file,
         include_max_conf=args.include_max_conf,
         detection_categories=custom_category_map)
+
+    # Delete the checkpoint on success
+    if checkpoint_path is not None and os.path.isfile(checkpoint_path):
+        os.remove(checkpoint_path)
+        print('Deleted checkpoint file {}'.format(checkpoint_path))
 
 
 if __name__ == '__main__':

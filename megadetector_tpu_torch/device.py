@@ -8,7 +8,11 @@ device (None) means CUDA, and asking for CUDA where there is no card
 raises instead of quietly running on the CPU.
 """
 
+import numpy as np
 import torch
+
+# device_constant's tensors, by (values, dtype, device)
+_CONSTANTS = {}
 
 
 def get_device(name=None):
@@ -35,6 +39,24 @@ def get_device(name=None):
     elif device.type != 'cpu':
         raise ValueError('Unsupported device {}'.format(device))
     return device
+
+
+def device_constant(values, dtype, device):
+    """
+    [values] (array-like) as a tensor of [dtype] on [device], made once per
+    (values, dtype, device) and shared after that. A CUDA graph cannot
+    capture a copy from the host: a program's first, eager run makes its
+    constants here, and the captured run reads the same tensors. Callers
+    never write to them.
+    """
+
+    arr = np.asarray(values)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, str(device))
+    tensor = _CONSTANTS.get(key)
+    if tensor is None:
+        tensor = torch.as_tensor(arr).to(dtype).to(device)
+        _CONSTANTS[key] = tensor
+    return tensor
 
 
 def set_float32_exact():

@@ -1,7 +1,14 @@
 """
 Checkpoint I/O for the port: the .npz + metadata.json format that
 megadetector_tpu/models/convert_weights.py writes, read without importing
-the JAX package, plus the conversion into torch tensors.
+the JAX package, plus the conversion into torch tensors; and the offline
+converter of reference YOLOv5 .pt checkpoints into that format (a stub
+unpickler, so the training repo need not be installed; BatchNorm folded,
+weights OIHW -> HWIO), with its CLI:
+
+    python -m megadetector_tpu_torch.models.convert_weights ckpt.pt \
+        [out.npz] [--arch A] [--num_classes N] [--model_version V] \
+        [--quantize [--calibration_folder F] [--device cpu]]
 
 Parameters stay a nested dict of numpy arrays (the JAX pytree layout) on
 disk and in the tests, so both packages load the very same numbers.
@@ -14,8 +21,11 @@ writes unfolded int8 checkpoints with the same layer policy, which the JAX
 TPUDetector loads unchanged.
 """
 
+import io
 import json
 import os
+import pickle
+import re
 
 import numpy as np
 import torch
@@ -127,6 +137,363 @@ def params_to_torch(params_np):
             out[k] = torch.from_numpy(np.ascontiguousarray(
                 np.asarray(v, np.float32)))
     return out
+
+
+#%% Torch-state-dict extraction without the training repo
+
+
+class _StubModule:
+    """Generic stand-in for any class the checkpoint pickle references."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+
+
+def _make_stub_class(module, name):
+    return type(name, (_StubModule,), {'__module__': module})
+
+
+def extract_torch_state_dict(checkpoint_path, verbose=False):
+    """
+    Extract {name: numpy array} from a torch checkpoint without the model
+    repo that pickled it: classes that cannot be imported resolve to
+    stubs, and the nn.Module object graph is walked through its
+    _parameters / _buffers / _modules.
+
+    Returns (state_dict, extras); extras carries the class names, stride,
+    nc, yaml and a training-config block when the checkpoint has them.
+    """
+
+    class _ShimUnpickler(pickle.Unpickler):
+
+        def find_class(self, module, name):
+            try:
+                return super().find_class(module, name)
+            except (ImportError, AttributeError):
+                if verbose:
+                    print('Stubbing {}.{}'.format(module, name))
+                return _make_stub_class(module, name)
+
+    def _shim_load(f, **kwargs):
+        return _ShimUnpickler(f).load()
+
+    shim_pickle = type(pickle)('shim_pickle')
+    shim_pickle.Unpickler = _ShimUnpickler
+    shim_pickle.load = _shim_load
+    shim_pickle.loads = lambda b, **kw: _ShimUnpickler(
+        io.BytesIO(b)).load()
+
+    ckpt = torch.load(checkpoint_path, map_location='cpu',
+                      pickle_module=shim_pickle, weights_only=False)
+
+    model_obj = None
+    extras = {}
+    if isinstance(ckpt, dict):
+        # Top-level training-config blocks (an 'args' Namespace or a
+        # 'model_config' dict next to the weights)
+        for cfg_key in ('args', 'model_config', 'config'):
+            cfg = ckpt.get(cfg_key)
+            if cfg is None:
+                continue
+            cfg_dict = cfg if isinstance(cfg, dict) else \
+                getattr(cfg, '__dict__', {})
+            clean = {}
+            for k, v in dict(cfg_dict).items():
+                try:
+                    if hasattr(v, 'tolist'):
+                        v = v.tolist()
+                    json.dumps(v)
+                    clean[k] = v
+                except (TypeError, ValueError):
+                    pass
+            if clean:
+                extras['model_config'] = clean
+                break
+        for key in ('model', 'ema'):
+            if key in ckpt and ckpt[key] is not None:
+                model_obj = ckpt[key]
+                break
+        if model_obj is None and all(
+                hasattr(v, 'shape') for v in ckpt.values()):
+            # Plain state dict
+            return ({k: _to_numpy(v) for k, v in ckpt.items()}, extras)
+    else:
+        model_obj = ckpt
+
+    if model_obj is None:
+        raise ValueError('Could not find a model object in {}'.format(
+            checkpoint_path))
+
+    state = {}
+    _walk_module(model_obj, '', state)
+
+    # Metadata commonly attached to YOLO model objects
+    d = getattr(model_obj, '__dict__', {})
+    names = d.get('names', None)
+    if names is not None:
+        extras['names'] = names if isinstance(names, (list, dict)) \
+            else list(names)
+    for attr in ('stride', 'nc', 'yaml'):
+        if attr in d:
+            try:
+                v = d[attr]
+                if hasattr(v, 'tolist'):
+                    v = v.tolist()
+                json.dumps(v)
+                extras[attr] = v
+            except (TypeError, ValueError):
+                pass
+
+    return state, extras
+
+
+def _to_numpy(t):
+    return t.detach().cpu().numpy() if hasattr(t, 'detach') else np.asarray(t)
+
+
+def _walk_module(obj, prefix, out):
+    """Recursively collect parameters/buffers from a (stubbed) nn.Module."""
+
+    d = getattr(obj, '__dict__', None)
+    if d is None:
+        return
+    for group in ('_parameters', '_buffers'):
+        tensors = d.get(group, None)
+        if isinstance(tensors, dict):
+            for name, t in tensors.items():
+                if t is not None and hasattr(t, 'shape'):
+                    key = '{}.{}'.format(prefix, name) if prefix else name
+                    out[key] = _to_numpy(t)
+    modules = d.get('_modules', None)
+    if isinstance(modules, dict):
+        for name, child in modules.items():
+            if child is None:
+                continue
+            child_prefix = '{}.{}'.format(prefix, name) if prefix else name
+            _walk_module(child, child_prefix, out)
+
+
+#%% BN fusion and layout conversion
+
+
+def fuse_conv_bn(conv_w, bn_weight, bn_bias, bn_mean, bn_var, eps=1e-3):
+    """
+    Fold BatchNorm into conv weights. conv_w is OIHW; returns (w, b) with w
+    still OIHW. YOLOv5 BatchNorm uses eps=1e-3.
+    """
+
+    scale = bn_weight / np.sqrt(bn_var + eps)
+    w = conv_w * scale[:, None, None, None]
+    b = bn_bias - bn_mean * scale
+    return w, b
+
+
+def _oihw_to_hwio(w):
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+class _TorchKeyReader:
+    """Pulls fused (HWIO weight, bias) pairs out of a torch state dict."""
+
+    def __init__(self, state_dict):
+        # Strip leading 'model.' wrappers so keys start with the layer
+        # index ('0.conv.weight', '24.m.0.weight', ...)
+        self.sd = {}
+        for k, v in state_dict.items():
+            key = k
+            while key.startswith('model.'):
+                key = key[len('model.'):]
+            self.sd[key] = v
+        self.used = set()
+
+    def conv(self, base):
+        """
+        Fused conv weights at [base] (e.g. '0' or '2.cv1'), from an
+        already-fused checkpoint (conv.weight + conv.bias) or an unfused
+        one (conv.weight + bn.*).
+        """
+
+        wk = base + '.conv.weight'
+        if wk not in self.sd:
+            raise KeyError('Missing key {}'.format(wk))
+        w = self.sd[wk]
+        self.used.add(wk)
+        bk = base + '.conv.bias'
+        bnk = base + '.bn.weight'
+        if bnk in self.sd:
+            bn_w = self.sd[base + '.bn.weight']
+            bn_b = self.sd[base + '.bn.bias']
+            bn_m = self.sd[base + '.bn.running_mean']
+            bn_v = self.sd[base + '.bn.running_var']
+            for suffix in ('.bn.weight', '.bn.bias', '.bn.running_mean',
+                           '.bn.running_var', '.bn.num_batches_tracked'):
+                self.used.add(base + suffix)
+            w, b = fuse_conv_bn(w, bn_w, bn_b, bn_m, bn_v)
+        elif bk in self.sd:
+            b = self.sd[bk]
+            self.used.add(bk)
+        else:
+            b = np.zeros(w.shape[0], dtype=w.dtype)
+        return {'w': _oihw_to_hwio(np.asarray(w, np.float32)),
+                'b': np.asarray(b, np.float32)}
+
+    def plain_conv(self, base):
+        """Unwrapped conv (detect heads): weight+bias directly at [base]."""
+
+        w = np.asarray(self.sd[base + '.weight'], np.float32)
+        b = np.asarray(self.sd[base + '.bias'], np.float32)
+        self.used.add(base + '.weight')
+        self.used.add(base + '.bias')
+        return {'w': _oihw_to_hwio(w), 'b': b}
+
+    def get(self, key, default=None):
+        if key in self.sd:
+            self.used.add(key)
+            return self.sd[key]
+        return default
+
+
+def convert_yolov5_state_dict(state_dict, config):
+    """
+    Map a YOLOv5 torch state dict onto the layer structure of [config]
+    (a YoloV5Config). Returns (params pytree, anchors ndarray or None).
+    """
+
+    reader = _TorchKeyReader(state_dict)
+    params = {}
+    anchors = None
+
+    for i, entry in enumerate(config.layers):
+        kind = entry['kind']
+        name = 'l{}'.format(i)
+        base = str(i)
+        if kind == 'conv':
+            params[name] = reader.conv(base)
+        elif kind == 'c3':
+            node = {
+                'cv1': reader.conv(base + '.cv1'),
+                'cv2': reader.conv(base + '.cv2'),
+                'cv3': reader.conv(base + '.cv3'),
+            }
+            for j in range(entry['n']):
+                node['m{}'.format(j)] = {
+                    'cv1': reader.conv('{}.m.{}.cv1'.format(base, j)),
+                    'cv2': reader.conv('{}.m.{}.cv2'.format(base, j)),
+                }
+            params[name] = node
+        elif kind == 'sppf':
+            params[name] = {
+                'cv1': reader.conv(base + '.cv1'),
+                'cv2': reader.conv(base + '.cv2'),
+            }
+        elif kind == 'detect':
+            heads = {}
+            for lvl in range(len(entry['frm'])):
+                heads['m{}'.format(lvl)] = reader.plain_conv(
+                    '{}.m.{}'.format(base, lvl))
+            params[name] = heads
+            # The anchors buffer is grid-relative (divided by stride);
+            # convert back to pixels
+            raw_anchors = reader.get(base + '.anchors')
+            if raw_anchors is not None:
+                a = np.asarray(raw_anchors, np.float32)
+                strides = np.asarray(config.strides, np.float32)
+                anchors = a * strides[:, None, None]
+        # 'up'/'cat' have no parameters
+
+    return params, anchors
+
+
+def convert_megadetector_checkpoint(checkpoint_path, output_path=None,
+                                    arch=None, num_classes=None,
+                                    model_version=None, image_size=1280,
+                                    verbose=False):
+    """
+    Convert a reference MegaDetector YOLOv5 .pt checkpoint into a .npz +
+    metadata.json, the arrays and metadata the JAX package's converter
+    writes. Returns the output path. RF-DETR and YOLOv8 (ultralytics)
+    checkpoints raise NotImplementedError: their detector families are
+    not ported (ROADMAP queue A item 6).
+    """
+
+    from megadetector_tpu_torch.models import registry
+    from megadetector_tpu_torch.models.yolov5 import YoloV5Config
+
+    state_dict, extras = extract_torch_state_dict(
+        checkpoint_path, verbose=verbose)
+
+    if 'class_embed.bias' in state_dict or any(
+            k.startswith('transformer.decoder') for k in state_dict):
+        raise NotImplementedError(
+            '{} is an RF-DETR checkpoint: the RF-DETR family is not ported '
+            'to PyTorch (ROADMAP queue A item 6)'.format(checkpoint_path))
+    if any('.dfl.' in k or ('.cv3.' in k and '.2.weight' in k)
+           for k in state_dict):
+        raise NotImplementedError(
+            '{} is an ultralytics (YOLOv8-style) checkpoint: that family '
+            'is not ported to PyTorch (ROADMAP queue A item 6)'.format(
+                checkpoint_path))
+
+    if model_version is None:
+        model_version = registry.get_detector_version_from_model_file(
+            checkpoint_path) or 'unknown'
+    if arch is None:
+        entry = registry.known_models.get(model_version, {})
+        arch = entry.get('arch', 'yolov5l6')
+        image_size = entry.get('image_size', image_size)
+
+    if num_classes is None:
+        names = extras.get('names')
+        if names is not None:
+            num_classes = len(names)
+        else:
+            # out_channels of a detect-head conv = na * (5 + nc); only keys
+            # that END at the level index are heads (C3 blocks also hold
+            # '.m.0.cv1...')
+            head_keys = [k for k in state_dict
+                         if re.search(r'\.m\.\d+\.weight$', k)]
+            if not head_keys:
+                raise ValueError('Cannot infer the class count of {}'
+                                 .format(checkpoint_path))
+            out_ch = state_dict[sorted(head_keys)[0]].shape[0]
+            num_classes = out_ch // 3 - 5
+
+    config = YoloV5Config(arch, num_classes=num_classes)
+    params, anchors = convert_yolov5_state_dict(state_dict, config)
+    if anchors is not None:
+        config.anchors = anchors
+
+    names = extras.get('names',
+                       ['animal', 'person', 'vehicle'][:num_classes])
+    if isinstance(names, dict):
+        names = [names[k] for k in sorted(names, key=lambda x: int(x))]
+
+    metadata = {
+        'metadata_format_version': 1.0,
+        'model_version_string': model_version,
+        'arch': arch,
+        'model_type': 'yolov5',
+        'num_classes': int(num_classes),
+        'class_names': list(names),
+        'image_size': int(image_size),
+        'strides': [int(s) for s in config.strides],
+    }
+    if getattr(config, 'anchors', None) is not None:
+        metadata['anchors'] = np.asarray(config.anchors).tolist()
+
+    if output_path is None:
+        output_path = os.path.join(
+            os.path.dirname(os.path.abspath(checkpoint_path)),
+            'md_{}.npz'.format(model_version))
+
+    save_checkpoint(params, output_path, metadata)
+    if verbose:
+        print('Converted {} -> {}'.format(checkpoint_path, output_path))
+    return output_path
 
 
 #%% Width folding, undone
@@ -369,3 +736,44 @@ def quantize_checkpoint(input_path, output_path, calibration_folder=None,
     if verbose:
         print('Quantized {} -> {}'.format(input_path, output_path))
     return output_path
+
+
+def main(argv=None):
+    """CLI: python -m megadetector_tpu_torch.models.convert_weights
+    ckpt.pt [out.npz]; with --quantize, also <out>.int8.npz."""
+
+    import argparse
+    parser = argparse.ArgumentParser(
+        description='Convert a torch MegaDetector checkpoint to the .npz '
+                    'format the port (and the JAX package) loads')
+    parser.add_argument('checkpoint', help='input .pt file')
+    parser.add_argument('output', nargs='?', default=None,
+                        help='output .npz path')
+    parser.add_argument('--arch', default=None)
+    parser.add_argument('--num_classes', type=int, default=None)
+    parser.add_argument('--model_version', default=None)
+    parser.add_argument('--verbose', action='store_true')
+    parser.add_argument('--quantize', action='store_true',
+                        help='also write an int8-chain checkpoint '
+                             '(<output>.int8.npz)')
+    parser.add_argument('--calibration_folder', default=None)
+    parser.add_argument('--device', default=None,
+                        help='where --quantize calibrates: cuda, cuda:N or '
+                             'cpu (default: cuda, which needs a card)')
+    args = parser.parse_args(argv)
+    out = convert_megadetector_checkpoint(
+        args.checkpoint, args.output, arch=args.arch,
+        num_classes=args.num_classes, model_version=args.model_version,
+        verbose=args.verbose)
+    print(out)
+    if args.quantize:
+        q_out = os.path.splitext(out)[0] + '.int8.npz'
+        quantize_checkpoint(out, q_out,
+                            calibration_folder=args.calibration_folder,
+                            verbose=args.verbose, device=args.device)
+        print(q_out)
+    return out
+
+
+if __name__ == '__main__':
+    main()

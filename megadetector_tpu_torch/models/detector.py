@@ -29,23 +29,43 @@ a CUDA device.
 
 Candidate capacity escalates like the JAX detector's (pre_nms_topk, then
 doubling up to max_pre_nms_topk) when more candidates pass the floor than
-the selection holds. PyTorch runs eagerly, so the escalation reuses the
-forward's head tensors and redoes only selection and NMS.
+the selection holds; the escalation reuses the forward's head tensors and
+redoes only selection and NMS.
+
+Each of these is a program of models/program_cache (the JAX detector's
+per-shape compiled programs): the forward per (batch, canvas), selection
++ NMS per (batch, canvas, capacity, thresholds), the device-preprocess
+forward per staging shape, canvas and identity, the augment program per
+(batch, canvas, thresholds). On the card each is captured into a CUDA
+graph at its second call and replayed after that, its batch copied in
+from a pinned buffer; on the CPU they run eagerly. Setting the private
+_cuda_graphs attribute false runs them eagerly on the card too (the tests
+hold replay against eager that way); it is not a detector option.
+
+augment=True runs the reference's test-time augmentation (tta_passes,
+_tta_transform_input, tta_concatenated_predictions; host preprocessing
+only): three passes at scales 1, 0.83 (flipped) and 0.67, merged before
+one NMS, with no capacity escalation.
 """
 
+import math
 import os
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from megadetector_tpu_torch.device import get_device, set_float32_exact
 from megadetector_tpu_torch.models import yolov5
 from megadetector_tpu_torch.models.convert_weights import (
     load_checkpoint, unfold_early_params)
+from megadetector_tpu_torch.models.program_cache import ProgramCache
 from megadetector_tpu_torch.ops import boxes as box_ops
 from megadetector_tpu_torch.ops._build import KernelError
-from megadetector_tpu_torch.ops.decode import select_topk_candidates
+from megadetector_tpu_torch.ops.conv_int8 import scalar_like
+from megadetector_tpu_torch.ops.decode import (merge_candidates,
+                                               select_topk_candidates)
 from megadetector_tpu_torch.ops.nms import batched_nms, nms_on_candidates
 from megadetector_tpu_torch.ops.preprocess_device import (letterbox_batch,
                                                           stage_images)
@@ -184,8 +204,8 @@ class TorchDetector:
     Accepted as no-ops: folded_early, folded_h2, approx_select, select_cm,
     stem_gemm, bottleneck_variant, and preprocess_only=false. Refused
     (NotImplementedError): mesh and batch_axis (multi-card), a true
-    preprocess_only (the loader pool), xla_compiler_options, and
-    augment=True at inference.
+    preprocess_only (the loader pool) and xla_compiler_options.
+    augment=True at inference needs preprocess_mode host (ValueError).
     """
 
     def __init__(self, model_path, detector_options=None, verbose=False,
@@ -233,7 +253,12 @@ class TorchDetector:
         # them took the device-preprocess identity path
         self.programs_run = 0
         self.identity_programs_run = 0
+        # Device -> host reads of program outputs (escalation's
+        # n_candidates, each program's final outputs)
+        self.host_reads = 0
         self.printed_image_size_warning = False
+        self._programs = ProgramCache(self.device)
+        self._cuda_graphs = self.device.type == 'cuda'
 
         start = time.time()
         params, metadata = load_checkpoint(model_path)
@@ -391,18 +416,30 @@ class TorchDetector:
 
     #%% Device program
 
-    def run_program(self, batch_u8, conf_thres, iou_thres):
+    def run_program(self, batch_u8, conf_thres, iou_thres, augment=False):
         """
         The device program on one uint8 NHWC batch [B, H, W, 3] of
-        letterboxed canvases, with capacity escalation. Returns (numpy
+        letterboxed canvases, with capacity escalation (none under
+        [augment], the test-time augmentation program). Returns (numpy
         dict of 'boxes' [B, max_det, 4] xyxy canvas pixels, 'scores',
-        'classes', 'valid', 'n_candidates'; the capacity finally used).
+        'classes', 'valid', and without augment 'n_candidates'; the
+        capacity finally used).
         """
 
+        batch = np.ascontiguousarray(batch_u8, dtype=np.uint8)
+        b, h, w = batch.shape[:3]
         with torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(
-                self.device)
-            return self._program(x, conf_thres, iou_thres)
+            if augment:
+                key = ('augment', b, h, w, self._fused_decode,
+                       float(conf_thres), float(iou_thres))
+                out, _ = self._programs.run(
+                    key, lambda x: self._augment_program(
+                        x, h, w, conf_thres, iou_thres),
+                    host_inputs=(batch,), graphs=self._cuda_graphs)
+                self.programs_run += 1
+                return self._read_outputs(out), self.pre_nms_topk
+            return self._program(('forward', b, h, w), (batch,),
+                                 self._forward, conf_thres, iou_thres)
 
     def run_program_staged(self, staged_u8, sizes, canvas_hw, scale_target,
                            identity, conf_thres, iou_thres):
@@ -415,60 +452,144 @@ class TorchDetector:
         """
 
         h, w = int(canvas_hw[0]), int(canvas_hw[1])
-        with torch.inference_mode():
-            staged = torch.from_numpy(np.ascontiguousarray(staged_u8)).to(
-                self.device)
+        staged = np.ascontiguousarray(staged_u8, dtype=np.uint8)
+        sizes = np.ascontiguousarray(sizes, dtype=np.int32)
+
+        def forward(staged, sizes):
             if identity:
                 x = staged[:, :h, :w, :].to(torch.float32) / \
-                    torch.full((), 255.0, device=self.device)
+                    torch.full((), 255.0, device=staged.device)
             else:
-                x = letterbox_batch(
-                    staged, torch.from_numpy(np.asarray(sizes)).to(
-                        self.device), (h, w), scale_target=scale_target,
-                    resize_dtype=self.resize_dtype)
-            return self._program(x, conf_thres, iou_thres)
+                x = letterbox_batch(staged, sizes, (h, w),
+                                    scale_target=scale_target,
+                                    resize_dtype=self.resize_dtype)
+            return self._forward(x)
 
-    def _program(self, x, conf_thres, iou_thres):
-        """Forward (uint8 pixels or float [0, 1] canvases), selection and
-        NMS with capacity escalation, inside inference_mode."""
+        key = ('device_preprocess',) + staged.shape + (
+            h, w, int(scale_target), bool(identity))
+        with torch.inference_mode():
+            return self._program(key, (staged, sizes), forward, conf_thres,
+                                 iou_thres)
 
-        config = self.config
-        topk = self.pre_nms_topk
+    def _forward(self, x):
+        """The network on one batch: raw heads (fused selection) or the
+        decoded predictions, as a tuple of tensors."""
+
         if self._fused_decode:
-            heads = self.model(x, decode=False)
+            return tuple(self.model(x, decode=False))
+        return (self.model(x, decode=True),)
 
-            def select_and_suppress(capacity):
-                cands = select_topk_candidates(
-                    heads, config.anchors, config.strides,
-                    config.num_classes, conf_thres, capacity)
-                return nms_on_candidates(
-                    cands, iou_thres, max_det=self.max_det,
-                    class_agnostic=(config.num_classes == 1))
-        else:
-            pred = self.model(x, decode=True)
+    def _select_and_suppress(self, capacity, conf_thres, iou_thres,
+                             *forward_out):
+        config = self.config
+        if self._fused_decode:
+            cands = select_topk_candidates(
+                list(forward_out), config.anchors, config.strides,
+                config.num_classes, conf_thres, capacity)
+            return nms_on_candidates(
+                cands, iou_thres, max_det=self.max_det,
+                class_agnostic=(config.num_classes == 1))
+        return batched_nms(forward_out[0], conf_thres, iou_thres,
+                           max_det=self.max_det, pre_nms_topk=capacity)
 
-            def select_and_suppress(capacity):
-                return batched_nms(pred, conf_thres, iou_thres,
-                                   max_det=self.max_det,
-                                   pre_nms_topk=capacity)
+    def _program(self, key, host_inputs, forward, conf_thres, iou_thres):
+        """
+        Forward, then selection + NMS at the capacity, each a program of
+        the cache (the forward per (batch, canvas), selection + NMS per
+        (batch, canvas, capacity, thresholds) on the forward's outputs).
+        Capacity escalation reads n_candidates alone; the outputs are read
+        to the host once, at the end. Inside inference_mode.
+        """
 
-        out = {k: v.cpu().numpy()
-               for k, v in select_and_suppress(topk).items()}
+        key = key + (self._fused_decode,)
+        graphs = self._cuda_graphs
+        forward_out, static = self._programs.run(
+            key, forward, host_inputs=host_inputs, graphs=graphs)
+
+        def select_and_suppress(capacity):
+            out, _ = self._programs.run(
+                key + ('select', capacity, float(conf_thres),
+                       float(iou_thres)),
+                lambda *f: self._select_and_suppress(capacity, conf_thres,
+                                                     iou_thres, *f),
+                device_inputs=forward_out, graphs=graphs, capture=static)
+            return out
+
+        topk = self.pre_nms_topk
+        out = select_and_suppress(topk)
         # More above-floor candidates than the capacity holds: redo
         # selection + NMS at the next power of two (up to
-        # max_pre_nms_topk), like the reference's uncapped nms()
-        while self.auto_escalate_topk and topk < self.max_pre_nms_topk:
-            needed = int(out['n_candidates'].max(initial=0))
-            if needed <= topk:
-                break
-            new_topk = topk
-            while new_topk < needed:
-                new_topk *= 2
-            topk = min(new_topk, self.max_pre_nms_topk)
-            out = {k: v.cpu().numpy()
-                   for k, v in select_and_suppress(topk).items()}
+        # max_pre_nms_topk), like the reference's uncapped nms(). The
+        # count does not depend on the capacity, so one step suffices.
+        if self.auto_escalate_topk and topk < self.max_pre_nms_topk:
+            needed = int(self._read_host(out['n_candidates']).max(initial=0))
+            if needed > topk:
+                new_topk = topk
+                while new_topk < needed:
+                    new_topk *= 2
+                topk = min(new_topk, self.max_pre_nms_topk)
+                out = select_and_suppress(topk)
         self.programs_run += 1
-        return out, topk
+        return self._read_outputs(out), topk
+
+    def _augment_program(self, images_u8, height, width, conf_thres,
+                         iou_thres):
+        """
+        The test-time augmentation program (the JAX detector's
+        _get_compiled_augment): the reference's three passes (tta_passes)
+        over the canvas; pass 1 takes the uint8 canvas (the fused stem
+        where the model has one), the scaled passes the float canvas.
+        Fused: each pass's heads select candidates over its clipped
+        levels, boxes de-scaled and de-flipped, all merged before one NMS.
+        Unfused: tta_concatenated_predictions, then batched_nms. No
+        capacity escalation.
+        """
+
+        config = self.config
+        dtype = self.compute_dtype
+        stride = int(self.letterbox_stride)
+        nl = int(getattr(self, '_tta_nl', len(config.strides)))
+        if not self._fused_decode:
+            pred = tta_concatenated_predictions(
+                config, self.model, images_u8, height, width, stride, dtype,
+                nl=nl)
+            return batched_nms(pred, conf_thres, iou_thres,
+                               max_det=self.max_det,
+                               pre_nms_topk=self.pre_nms_topk)
+
+        passes = tta_passes(height, width, stride)
+        x = _tta_float_input(images_u8, dtype)
+        cands = []
+        for i_pass, (s, flip, sh, sw, ph, pw) in enumerate(passes):
+            xi = images_u8 if i_pass == 0 else _tta_transform_input(
+                x, height, width, s, flip, sh, sw, ph, pw, dtype)
+            heads = self.model(xi, decode=False)
+            # _clip_augmented at the head level: skip the coarsest level
+            # on the unscaled pass, the finest on the most-scaled pass
+            lvl = _tta_level_slice(i_pass, len(passes), nl)
+            c = select_topk_candidates(
+                heads[lvl], config.anchors[lvl], config.strides[lvl],
+                config.num_classes, conf_thres, self.pre_nms_topk)
+            bx = c['boxes_cxcywh'] / scalar_like(s, c['boxes_cxcywh'])
+            if flip:
+                bx = torch.stack([width - bx[..., 0], bx[..., 1],
+                                  bx[..., 2], bx[..., 3]], dim=-1)
+            cands.append(dict(c, boxes_cxcywh=bx))
+        return nms_on_candidates(
+            merge_candidates(cands, self.pre_nms_topk), iou_thres,
+            max_det=self.max_det, class_agnostic=(config.num_classes == 1))
+
+    def _read_host(self, tensor):
+        """One device -> host read (counted in host_reads)."""
+
+        self.host_reads += 1
+        return tensor.cpu().numpy()
+
+    def _read_outputs(self, out):
+        """The program's outputs as numpy arrays: one host read."""
+
+        self.host_reads += 1
+        return {k: v.cpu().numpy() for k, v in out.items()}
 
     #%% Inference
 
@@ -494,9 +615,11 @@ class TorchDetector:
         'file', 'detections', 'max_detection_conf' (or 'failure').
         """
 
-        if augment:
-            raise NotImplementedError(
-                'augment=True (test-time augmentation) is not ported yet')
+        if augment and self.preprocess_mode == 'device':
+            raise ValueError(
+                'augment=True requires preprocess_mode=host (TTA rescales '
+                'the letterboxed canvas, which device mode computes '
+                'in-program)')
         if image_ids is None:
             image_ids = ['unknown'] * len(img_originals)
         if len(img_originals) != len(image_ids):
@@ -533,7 +656,8 @@ class TorchDetector:
 
         for group in groups.values():
             try:
-                self._run_batch(group, results, detection_threshold)
+                self._run_batch(group, results, detection_threshold,
+                                augment=augment)
             except Exception as e:
                 if isinstance(e, ALWAYS_RERAISED) or (
                         isinstance(e, PROGRAMMING_ERRORS) and
@@ -550,7 +674,8 @@ class TorchDetector:
                                     'failure': FAILURE_INFER}
         return results
 
-    def _run_batch(self, infos, results, detection_threshold):
+    def _run_batch(self, infos, results, detection_threshold,
+                   augment=False):
         """Stack preprocessed images, run the device program, emit dicts."""
 
         nms_iou = 0.45 if 'classic' in self.compatibility_mode else 0.6
@@ -603,8 +728,11 @@ class TorchDetector:
                 if im.shape[:2] != (h, w):
                     raise ValueError('Heterogeneous canvas in one batch')
             out, topk = self.run_program(np.stack(imgs).astype(np.uint8),
-                                         detection_threshold, nms_iou)
-        n_cand = out['n_candidates']
+                                         detection_threshold, nms_iou,
+                                         augment=augment)
+        # TTA counts the same objects once per pass, so the overflow
+        # indicator applies to single-pass runs only
+        n_cand = None if augment else out['n_candidates']
 
         for slot, (idx, info) in enumerate(infos):
             if idx is None:
@@ -674,7 +802,7 @@ class TorchDetector:
 
             # A count still above the final capacity means the tail was
             # truncated relative to the reference's uncapped nms()
-            if int(n_cand[slot]) > topk:
+            if n_cand is not None and int(n_cand[slot]) > topk:
                 results[idx]['pre_nms_truncation'] = int(n_cand[slot])
                 self.n_truncated_images += 1
                 if self.n_truncated_images <= 3:
@@ -684,3 +812,100 @@ class TorchDetector:
                           '(raise the max_pre_nms_topk detector option to '
                           'keep them)'.format(info['file'],
                                               int(n_cand[slot]), topk))
+
+
+#%% Test-time augmentation
+
+
+def tta_passes(height, width, stride):
+    """The reference TTA pass table (scale, flip, scaled_h, scaled_w,
+    padded_h, padded_w): (1, no), (0.83, hflip), (0.67, no), scaled
+    dims int()-floored and padded up to the next stride multiple
+    (yolov5 forward_augment + scale_img)."""
+
+    passes = [(1.0, False, height, width, height, width)]
+    for s, flip in ((0.83, True), (0.67, False)):
+        sh, sw = int(height * s), int(width * s)
+        ph = int(math.ceil(sh / stride) * stride)
+        pw = int(math.ceil(sw / stride) * stride)
+        passes.append((s, flip, sh, sw, ph, pw))
+    return passes
+
+
+def _tta_float_input(images_u8, dtype):
+    """The uint8 canvas as [dtype] values in [0, 1] (the JAX augment
+    program's images_u8.astype(dtype) / 255)."""
+
+    return (images_u8.float() / scalar_like(255.0, images_u8)).to(dtype)
+
+
+def _tta_transform_input(x, height, width, s, flip, sh, sw, ph, pw,
+                         dtype):
+    """One TTA pass's input transform of the NHWC float canvas: flip the
+    ORIGINAL canvas, then bilinear-resize (no antialiasing, half-pixel
+    centres: F.interpolate's align_corners=False), then pad bottom/right
+    with gray 0.447 (yolov5 scale_img)."""
+
+    xi = torch.flip(x, dims=[2]) if flip else x
+    if (sh, sw) != (height, width):
+        xi = F.interpolate(xi.permute(0, 3, 1, 2).float(), size=(sh, sw),
+                           mode='bilinear', align_corners=False,
+                           antialias=False).permute(0, 2, 3, 1).to(dtype)
+    if (ph, pw) != (sh, sw):
+        xi = F.pad(xi, (0, 0, 0, pw - sw, 0, ph - sh), value=0.447)
+    return xi.contiguous()
+
+
+def _tta_level_slice(i_pass, n_passes, nl):
+    """The detect levels pass [i_pass] keeps (yolov5 _clip_augmented with
+    its exclude-layer count of 1): all but the coarsest on the unscaled
+    pass, all but the finest on the most-scaled pass; every level when
+    nl is 1."""
+
+    if nl > 1:
+        if i_pass == 0:
+            return slice(0, nl - 1)
+        if i_pass == n_passes - 1:
+            return slice(1, None)
+    return slice(None)
+
+
+def tta_concatenated_predictions(config, model, x, height, width, stride,
+                                 dtype, nl=None):
+    """
+    The full reference TTA prediction assembly on decoded outputs:
+    per-pass input transform, forward, de-scale by the nominal scale,
+    de-flip against the original canvas width (yolov5 _descale_pred),
+    clip the augmented tails (drop the coarsest detect level's rows from
+    the unscaled pass and the finest level's rows from the most-scaled
+    pass; levels are concatenated finest-first), concatenate. [x] is the
+    NHWC uint8 canvas batch (pass 1 takes it as it is); [nl] is the
+    number of detect levels (default from config.strides; 1 for
+    single-level stand-ins, which disables clipping). Returns
+    [B, A_total, 5+C].
+    """
+
+    if nl is None:
+        nl = len(config.strides)
+    passes = tta_passes(height, width, stride)
+    g = sum(4 ** k for k in range(nl))
+    xf = _tta_float_input(x, dtype)
+
+    preds = []
+    for i_pass, (s, flip, sh, sw, ph, pw) in enumerate(passes):
+        xi = x if i_pass == 0 else _tta_transform_input(
+            xf, height, width, s, flip, sh, sw, ph, pw, dtype)
+        p = model(xi, decode=True).float()
+        boxes = p[..., :4] / scalar_like(s, p)
+        if flip:
+            boxes = torch.cat([(width - boxes[..., 0])[..., None],
+                               boxes[..., 1:]], dim=-1)
+        p = torch.cat([boxes, p[..., 4:]], dim=-1)
+        if nl > 1:
+            a = p.shape[1]
+            if i_pass == 0:
+                p = p[:, : a - a // g]
+            elif i_pass == len(passes) - 1:
+                p = p[:, (a // g) * (4 ** (nl - 1)):]
+        preds.append(p)
+    return torch.cat(preds, dim=1)

@@ -2,12 +2,15 @@
 Model registry for the port: its own copy of the parts of
 megadetector_tpu/models/registry.py that the detection entry points use
 (friendly-name resolution, the canonical model table with its thresholds,
-the output-file metadata, and where converted checkpoints are looked up).
+the output-file metadata, a model file's version from its embedded
+metadata or its name, and where converted checkpoints are looked up).
 Nothing here downloads: the URLs are metadata written into results files.
 """
 
+import json
 import os
 import tempfile
+import zipfile
 
 #%% Friendly-name resolution
 #
@@ -210,6 +213,68 @@ def get_detector_version_from_filename(detector_filename,
     if len(matches) > 1 and not accept_first_match:
         return 'multiple'
     return model_string_to_model_version[matches[0]]
+
+
+def get_detector_version_from_model_file(detector_filename, verbose=False):
+    """
+    Canonical version string for a model file: prefers embedded metadata
+    (converted-checkpoint metadata.json or a megadetector_info.json inside a
+    .pt zip), falling back to the filename; None when neither names one.
+    """
+
+    from_filename = get_detector_version_from_filename(detector_filename)
+    if from_filename == 'unknown':
+        from_filename = None
+
+    from_file = None
+    metadata = read_metadata_from_model_file(detector_filename,
+                                             verbose=verbose)
+    if isinstance(metadata, dict):
+        v = metadata.get('model_version_string', None)
+        if isinstance(v, str):
+            from_file = v
+
+    if from_file is not None:
+        return from_file
+    return from_filename
+
+
+def read_metadata_from_model_file(detector_filename, verbose=False):
+    """
+    Read embedded model metadata: the metadata.json of a converted
+    checkpoint (in its folder, or the .npz's sidecar), or the
+    megadetector_info.json inside a .pt zipfile. Returns a dict or None.
+    """
+
+    try:
+        if os.path.isdir(detector_filename):
+            meta_file = os.path.join(detector_filename, 'metadata.json')
+            if os.path.isfile(meta_file):
+                with open(meta_file, 'r') as f:
+                    return json.load(f)
+            return None
+        if detector_filename.endswith('.npz'):
+            meta_file = os.path.splitext(detector_filename)[0] + \
+                '.metadata.json'
+            if os.path.isfile(meta_file):
+                with open(meta_file, 'r') as f:
+                    return json.load(f)
+            return None
+        if detector_filename.endswith(('.pt', '.zip')):
+            if not zipfile.is_zipfile(detector_filename):
+                return None
+            with zipfile.ZipFile(detector_filename, 'r') as zf:
+                names = [n for n in zf.namelist()
+                         if n.endswith('megadetector_info.json')]
+                if len(names) != 1:
+                    return None
+                with zf.open(names[0]) as f:
+                    return json.loads(f.read().decode('utf-8'))
+    except Exception:
+        if verbose:
+            import traceback
+            traceback.print_exc()
+    return None
 
 
 #%% Converted checkpoints

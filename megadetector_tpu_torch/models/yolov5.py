@@ -40,6 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from megadetector_tpu_torch.device import device_constant
 from megadetector_tpu_torch.models.convert_weights import params_to_torch
 from megadetector_tpu_torch.ops import bottleneck_int8, l0_fused
 from megadetector_tpu_torch.ops import quantization as q
@@ -489,8 +490,7 @@ def _decode_level(raw, anchors_level, stride, num_outputs):
         indexing='ij')
     grid = torch.stack([gx, gy], dim=-1)[None, :, :, None, :]
     xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
-    anchor = torch.as_tensor(anchors_level, dtype=torch.float32,
-                             device=raw.device)
+    anchor = device_constant(anchors_level, torch.float32, raw.device)
     wh = torch.square(y[..., 2:4] * 2.0) * anchor
     out = torch.cat([xy, wh, y[..., 4:]], dim=-1)
     return out.reshape(b, h * w * na, num_outputs)

@@ -12,9 +12,15 @@ Tie rule: jax.lax.top_k breaks exact ties toward the lower flat index,
 and the stored goldens depend on it. torch.topk on CUDA promises no tie
 order, so top-k here is a stable descending sort sliced to k: a stable
 sort keeps equal keys in input order, i.e. lower index first.
+
+Nothing here copies from the host or reads a device value back, so the
+selection can be captured into a CUDA graph: constants come from
+device_constant, thresholds are filled on the device.
 """
 
 import torch
+
+from megadetector_tpu_torch.device import device_constant
 
 
 def topk_lower_index_first(values, k):
@@ -55,9 +61,9 @@ def select_topk_candidates(head_outputs, anchors, strides, num_classes,
     no = 5 + num_classes
     device = head_outputs[0].device
     b = head_outputs[0].shape[0]
-    anchors = torch.as_tensor(anchors, dtype=torch.float32, device=device)
+    anchors = device_constant(anchors, torch.float32, device)
     na = anchors.shape[1]
-    thr = torch.tensor(conf_thres, dtype=torch.float32, device=device)
+    thr = torch.full((), conf_thres, dtype=torch.float32, device=device)
 
     xs, ranked_list, level_offsets, level_widths = [], [], [], []
     n_above = None
@@ -93,9 +99,8 @@ def select_topk_candidates(head_outputs, anchors, strides, num_classes,
                            dim=-1).to(torch.int32)
     boxp = torch.sigmoid(rows[..., :4])
 
-    offsets = torch.tensor(level_offsets, dtype=top_idx.dtype,
-                           device=device)
-    widths = torch.tensor(level_widths, dtype=top_idx.dtype, device=device)
+    offsets = device_constant(level_offsets, top_idx.dtype, device)
+    widths = device_constant(level_widths, top_idx.dtype, device)
     level = (top_idx[..., None] >= offsets[1:]).sum(dim=-1)
     local = top_idx - offsets[level]
     a_idx = local % na
@@ -103,7 +108,7 @@ def select_topk_candidates(head_outputs, anchors, strides, num_classes,
     w_l = widths[level]
     gx = (cell % w_l).float()
     gy = (cell // w_l).float()
-    st = torch.tensor(strides, dtype=torch.float32, device=device)[level]
+    st = device_constant(strides, torch.float32, device)[level]
     aw = anchors[level, a_idx, 0]
     ah = anchors[level, a_idx, 1]
 

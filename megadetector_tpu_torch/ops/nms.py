@@ -103,7 +103,7 @@ def batched_nms(pred, conf_thres, iou_thres, max_det=300,
     """
 
     num_classes = pred.shape[-1] - 5
-    thr = torch.tensor(conf_thres, dtype=torch.float32, device=pred.device)
+    thr = torch.full((), conf_thres, dtype=torch.float32, device=pred.device)
     obj = pred[..., 4]
     cls_conf = pred[..., 5:] * pred[..., 4:5]
     best_score = cls_conf.amax(dim=-1)

@@ -658,3 +658,190 @@ def test_exp_kernels_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         gemm_int8.gemm_int8(a, a.t())
 
+
+
+#%% The program cache: CUDA graphs replayed against the eager programs
+
+
+_PRECISIONS = {'float32': {}, 'int8-xla': {'conv_backend': 'xla'},
+               'int8-pallas': {'conv_backend': 'pallas'},
+               'bf16': {'dtype': 'bfloat16'}}
+
+
+@pytest.fixture(scope='module')
+def graph_models(tmp_path_factory):
+    """{arch: (float .npz, int8 .npz)}: random yolov5n and yolov5s6 at 320
+    px, the int8 one quantized by the port on the card."""
+
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    folder = tmp_path_factory.mktemp('graphs')
+    calib = np.random.RandomState(1).uniform(
+        0, 1, (2, 320, 320, 3)).astype(np.float32)
+    paths = {}
+    for arch in ('yolov5n', 'yolov5s6'):
+        config = yolov5.YoloV5Config(arch, num_classes=3)
+        f_path = str(folder / '{}.npz'.format(arch))
+        save_checkpoint(yolov5.init_params(config, seed=0), f_path, {
+            'arch': arch, 'model_type': 'yolov5', 'num_classes': 3,
+            'image_size': 320, 'anchors': config.anchors.tolist()})
+        q_path = str(folder / '{}_int8.npz'.format(arch))
+        quantize_checkpoint(f_path, q_path, calibration_images=calib,
+                            device='cuda')
+        paths[arch] = (f_path, q_path)
+    return paths
+
+
+def _graph_detector(graph_models, arch, precision, **options):
+    f_path, q_path = graph_models[arch]
+    path = q_path if precision.startswith('int8') else f_path
+    return run_detector.load_detector(path, device='cuda', detector_options=dict(
+        _PRECISIONS[precision], **options))
+
+
+def _canvas_batch(seed, h=320, w=320, b=2):
+    return np.random.RandomState(seed).randint(0, 256, (b, h, w, 3),
+                                               dtype=np.uint8)
+
+
+def _counted_run(detector, batch, conf=0.005, iou=0.45, augment=False):
+    from megadetector_tpu_torch.models import program_cache
+
+    before = program_cache.read_counters()
+    out, topk = detector.run_program(batch, conf, iou, augment=augment)
+    torch.cuda.synchronize()
+    after = program_cache.read_counters()
+    return out, topk, [a - b for a, b in zip(after, before)]
+
+
+def _assert_identical(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize('precision', sorted(_PRECISIONS))
+@pytest.mark.parametrize('arch', ['yolov5n', 'yolov5s6'])
+def test_replay_identical_to_eager(cuda_device, graph_models, arch,
+                                   precision):
+    """The eager program, then the graphs: the first graph call captures
+    and replays, the later ones replay; every output identical to the
+    eager program's, every call counting the eager launches."""
+
+    detector = _graph_detector(graph_models, arch, precision)
+    batch = _canvas_batch(0)
+    detector._cuda_graphs = False
+    eager, topk, launches = _counted_run(detector, batch)
+    assert sum(launches) > 0
+    detector._cuda_graphs = True
+    for call in range(3):
+        out, t, got = _counted_run(detector, batch)
+        assert t == topk
+        _assert_identical(out, eager)
+        assert got == launches, (call, got, launches)
+    assert detector._programs.captures >= 2
+    assert detector._programs.replays >= 6
+
+
+def test_escalation_to_the_ceiling_under_replay(cuda_device, graph_models):
+    """Random yolov5n puts every anchor of a 320 px canvas above the
+    floor: 512 escalates to the 8192 ceiling; both capacities' selection
+    + NMS graphs replay on the forward's static heads."""
+
+    detector = _graph_detector(graph_models, 'yolov5n', 'float32')
+    batch = _canvas_batch(1)
+    detector._cuda_graphs = False
+    eager, topk, launches = _counted_run(detector, batch)
+    assert topk == 8192 and int(eager['n_candidates'].max()) > 4096
+    # Two NMS launches a call: at 512, then at 8192
+    assert launches[0] == 2
+    detector._cuda_graphs = True
+    for _ in range(3):
+        detector.host_reads = 0
+        out, t, got = _counted_run(detector, batch)
+        assert t == 8192 and got == launches
+        assert detector.host_reads == 2
+        _assert_identical(out, eager)
+    selects = [k for k, e in detector._programs.entries.items()
+               if 'select' in k and e.graph is not None]
+    assert sorted(k[-3] for k in selects) == [512, 8192]
+
+
+def test_replay_order_across_two_canvases(cuda_device, graph_models):
+    """c1, c2, c1, ...: graphs of two canvases share the detector's pool;
+    no replay corrupts another canvas's static outputs."""
+
+    detector = _graph_detector(graph_models, 'yolov5s6', 'bf16')
+    c1, c2 = _canvas_batch(2), _canvas_batch(3, h=256)
+    detector._cuda_graphs = False
+    want = {1: _counted_run(detector, c1), 2: _counted_run(detector, c2)}
+    detector._cuda_graphs = True
+    outs = []
+    for canvas in (1, 2, 1, 2, 2, 1):
+        out, topk, launches = _counted_run(detector, c1 if canvas == 1
+                                           else c2)
+        outs.append((canvas, out))
+        assert topk == want[canvas][1] and launches == want[canvas][2]
+    for canvas, out in outs:
+        _assert_identical(out, want[canvas][0])
+    pools = {id(detector._programs.capturer.pool)}
+    assert len(pools) == 1 and detector._programs.captures >= 4
+
+
+def test_threshold_change_captures_a_new_graph(cuda_device, graph_models):
+    detector = _graph_detector(graph_models, 'yolov5n', 'int8-pallas',
+                               auto_escalate_topk='false')
+    batch = _canvas_batch(4)
+    eager = run_detector.load_detector(graph_models['yolov5n'][1],
+                                       device='cuda', detector_options={
+                                           'conv_backend': 'pallas',
+                                           'auto_escalate_topk': 'false'})
+    eager._cuda_graphs = False
+    for conf in (0.005, 0.005, 0.2, 0.2, 0.2):
+        captures = detector._programs.captures
+        out, _, _ = _counted_run(detector, batch, conf=conf)
+        _assert_identical(out, _counted_run(eager, batch, conf=conf)[0])
+        key = ('forward', 2, 320, 320, True, 'select', 512, conf, 0.45)
+        entry = detector._programs.entries[key]
+        if entry.calls == 2:
+            assert detector._programs.captures > captures
+        assert (entry.graph is not None) == (entry.calls >= 2)
+
+
+@pytest.mark.parametrize('precision', ['float32', 'int8-pallas', 'bf16'])
+def test_tta_replay_identical_to_eager(cuda_device, graph_models, precision):
+    detector = _graph_detector(graph_models, 'yolov5s6', precision,
+                               pre_nms_topk='1024')
+    batch = _canvas_batch(5)
+    detector._cuda_graphs = False
+    eager, topk, launches = _counted_run(detector, batch, augment=True)
+    assert topk == 1024 and 'n_candidates' not in eager
+    # One NMS launch a call, on the merged candidates
+    assert launches[0] == 1
+    detector._cuda_graphs = True
+    for _ in range(3):
+        out, _, got = _counted_run(detector, batch, augment=True)
+        assert got == launches
+        _assert_identical(out, eager)
+    assert [k for k in detector._programs.entries
+            if k[0] == 'augment'] == [('augment', 2, 320, 320, True, 0.005,
+                                       0.45)]
+
+
+def test_deleting_the_detector_frees_its_graphs(cuda_device, graph_models):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    detector = _graph_detector(graph_models, 'yolov5s6', 'float32')
+    batch = _canvas_batch(6)
+    for _ in range(3):
+        detector.run_program(batch, 0.005, 0.45)
+    assert detector._programs.captures >= 2
+    held = torch.cuda.memory_reserved()
+    assert held > base
+    del detector
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= base + (held - base) // 10

@@ -253,8 +253,10 @@ def test_no_op_options_and_unknown_options(slice_inputs):
     with pytest.raises(ValueError, match='Unknown detector options'):
         run_detector.load_detector(model, device='cpu',
                                    detector_options={'fused_decod': 'x'})
-    with pytest.raises(NotImplementedError, match='augment'):
-        base.generate_detections_one_image(img, 'a', augment=True)
+    # augment=True (test-time augmentation) runs since it was ported;
+    # its parity with the JAX detector is held in test_torch_tta.py
+    r = base.generate_detections_one_image(img, 'a', augment=True)
+    assert r['file'] == 'a' and 'pre_nms_truncation' not in r
 
 
 def test_cuda_request_without_card_raises(slice_inputs):

@@ -61,6 +61,8 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.visualization.visualization_utils',
                 'megadetector_tpu_torch.models.convert_weights',
                 'megadetector_tpu_torch.models.detector',
+                'megadetector_tpu_torch.models.program_cache',
+                'megadetector_tpu_torch.detection.run_detector',
                 'megadetector_tpu_torch.detection.run_detector_batch',
                 'megadetector_tpu_torch.ops.gemm_int8',
                 'megadetector_tpu_torch.experiments._harness',
@@ -91,3 +93,53 @@ def test_no_port_source_imports_jax_or_the_jax_package():
             text = f.read()
         assert not jax_import.search(text), path
         assert not jax_module_import.search(text), path
+
+
+_RUN = """
+import json, os, sys, tempfile
+import numpy as np
+import torch
+sys.path.insert(0, 'tests')
+from torch_yolo_ref import make_torch_model
+from megadetector_tpu_torch.detection import run_detector, run_detector_batch
+from megadetector_tpu_torch.models import convert_weights
+from megadetector_tpu_torch.models.yolov5 import YoloV5Config
+tmp = tempfile.mkdtemp()
+model = make_torch_model(YoloV5Config('yolov5n', num_classes=3), seed=0)
+pt = os.path.join(tmp, 'tiny.pt')
+torch.save({'model': model}, pt)
+out = convert_weights.main([pt, os.path.join(tmp, 'tiny.npz'), '--arch',
+                            'yolov5n', '--quantize', '--device', 'cpu'])
+detector = run_detector.load_detector(
+    out, device='cpu', detector_options={'image_size': 128})
+img = np.random.RandomState(0).randint(0, 256, (96, 128, 3), np.uint8)
+results = run_detector_batch.load_and_run_detector_batch(
+    detector, [('a', img), ('b', img)], batch_size=2, quiet=True,
+    augment=True, checkpoint_path=os.path.join(tmp, 'ckpt.json'),
+    checkpoint_frequency=1)
+print(json.dumps({'n': len(results),
+                  'programs': sorted(k[0] for k in detector._programs.entries),
+                  'jax': sorted(m for m in sys.modules
+                                if m == 'jax' or m.startswith('jax.')),
+                  'jax_package': sorted(
+                      m for m in sys.modules if m == 'megadetector_tpu' or
+                      m.startswith('megadetector_tpu.'))}))
+"""
+
+
+def test_converter_tta_and_checkpoints_run_without_jax():
+    """The converter and its CLI (with --quantize), test-time
+    augmentation through the program cache, and batch checkpoints run
+    without importing jax or the JAX package."""
+
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', _RUN], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report['n'] == 2
+    assert report['programs'] == ['augment']
+    assert report['jax'] == []
+    assert report['jax_package'] == []
