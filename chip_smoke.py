@@ -102,11 +102,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
  17. test-time augmentation, after phase 13: augment=True over the 16
      images for float32, int8 (pallas) and bf16, launches per TTA pass
      exact, replay identical to eager, the augment program's ms against
-     the plain one's, TTA on the card against the CPU at 320 px.
+     the plain one's, TTA on the card against the CPU at 320 px;
+ 18. the folder run, after phase 17: 64 JPEGs written to disk (32 at
+     1536x2048, 32 at 1080x1920, quality 90) through
+     load_and_run_detector_batch's loader pool with yolov5l6 at 1280 px,
+     batch 8: bf16 under thread 1/4/8, process 8 and, where g++ and
+     jpeglib.h exist, the native loader in thread 8 and process 8; int8
+     pallas and float32 under thread 8; a capture pass, then a timed
+     replayed pass per mode; images/s beside the ceiling (the replayed
+     program on the letterboxed batches in memory) and the host's CPU
+     count; detections identical across the PIL modes, the native
+     loader's geometry equal to PIL's and its canvases within 3 levels
+     (mean < 0.5) with no image handed to PIL, and a rotated, a grayscale
+     and a corrupt file as on the serial path in every mode.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
-identical; images/s come from a third pass, all replays.
+identical; images/s come from a third pass, all replays (the driver's
+loader threads, whose images it takes in input order).
 With --profile: torch.profiler over one device program on a 960x1280
 batch of 8 (device time by kernel, idle share), int8 under both backends
 in phase 7 and bf16 after phase 13, each replayed and eager; each window
@@ -1995,6 +2008,366 @@ def phase_experiments():
     return launches
 
 
+def _write_folder(folder, images, names, quality=90):
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for img, name in zip(images, names):
+        path = os.path.join(folder, name)
+        Image.fromarray(img).save(path, quality=quality)
+        paths.append(path)
+    return paths
+
+
+def _extra_folder(folder, rng):
+    """One JPEG with EXIF orientation 6 (stored turned; 1536x2048 once
+    rotated), one grayscale 1536x2048 JPEG and one file that is no
+    JPEG: the native and PIL paths' rotation and failure cases. Returns
+    the folder and the (height, width) both images load at."""
+
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    img = _synthetic_images(rng)[0]
+    exif = Image.Exif()
+    exif[274] = 6
+    # PIL's orientation 6 turns the stored image by 270 degrees
+    Image.fromarray(np.rot90(img, k=1).copy()).save(
+        os.path.join(folder, 'rotated.jpg'), quality=90,
+        exif=exif.tobytes())
+    Image.fromarray(img[..., 1]).save(os.path.join(folder, 'gray.jpg'),
+                                      quality=90)
+    with open(os.path.join(folder, 'corrupt.jpg'), 'wb') as f:
+        f.write(b'\xff\xd8 this is no jpeg')
+    return folder, img.shape[:2]
+
+
+def _folder_run_costs(detector, folder, buckets, infos, ceiling):
+    """Where phase 18's bf16 time goes, each printed: the ceiling's batch
+    against run_program alone (the rest is the host's stack and MD
+    emission), thread x8 with cv2's own thread pool cut to one thread,
+    the 64 decoded images as in-memory pairs (letterbox only) on one and
+    eight threads, a call's fixed cost against its cost an image (the
+    folder once and three times over) in thread and process mode, and
+    process mode's fixed costs (a spawned pool of 8 answering 64 trivial
+    calls; a worker's imports; one image's info pickled)."""
+
+    import multiprocessing
+    import pickle
+    from concurrent.futures import ProcessPoolExecutor
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection import run_detector_batch as rdb
+
+    canvas = max(buckets)
+    batch = np.stack([info['img_processed'] for info in buckets[canvas][:8]])
+    detector.run_program(batch, 0.005, 0.45)
+    torch.cuda.synchronize()
+    start = time.time()
+    for _ in range(5):
+        detector.run_program(batch, 0.005, 0.45)
+    torch.cuda.synchronize()
+    program_ms = (time.time() - start) * 1e3 / 5
+    print('folder run bf16: ceiling {:.3f} ms a batch of 8 through '
+          'generate_detections_one_batch; run_program alone (copy in, '
+          'replayed program, reads) {:.3f} ms on a {}x{} batch'.format(
+              8e3 / ceiling, program_ms, *canvas), flush=True)
+
+    def rate(items, warm=True, **kwargs):
+        if warm:
+            rdb.load_and_run_detector_batch(detector, items, batch_size=8,
+                                            quiet=True, **kwargs)
+        torch.cuda.synchronize()
+        start = time.time()
+        rdb.load_and_run_detector_batch(detector, items, batch_size=8,
+                                        quiet=True, **kwargs)
+        torch.cuda.synchronize()
+        return len(items) / (time.time() - start)
+
+    cv2_threads = cv2.getNumThreads()
+    cv2.setNumThreads(1)
+    try:
+        one = rate(folder, loader_workers=8)
+    finally:
+        cv2.setNumThreads(cv2_threads)
+    print('folder run bf16, thread x8 with cv2.setNumThreads(1) (default '
+          '{}; torch intra-op threads {}): {:.3f} images/s'.format(
+              cv2_threads, torch.get_num_threads(), one), flush=True)
+    pairs = [(info['file'], info['img_original']) for info in infos]
+    print('folder run bf16, the 64 images decoded in memory (letterbox '
+          'only): {:.3f} images/s on one loader thread, {:.3f} on '
+          'eight'.format(rate(pairs, loader_workers=1),
+                         rate(pairs, loader_workers=8)), flush=True)
+    del pairs
+
+    # A call's fixed cost against its cost an image: the folder three
+    # times over (192 images) beside the 64
+    paths = [info['file'] for info in infos]
+    for label, kwargs in (('thread x8', dict(loader_workers=8)),
+                          ('process x8', dict(loader_workers=8,
+                                              loader_pool_type='process'))):
+        t64 = len(paths) / rate(paths, warm=False, **kwargs)
+        t192 = 3 * len(paths) / rate(paths * 3, warm=False, **kwargs)
+        per_image = (t192 - t64) / (2 * len(paths))
+        print('folder run bf16, {}: 64 images in {:.3f} s, 192 in {:.3f} '
+              's: {:.3f} ms an image ({:.3f} images/s) after a fixed {:.3f} '
+              's a call'.format(label, t64, t192, per_image * 1e3,
+                                1 / per_image, t64 - len(paths) * per_image),
+              flush=True)
+    code = ('import time; t = time.time(); import numpy, cv2, PIL.Image; '
+            'import megadetector_tpu_torch.detection._loader_worker; '
+            'print(time.time() - t)')
+    imports_s = float(subprocess.run(
+        [sys.executable, '-c', code], capture_output=True, text=True,
+        check=True).stdout.strip())
+    start = time.time()
+    with ProcessPoolExecutor(max_workers=8, mp_context=multiprocessing
+                             .get_context('spawn')) as pool:
+        list(pool.map(abs, range(64)))
+    pool_s = time.time() - start
+    blob = pickle.dumps(('x', infos[0], False), protocol=-1)
+    start = time.time()
+    for _ in range(5):
+        pickle.loads(pickle.dumps(('x', infos[0], False), protocol=-1))
+    trip_ms = (time.time() - start) * 1e3 / 5
+    print('folder run: process mode\'s fixed costs: a spawned pool of 8 '
+          'answering 64 trivial calls {:.3f} s; a worker\'s imports '
+          '(numpy, cv2, PIL, _loader_worker) {:.3f} s; one {}x{} image\'s '
+          'info pickles to {:.1f} MB (canvas and full-size original), '
+          'pickled and loaded in {:.3f} ms'.format(
+              pool_s, imports_s, *infos[0]['scaling_shape'][:2],
+              len(blob) / 1e6, trip_ms), flush=True)
+
+
+def phase_folder_run(device, workdir, float_path, q_path, card):
+    """
+    18. The folder run: 64 JPEGs (quality 90; 32 at 1536x2048, 32 at
+    1080x1920, from _synthetic_images with seed 18: four full batches of
+    8 per canvas, so no tail bucket depends on arrival order) on disk,
+    through load_and_run_detector_batch with yolov5l6 at full width (1280
+    px auto canvases, batch 8). bf16 under every loader mode (thread 1, 4
+    and 8; process 8; native thread 8 and native process 8), int8 pallas
+    and float32 under thread 8. Each mode runs a pass that captures the
+    programs, then a timed pass that replays them (their detections must
+    be identical); its images/s is printed beside the ceiling: the
+    replayed program's images/s on the same canvases with the letterboxed
+    batches already in memory. Checks: PIL-decode detections identical
+    across thread 1/4/8 and process 8 (and native thread against native
+    process); the native loader's geometry (target_shape, ratio, pad)
+    equal to PIL's, its canvases within 3 levels of PIL's with a mean
+    under 0.5, no image handed to PIL; a rotated, a grayscale and a
+    corrupt file give the serial path's failures and sizes in every mode.
+    The native sub-phase runs when g++ and jpeglib.h are present, and is
+    skipped with the reason otherwise.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch import native
+    from megadetector_tpu_torch.detection import _loader_worker
+    from megadetector_tpu_torch.detection import run_detector_batch as rdb
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.visualization.visualization_utils import \
+        load_image
+
+    rng = np.random.RandomState(18)
+    images = [img for _ in range(4) for img in _synthetic_images(rng)]
+    folder = os.path.join(workdir, 'folder')
+    start = time.time()
+    paths = _write_folder(folder, images,
+                          ['img_{:02d}.jpg'.format(i)
+                           for i in range(len(images))])
+    extra, (extra_h, extra_w) = _extra_folder(
+        os.path.join(workdir, 'extra'), rng)
+    del images
+    print('folder run: wrote {} JPEGs (quality 90) in {:.1f} s'.format(
+        len(paths), time.time() - start), flush=True)
+
+    problem = native.toolchain_problem()
+    if problem is None:
+        start = time.time()
+        native.load_library()
+        print('folder run: native JPEG loader built in {:.1f} s'.format(
+            time.time() - start), flush=True)
+    else:
+        print('folder run: native sub-phase skipped: {}'.format(problem),
+              flush=True)
+    host = 'os.cpu_count() {}, sched_getaffinity {}'.format(
+        os.cpu_count(), len(os.sched_getaffinity(0)))
+
+    modes = [('thread x1', dict(loader_workers=1)),
+             ('thread x4', dict(loader_workers=4)),
+             ('thread x8', dict(loader_workers=8)),
+             ('process x8', dict(loader_workers=8,
+                                 loader_pool_type='process'))]
+    if problem is None:
+        modes += [('native thread x8', dict(loader_workers=8,
+                                            use_native_loader=True)),
+                  ('native process x8', dict(loader_workers=8,
+                                             loader_pool_type='process',
+                                             use_native_loader=True))]
+    configs = [('bf16', float_path, {'dtype': 'bfloat16'}, modes),
+               ('int8 pallas', q_path, {'conv_backend': 'pallas'},
+                modes[2:3]),
+               ('float32', float_path, {}, modes[2:3])]
+
+    infos = None
+    numbers = {}
+    for label, path, options, config_modes in configs:
+        detector = load_detector(path, device=device, detector_options=dict(
+            options, pad_batches_to=8))
+        if infos is None:
+            # The ceiling's letterboxed batches, and the serial host cost
+            start = time.time()
+            infos = [detector.preprocess_image(np.asarray(load_image(p)),
+                                               image_id=p) for p in paths]
+            pil_ms = (time.time() - start) * 1e3 / len(paths)
+            buckets = {}
+            for info in infos:
+                buckets.setdefault(tuple(info['target_shape']),
+                                   []).append(info)
+            if sorted(len(b) for b in buckets.values()) != [32, 32]:
+                raise AssertionError('canvases of the 64 JPEGs: {}'.format(
+                    {k: len(b) for k, b in buckets.items()}))
+        results = {}
+        for mode, kwargs in config_modes:
+            rdb.native_fallbacks = 0
+            capture = rdb.load_and_run_detector_batch(
+                detector, folder, batch_size=8, quiet=True, **kwargs)
+            torch.cuda.synchronize()
+            start = time.time()
+            timed = rdb.load_and_run_detector_batch(
+                detector, folder, batch_size=8, quiet=True, **kwargs)
+            torch.cuda.synchronize()
+            rate = len(paths) / (time.time() - start)
+            if timed != capture:
+                raise AssertionError('folder run {} {}: the timed pass\'s '
+                                     'detections differ from the capture '
+                                     'pass\'s'.format(label, mode))
+            if any('failure' in r for r in timed) or \
+                    sorted(r['file'] for r in timed) != sorted(paths):
+                raise AssertionError('folder run {} {}: failures or missing '
+                                     'images'.format(label, mode))
+            if kwargs.get('use_native_loader') and rdb.native_fallbacks:
+                raise AssertionError('folder run {} {}: {} images fell back '
+                                     'to PIL'.format(label, mode,
+                                                     rdb.native_fallbacks))
+            results[mode] = timed
+            numbers[(label, mode)] = rate
+
+        # The ceiling: the same canvases, letterboxed, replayed
+        def ceiling_pass():
+            for bucket in buckets.values():
+                for i in range(0, len(bucket), 8):
+                    detector.generate_detections_one_batch(
+                        bucket[i:i + 8], detection_threshold=0.005)
+            torch.cuda.synchronize()
+
+        ceiling_pass()
+        start = time.time()
+        ceiling_pass()
+        ceiling = len(infos) / (time.time() - start)
+        for mode, _ in config_modes:
+            rate = numbers[(label, mode)]
+            print('folder run {} on {}, {}: {:.3f} images/s through '
+                  'load_and_run_detector_batch over 64 JPEGs; ceiling '
+                  '{:.3f} images/s (the replayed program on the letterboxed '
+                  'batches in memory); share {:.3f}; host {}'.format(
+                      label, card, mode, rate, ceiling, rate / ceiling,
+                      host), flush=True)
+        numbers[(label, 'ceiling')] = ceiling
+
+        pil_modes = [m for m, _ in config_modes if 'native' not in m]
+        for mode in pil_modes[1:]:
+            if results[mode] != results[pil_modes[0]]:
+                raise AssertionError('folder run {}: detections under {} '
+                                     'differ from {}'.format(
+                                         label, mode, pil_modes[0]))
+        if 'native thread x8' in results and \
+                results['native thread x8'] != results['native process x8']:
+            raise AssertionError('folder run {}: native thread and process '
+                                 'detections differ'.format(label))
+
+        if label == 'bf16':
+            # The rotated, grayscale and corrupt files in every mode
+            def sizes(res):
+                return sorted((os.path.basename(r['file']), r.get('failure'),
+                               r.get('height'), r.get('width')) for r in res)
+
+            serial = sizes(rdb.load_and_run_detector_batch(
+                detector, extra, batch_size=8, quiet=True, loader_workers=1,
+                include_image_size=True))
+            want = [('corrupt.jpg', 'image access failure', None, None),
+                    ('gray.jpg', None, extra_h, extra_w),
+                    ('rotated.jpg', None, extra_h, extra_w)]
+            if serial != want:
+                raise AssertionError('extra files, serial: {}'.format(serial))
+            for mode, kwargs in config_modes:
+                got = sizes(rdb.load_and_run_detector_batch(
+                    detector, extra, batch_size=8, quiet=True,
+                    include_image_size=True, **kwargs))
+                if got != serial:
+                    raise AssertionError('extra files under {}: {} against '
+                                         'the serial {}'.format(mode, got,
+                                                                serial))
+            print('folder run: the rotated, grayscale and corrupt files give '
+                  'the serial path\'s failures and sizes under every mode; '
+                  'PIL-decode detections identical across {}'.format(
+                      ', '.join(pil_modes)), flush=True)
+            _folder_run_costs(detector, folder, buckets, infos, ceiling)
+            native_args = rdb._worker_args(detector, None, True)
+        del detector
+        torch.cuda.empty_cache()
+
+    if problem is None:
+        # The native loader's canvases against PIL's
+        worst, mean_sum = 0, 0.0
+        start = time.time()
+        for info in infos:
+            _, got, fell_back = _loader_worker.load_and_letterbox(
+                (info['file'],) + native_args)
+            if fell_back or isinstance(got, str):
+                raise AssertionError('native loader: {} fell back'.format(
+                    info['file']))
+            if tuple(got['target_shape']) != tuple(info['target_shape']) or \
+                    tuple(got['letterbox_ratio']) != \
+                    tuple(info['letterbox_ratio']) or \
+                    tuple(got['letterbox_pad']) != \
+                    tuple(info['letterbox_pad']):
+                raise AssertionError(
+                    'native geometry of {}: {} {} {} against PIL\'s {} {} '
+                    '{}'.format(info['file'], got['target_shape'],
+                                got['letterbox_ratio'], got['letterbox_pad'],
+                                info['target_shape'],
+                                info['letterbox_ratio'],
+                                info['letterbox_pad']))
+            diff = np.abs(got['img_processed'].astype(np.int16) -
+                          info['img_processed'].astype(np.int16))
+            worst = max(worst, int(diff.max()))
+            mean_sum += float(diff.mean())
+        native_ms = (time.time() - start) * 1e3 / len(infos)
+        mean = mean_sum / len(infos)
+        if worst > 3 or mean >= 0.5:
+            raise AssertionError('native canvases against PIL\'s: max |d| '
+                                 '{}, mean {:.4f} (bars 3, 0.5)'.format(
+                                     worst, mean))
+        print('folder run: native loader geometry equal to PIL\'s on all 64 '
+              'JPEGs, canvases max |d| {} mean {:.4f} (bars 3, 0.5); host '
+              'ms per image on one thread: PIL decode + letterbox {:.1f}, '
+              'native {:.1f}'.format(worst, mean, pil_ms, native_ms),
+              flush=True)
+    else:
+        print('folder run: host ms per image on one thread: PIL decode + '
+              'letterbox {:.1f}'.format(pil_ms), flush=True)
+    return numbers
+
+
 def main():
     import numpy as np
     import torch
@@ -2131,6 +2504,12 @@ def main():
 
         # 17. test-time augmentation
         phase_tta(device, workdir, float_path, q_path, pairs, batch)
+
+        # 18. the folder run: JPEGs on disk through the loader pool
+        start = time.time()
+        phase_folder_run(device, workdir, float_path, q_path, card)
+        print('folder run: phase 18 took {:.1f} s'.format(
+            time.time() - start), flush=True)
 
     # 14. the experiments' kernels vs plain
     exp_records = phase_exp_kernels(device)

@@ -50,6 +50,7 @@ one NMS, with no capacity escalation.
 
 import math
 import os
+import threading
 import time
 
 import numpy as np
@@ -156,8 +157,6 @@ def _check_options(options):
         refused.append('mesh')
     if options.get('batch_axis') is not None:
         refused.append('batch_axis')
-    if _to_bool(options.get('preprocess_only', False)):
-        refused.append('preprocess_only')
     if options.get('xla_compiler_options'):
         refused.append('xla_compiler_options')
     if refused:
@@ -201,11 +200,19 @@ class TorchDetector:
         fused_decode: select candidates from the raw head logits (default
             true outside the strict modes) or from the decoded forward
             (then batched_nms)
+        preprocess_only: build without weights and without a device, for
+            preprocessing only (loader workers): preprocess_image works,
+            image_size comes from the options (default 1280) and the
+            stride is 64; inference raises RuntimeError
     Accepted as no-ops: folded_early, folded_h2, approx_select, select_cm,
-    stem_gemm, bottleneck_variant, and preprocess_only=false. Refused
-    (NotImplementedError): mesh and batch_axis (multi-card), a true
-    preprocess_only (the loader pool) and xla_compiler_options.
-    augment=True at inference needs preprocess_mode host (ValueError).
+    stem_gemm, bottleneck_variant. Refused (NotImplementedError): mesh and
+    batch_axis (multi-card) and xla_compiler_options. augment=True at
+    inference needs preprocess_mode host (ValueError).
+
+    preprocess_image may be called from many threads at once (the batch
+    driver's loader threads): the auto-canvas guard is locked, and
+    repreprocess_on_square_canvas passes its canvas mode down instead of
+    changing the detector's.
     """
 
     def __init__(self, model_path, detector_options=None, verbose=False,
@@ -213,10 +220,12 @@ class TorchDetector:
 
         options = dict(detector_options or {})
         _check_options(options)
+        self.preprocess_only = _to_bool(options.get('preprocess_only',
+                                                    False))
         if _to_bool(options.get('force_cpu', False)):
             device = 'cpu'
-        self.device = get_device(device)
-        if self.device.type == 'cuda':
+        self.device = None if self.preprocess_only else get_device(device)
+        if self.device is not None and self.device.type == 'cuda':
             set_float32_exact()
 
         self.compatibility_mode = options.get('compatibility_mode',
@@ -236,6 +245,7 @@ class TorchDetector:
                              '{}'.format(self.canvas_mode))
         self.max_canvases = int(options.get('max_canvases', 16))
         self._auto_canvases = set()
+        self._auto_canvases_lock = threading.Lock()
         self.preprocess_mode = options.get('preprocess_mode', 'host')
         self.staging_multiple = int(options.get('staging_multiple', 256))
         self.max_staging_side = int(options.get('max_staging_side', 4096))
@@ -257,6 +267,11 @@ class TorchDetector:
         # n_candidates, each program's final outputs)
         self.host_reads = 0
         self.printed_image_size_warning = False
+        if self.preprocess_only:
+            self.letterbox_stride = 64
+            self.default_image_size = int(options.get('image_size', 1280))
+            print('TorchDetector: preprocess only (no weights, no device)')
+            return
         self._programs = ProgramCache(self.device)
         self._cuda_graphs = self.device.type == 'cuda'
 
@@ -296,20 +311,25 @@ class TorchDetector:
             shape_hw, image_size, stride=self.letterbox_stride,
             scaleup=scaleup)
 
-    def _use_auto_canvas(self, shape_hw, image_size, scaleup=True):
+    def _use_auto_canvas(self, shape_hw, image_size, scaleup, canvas_mode):
         """True when this image letterboxes onto its minimal
-        stride-rectangle; False in square mode or once max_canvases
-        distinct rectangles are in use."""
+        stride-rectangle; False when [canvas_mode] is 'square' or once
+        max_canvases distinct rectangles are in use. The check and the
+        admission are one locked step, so loader threads never admit more
+        than max_canvases."""
 
-        if self.canvas_mode != 'auto':
+        if canvas_mode != 'auto':
             return False
         t = self._auto_target_shape(shape_hw, image_size, scaleup)
-        if t == (image_size, image_size) or t in self._auto_canvases:
+        if t == (image_size, image_size):
             return True
-        if len(self._auto_canvases) >= self.max_canvases:
-            return False
-        self._auto_canvases.add(t)
-        return True
+        with self._auto_canvases_lock:
+            if t in self._auto_canvases:
+                return True
+            if len(self._auto_canvases) >= self.max_canvases:
+                return False
+            self._auto_canvases.add(t)
+            return True
 
     def preprocess_image(self, img_original, image_id='unknown',
                          image_size=None, verbose=False):
@@ -320,8 +340,14 @@ class TorchDetector:
         preprocess mode (classic modes) 'img_processed' is None: the dict
         carries the raw image ('img_original', shrunk to max_staging_side),
         its canvas ('target_shape') and 'scale_target', and the batch
-        letterboxes on the device.
+        letterboxes on the device. Safe to call from many threads.
         """
+
+        return self._preprocess(img_original, image_id, image_size,
+                                self.canvas_mode)
+
+    def _preprocess(self, img_original, image_id, image_size, canvas_mode):
+        """preprocess_image under [canvas_mode] ('auto' or 'square')."""
 
         result = {'file': image_id}
         img_original_pil = None
@@ -351,7 +377,8 @@ class TorchDetector:
                 img_original, _ = box_ops.resize_long_side(
                     img_original, self.max_staging_side)
                 scaling_shape = img_original.shape
-            if self._use_auto_canvas(img_original.shape[:2], image_size):
+            if self._use_auto_canvas(img_original.shape[:2], image_size,
+                                     True, canvas_mode):
                 target = self._auto_target_shape(img_original.shape[:2],
                                                  image_size)
             else:
@@ -367,7 +394,7 @@ class TorchDetector:
 
         if 'classic' in self.compatibility_mode:
             auto = self._use_auto_canvas(img_original.shape[:2],
-                                         image_size, scaleup=True)
+                                         image_size, True, canvas_mode)
             img, ratio, pad = box_ops.letterbox(
                 img_original, new_shape=(image_size, image_size),
                 stride=self.letterbox_stride, auto=auto, scaleup=True)
@@ -376,7 +403,7 @@ class TorchDetector:
             img_resized, _ = box_ops.resize_long_side(
                 img_original, image_size, use_ceil=use_ceil)
             auto = self._use_auto_canvas(img_resized.shape[:2],
-                                         image_size, scaleup=False)
+                                         image_size, False, canvas_mode)
             img, ratio, pad = box_ops.letterbox(
                 img_resized, new_shape=(image_size, image_size),
                 stride=self.letterbox_stride, auto=auto, scaleup=False)
@@ -393,22 +420,19 @@ class TorchDetector:
 
     def repreprocess_on_square_canvas(self, info, image_size=None):
         """Re-letterbox a preprocessed image onto the square canvas (the
-        batch runner merges small tail buckets this way). None when the
-        original pixels are gone."""
+        batch runner merges small tail buckets this way), leaving the
+        detector's canvas mode alone: loader threads may be letterboxing
+        meanwhile. None when the original pixels are gone (the native
+        loader's images)."""
 
         source = info.get('img_original_pil')
         if source is None:
             source = info.get('img_original')
         if source is None:
             return None
-        saved_mode = self.canvas_mode
-        self.canvas_mode = 'square'
-        try:
-            new_info = self.preprocess_image(
-                source, image_id=info.get('file', 'unknown'),
-                image_size=image_size)
-        finally:
-            self.canvas_mode = saved_mode
+        new_info = self._preprocess(source, info.get('file', 'unknown'),
+                                    image_size, 'square')
+        # Loader-attached fields (EXIF) carry over
         for key, value in info.items():
             if key not in new_info:
                 new_info[key] = value
@@ -615,6 +639,10 @@ class TorchDetector:
         'file', 'detections', 'max_detection_conf' (or 'failure').
         """
 
+        if self.preprocess_only:
+            raise RuntimeError('This detector was built with '
+                               'preprocess_only=true: it has no weights and '
+                               'runs no inference')
         if augment and self.preprocess_mode == 'device':
             raise ValueError(
                 'augment=True requires preprocess_mode=host (TTA rescales '

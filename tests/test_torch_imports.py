@@ -64,6 +64,9 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.models.program_cache',
                 'megadetector_tpu_torch.detection.run_detector',
                 'megadetector_tpu_torch.detection.run_detector_batch',
+                'megadetector_tpu_torch.detection._loader_worker',
+                'megadetector_tpu_torch.native',
+                'megadetector_tpu_torch.utils.read_exif',
                 'megadetector_tpu_torch.ops.gemm_int8',
                 'megadetector_tpu_torch.experiments._harness',
                 'megadetector_tpu_torch.experiments.exp_conv3x3',

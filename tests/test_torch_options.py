@@ -5,8 +5,9 @@ shares with the JAX package, held to the JAX detector on the CPU:
 - arch overrides the checkpoint metadata's architecture;
 - fused_decode picks the selection path as the JAX detector does (default
   on outside the strict modes, either way on request);
-- preprocess_only (true) and batch_axis are refused with
-  NotImplementedError, as mesh is;
+- batch_axis is refused with NotImplementedError, as mesh is;
+  preprocess_only=true builds a detector without weights whose
+  preprocess_image is the full detector's;
 - load_detector(model_file, force_cpu=False, detector_options=None,
   verbose=False), with device keyword-only.
 
@@ -26,7 +27,9 @@ from megadetector_tpu.detection import run_detector_batch as jax_batch
 from megadetector_tpu.utils import md_tests
 from megadetector_tpu_torch.detection import run_detector, \
     run_detector_batch
+from megadetector_tpu_torch.models import yolov5
 from megadetector_tpu_torch.models.convert_weights import save_checkpoint
+from megadetector_tpu_torch.models.detector import TorchDetector
 
 import torch_port_data as data
 
@@ -110,14 +113,47 @@ def test_arch_override_matches_jax(option_inputs):
                         'arch')
 
 
-@pytest.mark.parametrize('options', [{'preprocess_only': 'true'},
-                                     {'batch_axis': 'data'}])
+@pytest.mark.parametrize('options', [{'batch_axis': 'data'}])
 def test_unported_multicard_and_loader_options_are_refused(option_inputs,
                                                            options):
     _, _, model, _ = option_inputs
     with pytest.raises(NotImplementedError, match=list(options)[0]):
         run_detector.load_detector(model, device='cpu',
                                    detector_options=options)
+
+
+@pytest.mark.parametrize('mode', ['classic', 'modern'])
+def test_preprocess_only_loads_no_weights_and_preprocesses_alike(
+        option_inputs, mode):
+    """preprocess_only=true (the loader pool's detector): no weights are
+    read and no device is taken, inference raises, and preprocess_image
+    gives the full detector's dicts, array for array. Its stride is the
+    JAX detector's fixed 64, so the full detector is a P6 model
+    (MDv5a's family: yolov5n6 here)."""
+
+    root, _, _, _ = option_inputs
+    model = str(root / 'md_n6.npz')
+    config = yolov5.YoloV5Config('yolov5n6', num_classes=3)
+    save_checkpoint(yolov5.init_params(config, seed=0), model,
+                    dict(data.METADATA, arch='yolov5n6'))
+    options = {'compatibility_mode': mode, 'image_size': data.IMAGE_SIZE}
+    full = run_detector.load_detector(model, device='cpu',
+                                      detector_options=options)
+    only = TorchDetector('/no/such/weights.npz', dict(
+        options, preprocess_only='true'))
+    assert only.device is None and not hasattr(only, 'model')
+    assert only.letterbox_stride == full.letterbox_stride == 64
+    for i, img in enumerate(data.images()):
+        a = only.preprocess_image(img, image_id=str(i))
+        b = full.preprocess_image(img, image_id=str(i))
+        assert sorted(a) == sorted(b)
+        for key in a:
+            if isinstance(a[key], np.ndarray):
+                assert np.array_equal(a[key], b[key]), key
+            else:
+                assert a[key] == b[key], key
+    with pytest.raises(RuntimeError, match='preprocess_only'):
+        only.generate_detections_one_image(data.images()[0])
 
 
 def test_preprocess_only_false_is_the_default(option_inputs):
