@@ -114,7 +114,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      count; detections identical across the PIL modes, the native
      loader's geometry equal to PIL's and its canvases within 3 levels
      (mean < 0.5) with no image handed to PIL, and a rotated, a grayscale
-     and a corrupt file as on the serial path in every mode.
+     and a corrupt file as on the serial path in every mode;
+ 19. load_and_run_detector (bf16, batch 1) on two synthetic JPEGs: results
+     equal to generate_detections_one_image, a rendered file each,
+     launches exact (one device program an image);
+ 20. run_tiled_inference on two synthetic 4000x3000 JPEGs (24 tiles of
+     1280x1280 each, three full batches of 8 on the square canvas) and a
+     1024x768 one run whole, bf16 and int8 pallas: launches exact, the
+     JSON equal to one assembled from generate_detections_one_batch on
+     tiles cut with get_patch_boundaries, remapped and deduplicated with
+     in_place_nms; a run interrupted at its second image and resumed from
+     its checkpoint equal to an unbroken one; tiles/s and images/s;
+ 21. process_videos (bf16, frame_batch_size 8) on two 1920x1080 mp4v
+     videos (30 fps, 60 and 45 frames) and a corrupt file, frame_sample 4
+     and time_sample 0.5: frames_processed, launches exact, each frame's
+     detections equal to generate_detections_one_batch on cv2's frames,
+     the corrupt video a failure record, the file valid; frames/s; then
+     process_video_folder_via_frames with the same frame numbers and
+     frame rates. Phases 19-21 print the reserved memory after each run.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -2368,6 +2385,520 @@ def phase_folder_run(device, workdir, float_path, q_path, card):
     return numbers
 
 
+#%% Phases 19-21: the single-image, tiled and video entry points
+
+
+def _select_calls(detector):
+    """Selection + NMS programs run so far (each launches the NMS kernel
+    once; escalation runs a second one in the same device program)."""
+
+    return sum(entry.calls for key, entry in
+               detector._programs.entries.items() if 'select' in key)
+
+
+def _memory_line(label):
+    """Print the reserved memory and the peak allocated since the last
+    call (or since the phase began), then reset the peak."""
+
+    import torch
+
+    torch.cuda.synchronize()
+    print('{}: {:.2f} GB reserved, {:.2f} GB peak allocated'.format(
+        label, torch.cuda.memory_reserved() / 1e9,
+        torch.cuda.max_memory_allocated() / 1e9), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _counted(detector, fn):
+    """fn() with the launch counters at 0 just before; returns (its
+    value, (nms, conv, bottleneck, stem, silu), device programs run,
+    selection programs run)."""
+
+    programs, selects = detector.programs_run, _select_calls(detector)
+    _reset_counts()
+    out = fn()
+    return (out, _counts(), detector.programs_run - programs,
+            _select_calls(detector) - selects)
+
+
+def _check_launches(label, detector, counts, programs, selects,
+                    forwards):
+    """The launches [forwards] implies, exactly: [forwards] is
+    {(batch, height, width): device programs of that shape}. NMS once a
+    selection program; under dtype bf16 the stem once and the epilogue
+    once per activated conv after l0 a program; under the int8 chain with
+    conv_backend pallas the bottleneck kernel once per bottleneck that
+    bottleneck_tiling fuses and the conv kernel on every other chain
+    conv."""
+
+    import torch
+
+    from megadetector_tpu_torch.models.yolov5 import QConv
+    from megadetector_tpu_torch.ops import bottleneck_int8
+
+    nms, conv, fused, stem, silu = counts
+    n = sum(forwards.values())
+    n_qconv = sum(isinstance(m, QConv) for m in detector.model.modules())
+    bf16 = detector.compute_dtype == torch.bfloat16
+    want_fused = 0
+    if n_qconv and detector.conv_backend != 'xla':
+        for (b, h, w), k in forwards.items():
+            want_fused += k * sum(
+                m for (bh, bw, c), m in _bottleneck_counts(
+                    detector.config, h, w, b).items()
+                if bottleneck_int8.bottleneck_tiling(b, bh, bw, c))
+    want = (selects, n * n_qconv - 2 * want_fused, want_fused,
+            n if bf16 else 0,
+            n * (_n_activated_convs(detector.model) - 1)
+            if bf16 and not n_qconv else 0)
+    if programs != n or (nms, conv, fused, stem, silu) != want or \
+            not n <= selects <= 2 * n:
+        raise AssertionError(
+            '{}: {} device programs (want {}), {} selection programs; '
+            'launches (nms, conv, bottleneck, stem, silu) {}, want {}'
+            .format(label, programs, n, selects, counts, want))
+    print('{}: {} device programs {}, launches (nms, conv, bottleneck, '
+          'stem, silu) {} as they imply ({} selection programs: NMS once '
+          'each, escalation included)'.format(
+              label, n, sorted(forwards.items()), counts, selects),
+          flush=True)
+
+
+def phase_single_image(device, workdir, float_path, card):
+    """
+    19. load_and_run_detector, the single-image driver, with yolov5l6 in
+    bf16 (1280 px auto canvases, batch 1) on two synthetic JPEGs (1536x2048
+    and 1080x1920): each image is one device program; its results equal
+    generate_detections_one_image on the same decoded image, a rendered
+    file exists for each, and the launches are exact.
+    """
+
+    import numpy as np
+
+    from megadetector_tpu_torch.detection import run_detector
+    from megadetector_tpu_torch.visualization.visualization_utils import \
+        load_image
+
+    images = _synthetic_images(np.random.RandomState(19))[:2]
+    files = _write_folder(os.path.join(workdir, 'single'), images,
+                          ['single_{}.jpg'.format(i) for i in range(2)])
+    out_dir = os.path.join(workdir, 'single_rendered')
+    detector = run_detector.load_detector(float_path, device=device,
+                                          detector_options={
+                                              'dtype': 'bfloat16'})
+    start = time.time()
+    results, counts, programs, selects = _counted(
+        detector, lambda: run_detector.load_and_run_detector(
+            detector, files, out_dir))
+    seconds = time.time() - start
+    _check_launches('phase 19, load_and_run_detector', detector, counts,
+                    programs, selects, {(1, 960, 1280): 1,
+                                        (1, 768, 1280): 1})
+    for path, r in zip(files, results):
+        want = detector.generate_detections_one_image(
+            load_image(path), path, detection_threshold=0.005)
+        if r != want or not r['detections']:
+            raise AssertionError('{}: load_and_run_detector gave {} '
+                                 'detections, generate_detections_one_'
+                                 'image {}'.format(
+                                     path, len(r['detections'] or []),
+                                     len(want['detections'] or [])))
+        rendered = os.path.join(out_dir, os.path.splitext(
+            os.path.basename(path))[0] + '_detections.jpg')
+        if not os.path.isfile(rendered):
+            raise AssertionError('no rendered file {}'.format(rendered))
+    print('phase 19 on {}: load_and_run_detector (bf16, first calls, '
+          'rendering included) {:.3f} s for 2 images, {} and {} '
+          'detections; equal to generate_detections_one_image; 2 rendered '
+          'files'.format(card, seconds, len(results[0]['detections']),
+                         len(results[1]['detections'])), flush=True)
+    _memory_line('phase 19')
+
+
+def _large_image(rng, h, w):
+    """A seeded uint8 image of [h, w]: gradients, blocks and noise, as
+    _synthetic_images makes them."""
+
+    import numpy as np
+
+    yy = np.linspace(0, 255, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0, 255, w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    img[..., 0] = xx
+    img[..., 1] = yy
+    img[..., 2] = 96
+    for _ in range(24):
+        y0, x0 = rng.randint(0, h - h // 8), rng.randint(0, w - w // 8)
+        img[y0:y0 + h // 10, x0:x0 + w // 10] = rng.randint(0, 255, 3)
+    img += rng.randint(-20, 20, (h, w, 1))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _tiled_reference(detector, folder, names, out_file):
+    """
+    What run_tiled_inference should write, assembled here: tiles cut with
+    get_patch_boundaries (1280x1280, half overlap; an image smaller than a
+    tile whole), generate_detections_one_batch on 8 at a time, each box
+    remapped through pixels and rounded, then in_place_nms and
+    write_results_to_file. Returns (the dict written, seconds spent in
+    each step: decode, batches, remap, nms).
+    """
+
+    import torch
+
+    import numpy as np
+
+    from megadetector_tpu_torch.detection import run_detector_batch
+    from megadetector_tpu_torch.detection.run_tiled_inference import (
+        get_patch_boundaries, in_place_nms)
+    from megadetector_tpu_torch.utils import ct_utils
+    from megadetector_tpu_torch.visualization.visualization_utils import \
+        load_image
+
+    seconds = dict.fromkeys(('decode', 'batches', 'remap', 'nms'), 0.0)
+    images = []
+    for name in names:
+        start = time.time()
+        im = np.asarray(load_image(os.path.join(folder, name)))
+        seconds['decode'] += time.time() - start
+        h, w = im.shape[:2]
+        if w < 1280 or h < 1280:
+            tiles = [((0, 0), im)]
+        else:
+            tiles = [((x, y), im[y:y + 1280, x:x + 1280])
+                     for x, y in get_patch_boundaries((w, h), (1280, 1280))]
+        results = []
+        start = time.time()
+        for i in range(0, len(tiles), 8):
+            results += detector.generate_detections_one_batch(
+                [t for _, t in tiles[i:i + 8]],
+                ['{}__{}'.format(name, j) for j in range(i, i + 8)][
+                    :len(tiles[i:i + 8])], detection_threshold=0.005)
+        torch.cuda.synchronize()
+        seconds['batches'] += time.time() - start
+        start = time.time()
+        detections = []
+        for ((x0, y0), tile), r in zip(tiles, results):
+            th, tw = tile.shape[:2]
+            for d in r['detections']:
+                x, y, bw, bh = d['bbox']
+                detections.append({
+                    'category': d['category'],
+                    'conf': ct_utils.round_float(d['conf'], 3),
+                    'bbox': ct_utils.round_float_array(
+                        [(x0 + x * tw) / w, (y0 + y * th) / h, bw * tw / w,
+                         bh * th / h], 4)})
+        images.append({'file': name, 'detections': detections})
+        seconds['remap'] += time.time() - start
+    start = time.time()
+    in_place_nms({'images': images})
+    seconds['nms'] = time.time() - start
+    return run_detector_batch.write_results_to_file(images,
+                                                    out_file), seconds
+
+
+def phase_tiled(device, workdir, float_path, q_path, card):
+    """
+    20. run_tiled_inference with yolov5l6 (bf16, then int8 with
+    conv_backend pallas) on two synthetic 4000x3000 JPEGs and one 1024x768
+    JPEG: default 1280x1280 tiles at 0.5 overlap, 6 x 4 = 24 tiles an
+    image in three full batches of 8 on the square canvas; the small image
+    runs whole (batch 1, 960x1280 canvas). Launches exact; the JSON equals
+    _tiled_reference's; a run interrupted at its second image and resumed
+    from its checkpoint writes the unbroken run's JSON; tiles/s and
+    images/s of a replayed run.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_tiled_inference import \
+        run_tiled_inference
+
+    rng = np.random.RandomState(20)
+    folder = os.path.join(workdir, 'tiled')
+    names = ['large_0.jpg', 'large_1.jpg', 'small.jpg']
+    _write_folder(folder, [_large_image(rng, 3000, 4000),
+                           _large_image(rng, 3000, 4000),
+                           _large_image(rng, 768, 1024)], names)
+    forwards = {(8, 1280, 1280): 6, (1, 960, 1280): 1}
+    n_tiles = 6 * 8 + 1
+    for label, path, options in (
+            ('bf16', float_path, {'dtype': 'bfloat16'}),
+            ('int8 pallas', q_path, {'conv_backend': 'pallas'})):
+        detector = load_detector(path, device=device,
+                                 detector_options=options)
+
+        def run(out_name, **kwargs):
+            return run_tiled_inference(
+                detector, folder, None, os.path.join(workdir, out_name),
+                **kwargs)
+
+        first, counts, programs, selects = _counted(
+            detector, lambda: run('tiled_first.json'))
+        _check_launches('phase 20, tiled {}'.format(label), detector,
+                        counts, programs, selects, forwards)
+        want, parts = _tiled_reference(detector, folder, names,
+                                       os.path.join(workdir,
+                                                    'tiled_reference.json'))
+        if first['images'] != want['images']:
+            raise AssertionError('tiled {}: run_tiled_inference differs '
+                                 'from the assembled reference'.format(
+                                     label))
+        n_det = [len(im['detections']) for im in first['images']]
+        if not all(n_det):
+            raise AssertionError('tiled {}: detections {}'.format(label,
+                                                                  n_det))
+
+        # Interrupted at the second image's first batch, then resumed
+        checkpoint = os.path.join(workdir, 'tiled_checkpoint.json')
+        real = detector.generate_detections_one_batch
+
+        def interrupt(images, ids, **kwargs):
+            if ids[0].startswith('large_1.jpg'):
+                raise KeyboardInterrupt('interrupted')
+            return real(images, ids, **kwargs)
+
+        detector.generate_detections_one_batch = interrupt
+        try:
+            run('tiled_broken.json', checkpoint_path=checkpoint,
+                checkpoint_frequency=1)
+            raise AssertionError('the interrupted run ran to its end')
+        except KeyboardInterrupt:
+            pass
+        finally:
+            detector.generate_detections_one_batch = real
+        with open(checkpoint) as f:
+            saved = [im['file'] for im in json.load(f)['checkpoint']]
+        resumed = run('tiled_resumed.json', checkpoint_path=checkpoint,
+                      checkpoint_frequency=1)
+        if saved != ['large_0.jpg'] or os.path.isfile(checkpoint) or \
+                resumed['images'] != first['images']:
+            raise AssertionError('tiled {}: checkpoint held {}; the resumed '
+                                 'run differs from the unbroken one'.format(
+                                     label, saved))
+
+        torch.cuda.synchronize()
+        start = time.time()
+        timed = run('tiled_timed.json')
+        torch.cuda.synchronize()
+        seconds = time.time() - start
+        if timed['images'] != first['images']:
+            raise AssertionError('tiled {}: the replayed run differs'.format(
+                label))
+        print('phase 20 on {}: tiled {} equal to the assembled reference '
+              '({} detections an image after NMS across tiles); resumed '
+              'from a checkpoint after 1 image = unbroken; replayed run '
+              '{:.3f} s: {:.3f} tiles/s, {:.3f} images/s ({} tiles, 3 '
+              'images, decode included)'.format(
+                  card, label, n_det, seconds, n_tiles / seconds,
+                  3 / seconds, n_tiles), flush=True)
+        print('phase 20, tiled {}: where a replayed run\'s time goes (the '
+              'reference\'s steps, s): JPEG decode {:.3f}, the 7 batches '
+              'through generate_detections_one_batch {:.3f} ({:.1f} ms a '
+              'full batch of 8 tiles), remap {:.3f}, NMS across tiles '
+              '{:.3f}'.format(label, parts['decode'], parts['batches'],
+                              1e3 * parts['batches'] / 7, parts['remap'],
+                              parts['nms']), flush=True)
+        _memory_line('phase 20, tiled {}'.format(label))
+        del detector
+        torch.cuda.empty_cache()
+
+
+def _write_videos(folder, rng):
+    """Two 1920x1080 mp4v videos at 30 fps (60 and 45 frames: a synthetic
+    scene sliding 24 px a frame) and one corrupt file."""
+
+    import cv2
+    import numpy as np
+
+    os.makedirs(folder, exist_ok=True)
+    base = _large_image(rng, 1080, 1920)
+    for name, n_frames in (('clip_a.mp4', 60), ('clip_b.mp4', 45)):
+        out = cv2.VideoWriter(os.path.join(folder, name),
+                              cv2.VideoWriter_fourcc(*'mp4v'), 30.0,
+                              (1920, 1080))
+        if not out.isOpened():
+            raise AssertionError('cv2.VideoWriter cannot write mp4v')
+        for i in range(n_frames):
+            out.write(np.ascontiguousarray(np.roll(base, 24 * i,
+                                                   axis=1)[..., ::-1]))
+        out.release()
+    with open(os.path.join(folder, 'corrupt.mp4'), 'wb') as f:
+        f.write(b'not a video')
+
+
+def _decoded_frames(path, every):
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames, n = [], 0
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        if n % every == 0:
+            frames.append((n, cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)))
+        n += 1
+    cap.release()
+    return frames
+
+
+def phase_video(device, workdir, float_path, card):
+    """
+    21. process_videos with yolov5l6 in bf16 on a folder of two 1920x1080
+    videos (30 fps, 60 and 45 frames) and a corrupt file, frame_batch_size
+    8, under frame_sample 4 and time_sample 0.5: frames_processed as the
+    sampling gives, launches exact (each video's frames in batches of 8
+    and its own tail), each frame's detections equal to
+    generate_detections_one_batch on the same frames decoded with cv2 in
+    the same batches, the corrupt video a failure record, the file valid
+    under validate_batch_results; frames/s of a replayed run. Then
+    process_video_folder_via_frames (frames to JPEGs, then the batch
+    driver) gives the same videos, frame numbers and frame rates.
+    """
+
+    import torch
+
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise AssertionError('phase 21 needs cv2 to decode video: '
+                             '{}'.format(e))
+    import numpy as np
+
+    from megadetector_tpu_torch.detection import process_video
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import validate_batch_results
+    from megadetector_tpu_torch.workflows import manage_video_batch
+
+    folder = os.path.join(workdir, 'videos')
+    _write_videos(folder, np.random.RandomState(21))
+    detector = load_detector(float_path, device=device,
+                             detector_options={'dtype': 'bfloat16'})
+    lengths = {'clip_a.mp4': 60, 'clip_b.mp4': 45}
+    records = {}
+    for sampling, value, every in (('frame_sample', 4, 4),
+                                   ('time_sample', 0.5, 15)):
+        options = process_video.ProcessVideoOptions()
+        options.model_file = detector
+        options.input_video_file = folder
+        options.output_json_file = os.path.join(
+            workdir, 'video_{}.json'.format(sampling))
+        options.frame_batch_size = 8
+        setattr(options, sampling, value)
+        out, counts, programs, selects = _counted(
+            detector, lambda: process_video.process_videos(options))
+        forwards = {}
+        for name, n in lengths.items():
+            n_sampled = len(range(0, n, every))
+            for i in range(0, n_sampled, 8):
+                key = (min(8, n_sampled - i), 768, 1280)
+                forwards[key] = forwards.get(key, 0) + 1
+        _check_launches('phase 21, process_videos {} {}'.format(
+            sampling, value), detector, counts, programs, selects,
+            forwards)
+        by_file = {im['file']: im for im in out['images']}
+        corrupt = by_file.pop('corrupt.mp4')
+        if corrupt['detections'] is not None or \
+                corrupt['frame_rate'] != -1.0 or \
+                not corrupt['failure'].startswith('Failure processing'):
+            raise AssertionError('the corrupt video: {}'.format(corrupt))
+        for name, n in lengths.items():
+            im = by_file[name]
+            if im['frames_processed'] != list(range(0, n, every)) or \
+                    abs(im['frame_rate'] - 30.0) > 0.01:
+                raise AssertionError('{}: frames {}, frame rate {}'.format(
+                    name, im['frames_processed'], im['frame_rate']))
+            frames = _decoded_frames(os.path.join(folder, name), every)
+            for i in range(0, len(frames), 8):
+                chunk = frames[i:i + 8]
+                results = detector.generate_detections_one_batch(
+                    [f for _, f in chunk], ['f'] * len(chunk),
+                    detection_threshold=0.005)
+                for (n_frame, _), r in zip(chunk, results):
+                    got = [{k: v for k, v in d.items()
+                            if k != 'frame_number'}
+                           for d in im['detections']
+                           if d['frame_number'] == n_frame]
+                    if sorted(got, key=json.dumps) != sorted(
+                            r['detections'], key=json.dumps) or not got:
+                        raise AssertionError(
+                            '{} frame {}: {} detections, {} from '
+                            'generate_detections_one_batch'.format(
+                                name, n_frame, len(got),
+                                len(r['detections'])))
+        errors = validate_batch_results(options.output_json_file)[
+            'validation_results']['validation_errors']
+        if errors:
+            raise AssertionError('validate_batch_results: {}'.format(
+                errors[:3]))
+        records[sampling] = by_file
+        n_frames = sum(len(im['frames_processed'])
+                       for im in by_file.values())
+        torch.cuda.synchronize()
+        start = time.time()
+        timed = process_video.process_videos(options)
+        torch.cuda.synchronize()
+        seconds = time.time() - start
+        if timed['images'] != out['images']:
+            raise AssertionError('process_videos: the replayed run '
+                                 'differs')
+        print('phase 21 on {}: process_videos {} {}: {} frames of 2 '
+              'videos equal to generate_detections_one_batch on cv2\'s '
+              'frames; corrupt video a failure record; valid; replayed run '
+              '{:.3f} s, {:.3f} frames/s (decode included)'.format(
+                  card, sampling, value, n_frames, seconds,
+                  n_frames / seconds), flush=True)
+        # Where the replayed run's time goes, step by step
+        parts = {'decode': 0.0, 'batches': 0.0}
+        for name in lengths:
+            start = time.time()
+            frames = _decoded_frames(os.path.join(folder, name), every)
+            parts['decode'] += time.time() - start
+            start = time.time()
+            for i in range(0, len(frames), 8):
+                detector.generate_detections_one_batch(
+                    [f for _, f in frames[i:i + 8]],
+                    ['f'] * len(frames[i:i + 8]), detection_threshold=0.005)
+            torch.cuda.synchronize()
+            parts['batches'] += time.time() - start
+        print('phase 21, {}: cv2 decode of every frame of both videos '
+              '{:.3f} s, the replayed batches through '
+              'generate_detections_one_batch {:.3f} s'.format(
+                  sampling, parts['decode'], parts['batches']), flush=True)
+
+    options = manage_video_batch.VideoBatchOptions()
+    options.model_file = float_path
+    options.input_video_folder = folder
+    options.frame_folder = os.path.join(workdir, 'video_frames')
+    options.output_json_file = os.path.join(workdir, 'video_frames.json')
+    options.every_n_frames = 4
+    options.detector_options = {'dtype': 'bfloat16'}
+    options.device = device
+    start = time.time()
+    frames_out = manage_video_batch.process_video_folder_via_frames(options)
+    seconds = time.time() - start
+    direct = records['frame_sample']
+    got = {im['file']: (im['frame_rate'], im['frames_processed'])
+           for im in frames_out['images']}
+    want = {name: (im['frame_rate'], im['frames_processed'])
+            for name, im in direct.items()}
+    if got != want or any(im['detections'] is None
+                          for im in frames_out['images']):
+        raise AssertionError('process_video_folder_via_frames: {}, the '
+                             'direct path {}'.format(got, want))
+    print('phase 21 on {}: process_video_folder_via_frames (frames to '
+          'JPEGs, then the batch driver, first calls) {:.3f} s; the same '
+          'videos, frame numbers and frame rates as process_videos'.format(
+              card, seconds), flush=True)
+    _memory_line('phase 21')
+    del detector
+    torch.cuda.empty_cache()
+
+
 def main():
     import numpy as np
     import torch
@@ -2510,6 +3041,21 @@ def main():
         phase_folder_run(device, workdir, float_path, q_path, card)
         print('folder run: phase 18 took {:.1f} s'.format(
             time.time() - start), flush=True)
+
+        # 19-21. the single-image, tiled and video entry points
+        torch.cuda.reset_peak_memory_stats()
+        for label, run in (
+                ('19', lambda: phase_single_image(device, workdir,
+                                                  float_path, card)),
+                ('20', lambda: phase_tiled(device, workdir, float_path,
+                                           q_path, card)),
+                ('21', lambda: phase_video(device, workdir, float_path,
+                                           card))):
+            start = time.time()
+            run()
+            print('phase {} took {:.1f} s'.format(label,
+                                                  time.time() - start),
+                  flush=True)
 
     # 14. the experiments' kernels vs plain
     exp_records = phase_exp_kernels(device)

@@ -416,6 +416,10 @@ def load_and_run_detector_batch(model_file,
     else:
         detector_options = dict(detector_options or {})
         detector_options.setdefault('pad_batches_to', batch_size)
+        # The JAX driver's use_mesh splits each batch over its local
+        # devices; one card runs here (ROADMAP A8), so any value is taken
+        # and has no effect, as the JAX driver's parse refuses none
+        detector_options.pop('use_mesh', None)
         detector = load_detector(model_file,
                                  detector_options=detector_options,
                                  device=device)

@@ -70,8 +70,9 @@ def set_float32_exact():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def is_gpu_available():
-    """True when torch sees a CUDA card."""
+def is_gpu_available(detector_file=None):
+    """True when torch sees a CUDA card. [detector_file] is taken, as in
+    the JAX package's signature, and ignored."""
 
     return torch.cuda.is_available()
 

@@ -93,9 +93,10 @@ PROGRAMMING_ERRORS = (AttributeError, NameError, UnboundLocalError,
 ALWAYS_RERAISED = (KernelError, NotImplementedError)
 
 # Options of the JAX detector that leave output unchanged (TPU layout and
-# schedule choices); accepted and ignored
+# schedule choices); accepted and ignored. use_mesh is the JAX driver's
+# (it splits batches over local devices): one card here
 NO_OP_OPTIONS = ('folded_early', 'folded_h2', 'approx_select', 'select_cm',
-                 'stem_gemm', 'bottleneck_variant')
+                 'stem_gemm', 'bottleneck_variant', 'use_mesh')
 
 CONV_BACKENDS = ('xla', 'pallas', 'pallas-interpret')
 
@@ -110,6 +111,23 @@ PARSED_OPTIONS = ('compatibility_mode', 'canvas_mode', 'max_canvases',
                   'max_staging_side', 'bf16_resize', 'conv_backend', 'mesh',
                   'xla_compiler_options', 'arch', 'fused_decode',
                   'preprocess_only', 'batch_axis')
+
+
+def is_device_fault(e):
+    """
+    True for an exception that no driver may contain as a per-image, per
+    tile or per-video failure record: a kernel's build or launch failure
+    (KernelError), an option not ported (NotImplementedError), an error
+    that the CUDA runtime raised, or the card's memory running out. Such
+    a fault is the program's or the card's, never the data's.
+    """
+
+    if isinstance(e, ALWAYS_RERAISED + (torch.cuda.OutOfMemoryError,)):
+        return True
+    accelerator_error = getattr(torch, 'AcceleratorError', None)
+    if accelerator_error is not None and isinstance(e, accelerator_error):
+        return True
+    return isinstance(e, RuntimeError) and 'CUDA error' in str(e)
 
 
 def reraise_programming_errors():
@@ -205,7 +223,8 @@ class TorchDetector:
             image_size comes from the options (default 1280) and the
             stride is 64; inference raises RuntimeError
     Accepted as no-ops: folded_early, folded_h2, approx_select, select_cm,
-    stem_gemm, bottleneck_variant. Refused (NotImplementedError): mesh and
+    stem_gemm, bottleneck_variant, use_mesh. Refused
+    (NotImplementedError): mesh and
     batch_axis (multi-card) and xla_compiler_options. augment=True at
     inference needs preprocess_mode host (ValueError).
 
@@ -687,7 +706,7 @@ class TorchDetector:
                 self._run_batch(group, results, detection_threshold,
                                 augment=augment)
             except Exception as e:
-                if isinstance(e, ALWAYS_RERAISED) or (
+                if is_device_fault(e) or (
                         isinstance(e, PROGRAMMING_ERRORS) and
                         reraise_programming_errors()):
                     raise

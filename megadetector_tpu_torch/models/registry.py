@@ -174,6 +174,8 @@ known_models = {
     },
 }
 
+DEFAULT_RENDERING_CONFIDENCE_THRESHOLD = \
+    known_models['v5a.0.0']['typical_detection_threshold']
 DEFAULT_OUTPUT_CONFIDENCE_THRESHOLD = 0.005
 
 

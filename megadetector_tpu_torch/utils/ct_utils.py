@@ -1,10 +1,12 @@
 """
-The numeric and container helpers the port's detector and writer use: its
-own copy of the functions of megadetector_tpu/utils/ct_utils.py that emit
-MD-format JSON (float truncation and rounding, the YOLO -> MD box
-convention, sorting, the JSON writer, --detector_options parsing).
+The numeric and container helpers the port's detector, drivers and writer
+use: its own copy of the functions of megadetector_tpu/utils/ct_utils.py
+that emit MD-format JSON (float truncation and rounding, the YOLO and xyxy
+box conventions, sorting, the JSON writer, --detector_options parsing and
+printing, argparse -> options objects).
 """
 
+import inspect
 import json
 import math
 import os
@@ -44,6 +46,35 @@ def convert_yolo_to_xywh(yolo_box):
 
     cx, cy, w, h = yolo_box
     return [cx - w / 2.0, cy - h / 2.0, w, h]
+
+
+def convert_xywh_to_xyxy(api_box):
+    """[x_min, y_min, w, h] -> [x_min, y_min, x_max, y_max]."""
+
+    x, y, w, h = api_box
+    return [x, y, x + w, y + h]
+
+
+def is_iterable(x):
+    """True if x supports iteration (strings count as iterable)."""
+
+    try:
+        iter(x)
+        return True
+    except TypeError:
+        return False
+
+
+def args_to_object(args, obj):
+    """
+    Copy public fields from an argparse.Namespace onto [obj] (in place; also
+    returned). The conventional bridge from CLI flags to options classes.
+    """
+
+    for n, v in inspect.getmembers(args):
+        if not n.startswith('_'):
+            setattr(obj, n, v)
+    return obj
 
 
 def sort_list_of_dicts_by_key(L, k, reverse=False, none_handling='smallest'):  # noqa
@@ -104,3 +135,20 @@ def parse_kvp_list(items, kv_separator='=', d=None):
         k, v = parse_kvp(item, kv_separator=kv_separator)
         d[k] = v
     return d
+
+
+def dict_to_kvp_list(d, item_separator=' ', kv_separator='=',
+                     non_string_value_handling='error'):
+    """Serialize a flat dict back to 'k=v k=v ...' form."""
+
+    assert non_string_value_handling in ('error', 'omit', 'convert')
+    tokens = []
+    for k, v in d.items():
+        if not isinstance(v, str):
+            if non_string_value_handling == 'error':
+                raise ValueError('Non-string value for key {}'.format(k))
+            elif non_string_value_handling == 'omit':
+                continue
+            v = str(v)
+        tokens.append('{}{}{}'.format(k, kv_separator, v))
+    return item_separator.join(tokens)

@@ -46,12 +46,12 @@ SLOT2 = 16 * 1024  # phase 2's stage
 #%% Tiling and routing
 
 
-def _bottlenecks(height, width):
-    """[(b, h, w, c)] of every bottleneck of yolov5l6 on a batch of 8:
-    each is a 1x1 C->C 'cv1' followed by its 3x3 'cv2'."""
+def _bottlenecks(height, width, batch=8):
+    """[(b, h, w, c)] of every bottleneck of yolov5l6 on a batch of
+    [batch]: each is a 1x1 C->C 'cv1' followed by its 3x3 'cv2'."""
 
     shapes = yolov5.activated_conv_shapes(
-        yolov5.YoloV5Config('yolov5l6', num_classes=3), height, width, 8)
+        yolov5.YoloV5Config('yolov5l6', num_classes=3), height, width, batch)
     out = []
     for d in shapes:
         if '.m' in d['name'] and d['name'].endswith('cv1'):
@@ -61,12 +61,14 @@ def _bottlenecks(height, width):
 
 
 @pytest.mark.parametrize('height,width,fused', [(960, 1280, 36),
-                                                (768, 1280, 36)])
+                                                (768, 1280, 36),
+                                                (1280, 1280, 36)])
 def test_tiling_of_the_yolov5l6_bottlenecks(height, width, fused):
     """42 bottlenecks at each canvas: every C takes 16-byte copies, BN 64
     at C = 64 else 128, within the 227 KB a block may use (two blocks an
-    SM up to C = 256); the six at C = 512 (24 blocks) run unfused, every
-    other level has at least MIN_BLOCKS."""
+    SM up to C = 256); the six at C = 512 (24 blocks, 48 on the square
+    canvas of a tile) run unfused, every other level has at least
+    MIN_BLOCKS."""
 
     bottlenecks = _bottlenecks(height, width)
     assert len(bottlenecks) == 42
@@ -84,11 +86,40 @@ def test_tiling_of_the_yolov5l6_bottlenecks(height, width, fused):
         assert grid == b * -(-h // 16) * -(-w // 8)
         picked = bottleneck_int8.bottleneck_tiling(b, h, w, c)
         if c == 512:
-            assert picked is None and grid == 24
+            assert picked is None and grid == (48 if height == 1280
+                                               else 24)
         else:
             assert picked == t and grid >= bottleneck_int8.MIN_BLOCKS
             routed += 1
     assert routed == fused
+
+
+@pytest.mark.parametrize('height,width,unfused', [
+    (960, 1280, {(15, 20, 512): 3, (30, 40, 384): 10, (60, 80, 256): 40}),
+    (768, 1280, {(12, 20, 512): 3, (24, 40, 384): 10, (48, 80, 256): 30}),
+    (1280, 1280, {(20, 20, 512): 6, (40, 40, 384): 15,
+                  (80, 80, 256): 50})])
+def test_routing_of_the_yolov5l6_bottlenecks_at_batch_1(height, width,
+                                                        unfused):
+    """One image a batch (the single-image driver, a video's or a folder's
+    tail): the grids of the three deepest levels fall under MIN_BLOCKS, so
+    their 30 bottlenecks run as two conv launches each; the 12 at C = 64
+    and 128 stay fused."""
+
+    routed = 0
+    seen = {}
+    for b, h, w, c in _bottlenecks(height, width, batch=1):
+        assert b == 1
+        grid = bottleneck_int8.bottleneck_grid(b, h, w)
+        picked = bottleneck_int8.bottleneck_tiling(b, h, w, c)
+        if grid < bottleneck_int8.MIN_BLOCKS:
+            assert picked is None
+            seen[(h, w, c)] = grid
+        else:
+            assert picked == bottleneck_int8.kernel_tiling(c) and c <= 128
+            routed += 1
+    assert seen == unfused
+    assert routed == 12
 
 
 @pytest.mark.parametrize('c,aligned,want', [

@@ -29,14 +29,15 @@ RING = {64: 6, 128: 3}
 #%% conv_tiling
 
 
-def _chain_convs(height, width):
+def _chain_convs(height, width, batch=8):
     shapes = yolov5.activated_conv_shapes(
-        yolov5.YoloV5Config('yolov5l6', num_classes=3), height, width, 8)
+        yolov5.YoloV5Config('yolov5l6', num_classes=3), height, width, batch)
     assert shapes[0]['name'] == 'l0' and shapes[0]['cin'] == 3
     return shapes[1:]
 
 
-@pytest.mark.parametrize('height,width', [(960, 1280), (768, 1280)])
+@pytest.mark.parametrize('height,width', [(960, 1280), (768, 1280),
+                                          (1280, 1280)])
 def test_tiling_of_the_yolov5l6_chain_convs(height, width):
     """All 130 chain convs take 16-byte copies, 128-byte stages where Cin
     allows, and a grid of at least one block per SM wherever some tile
@@ -60,7 +61,33 @@ def test_tiling_of_the_yolov5l6_chain_convs(height, width):
             assert t.bm == 64 and (d['ho'], d['wo'], d['cout']) == \
                 (12, 20, 512), d
             small += 1
-    assert small == (0 if height == 960 else 17)
+    assert small == (17 if height == 768 else 0)
+
+
+@pytest.mark.parametrize('height,width,n_small', [(960, 1280, 53),
+                                                  (768, 1280, 91),
+                                                  (1280, 1280, 49)])
+def test_tiling_of_the_chain_convs_at_batch_1(height, width, n_small):
+    """One image a batch (the single-image driver, a video's or a folder's
+    tail): the same instances by Cin and Cout, and BM 64 on every conv
+    whose 128-row grid falls under one block an SM; those are the deep
+    levels, 256 output channels and more."""
+
+    chain = _chain_convs(height, width, batch=1)
+    assert len(chain) == 130
+    small = 0
+    for d in chain:
+        m = d['ho'] * d['wo']
+        t = conv_int8.conv_tiling(m, d['cin'], d['cout'])
+        assert t.vec == 16 and t.bk == (128 if d['cin'] % 128 == 0
+                                        else 64), d
+        assert t.bn == (64 if d['cout'] <= 64 else 128), d
+        big = conv_int8.conv_grid(m, d['cout'], 128, t.bn)
+        assert t.bm == (128 if big >= conv_int8.SMS else 64), d
+        if conv_int8.conv_grid(m, d['cout'], t.bm, t.bn) < conv_int8.SMS:
+            assert t.bm == 64 and d['cout'] >= 256, d
+            small += 1
+    assert small == n_small
 
 
 @pytest.mark.parametrize('cin,aligned', [(4, True), (24, True), (36, True),

@@ -845,3 +845,110 @@ def test_deleting_the_detector_frees_its_graphs(cuda_device, graph_models):
     gc.collect()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() <= base + (held - base) // 10
+
+
+#%% The single-image, tiled and video entry points on the card
+
+
+@pytest.fixture
+def entry_point_inputs(tmp_path):
+    """(model, image folder, video folder): the sharpened yolov5n, a
+    tile-sized, a larger and a smaller image, and a folder with one short
+    video and one corrupt file."""
+
+    import cv2
+    from PIL import Image
+
+    imgs = data.images()
+    model = str(tmp_path / 'm.npz')
+    save_checkpoint(data.sharpened_params(imgs), model, data.METADATA)
+    images = tmp_path / 'images'
+    images.mkdir()
+    Image.fromarray(imgs[0][:128, :128]).save(str(images / 'tile.png'))
+    Image.fromarray(imgs[1][:200, :300]).save(str(images / 'big.png'))
+    Image.fromarray(imgs[5][:, :120]).save(str(images / 'small.png'))
+    videos = tmp_path / 'videos'
+    videos.mkdir()
+    out = cv2.VideoWriter(str(videos / 'v.mp4'),
+                          cv2.VideoWriter_fourcc(*'mp4v'), 8.0, (160, 120))
+    base = cv2.resize(imgs[0], (160, 120))
+    rng = np.random.RandomState(0)
+    for _ in range(10):
+        frame = np.clip(base.astype(np.int32) + rng.randint(-24, 24,
+                                                            base.shape),
+                        0, 255).astype(np.uint8)
+        out.write(frame[..., ::-1].copy())
+    out.release()
+    (videos / 'corrupt.mp4').write_bytes(b'not a video')
+    return model, str(images), str(videos)
+
+
+def _assert_close_json(cpu, card, n_images):
+    result = md_tests.compare_results(cpu, card, data.golden_options())
+    assert result['n_images_compared'] == n_images
+    assert result['errors'] == [], result['errors'][:5]
+
+
+def test_load_and_run_detector_on_card_matches_cpu(cuda_device,
+                                                   entry_point_inputs,
+                                                   tmp_path):
+    import os
+
+    model, folder, _ = entry_point_inputs
+    files = [os.path.join(folder, n) for n in ('big.png', 'small.png')]
+    out = {}
+    for device in ('cpu', 'cuda'):
+        before = cuda_nms.launches
+        out[device] = {'images': run_detector.load_and_run_detector(
+            model, files, str(tmp_path / device), device=device)}
+        torch.cuda.synchronize()
+        assert (cuda_nms.launches > before) == (device == 'cuda')
+        assert len(os.listdir(str(tmp_path / device))) == 2
+    _assert_close_json(out['cpu'], out['cuda'], 2)
+
+
+def test_tiled_inference_on_card_matches_cpu(cuda_device, entry_point_inputs,
+                                             tmp_path):
+    from megadetector_tpu_torch.detection import run_tiled_inference
+
+    model, folder, _ = entry_point_inputs
+    out = {}
+    for device in ('cpu', 'cuda'):
+        before = cuda_nms.launches
+        out[device] = run_tiled_inference.run_tiled_inference(
+            model, folder, None, str(tmp_path / (device + '.json')),
+            tile_size_x=128, tile_size_y=128, batch_size=4, image_size=128,
+            detector_options={'use_mesh': 'false'}, device=device)
+        torch.cuda.synchronize()
+        assert (cuda_nms.launches > before) == (device == 'cuda')
+    _assert_close_json(out['cpu'], out['cuda'], 3)
+
+
+def test_process_videos_on_card_matches_cpu(cuda_device, entry_point_inputs,
+                                            tmp_path):
+    from megadetector_tpu_torch.detection import process_video
+
+    model, _, videos = entry_point_inputs
+    out = {}
+    for device in ('cpu', 'cuda'):
+        options = process_video.ProcessVideoOptions()
+        options.model_file = model
+        options.input_video_file = videos
+        options.output_json_file = str(tmp_path / (device + '.json'))
+        options.frame_sample = 3
+        options.frame_batch_size = 3
+        options.device = device
+        before = cuda_nms.launches
+        out[device] = process_video.process_videos(options)
+        torch.cuda.synchronize()
+        assert (cuda_nms.launches > before) == (device == 'cuda')
+    frames = []
+    for device in ('cpu', 'cuda'):
+        by_file = {im['file']: im for im in out[device]['images']}
+        assert by_file['corrupt.mp4']['detections'] is None
+        assert by_file['v.mp4']['frames_processed'] == [0, 3, 6, 9]
+        frames.append({'images': [
+            {'file': str(n), 'detections': [
+                d for d in by_file['v.mp4']['detections']
+                if d['frame_number'] == n]} for n in (0, 3, 6, 9)]})
+    _assert_close_json(frames[0], frames[1], 4)

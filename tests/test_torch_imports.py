@@ -3,8 +3,9 @@ Import guard for the port: megadetector_tpu_torch stands alone. It imports
 no jax and nothing of the JAX package (megadetector_tpu), not even its
 modules that hold no jax: it keeps its own copies (ops/boxes,
 utils/ct_utils, utils/path_utils, models/registry,
-visualization/visualization_utils). PIL is imported only once a file is
-decoded. cv2 is not checked: ops/boxes.py imports it whenever it is
+visualization/visualization_utils, postprocessing/validate_batch_results,
+the tiled and video drivers). PIL is imported only once a file is decoded
+or drawn on. cv2 is not checked: ops/boxes.py imports it whenever it is
 installed and falls back to numpy where it is not.
 """
 
@@ -64,6 +65,12 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.models.program_cache',
                 'megadetector_tpu_torch.detection.run_detector',
                 'megadetector_tpu_torch.detection.run_detector_batch',
+                'megadetector_tpu_torch.detection.run_tiled_inference',
+                'megadetector_tpu_torch.detection.video_utils',
+                'megadetector_tpu_torch.detection.process_video',
+                'megadetector_tpu_torch.postprocessing.'
+                'validate_batch_results',
+                'megadetector_tpu_torch.workflows.manage_video_batch',
                 'megadetector_tpu_torch.detection._loader_worker',
                 'megadetector_tpu_torch.native',
                 'megadetector_tpu_torch.utils.read_exif',
@@ -96,6 +103,24 @@ def test_no_port_source_imports_jax_or_the_jax_package():
             text = f.read()
         assert not jax_import.search(text), path
         assert not jax_module_import.search(text), path
+
+
+def test_no_port_source_imports_tqdm():
+    """The card's machine is not promised tqdm: the port's drivers print
+    their progress plainly (torch may import tqdm itself, so the sources
+    are read)."""
+
+    tqdm_import = re.compile(r'^\s*(import\s+tqdm\b|from\s+tqdm\b)', re.M)
+    sources = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, files in os.walk(PACKAGE_DIR):
+        sources += [os.path.join(root, f) for f in files
+                    if f.endswith('.py')]
+    for path in sources:
+        with open(path) as f:
+            assert not tqdm_import.search(f.read()), path
+    with open(os.path.join(REPO, 'megadetector_tpu', 'detection',
+                           'video_utils.py')) as f:
+        assert tqdm_import.search(f.read())
 
 
 _RUN = """

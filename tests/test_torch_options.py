@@ -9,7 +9,11 @@ shares with the JAX package, held to the JAX detector on the CPU:
   preprocess_only=true builds a detector without weights whose
   preprocess_image is the full detector's;
 - load_detector(model_file, force_cpu=False, detector_options=None,
-  verbose=False), with device keyword-only.
+  verbose=False), with device keyword-only;
+- use_mesh, the JAX driver's option: both CLIs given
+  --detector_options use_mesh=false write the same JSON, and the detector
+  takes it as a no-op (one card);
+- is_gpu_available(detector_file=None), called both ways.
 
 Each parity case runs the port's and the JAX package's
 load_and_run_detector_batch on the same yolov5n .npz and image folder and
@@ -17,12 +21,16 @@ compares them under md_tests.compare_results at the golden tolerances, as
 tests/test_torch_detector.py does.
 """
 
+import json
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from PIL import Image
 
+from megadetector_tpu.detection import run_detector as jax_run_detector
 from megadetector_tpu.detection import run_detector_batch as jax_batch
 from megadetector_tpu.utils import md_tests
 from megadetector_tpu_torch.detection import run_detector, \
@@ -195,3 +203,57 @@ def test_load_detector_device_is_keyword_only(option_inputs):
         run_detector.load_detector(model, True, device='cuda')
     detector = run_detector.load_detector(model, True, device='cpu')
     assert detector.device == torch.device('cpu')
+
+
+@pytest.mark.parametrize('value', ['false', 'true'])
+def test_use_mesh_clis_write_the_same_json(option_inputs, tmp_path,
+                                           monkeypatch, value):
+    """--detector_options use_mesh=<value> through the port's CLI and the
+    JAX package's: the port's driver pops it as the JAX driver does (it
+    used to reach the detector and raise), and both write the same
+    JSON."""
+
+    root, folder, model, _ = option_inputs
+    ours_file = str(tmp_path / 'ours.json')
+    ref_file = str(tmp_path / 'ref.json')
+    common = ['--output_relative_filenames', '--batch_size', str(BATCH),
+              '--detector_options', 'use_mesh=' + value]
+    run_detector_batch.main([model, folder, ours_file, '--device', 'cpu'] +
+                            common)
+    # the JAX driver shards over the session's virtual CPU devices with
+    # use_mesh=true, which rounds its batch up: compare at false there
+    monkeypatch.setattr(sys, 'argv', ['x', model, folder, ref_file] +
+                        common[:-1] + ['use_mesh=false', 'force_cpu=true'])
+    jax_batch.main()
+    with open(ours_file) as f:
+        ours = json.load(f)
+    with open(ref_file) as f:
+        ref = json.load(f)
+    assert ours['info']['format_version'] == ref['info']['format_version']
+    result = md_tests.compare_results(ref, ours, data.golden_options())
+    assert result['n_images_compared'] == len(data.SIZES)
+    assert result['errors'] == [], result['errors'][:5]
+
+
+def test_detector_takes_use_mesh_as_a_no_op(option_inputs):
+    _, _, model, _ = option_inputs
+    img = data.images()[0]
+    base = run_detector.load_detector(model, device='cpu')
+    for value in ('false', 'true', True):
+        detector = run_detector.load_detector(
+            model, device='cpu', detector_options={'use_mesh': value})
+        assert detector.generate_detections_one_image(img, 'a', 0.005) == \
+            base.generate_detections_one_image(img, 'a', 0.005)
+
+
+def test_is_gpu_available_takes_the_jax_arguments(option_inputs):
+    """is_gpu_available() and is_gpu_available(model_file), as in the JAX
+    package (detector_file is ignored): both say whether torch sees a
+    card."""
+
+    _, _, model, _ = option_inputs
+    want = torch.cuda.is_available()
+    assert run_detector.is_gpu_available() is want
+    assert run_detector.is_gpu_available(model) is want
+    assert run_detector.is_gpu_available(detector_file=model) is want
+    jax_run_detector.is_gpu_available(model)

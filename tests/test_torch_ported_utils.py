@@ -2,10 +2,14 @@
 The port's own copies of the JAX package's jax-free helpers, each held
 against the original on the same inputs: ops/boxes (letterbox,
 auto_target_shape, resize_long_side, scale_coords, xyxy2xywh),
-utils/ct_utils, utils/path_utils, models/registry and
-visualization/visualization_utils.load_image.
+utils/ct_utils (with the drivers' convert_xywh_to_xyxy, args_to_object,
+dict_to_kvp_list, is_iterable), utils/path_utils (with the video helpers
+and flatten_path), models/registry and
+visualization/visualization_utils.load_image (its rendering is held in
+tests/test_torch_run_detector.py).
 """
 
+import argparse
 import json
 
 import numpy as np
@@ -116,11 +120,61 @@ def test_path_utils_match(tmp_path):
             jax_path.read_list_from_file(str(f))
 
 
+@pytest.mark.parametrize('box', [[0.1, 0.2, 0.3, 0.4], [0, 0, 1, 1],
+                                 [0.5, 0.25, 0.0, 0.125]])
+def test_driver_ct_utils_match(box):
+    assert ct_utils.convert_xywh_to_xyxy(box) == \
+        jax_ct.convert_xywh_to_xyxy(box)
+    for x in (box, 'abc', 3, None, {'a': 1}, (i for i in box)):
+        assert ct_utils.is_iterable(x) == jax_ct.is_iterable(x)
+    d = {'dtype': 'bf16', 'conv_backend': 'pallas', 'n': 3}
+    for handling in ('omit', 'convert'):
+        for sep in ((' ', '='), (',', ':')):
+            assert ct_utils.dict_to_kvp_list(
+                d, *sep, non_string_value_handling=handling) == \
+                jax_ct.dict_to_kvp_list(d, *sep,
+                                        non_string_value_handling=handling)
+    for module in (ct_utils, jax_ct):
+        with pytest.raises(ValueError, match='n'):
+            module.dict_to_kvp_list(d)
+    args = argparse.Namespace(frame_sample=4, device='cpu', _hidden=1)
+    ours, ref = ct_utils.args_to_object(args, argparse.Namespace()), \
+        jax_ct.args_to_object(args, argparse.Namespace())
+    assert vars(ours) == vars(ref) == {'frame_sample': 4, 'device': 'cpu'}
+
+
+def test_video_path_utils_match(tmp_path):
+    for rel in ('a.mp4', 'b.AVI', 'c.jpg', 'sub/d.mov', 'sub/deeper/e.mkv',
+                'sub/f.txt', 'g.mpeg', 'h.flv', 'i.mpg'):
+        path = tmp_path / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(b'x')
+    assert path_utils.VIDEO_EXTENSIONS == jax_path.VIDEO_EXTENSIONS
+    for recursive in (False, True):
+        for relative in (False, True):
+            ours = path_utils.find_videos(str(tmp_path), recursive=recursive,
+                                          return_relative_paths=relative)
+            assert ours == jax_path.find_videos(
+                str(tmp_path), recursive=recursive,
+                return_relative_paths=relative)
+    assert len(ours) == 7
+    names = ['x.MP4', 'y.jpg', 'z.avi/frame000000.jpg', 'w.mkv', 'v']
+    assert path_utils.find_video_strings(names) == \
+        jax_path.find_video_strings(names) == ['x.MP4', 'w.mkv']
+    for name in names + ['a/b\\c:d.jpg', 'C:\\x\\y.mp4']:
+        assert path_utils.is_video_file(name) == jax_path.is_video_file(name)
+        assert path_utils.flatten_path(name) == jax_path.flatten_path(name)
+        assert path_utils.flatten_path(name, '/', '#') == \
+            jax_path.flatten_path(name, '/', '#')
+
+
 def test_registry_matches():
     assert registry.model_string_to_model_version == \
         jax_registry.model_string_to_model_version
     assert registry.DEFAULT_OUTPUT_CONFIDENCE_THRESHOLD == \
         jax_registry.DEFAULT_OUTPUT_CONFIDENCE_THRESHOLD
+    assert registry.DEFAULT_RENDERING_CONFIDENCE_THRESHOLD == \
+        jax_registry.DEFAULT_RENDERING_CONFIDENCE_THRESHOLD == 0.2
     for name in ('md_v5a.0.0.pt', 'MDV5B.npz', 'md_v1000.0.0-redwood.pt',
                  'something_else.npz', 'md_v4.1.0.pb'):
         version = registry.get_detector_version_from_filename(name)
