@@ -132,6 +132,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      the corrupt video a failure record, the file valid; frames/s; then
      process_video_folder_via_frames with the same frame numbers and
      frame rates. Phases 19-21 print the reserved memory after each run.
+ 22. the other detector families, at full width and depth with random
+     weights from seed 0 (the port's init_params, saved as .npz with the
+     JAX converter's metadata): yolov8l (the MDv1000 architecture, nc 3,
+     1280 px auto canvases), rfdetr_base (image_size 560) and detr_base
+     (image_size 448), each in float32 and bf16 through
+     load_and_run_detector_batch over the 16 images at batch 8: an eager
+     and a replayed pass, each with exact launches (NMS once per selection
+     program; no int8 kernel, no stem; the bias + SiLU epilogue once per
+     activated conv of yolov8l in bf16, counted from its config), their
+     detections identical, the MD JSON checked; images/s of a replayed
+     pass; forward and program ms eager and replayed on the family's 4:3
+     batch of 8, peak memory; the card against the CPU on a uint8 batch
+     of 2 at 256 px (yolov8l) or 224 px, rows matched by query (RF-DETR's
+     top-Q tokens): float32 every query the same, within rtol 1e-4 and
+     atol 1e-4 * max|ref|; bf16 no more queries missing and no larger
+     errors than the CPU's bf16 against its float32, plus that atol; the
+     largest differences printed.
+     Phase 22's NMS and bias + SiLU launches join those kernels' records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -1299,13 +1317,14 @@ def _copy_ms(batch):
 
 def phase_program_cache(detector, batch, label):
     """
-    16. The program cache on [batch] (a 960x1280 batch of 8), after the
-    configuration's main path: the device program eager (_cuda_graphs
-    off) and replayed must give identical outputs at the same capacity;
-    CUDA-event ms of the forward and of selection + NMS at that capacity,
-    eager and replayed (the graph alone); wall ms of the whole program
-    (copy in, escalation read, outputs read) both ways; the peak device
-    memory since the configuration's detector was loaded.
+    16. The program cache on [batch] (a 960x1280 batch of 8; phase 22
+    gives each family's own canvas), after the configuration's main path:
+    the device program eager (_cuda_graphs off) and replayed must give
+    identical outputs at the same capacity; CUDA-event ms of the forward
+    and of selection + NMS at that capacity, eager and replayed (the graph
+    alone); wall ms of the whole program (copy in, escalation read,
+    outputs read) both ways; the peak device memory since the
+    configuration's detector was loaded. Returns those numbers.
     """
 
     import numpy as np
@@ -1349,17 +1368,18 @@ def phase_program_cache(detector, batch, label):
     numbers['program_replay'] = program_ms(True)
     numbers['peak_allocated_gb'] = torch.cuda.max_memory_allocated() / 1e9
     numbers['peak_reserved_gb'] = torch.cuda.max_memory_reserved() / 1e9
-    print('program cache, {}, 960x1280 batch of 8 (capacity {}): replay '
+    print('program cache, {}, {}x{} batch of {} (capacity {}): replay '
           'identical to eager; forward {:.3f} ms eager, {:.3f} replayed; '
           'select + NMS {:.3f} / {:.3f}; whole program (copy in, reads) '
           '{:.3f} ms eager, {:.3f} replayed; {} graphs; peak device memory '
           '{:.2f} GB allocated, {:.2f} GB reserved'.format(
-              label, topk, numbers['forward_eager'],
+              label, h, w, b, topk, numbers['forward_eager'],
               numbers['forward_replay'], numbers['select_eager'],
               numbers['select_replay'], numbers['program_eager'],
               numbers['program_replay'], detector._programs.captures,
               numbers['peak_allocated_gb'], numbers['peak_reserved_gb']),
           flush=True)
+    return numbers
 
 
 def _pass_launches(detector):
@@ -2899,6 +2919,259 @@ def phase_video(device, workdir, float_path, card):
     torch.cuda.empty_cache()
 
 
+#%% Phase 22: the other detector families
+
+
+# (arch, model_type, image_size, card-vs-CPU canvas): yolov8l is the JAX
+# converter's arch for a 64-channel ultralytics stem (the MDv1000 models)
+FAMILY_MODELS = (('yolov8l', 'ultralytics', 1280, (256, 256)),
+                 ('rfdetr_base', 'rfdetr', 560, (224, 224)),
+                 ('detr_base', 'detr', 448, (224, 224)))
+
+
+def _family_checkpoint(workdir, arch, model_type, image_size):
+    """A full-width, full-depth [arch] model, random weights from seed 0
+    through the port's init_params, saved as .npz with the metadata the
+    JAX converter writes (DETR, which no converter writes: the metadata of
+    the JAX package's DETR tests). Returns (path, config, params)."""
+
+    from megadetector_tpu_torch.models import detector as detector_module
+    from megadetector_tpu_torch.models import detr, rfdetr, yolov8
+    from megadetector_tpu_torch.models.convert_weights import \
+        save_checkpoint
+
+    metadata = {'metadata_format_version': 1.0, 'arch': arch,
+                'model_type': model_type, 'num_classes': 3,
+                'class_names': ['animal', 'person', 'vehicle'],
+                'image_size': image_size}
+    config = detector_module.model_config(arch, model_type, metadata)
+    module = {'ultralytics': yolov8, 'rfdetr': rfdetr,
+              'detr': detr}[model_type]
+    if model_type == 'ultralytics':
+        metadata.update(model_version_string='v1000.0.0-redwood',
+                        strides=list(config.strides))
+    params = module.init_params(config, seed=0)
+    path = os.path.join(workdir, 'md_smoke_{}.npz'.format(arch))
+    save_checkpoint(params, path, metadata)
+    return path, config, params
+
+
+def _family_forward(model, x):
+    """(decoded [B, Q, 5+nc] float32, query identity [B, Q]) of [model] on
+    the uint8 batch [x]: RF-DETR's rows are its two-stage top-Q memory
+    tokens (their indices), every other family's rows are fixed (their
+    positions)."""
+
+    import torch
+
+    from megadetector_tpu_torch.models import rfdetr
+    from megadetector_tpu_torch.models.yolov5 import network_input
+
+    with torch.inference_mode():
+        out = model(x).float().cpu().numpy()
+        if isinstance(model, rfdetr.RFDetr):
+            dtype = model.compute_dtype
+            tokens, shapes = rfdetr.pyramid(
+                model.config, model.params, network_input(x, dtype), dtype)
+            ident = rfdetr.select_queries(model.config, model.params,
+                                          tokens, shapes)[2].cpu().numpy()
+        else:
+            ident = torch.arange(out.shape[1]).expand(
+                out.shape[0], -1).numpy()
+    return out, ident
+
+
+def _family_cpu_outputs(config, params, canvas):
+    """The port's forward on the CPU for a seeded uint8 batch of 2 at
+    [canvas]: (images, {dtype name: _family_forward's pair})."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.models.detector import NETWORKS
+
+    x = torch.from_numpy(np.random.RandomState(22).randint(
+        0, 256, (2,) + canvas + (3,), dtype=np.uint8))
+    outputs = {}
+    for name, dtype in (('float32', torch.float32),
+                        ('bfloat16', torch.bfloat16)):
+        model = NETWORKS[type(config)](config).load_params(
+            params).set_compute_dtype(dtype).eval()
+        outputs[name] = _family_forward(model, x)
+        del model
+    return x, outputs
+
+
+def _matched_rows(a, b):
+    """Rows of two _family_forward results with the same query identity:
+    (identities of a missing from b, [|d| of the matched rows' boxes,
+    scores])."""
+
+    import numpy as np
+
+    (out_a, id_a), (out_b, id_b) = a, b
+    missing, d_box, d_score = 0, [], []
+    for i in range(out_a.shape[0]):
+        common, pos_a, pos_b = np.intersect1d(id_a[i], id_b[i],
+                                              return_indices=True)
+        missing += out_a.shape[1] - len(common)
+        d = np.abs(out_a[i, pos_a] - out_b[i, pos_b])
+        d_box.append(d[:, :4])
+        d_score.append(d[:, 5:])
+    return missing, [np.concatenate(d_box), np.concatenate(d_score)]
+
+
+def _family_card_vs_cpu(detector, dtype_name, x, cpu):
+    """
+    The card's forward against the CPU's on the same batch, rows matched
+    by query identity (_family_forward), within the CPU tests' bars:
+    float32, every query the same and |d| <= 1e-4 |ref| + 1e-4 max|ref|
+    (rtol 1e-4, atol 1e-4 * max|ref|); bf16, no more queries missing
+    than between the CPU's bf16 and float32 (RF-DETR's top-Q can differ
+    where two memory tokens score within a bf16 rounding), and box and
+    score errors no larger than the CPU's bf16 against its float32 plus
+    float32's atol. Returns (queries missing, max box |d| px, max score
+    |d|).
+    """
+
+    import numpy as np
+
+    got = _family_forward(detector.model, x.to(detector.device))
+    ref = cpu[dtype_name]
+    if got[0].shape != ref[0].shape or not np.isfinite(got[0]).all():
+        raise AssertionError('card output shape {} vs CPU {}, or '
+                             'non-finite'.format(got[0].shape, ref[0].shape))
+    missing, diffs = _matched_rows(got, ref)
+    worst = [float(d.max(initial=0.0)) for d in diffs]
+    if dtype_name == 'float32':
+        bar = 1e-4 * np.abs(ref[0]) + 1e-4 * np.abs(ref[0]).max()
+        outside = int((np.abs(got[0] - ref[0]) > bar).sum())
+        if missing or outside:
+            raise AssertionError(
+                'card vs CPU float32: {} queries missing, {} elements '
+                'outside rtol 1e-4 / atol 1e-4 * max|ref| (max |d| boxes '
+                '{:.3e}, scores {:.3e})'.format(missing, outside, *worst))
+    else:
+        own_missing, own = _matched_rows(ref, cpu['float32'])
+        # The CPU's own bf16 error, plus float32's absolute allowance
+        # (RF-DETR's random boxes are its anchors, the same in both dtypes)
+        limit = [float(d.max(initial=0.0)) + 1e-4 * np.abs(ref[0]).max()
+                 for d in own]
+        if missing > own_missing or worst[0] > limit[0] or \
+                worst[1] > limit[1]:
+            raise AssertionError(
+                'card vs CPU bf16: {} queries missing, max |d| boxes {:.3e} '
+                'scores {:.3e}; limits (the CPU\'s own bf16 against float32 '
+                '+ 1e-4 max|ref|): {}, {:.3e}, {:.3e}'.format(
+                    missing, *worst, own_missing, *limit))
+    return [missing] + worst
+
+
+def phase_other_families(device, workdir, pairs, card):
+    """
+    22. The other detector families at full width: yolov8l (num_classes
+    3, 1280 px auto canvases), rfdetr_base (image_size 560) and detr_base
+    (image_size 448), random weights from seed 0 through the port's
+    init_params, each in float32 and bf16 through
+    load_and_run_detector_batch over the 16 images at batch 8: an eager
+    pass and a replayed one, each counted (NMS once per selection
+    program; no int8 kernel or stem; under yolov8 bf16 the bias + SiLU
+    epilogue once per activated conv per program, the count from the
+    config; none for the transformers), their launches equal and their
+    detections identical; the MD JSON checked; a timed replayed pass
+    (images/s); the program cache's eager and replayed ms on the family's
+    4:3 batch of 8 (phase 16's numbers); the card against the CPU on a
+    uint8 batch of 2. Returns the (NMS, bias + SiLU) launches of the eager
+    passes.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+    from megadetector_tpu_torch.models import yolov8
+
+    nms_launches = silu_launches = 0
+    for arch, model_type, image_size, canvas in FAMILY_MODELS:
+        start = time.time()
+        path, config, params = _family_checkpoint(workdir, arch, model_type,
+                                                  image_size)
+        x_cpu, cpu = _family_cpu_outputs(config, params, canvas)
+        n_silu = yolov8.activated_conv_count(config) \
+            if model_type == 'ultralytics' else 0
+        for dtype in ('float32', 'bfloat16'):
+            label = '{} {}'.format(arch, dtype)
+            torch.cuda.reset_peak_memory_stats()
+            detector = load_detector(path, device=device, detector_options={
+                'pad_batches_to': 8, 'dtype': dtype})
+            # An eager pass, then a replayed one, each counted
+            passes = [_counted(detector, lambda: load_and_run_detector_batch(
+                detector, pairs, batch_size=8, quiet=True))
+                for _ in range(2)]
+            for i, (_, counts, programs, selects) in enumerate(passes):
+                want = (selects, 0, 0, 0,
+                        programs * n_silu if dtype == 'bfloat16' else 0)
+                if counts != want or programs != 2 or \
+                        not programs <= selects <= 2 * programs:
+                    raise AssertionError(
+                        'phase 22, {}, pass {}: {} device programs (want '
+                        '2), {} selection programs; launches (nms, conv, '
+                        'bottleneck, stem, silu) {}, want {}'.format(
+                            label, i + 1, programs, selects, counts, want))
+            (eager, counts, programs, selects), (replayed, *rest) = passes
+            if replayed != eager or tuple(rest) != (counts, programs,
+                                                    selects):
+                raise AssertionError('phase 22, {}: the replayed pass '
+                                     'differs from the eager one'.format(
+                                         label))
+            if detector._programs.replays == 0:
+                raise AssertionError('phase 22, {}: no program was '
+                                     'replayed'.format(label))
+            nms_launches += counts[0]
+            silu_launches += counts[4]
+            n_det = _write_and_check(eager, pairs, path, os.path.join(
+                workdir, 'smoke_{}_{}.json'.format(arch, dtype)))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            load_and_run_detector_batch(detector, pairs, batch_size=8,
+                                        quiet=True)
+            torch.cuda.synchronize()
+            rate = len(pairs) / (time.time() - t0)
+            print('phase 22 on {}: {}: 16 images, {} detections; eager and '
+                  'replayed passes identical, each 2 device programs, {} '
+                  'selection programs, launches (nms, conv, bottleneck, '
+                  'stem, silu) {} as they imply ({} bias + SiLU convs a '
+                  'forward); {:.3f} images/s through '
+                  'load_and_run_detector_batch (replayed)'.format(
+                      card, label, n_det, selects, counts, n_silu, rate),
+                  flush=True)
+
+            infos = [detector.preprocess_image(img, image_id=name)
+                     for name, img in pairs[0::2]]
+            batch = np.stack([info['img_processed'] for info in infos])
+            numbers = phase_program_cache(detector, batch, label)
+            diffs = _family_card_vs_cpu(detector, dtype, x_cpu, cpu)
+            print('phase 22 on {}: {}: {}x{} batch of 8: forward {:.3f} ms '
+                  'eager, {:.3f} replayed; program {:.3f} ms eager, {:.3f} '
+                  'replayed; peak {:.2f} GB allocated, {:.2f} GB reserved; '
+                  'card vs CPU at {}x{}, batch 2: {} queries missing, max '
+                  '|d| boxes {:.3e} px, scores {:.3e}'.format(
+                      card, label, batch.shape[1], batch.shape[2],
+                      numbers['forward_eager'], numbers['forward_replay'],
+                      numbers['program_eager'], numbers['program_replay'],
+                      numbers['peak_allocated_gb'],
+                      numbers['peak_reserved_gb'], canvas[0], canvas[1],
+                      *diffs), flush=True)
+            del detector
+            torch.cuda.empty_cache()
+        del params
+        print('phase 22, {}: {:.1f} s'.format(arch, time.time() - start),
+              flush=True)
+    return nms_launches, silu_launches
+
+
 def main():
     import numpy as np
     import torch
@@ -3056,6 +3329,15 @@ def main():
             print('phase {} took {:.1f} s'.format(label,
                                                   time.time() - start),
                   flush=True)
+
+        # 22. the other detector families
+        start = time.time()
+        nms_launches, silu_launches = phase_other_families(
+            device, workdir, pairs, card)
+        record['launches'] += nms_launches
+        silu_record['launches'] += silu_launches
+        print('phase 22 took {:.1f} s'.format(time.time() - start),
+              flush=True)
 
     # 14. the experiments' kernels vs plain
     exp_records = phase_exp_kernels(device)

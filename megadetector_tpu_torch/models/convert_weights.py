@@ -2,9 +2,10 @@
 Checkpoint I/O for the port: the .npz + metadata.json format that
 megadetector_tpu/models/convert_weights.py writes, read without importing
 the JAX package, plus the conversion into torch tensors; and the offline
-converter of reference YOLOv5 .pt checkpoints into that format (a stub
-unpickler, so the training repo need not be installed; BatchNorm folded,
-weights OIHW -> HWIO), with its CLI:
+converter of reference .pt checkpoints into that format (a stub unpickler,
+so the training repo need not be installed; BatchNorm folded, weights OIHW
+-> HWIO) for every detector family the JAX converter takes: YOLOv5,
+ultralytics (YOLOv8-style, MDv1000) and RF-DETR, with its CLI:
 
     python -m megadetector_tpu_torch.models.convert_weights ckpt.pt \
         [out.npz] [--arch A] [--num_classes N] [--model_version V] \
@@ -408,16 +409,219 @@ def convert_yolov5_state_dict(state_dict, config):
     return params, anchors
 
 
+def convert_rfdetr_state_dict(state_dict, config):
+    """
+    Map an RF-DETR torch state dict (the HF Dinov2WithRegisters backbone
+    naming and the LW-DETR transformer naming) onto the models/rfdetr.py
+    parameter structure, as the JAX converter does. Returns the numpy
+    params pytree.
+    """
+
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+
+    def lin(prefix):
+        return {'w': sd[prefix + '.weight'].T.astype(np.float32),
+                'b': sd[prefix + '.bias'].astype(np.float32)}
+
+    def ln(prefix):
+        return {'g': sd[prefix + '.weight'].astype(np.float32),
+                'b': sd[prefix + '.bias'].astype(np.float32)}
+
+    def conv(prefix):
+        # torch OIHW -> HWIO
+        return {'w': sd[prefix + '.weight'].transpose(2, 3, 1, 0)
+                .astype(np.float32),
+                'b': sd[prefix + '.bias'].astype(np.float32)}
+
+    def mlp3(prefix):
+        return {'l{}'.format(i): lin('{}.layers.{}'.format(prefix, i))
+                for i in range(3)}
+
+    enc = 'backbone.0.encoder'
+    emb = enc + '.embeddings'
+    c = config
+
+    blocks = []
+    for i in range(c.vit_depth):
+        base = '{}.encoder.layer.{}'.format(enc, i)
+        att = base + '.attention.attention'
+        q = lin(att + '.query')
+        k = lin(att + '.key')
+        v = lin(att + '.value')
+        blocks.append({
+            'norm1': ln(base + '.norm1'),
+            'qkv': {'w': np.concatenate([q['w'], k['w'], v['w']],
+                                        axis=1),
+                    'b': np.concatenate([q['b'], k['b'], v['b']])},
+            'proj': lin(base + '.attention.output.dense'),
+            'ls1': {'g': sd[base + '.layer_scale1.lambda1']
+                    .astype(np.float32)},
+            'norm2': ln(base + '.norm2'),
+            'fc1': lin(base + '.mlp.fc1'),
+            'fc2': lin(base + '.mlp.fc2'),
+            'ls2': {'g': sd[base + '.layer_scale2.lambda1']
+                    .astype(np.float32)},
+        })
+
+    dec_layers = []
+    i = 0
+    while 'transformer.decoder.layers.{}.norm1.weight'.format(i) in sd:
+        base = 'transformer.decoder.layers.{}'.format(i)
+        in_w = sd[base + '.self_attn.in_proj_weight']
+        in_b = sd[base + '.self_attn.in_proj_bias']
+        dec_layers.append({
+            'self_qkv': {'w': in_w.T.astype(np.float32),
+                         'b': in_b.astype(np.float32)},
+            'self_proj': lin(base + '.self_attn.out_proj'),
+            'norm1': ln(base + '.norm1'),
+            'sampling_offsets': lin(base + '.cross_attn'
+                                    '.sampling_offsets'),
+            'attention_weights': lin(base + '.cross_attn'
+                                     '.attention_weights'),
+            'value_proj': lin(base + '.cross_attn.value_proj'),
+            'output_proj': lin(base + '.cross_attn.output_proj'),
+            'norm2': ln(base + '.norm2'),
+            'linear1': lin(base + '.linear1'),
+            'linear2': lin(base + '.linear2'),
+            'norm3': ln(base + '.norm3'),
+        })
+        i += 1
+
+    return {
+        'patch_embed': conv(emb + '.patch_embeddings.projection'),
+        'cls_token': sd[emb + '.cls_token'].astype(np.float32),
+        'register_tokens': sd[emb + '.register_tokens']
+        .astype(np.float32),
+        'pos_embed': sd[emb + '.position_embeddings']
+        .astype(np.float32),
+        'blocks': {'b{}'.format(k): blk
+                   for k, blk in enumerate(blocks)},
+        'out_norms': {
+            'n{}'.format(k): ln('backbone.0.out_norms.{}'.format(k))
+            for k in range(len(c.out_block_indexes))},
+        'projector': {
+            'conv1': conv('backbone.0.projector.conv1'),
+            'norm1': ln('backbone.0.projector.norm1'),
+            'downs': {
+                'd{}'.format(k):
+                conv('backbone.0.projector.downs.{}'.format(k))
+                for k in range(c.num_levels - 1)},
+            'down_norms': {
+                'n{}'.format(k):
+                ln('backbone.0.projector.down_norms.{}'.format(k))
+                for k in range(c.num_levels - 1)},
+        },
+        'level_embed': sd['transformer.level_embed']
+        .astype(np.float32),
+        'enc_output': lin('transformer.enc_output'),
+        'enc_output_norm': ln('transformer.enc_output_norm'),
+        'enc_out_class_embed': lin('transformer.enc_out_class_embed'),
+        'enc_out_bbox_embed': mlp3('transformer.enc_out_bbox_embed'),
+        'ref_point_head': {
+            'l0': lin('transformer.ref_point_head.layers.0'),
+            'l1': lin('transformer.ref_point_head.layers.1'),
+        },
+        'decoder': {'d{}'.format(k): layer
+                    for k, layer in enumerate(dec_layers)},
+        'decoder_norm': ln('transformer.decoder.norm'),
+        'class_embed': lin('class_embed'),
+        'bbox_embed': mlp3('bbox_embed'),
+    }
+
+
+def infer_rfdetr_arch(state_dict):
+    """
+    The RF-DETR preset whose widths and depths (ViT width and blocks,
+    transformer width, decoder layers) the state dict has; rfdetr_base
+    when none or several match. The JAX converter takes rfdetr_base
+    whenever no rfdetr arch is given, so it cannot convert another
+    preset's checkpoint without one (load_detector on a .pt passes none).
+    """
+
+    from megadetector_tpu_torch.models.rfdetr import PRESETS
+
+    enc = 'backbone.0.encoder.'
+    key = enc + 'embeddings.patch_embeddings.projection.weight'
+    if key not in state_dict or 'transformer.enc_output.weight' not in \
+            state_dict:
+        return 'rfdetr_base'
+
+    def count(pattern):
+        n = 0
+        while pattern.format(n) in state_dict:
+            n += 1
+        return n
+
+    widths = (np.shape(state_dict[key])[0],
+              count(enc + 'encoder.layer.{}.norm1.weight'),
+              np.shape(state_dict['transformer.enc_output.weight'])[0],
+              count('transformer.decoder.layers.{}.norm1.weight'))
+    matches = [name for name, p in PRESETS.items()
+               if (p[0], p[1], p[6], p[7]) == widths]
+    return matches[0] if len(matches) == 1 else 'rfdetr_base'
+
+
+def convert_rfdetr_checkpoint(checkpoint_path, output_path=None,
+                              arch='rfdetr_base', num_classes=None,
+                              image_size=None, class_names=None,
+                              verbose=False):
+    """
+    Convert an RF-DETR .pth checkpoint into .npz + metadata.json, the
+    arrays and metadata the JAX converter writes: the state dict through
+    the stub unpickler, mapped by convert_rfdetr_state_dict; resolution
+    and class names from the checkpoint's model_config block where it has
+    them. Returns the output path.
+    """
+
+    from megadetector_tpu_torch.models.rfdetr import RFDetrConfig
+
+    state, extras = extract_torch_state_dict(checkpoint_path)
+    model_config = extras.get('model_config', {}) or {}
+    if num_classes is None:
+        num_classes = int(model_config.get('num_classes', 0)) or None
+    if num_classes is None:
+        num_classes = state['class_embed.bias'].shape[0]
+    if image_size is None:
+        image_size = int(model_config.get('resolution', 560))
+    if class_names is None:
+        class_names = extras.get(
+            'class_names',
+            model_config.get('class_names', model_config.get('names')))
+
+    config = RFDetrConfig(arch, num_classes=num_classes,
+                          image_size=image_size)
+    params = convert_rfdetr_state_dict(state, config)
+
+    if output_path is None:
+        output_path = os.path.splitext(checkpoint_path)[0] + '.npz'
+    metadata = {
+        'metadata_format_version': 1.0,
+        'arch': arch,
+        'model_type': 'rfdetr',
+        'num_classes': int(num_classes),
+        'image_size': int(image_size),
+        'class_names': list(class_names) if class_names else None,
+    }
+    save_checkpoint(params, output_path, metadata)
+    if verbose:
+        print('Converted {} -> {}'.format(checkpoint_path, output_path))
+    return output_path
+
+
 def convert_megadetector_checkpoint(checkpoint_path, output_path=None,
                                     arch=None, num_classes=None,
                                     model_version=None, image_size=1280,
                                     verbose=False):
     """
-    Convert a reference MegaDetector YOLOv5 .pt checkpoint into a .npz +
+    Convert a reference MegaDetector .pt checkpoint into a .npz +
     metadata.json, the arrays and metadata the JAX package's converter
-    writes. Returns the output path. RF-DETR and YOLOv8 (ultralytics)
-    checkpoints raise NotImplementedError: their detector families are
-    not ported (ROADMAP queue A item 6).
+    writes, routing by the state dict's keys as it does: RF-DETR
+    (class_embed / transformer.decoder keys) to convert_rfdetr_checkpoint,
+    the preset from infer_rfdetr_arch unless [arch] is an rfdetr one;
+    ultralytics (a .dfl. key or a cv3 '.2.weight' head conv) to
+    models/yolov8.convert_ultralytics_state_dict, the arch taken from the
+    stem width unless [arch] is a yolov8 one; else YOLOv5. Returns the
+    output path.
     """
 
     from megadetector_tpu_torch.models import registry
@@ -428,15 +632,11 @@ def convert_megadetector_checkpoint(checkpoint_path, output_path=None,
 
     if 'class_embed.bias' in state_dict or any(
             k.startswith('transformer.decoder') for k in state_dict):
-        raise NotImplementedError(
-            '{} is an RF-DETR checkpoint: the RF-DETR family is not ported '
-            'to PyTorch (ROADMAP queue A item 6)'.format(checkpoint_path))
-    if any('.dfl.' in k or ('.cv3.' in k and '.2.weight' in k)
-           for k in state_dict):
-        raise NotImplementedError(
-            '{} is an ultralytics (YOLOv8-style) checkpoint: that family '
-            'is not ported to PyTorch (ROADMAP queue A item 6)'.format(
-                checkpoint_path))
+        return convert_rfdetr_checkpoint(
+            checkpoint_path, output_path,
+            arch=arch if (arch or '').startswith('rfdetr')
+            else infer_rfdetr_arch(state_dict),
+            num_classes=num_classes, verbose=verbose)
 
     if model_version is None:
         model_version = registry.get_detector_version_from_model_file(
@@ -446,10 +646,20 @@ def convert_megadetector_checkpoint(checkpoint_path, output_path=None,
         arch = entry.get('arch', 'yolov5l6')
         image_size = entry.get('image_size', image_size)
 
+    is_ultralytics = any('.dfl.' in k or ('.cv3.' in k and '.2.weight' in k)
+                         for k in state_dict)
+
     if num_classes is None:
         names = extras.get('names')
         if names is not None:
             num_classes = len(names)
+        elif is_ultralytics:
+            cls_keys = sorted(k for k in state_dict
+                              if '.cv3.0.2.weight' in k)
+            if not cls_keys:
+                raise ValueError('Cannot infer the class count of {}'
+                                 .format(checkpoint_path))
+            num_classes = state_dict[cls_keys[0]].shape[0]
         else:
             # out_channels of a detect-head conv = na * (5 + nc); only keys
             # that END at the level index are heads (C3 blocks also hold
@@ -462,10 +672,25 @@ def convert_megadetector_checkpoint(checkpoint_path, output_path=None,
             out_ch = state_dict[sorted(head_keys)[0]].shape[0]
             num_classes = out_ch // 3 - 5
 
-    config = YoloV5Config(arch, num_classes=num_classes)
-    params, anchors = convert_yolov5_state_dict(state_dict, config)
-    if anchors is not None:
-        config.anchors = anchors
+    if is_ultralytics:
+        from megadetector_tpu_torch.models.yolov8 import (
+            YoloV8Config, convert_ultralytics_state_dict)
+        if not arch.startswith('yolov8'):
+            # The variant from the stem width
+            stem_key = [k for k in state_dict
+                        if k.endswith('0.conv.weight')][0]
+            arch = {16: 'yolov8n', 32: 'yolov8s', 48: 'yolov8m',
+                    64: 'yolov8l', 80: 'yolov8x'}.get(
+                        state_dict[stem_key].shape[0], 'yolov8l')
+        config = YoloV8Config(arch, num_classes=num_classes)
+        params = convert_ultralytics_state_dict(state_dict, config)
+        model_type = 'ultralytics'
+    else:
+        config = YoloV5Config(arch, num_classes=num_classes)
+        params, anchors = convert_yolov5_state_dict(state_dict, config)
+        if anchors is not None:
+            config.anchors = anchors
+        model_type = 'yolov5'
 
     names = extras.get('names',
                        ['animal', 'person', 'vehicle'][:num_classes])
@@ -476,7 +701,7 @@ def convert_megadetector_checkpoint(checkpoint_path, output_path=None,
         'metadata_format_version': 1.0,
         'model_version_string': model_version,
         'arch': arch,
-        'model_type': 'yolov5',
+        'model_type': model_type,
         'num_classes': int(num_classes),
         'class_names': list(names),
         'image_size': int(image_size),

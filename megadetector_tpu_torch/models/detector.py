@@ -1,8 +1,18 @@
 """
 The port's detector: preprocessing (the host letterbox, or the device
 letterbox of ops/preprocess_device), the batched device program (/255 ->
-YOLOv5 forward -> candidate selection -> greedy NMS) and MD-format
-emission. Counterpart of megadetector_tpu/models/detector.py TPUDetector.
+forward -> candidate selection -> greedy NMS) and MD-format emission.
+Counterpart of megadetector_tpu/models/detector.py TPUDetector.
+
+The network follows the checkpoint's arch and model_type as the JAX
+detector dispatches them: RF-DETR (models/rfdetr.py), DETR
+(models/detr.py), the anchor-free YOLOv8 family of the MDv1000 models
+(models/yolov8.py, model_type 'ultralytics'), else YOLOv5
+(models/yolov5.py). Only YOLOv5 gets the fused decode, the width-fold
+undoing, the fused stem and the int8 chain; the other families run the
+decoded forward, then ops/nms.batched_nms. The letterbox stride is the
+config's max_stride: 64 or 32 for YOLOv5, 32 for YOLOv8, patch x windows
+for RF-DETR (56 for the published presets), the patch for DETR.
 
 Float and int8-chain checkpoints load (quantized checkpoints written
 width-folded by the JAX package are unfolded on load), and compute in
@@ -58,7 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from megadetector_tpu_torch.device import get_device, set_float32_exact
-from megadetector_tpu_torch.models import yolov5
+from megadetector_tpu_torch.models import detr, rfdetr, yolov5, yolov8
 from megadetector_tpu_torch.models.convert_weights import (
     load_checkpoint, unfold_early_params)
 from megadetector_tpu_torch.models.program_cache import ProgramCache
@@ -182,9 +192,42 @@ def _check_options(options):
             'Not ported to PyTorch: {}'.format(', '.join(refused)))
 
 
+def model_config(arch, model_type, metadata):
+    """
+    The network config for a checkpoint's [arch] and [model_type], as the
+    JAX TPUDetector dispatches: an 'rfdetr' arch, or model_type 'rfdetr'
+    without a 'detr' arch, is RF-DETR (rfdetr_base unless the arch names
+    one; image_size from the metadata, default 560); a 'detr' arch or
+    model_type 'detr' is DETR (detr_base unless named); a 'yolov8' arch
+    or model_type 'ultralytics' is YOLOv8; anything else YOLOv5 (with the
+    metadata's anchors).
+    """
+
+    num_classes = int(metadata.get('num_classes', 3))
+    if arch.startswith('rfdetr') or (model_type == 'rfdetr' and
+                                     not arch.startswith('detr')):
+        return rfdetr.RFDetrConfig(
+            arch if arch.startswith('rfdetr') else 'rfdetr_base',
+            num_classes=num_classes,
+            image_size=int(metadata.get('image_size', 560)))
+    if arch.startswith('detr') or model_type == 'detr':
+        return detr.DetrConfig(arch if arch.startswith('detr')
+                               else 'detr_base', num_classes=num_classes)
+    if arch.startswith('yolov8') or model_type == 'ultralytics':
+        return yolov8.YoloV8Config(arch, num_classes=num_classes)
+    return yolov5.YoloV5Config(arch, num_classes=num_classes,
+                               anchors=metadata.get('anchors', None))
+
+
+# The network of each config but YOLOv5's
+NETWORKS = {rfdetr.RFDetrConfig: rfdetr.RFDetr, detr.DetrConfig: detr.Detr,
+            yolov8.YoloV8Config: yolov8.YoloV8}
+
+
 class TorchDetector:
     """
-    YOLOv5-family detector on PyTorch. Loads converted checkpoints (.npz +
+    Detector on PyTorch for every family model_config dispatches
+    (YOLOv5, YOLOv8, RF-DETR, DETR). Loads converted checkpoints (.npz +
     metadata, or a folder with weights.npz + metadata.json).
 
     Options (a dict, the JAX detector's names):
@@ -215,9 +258,10 @@ class TorchDetector:
             the fused bottleneck kernel where its tiling takes the shape);
             no effect on float checkpoints
         arch: override the checkpoint metadata's architecture
-        fused_decode: select candidates from the raw head logits (default
-            true outside the strict modes) or from the decoded forward
-            (then batched_nms)
+        fused_decode: YOLOv5 only: select candidates from the raw head
+            logits (default true outside the strict modes) or from the
+            decoded forward (then batched_nms); the other families always
+            run the decoded forward
         preprocess_only: build without weights and without a device, for
             preprocessing only (loader workers): preprocess_image works,
             image_size comes from the options (default 1280) and the
@@ -226,7 +270,8 @@ class TorchDetector:
     stem_gemm, bottleneck_variant, use_mesh. Refused
     (NotImplementedError): mesh and
     batch_axis (multi-card) and xla_compiler_options. augment=True at
-    inference needs preprocess_mode host (ValueError).
+    inference needs preprocess_mode host and a YOLOv5 or YOLOv8 model
+    (ValueError).
 
     preprocess_image may be called from many threads at once (the batch
     driver's loader threads): the auto-canvas guard is locked, and
@@ -297,25 +342,31 @@ class TorchDetector:
         start = time.time()
         params, metadata = load_checkpoint(model_path)
         metadata = metadata or {}
-        self.config = yolov5.YoloV5Config(
-            options.get('arch', metadata.get('arch', 'yolov5l6')),
-            num_classes=int(metadata.get('num_classes', 3)),
-            anchors=metadata.get('anchors', None))
+        arch = options.get('arch', metadata.get('arch', 'yolov5l6'))
+        self.model_type = metadata.get('model_type', 'yolov5')
+        self.config = model_config(arch, self.model_type, metadata)
         self.conv_backend = str(options.get('conv_backend',
                                             'xla')).lower()
-        params = unfold_early_params(params, self.config)
-        # bf16 outside the strict modes runs l0 as the fused stem; strict
-        # modes keep the JAX graph (bf16(u8 / 255) into the plain conv)
-        self.model = yolov5.YoloV5(
-            self.config,
-            fuse_bottlenecks=self.conv_backend != 'xla').load_params(
-                params).set_compute_dtype(
-                    self.compute_dtype, fused_stem=not strict).eval().to(
-                        self.device)
-        # Fused selection from raw head logits; strict modes run the
-        # decoded forward + batched_nms instead, unless the option says
-        self._fused_decode = _to_bool(options.get('fused_decode',
-                                                  not strict))
+        if isinstance(self.config, yolov5.YoloV5Config):
+            params = unfold_early_params(params, self.config)
+            # bf16 outside the strict modes runs l0 as the fused stem;
+            # strict modes keep the JAX graph (bf16(u8 / 255) into the
+            # plain conv)
+            model = yolov5.YoloV5(
+                self.config,
+                fuse_bottlenecks=self.conv_backend != 'xla').load_params(
+                    params).set_compute_dtype(self.compute_dtype,
+                                              fused_stem=not strict)
+            # Fused selection from raw head logits; strict modes run the
+            # decoded forward + batched_nms instead, unless the option
+            # says
+            self._fused_decode = _to_bool(options.get('fused_decode',
+                                                      not strict))
+        else:
+            model = NETWORKS[type(self.config)](self.config).load_params(
+                params).set_compute_dtype(self.compute_dtype)
+            self._fused_decode = False
+        self.model = model.eval().to(self.device)
         self.letterbox_stride = int(self.config.max_stride)
         self.default_image_size = int(options.get(
             'image_size', metadata.get('image_size', 1280)))
@@ -469,6 +520,8 @@ class TorchDetector:
         capacity finally used).
         """
 
+        if augment:
+            self._check_augment()
         batch = np.ascontiguousarray(batch_u8, dtype=np.uint8)
         b, h, w = batch.shape[:3]
         with torch.inference_mode():
@@ -483,6 +536,25 @@ class TorchDetector:
                 return self._read_outputs(out), self.pre_nms_topk
             return self._program(('forward', b, h, w), (batch,),
                                  self._forward, conf_thres, iou_thres)
+
+    def _check_augment(self):
+        """Raise ValueError where augment=True cannot run: device
+        preprocessing, or a query-output family (RF-DETR, DETR), whose
+        rows the reference's per-level clipping would cut as if they were
+        detect levels (a fault of the JAX detector, ROADMAP C)."""
+
+        if self.preprocess_mode == 'device':
+            raise ValueError(
+                'augment=True requires preprocess_mode=host (TTA rescales '
+                'the letterboxed canvas, which device mode computes '
+                'in-program)')
+        # Level clipping needs rows ordered by detect level
+        if not isinstance(self.config, (yolov5.YoloV5Config,
+                                        yolov8.YoloV8Config)):
+            raise ValueError(
+                'augment=True is not supported for {} ({}): test-time '
+                'augmentation clips detect levels, and this family emits '
+                'query rows'.format(self.config.arch, self.model_type))
 
     def run_program_staged(self, staged_u8, sizes, canvas_hw, scale_target,
                            identity, conf_thres, iou_thres):
@@ -662,11 +734,8 @@ class TorchDetector:
             raise RuntimeError('This detector was built with '
                                'preprocess_only=true: it has no weights and '
                                'runs no inference')
-        if augment and self.preprocess_mode == 'device':
-            raise ValueError(
-                'augment=True requires preprocess_mode=host (TTA rescales '
-                'the letterboxed canvas, which device mode computes '
-                'in-program)')
+        if augment:
+            self._check_augment()
         if image_ids is None:
             image_ids = ['unknown'] * len(img_originals)
         if len(img_originals) != len(image_ids):

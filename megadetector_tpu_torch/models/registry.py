@@ -3,12 +3,14 @@ Model registry for the port: its own copy of the parts of
 megadetector_tpu/models/registry.py that the detection entry points use
 (friendly-name resolution, the canonical model table with its thresholds,
 the output-file metadata, a model file's version from its embedded
-metadata or its name, and where converted checkpoints are looked up).
+metadata or its name, embedding metadata in a model file, and where
+converted checkpoints are looked up).
 Nothing here downloads: the URLs are metadata written into results files.
 """
 
 import json
 import os
+import shutil
 import tempfile
 import zipfile
 
@@ -277,6 +279,50 @@ def read_metadata_from_model_file(detector_filename, verbose=False):
             import traceback
             traceback.print_exc()
     return None
+
+
+def add_metadata_to_model_file(model_filename, metadata,
+                               output_filename=None):
+    """
+    Embed model metadata: for a converted checkpoint (.npz or folder),
+    merged into its metadata.json sidecar; for a reference .pt zipfile, a
+    megadetector_info.json added inside the archive (written to
+    [output_filename], a copy, when given). Returns the filename written.
+    """
+
+    if not isinstance(metadata, dict):
+        raise TypeError('metadata must be a dict')
+    metadata = dict(metadata)
+    metadata.setdefault('metadata_format_version', 1.0)
+
+    if model_filename.endswith('.npz') or os.path.isdir(model_filename):
+        if os.path.isdir(model_filename):
+            meta_file = os.path.join(model_filename, 'metadata.json')
+        else:
+            meta_file = os.path.splitext(model_filename)[0] + \
+                '.metadata.json'
+        existing = {}
+        if os.path.isfile(meta_file):
+            with open(meta_file) as f:
+                existing = json.load(f)
+        existing.update(metadata)
+        with open(meta_file, 'w') as f:
+            json.dump(existing, f, indent=1)
+        return model_filename
+
+    if not model_filename.endswith(('.pt', '.zip')):
+        raise ValueError('Unsupported model file {}'.format(model_filename))
+    if output_filename is None:
+        output_filename = model_filename
+    if output_filename != model_filename:
+        shutil.copyfile(model_filename, output_filename)
+    with zipfile.ZipFile(output_filename, 'a') as zf:
+        if any(n.endswith('megadetector_info.json') for n in zf.namelist()):
+            raise ValueError('Model file already contains metadata')
+        root = zf.namelist()[0].split('/')[0] if zf.namelist() else ''
+        arcname = (root + '/' if root else '') + 'megadetector_info.json'
+        zf.writestr(arcname, json.dumps(metadata, indent=1))
+    return output_filename
 
 
 #%% Converted checkpoints

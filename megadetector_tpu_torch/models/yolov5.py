@@ -496,6 +496,62 @@ def _decode_level(raw, anchors_level, stride, num_outputs):
     return out.reshape(b, h * w * na, num_outputs)
 
 
+def load_conv_params(model, params_np):
+    """
+    Load a JAX-layout numpy pytree into [model], whose conv modules sit at
+    the pytree's paths under model.layers: float nodes (HWIO 'w', 'b') into
+    the Conv modules; int8 nodes ('w_q', 'w_scale', 'b', static scales)
+    replace their Conv with a QConv. Returns [model].
+    """
+
+    state = {}
+
+    def walk(node, path):
+        if 'b' in node and ('w' in node or 'w_q' in node):
+            name = '.'.join(path)
+            if 'w_q' in node:
+                parent = model.get_submodule('.'.join(path[:-1]))
+                conv = getattr(parent, path[-1])
+                if not isinstance(conv, Conv):
+                    raise ValueError('{} is not a float Conv to '
+                                     'replace'.format(name))
+                setattr(parent, path[-1], QConv(conv, node))
+                keys = {'w_q': 'weight', 'w_scale': 'w_scale',
+                        'b': 'bias'}
+            else:
+                keys = {'w': 'weight', 'b': 'bias'}
+            extra = set(node) - set(keys) - set(q.SCALE_KEYS)
+            if extra:
+                raise ValueError('{}: unexpected leaves {}'.format(
+                    name, sorted(extra)))
+            for k, v in keys.items():
+                state[name + '.' + v] = node[k]
+            return
+        for k, v in node.items():
+            if not isinstance(v, dict):
+                raise ValueError('Leaf {} outside a conv node'.format(
+                    '.'.join(path + [k])))
+            walk(v, path + [k])
+
+    walk(params_to_torch(params_np), ['layers'])
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def network_input(x, compute_dtype):
+    """A batch as the JAX programs feed it to the network: uint8 pixels
+    become [compute_dtype](u8 / 255) (in bf16: the float32 quotient
+    rounded once, as bf16(u8) / bf16(255) computes); float images are cast
+    to [compute_dtype]."""
+
+    if x.dtype == torch.uint8:
+        if compute_dtype == torch.bfloat16:
+            x = (x.float() / scalar_like(255.0, x)).to(torch.bfloat16)
+        else:
+            x = x.float() / 255.0
+    return x.to(compute_dtype)
+
+
 class YoloV5(nn.Module):
     """The network for a YoloV5Config; load weights with load_params.
     fuse_bottlenecks routes chained int8 bottlenecks to the fused
@@ -526,42 +582,9 @@ class YoloV5(nn.Module):
                     e['c_ins'], config.num_outputs * config.num_anchors)
 
     def load_params(self, params_np):
-        """Load a JAX-layout numpy pytree: float nodes (HWIO 'w', 'b') into
-        the Conv modules; int8 nodes ('w_q', 'w_scale', 'b', static
-        scales) replace their Conv with a QConv."""
+        """Load a JAX-layout numpy pytree (load_conv_params)."""
 
-        state = {}
-
-        def walk(node, path):
-            if 'b' in node and ('w' in node or 'w_q' in node):
-                name = '.'.join(path)
-                if 'w_q' in node:
-                    parent = self.get_submodule('.'.join(path[:-1]))
-                    conv = getattr(parent, path[-1])
-                    if not isinstance(conv, Conv):
-                        raise ValueError('{} is not a float Conv to '
-                                         'replace'.format(name))
-                    setattr(parent, path[-1], QConv(conv, node))
-                    keys = {'w_q': 'weight', 'w_scale': 'w_scale',
-                            'b': 'bias'}
-                else:
-                    keys = {'w': 'weight', 'b': 'bias'}
-                extra = set(node) - set(keys) - set(q.SCALE_KEYS)
-                if extra:
-                    raise ValueError('{}: unexpected leaves {}'.format(
-                        name, sorted(extra)))
-                for k, v in keys.items():
-                    state[name + '.' + v] = node[k]
-                return
-            for k, v in node.items():
-                if not isinstance(v, dict):
-                    raise ValueError('Leaf {} outside a conv node'.format(
-                        '.'.join(path + [k])))
-                walk(v, path + [k])
-
-        walk(params_to_torch(params_np), ['layers'])
-        self.load_state_dict(state, strict=True)
-        return self
+        return load_conv_params(self, params_np)
 
     def set_compute_dtype(self, dtype, fused_stem=False):
         """
@@ -600,16 +623,10 @@ class YoloV5(nn.Module):
         batch, or (None, l0's output) when the fused stem takes the uint8
         pixels."""
 
-        if x.dtype == torch.uint8:
-            if self.stem_w is not None:
-                out = l0_fused.l0_fused(x.contiguous(), self.stem_w,
-                                        self.stem_b)
-                return None, out.permute(0, 3, 1, 2)
-            if self.compute_dtype == torch.bfloat16:
-                x = (x.float() / scalar_like(255.0, x)).to(torch.bfloat16)
-            else:
-                x = x.float() / 255.0
-        return x.to(self.compute_dtype).permute(0, 3, 1, 2), None
+        if x.dtype == torch.uint8 and self.stem_w is not None:
+            out = l0_fused.l0_fused(x.contiguous(), self.stem_w, self.stem_b)
+            return None, out.permute(0, 3, 1, 2)
+        return network_input(x, self.compute_dtype).permute(0, 3, 1, 2), None
 
     def forward(self, x, decode=True):
         """

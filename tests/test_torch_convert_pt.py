@@ -10,8 +10,13 @@ module that cannot be imported at load time (the stub unpickler's path).
 - load_detector on the .pt: the detections of the converted .npz, cached
   under the name the JAX load_detector computes;
 - the CLI with --quantize --device cpu: the port's quantize_checkpoint;
-- RF-DETR and YOLOv8 (ultralytics) checkpoints refused, never
-  half-converted;
+- the other families: an ultralytics (YOLOv8-style) .pt from
+  tests/torch_yolo8_ref.make_torch_v8 (importable and stubbed) and an
+  RF-DETR .pt from tests/torch_rfdetr_ref.make_torch_rfdetr give an .npz
+  and metadata bit-identical to the JAX converter's; load_detector on
+  each .pt detects as its converted .npz does (the RF-DETR preset inferred
+  from the state dict, where the JAX converter assumes rfdetr_base); the
+  CLI's --quantize and quantize_checkpoint refuse both, as JAX's does;
 - get_detector_version_from_model_file as in the JAX registry.
 """
 
@@ -25,14 +30,17 @@ import numpy as np
 import pytest
 import torch
 
+import torch_yolo8_ref
 import torch_yolo_ref
 from megadetector_tpu.detection import run_detector as jax_run_detector
 from megadetector_tpu.models import convert_weights as jax_convert
 from megadetector_tpu.models import registry as jax_registry
+from megadetector_tpu.models.rfdetr import RFDetrConfig as JaxRFDetrConfig
+from megadetector_tpu.models.yolov8 import YoloV8Config as JaxYoloV8Config
 from megadetector_tpu.models.yolov5 import YoloV5Config as JaxYoloV5Config
 from megadetector_tpu_torch.detection import run_detector
 from megadetector_tpu_torch.models import convert_weights
-from megadetector_tpu_torch.models import registry
+from megadetector_tpu_torch.models import registry, rfdetr, yolov8
 
 import torch_port_data as data
 
@@ -41,23 +49,31 @@ _REF_CLASSES = (torch_yolo_ref.Conv, torch_yolo_ref.Bottleneck,
                 torch_yolo_ref.Detect, torch_yolo_ref.TorchYolo)
 
 
-def _save_pt(model, path, importable):
+_V8_CLASSES = (torch_yolo8_ref.Conv, torch_yolo8_ref.Bottleneck,
+               torch_yolo8_ref.C2f, torch_yolo8_ref.SPPF,
+               torch_yolo8_ref.DFL, torch_yolo8_ref.Detect,
+               torch_yolo8_ref.TorchYoloV8)
+
+
+def _save_pt(model, path, importable, classes=_REF_CLASSES):
     """torch.save({'model': model}); unless [importable], every class of
-    torch_yolo_ref is pickled under a module that is gone at load time."""
+    [classes] (one test module's) is pickled under a module that is gone
+    at load time."""
 
     if importable:
         torch.save({'model': model}, path)
         return
+    home = classes[0].__module__
     fake = types.ModuleType('md_unimportable_models')
-    for cls in _REF_CLASSES:
+    for cls in classes:
         setattr(fake, cls.__name__, cls)
         cls.__module__ = fake.__name__
     sys.modules[fake.__name__] = fake
     try:
         torch.save({'model': model}, path)
     finally:
-        for cls in _REF_CLASSES:
-            cls.__module__ = torch_yolo_ref.__name__
+        for cls in classes:
+            cls.__module__ = home
         del sys.modules[fake.__name__]
 
 
@@ -203,11 +219,9 @@ def test_cli_quantize_matches_quantize_checkpoint(tmp_path, capsys):
 
 @pytest.fixture(scope='module')
 def rfdetr_pt(tmp_path_factory):
-    from megadetector_tpu.models import rfdetr
     from torch_rfdetr_ref import make_torch_rfdetr
 
-    config = rfdetr.RFDetrConfig('rfdetr_test', num_classes=3,
-                                 image_size=112)
+    config = JaxRFDetrConfig('rfdetr_test', num_classes=3, image_size=112)
     path = str(tmp_path_factory.mktemp('rfdetr') / 'sorrel_rfdetr.pt')
     torch.save({'model': make_torch_rfdetr(config, seed=4),
                 'model_config': {'resolution': 112, 'num_classes': 3}},
@@ -215,27 +229,122 @@ def rfdetr_pt(tmp_path_factory):
     return path
 
 
-def test_rfdetr_checkpoint_is_refused(rfdetr_pt, tmp_path, monkeypatch):
-    out = str(tmp_path / 'never.npz')
-    with pytest.raises(NotImplementedError, match='queue A item 6'):
-        convert_weights.convert_megadetector_checkpoint(rfdetr_pt, out)
-    assert not os.path.exists(out)
-    # load_detector converts a .pt first: refused there too
+@pytest.fixture(scope='module', params=[True, False],
+                ids=['importable', 'stubbed'])
+def ultralytics_pt(request, tmp_path_factory):
+    model = torch_yolo8_ref.make_torch_v8(
+        JaxYoloV8Config('yolov8n', num_classes=3), seed=5)
+    model.names = ['animal', 'person', 'vehicle']
+    path = str(tmp_path_factory.mktemp('v8') / 'md_v1000.0.0-spruce.pt')
+    _save_pt(model, path, request.param, classes=_V8_CLASSES)
+    return path
+
+
+def _assert_same_files(ours, ref):
+    """Two converted .npz files and their metadata, bit for bit."""
+
+    with np.load(ours) as a, np.load(ref) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in b.files:
+            assert a[key].dtype == b[key].dtype == np.float32
+            assert a[key].shape == b[key].shape
+            assert a[key].tobytes() == b[key].tobytes(), key
+    metas = []
+    for path in (ours, ref):
+        with open(os.path.splitext(path)[0] + '.metadata.json') as f:
+            metas.append(json.load(f))
+    assert metas[0] == metas[1]
+    return metas[0]
+
+
+def test_ultralytics_pt_converts_as_jax(ultralytics_pt, tmp_path):
+    ours = convert_weights.convert_megadetector_checkpoint(
+        ultralytics_pt, str(tmp_path / 'ours.npz'))
+    ref = jax_convert.convert_megadetector_checkpoint(
+        ultralytics_pt, str(tmp_path / 'ref.npz'))
+    meta = _assert_same_files(ours, ref)
+    # The arch from the stem width (16 channels: yolov8n)
+    assert (meta['model_type'], meta['arch'], meta['num_classes'],
+            meta['model_version_string'], meta['strides']) == (
+                'ultralytics', 'yolov8n', 3, 'v1000.0.0-spruce', [8, 16, 32])
+
+
+@pytest.mark.parametrize('arch', [None, 'rfdetr_test'])
+def test_rfdetr_pt_converts_as_jax(rfdetr_pt, tmp_path, arch):
+    """With the arch given, JAX's files bit for bit; without, the port
+    infers rfdetr_test from the state dict and JAX (assuming rfdetr_base)
+    cannot convert it."""
+
+    ours = convert_weights.convert_megadetector_checkpoint(
+        rfdetr_pt, str(tmp_path / 'ours.npz'), arch=arch)
+    if arch is None:
+        with pytest.raises(KeyError):
+            jax_convert.convert_megadetector_checkpoint(
+                rfdetr_pt, str(tmp_path / 'ref.npz'))
+    ref = jax_convert.convert_megadetector_checkpoint(
+        rfdetr_pt, str(tmp_path / 'ref.npz'), arch='rfdetr_test')
+    meta = _assert_same_files(ours, ref)
+    assert (meta['model_type'], meta['arch'], meta['image_size'],
+            meta['num_classes']) == ('rfdetr', 'rfdetr_test', 112, 3)
+
+
+@pytest.mark.parametrize('arch', sorted(rfdetr.PRESETS))
+def test_rfdetr_arch_inferred_from_widths(arch):
+    """Each preset's widths and depths identify it (shapes only, no
+    arrays)."""
+
+    c = rfdetr.RFDetrConfig(arch, 3)
+    enc = 'backbone.0.encoder.'
+    state = {enc + 'embeddings.patch_embeddings.projection.weight':
+             np.empty((c.vit_dim, 3, 0, 0)),
+             'transformer.enc_output.weight':
+             np.empty((c.hidden_dim, 0))}
+    for i in range(c.vit_depth):
+        state[enc + 'encoder.layer.{}.norm1.weight'.format(i)] = None
+    for i in range(c.dec_layers):
+        state['transformer.decoder.layers.{}.norm1.weight'.format(i)] = None
+    assert convert_weights.infer_rfdetr_arch(state) == arch
+    assert convert_weights.infer_rfdetr_arch({}) == 'rfdetr_base'
+
+
+@pytest.mark.parametrize('family', ['ultralytics', 'rfdetr'])
+def test_load_detector_on_other_families_pt_matches_npz(
+        family, ultralytics_pt, rfdetr_pt, tmp_path, monkeypatch):
+    pt, network, size, arch = {
+        'ultralytics': (ultralytics_pt, yolov8.YoloV8, 128, None),
+        'rfdetr': (rfdetr_pt, rfdetr.RFDetr, 112, 'rfdetr_test')}[family]
     monkeypatch.setenv('MD_MODEL_FOLDER', str(tmp_path / 'models'))
-    with pytest.raises(NotImplementedError, match='queue A item 6'):
-        run_detector.load_detector(rfdetr_pt, device='cpu')
-    assert not any(f.endswith('.npz')
-                   for f in os.listdir(str(tmp_path / 'models')))
+    options = {'image_size': size}
+    port = run_detector.load_detector(pt, device='cpu',
+                                      detector_options=options)
+    assert isinstance(port.model, network)
+    assert len([f for f in os.listdir(str(tmp_path / 'models'))
+                if f.endswith('.npz')]) == 1
+    npz = str(tmp_path / 'converted.npz')
+    jax_convert.convert_megadetector_checkpoint(pt, npz, arch=arch)
+    from_npz = run_detector.load_detector(npz, device='cpu',
+                                          detector_options=options)
+    images = data.images()[3:5]
+    ids = ['im{}'.format(i) for i in range(len(images))]
+    got = port.generate_detections_one_batch(images, ids, 0.005)
+    assert got == from_npz.generate_detections_one_batch(images, ids, 0.005)
+    assert sum(len(r['detections']) for r in got) > 0
 
 
-def test_ultralytics_state_dict_is_refused(tmp_path):
-    path = str(tmp_path / 'md_v1000.0.0-spruce.pt')
-    torch.save({'model.22.dfl.conv.weight': torch.zeros(1, 16, 1, 1),
-                'model.0.conv.weight': torch.zeros(16, 3, 3, 3)}, path)
-    with pytest.raises(NotImplementedError, match='queue A item 6'):
-        convert_weights.convert_megadetector_checkpoint(
-            path, str(tmp_path / 'never.npz'))
-    assert not os.path.exists(str(tmp_path / 'never.npz'))
+@pytest.mark.parametrize('family', ['ultralytics', 'rfdetr'])
+def test_quantize_refuses_other_families(family, ultralytics_pt, rfdetr_pt,
+                                         tmp_path):
+    pt = {'ultralytics': ultralytics_pt, 'rfdetr': rfdetr_pt}[family]
+    out = str(tmp_path / 'model.npz')
+    with pytest.raises(ValueError, match='yolov5'):
+        convert_weights.main([pt, out, '--quantize', '--device', 'cpu'])
+    assert os.path.isfile(out)
+    assert not os.path.exists(str(tmp_path / 'model.int8.npz'))
+    for quantize in (convert_weights.quantize_checkpoint,
+                     jax_convert.quantize_checkpoint):
+        with pytest.raises(ValueError, match='yolov5'):
+            quantize(out, str(tmp_path / 'q.npz'))
+    assert not os.path.exists(str(tmp_path / 'q.npz'))
 
 
 def test_version_from_model_file_matches_jax(tmp_path):

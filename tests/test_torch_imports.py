@@ -4,7 +4,8 @@ no jax and nothing of the JAX package (megadetector_tpu), not even its
 modules that hold no jax: it keeps its own copies (ops/boxes,
 utils/ct_utils, utils/path_utils, models/registry,
 visualization/visualization_utils, postprocessing/validate_batch_results,
-the tiled and video drivers). PIL is imported only once a file is decoded
+the tiled and video drivers, the YOLOv8, RF-DETR and DETR networks and
+their converters and shims). PIL is imported only once a file is decoded
 or drawn on. cv2 is not checked: ops/boxes.py imports it whenever it is
 installed and falls back to numpy where it is not.
 """
@@ -62,6 +63,12 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.visualization.visualization_utils',
                 'megadetector_tpu_torch.models.convert_weights',
                 'megadetector_tpu_torch.models.detector',
+                'megadetector_tpu_torch.models.yolov8',
+                'megadetector_tpu_torch.models.rfdetr',
+                'megadetector_tpu_torch.models.detr',
+                'megadetector_tpu_torch.models.params',
+                'megadetector_tpu_torch.detection.pytorch_detector',
+                'megadetector_tpu_torch.detection.rfdetr_detector',
                 'megadetector_tpu_torch.models.program_cache',
                 'megadetector_tpu_torch.detection.run_detector',
                 'megadetector_tpu_torch.detection.run_detector_batch',
@@ -169,5 +176,72 @@ def test_converter_tta_and_checkpoints_run_without_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report['n'] == 2
     assert report['programs'] == ['augment']
+    assert report['jax'] == []
+    assert report['jax_package'] == []
+
+
+_FAMILIES = """
+import json, os, sys, tempfile
+import numpy as np
+from megadetector_tpu_torch.detection import pytorch_detector, rfdetr_detector
+from megadetector_tpu_torch.detection.run_detector import load_detector
+from megadetector_tpu_torch.models import detr, rfdetr, yolov8
+from megadetector_tpu_torch.models.convert_weights import save_checkpoint
+tmp = tempfile.mkdtemp()
+img = np.random.RandomState(0).randint(0, 256, (96, 128, 3), np.uint8)
+counts = {}
+for name, module, config, size, model_type in (
+        ('yolov8n', yolov8, yolov8.YoloV8Config('yolov8n', 3), 64,
+         'ultralytics'),
+        ('rfdetr_test', rfdetr, rfdetr.RFDetrConfig('rfdetr_test', 3, 112),
+         112, 'rfdetr'),
+        ('detr_tiny', detr, detr.DetrConfig('detr_tiny', 3, 64), 64,
+         'detr')):
+    path = os.path.join(tmp, name + '.npz')
+    save_checkpoint(module.init_params(config, seed=0), path, {
+        'arch': name, 'model_type': model_type, 'num_classes': 3,
+        'image_size': size})
+    for dtype in ('float32', 'bfloat16'):
+        detector = load_detector(path, device='cpu', detector_options={
+            'dtype': dtype})
+        result = detector.generate_detections_one_image(img, 'a', 0.005)
+        counts[name + '_' + dtype] = len(result['detections'])
+loaded = rfdetr_detector.load_model(os.path.join(tmp, 'rfdetr_test.npz'),
+                                    device='cpu')
+pred = np.zeros((1, 4, 8), np.float32)
+pred[0, :, :4] = [[10, 10, 4, 4], [11, 10, 4, 4], [40, 40, 4, 4],
+                  [80, 80, 4, 4]]
+pred[0, :, 4] = 1.0
+pred[0, :, 5] = [0.9, 0.8, 0.7, 0.1]
+kept = pytorch_detector.nms(pred, device='cpu')
+print(json.dumps({'counts': counts, 'kept': len(kept[0]),
+                  'rfdetr_type': loaded['model_type'],
+                  'jax': sorted(m for m in sys.modules
+                                if m == 'jax' or m.startswith('jax.')),
+                  'jax_package': sorted(
+                      m for m in sys.modules if m == 'megadetector_tpu' or
+                      m.startswith('megadetector_tpu.'))}))
+"""
+
+
+def test_other_families_and_shims_run_without_jax():
+    """YOLOv8, RF-DETR and DETR detectors (float32 and bf16), the
+    rfdetr_detector and pytorch_detector shims, run without importing jax
+    or the JAX package."""
+
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', _FAMILIES], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sorted(report['counts']) == sorted(
+        '{}_{}'.format(n, d) for n in ('yolov8n', 'rfdetr_test', 'detr_tiny')
+        for d in ('float32', 'bfloat16'))
+    assert all(n > 0 for n in report['counts'].values()), report['counts']
+    # Boxes 1 and 2 overlap (IoU 0.6 > 0.45); the 0.1 box is below 0.25
+    assert report['kept'] == 2
+    assert report['rfdetr_type'] == 'rfdetr'
     assert report['jax'] == []
     assert report['jax_package'] == []
