@@ -150,6 +150,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      errors than the CPU's bf16 against its float32, plus that atol; the
      largest differences printed.
      Phase 22's NMS and bias + SiLU launches join those kernels' records.
+ 23. the species classifier and the two-stage path: EfficientNetV2-M
+     (SpeciesNet's crop classifier) at full width and depth, 2000 classes,
+     480 px, random weights from seed 0 (conv weights x 0.83, fc x 64, so
+     the BN-free graph's logits stay O(1)); the int8 conv kernel at every
+     distinct chain-conv shape of a batch of 64 (int32 sums, int8 with and
+     without SiLU) and the bias + SiLU kernel at every distinct shape of
+     the bf16 forward, identical to their plain versions, with the
+     no-SiLU epilogue's ms against the SiLU kind's; SpeciesClassifier in
+     float32, bf16 and int8 (calibrate() on 64 crops from RandomState(1)):
+     eager then replayed, identical, launches exact per forward (none; 147
+     bias + SiLU; 109 int8 conv + 92 bias + SiLU), two batches in flight
+     equal to serial calls, forward and program ms eager and replayed,
+     crops/s, peak memory; the card against the CPU on 4 crops at 224 px;
+     run_md_and_classifier over 16 JPEGs and a 45-frame 1080p video with
+     phase 4's yolov5l6 in bf16 and the classifier in bf16, then int8, at
+     the threshold that leaves about 1,000 crops: JSON valid, results equal
+     to classify_batch on the same crops, launches exact, seconds by step
+     and crops/s. Its NMS, int8 conv and bias + SiLU launches join those
+     kernels' records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -3172,6 +3191,561 @@ def phase_other_families(device, workdir, pairs, card):
     return nms_launches, silu_launches
 
 
+#%% Phase 23: the species classifier and the two-stage path
+
+
+# SpeciesNet's crop classifier: EfficientNetV2-M at 480 px; 2000 classes,
+# the JAX package's own throughput configuration
+# (experiments/exp_classifier_throughput.py)
+CLASSIFIER_ARCH = 'efficientnetv2_m'
+CLASSIFIER_CLASSES = 2000
+CLASSIFIER_SIZE = 480
+CLASSIFIER_BATCH = 64
+# He init explodes through the BN-free graph (logits ~1e8 at 480 px, one-hot
+# probabilities); conv weights x 0.83 and the fc x 64 keep the logits
+# O(1), as the JAX package's int8 classifier tests scale theirs
+CLASSIFIER_CONV_SCALE = 0.83
+CLASSIFIER_FC_SCALE = 64.0
+# The two-stage run classifies about this many crops, and must classify
+# within TWO_STAGE_RANGE
+TWO_STAGE_CROPS = 1000
+TWO_STAGE_RANGE = (500, 2000)
+
+
+def _classifier_checkpoint(workdir):
+    """EfficientNetV2-M at full width and depth, random weights from seed 0
+    through the port's init_params (scaled as above), saved as .npz with
+    the metadata the JAX SpeciesNet converter writes, its class names
+    SpeciesNet-style taxonomy strings. Returns (path, metadata)."""
+
+    import numpy as np
+
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.models.convert_weights import \
+        save_checkpoint
+
+    config = efficientnet.EfficientNetConfig(
+        CLASSIFIER_ARCH, num_classes=CLASSIFIER_CLASSES)
+
+    def scaled(node):
+        return {k: scaled(v) if isinstance(v, dict) else
+                v * np.float32(CLASSIFIER_CONV_SCALE) if v.ndim == 4 else v
+                for k, v in node.items()}
+
+    params = scaled(efficientnet.init_params(config, seed=0))
+    params['fc']['w'] = params['fc']['w'] * np.float32(CLASSIFIER_FC_SCALE)
+    names = ['{:08x};mammalia;order{};family{};genus{};species{};'
+             'common name {}'.format(i, i % 7, i % 50, i, i, i)
+             for i in range(CLASSIFIER_CLASSES)]
+    metadata = {'arch': CLASSIFIER_ARCH, 'model_type': 'speciesnet',
+                'num_classes': CLASSIFIER_CLASSES, 'class_names': names,
+                'image_size': CLASSIFIER_SIZE,
+                'normalization_mean': [0.0, 0.0, 0.0],
+                'normalization_std': [1.0, 1.0, 1.0], 'crop_mode': 'stretch'}
+    path = os.path.join(workdir, 'md_smoke_classifier.npz')
+    save_checkpoint(params, path, metadata)
+    return path, metadata
+
+
+def _classifier_kernels(device, card):
+    """
+    B2 at every distinct int8 chain-conv shape of EfficientNetV2-M at 480
+    px, batch 64 (int32 sums and int8 outputs, the project convs through
+    the epilogue without SiLU), identical to the plain version; E7 at every
+    distinct bias + SiLU shape of the bf16 forward (the [64, C, 1, 1] SE
+    tensors among them), identical. Prints the no-SiLU epilogue's ms
+    against the SiLU kind's at two project-conv shapes, with the bound.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.ops import conv_int8, silu_bf16
+
+    config = efficientnet.EfficientNetConfig(
+        CLASSIFIER_ARCH, num_classes=CLASSIFIER_CLASSES)
+    shapes = {}
+    for d in efficientnet.chain_conv_shapes(config, CLASSIFIER_SIZE,
+                                            CLASSIFIER_BATCH):
+        key = (d['batch'], d['h'], d['w'], d['cin'], d['cout'], d['k'],
+               d['stride'])
+        shapes.setdefault(key, set()).add(d['act'])
+    rng = np.random.RandomState(23)
+    y_scale = 4.0 / 127
+    for (b, h, w, cin, cout, k, s), acts in sorted(shapes.items()):
+        x = _int8_input(rng, device, (b, h, w, cin))
+        wt, scale, bias = _int8_conv_case(rng, device, cin, cout, k)
+        pads = (k // 2,) * 4
+        acc = conv_int8.conv_int32_reference(x, wt, (s, s), pads)
+        got = conv_int8.conv_int8(x, wt, None, None, (s, s), pads)
+        if not torch.equal(got, acc):
+            raise AssertionError('phase 23: int8 conv {} int32 sums differ '
+                                 'from the plain version'.format(
+                                     (b, h, w, cin, cout, k, s)))
+        for act in sorted(acts):
+            want = conv_int8.chain_epilogue_reference(acc, scale, bias,
+                                                      y_scale, act)
+            got = conv_int8.conv_int8(x, wt, scale, bias, (s, s), pads,
+                                      y_scale, act=act)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    'phase 23: int8 conv {} act={} differs from the plain '
+                    'version on {} elements'.format(
+                        (b, h, w, cin, cout, k, s), act,
+                        int((got != want).sum())))
+        del x, acc, got
+    print('phase 23 on {}: the int8 conv kernel identical to its plain '
+          'version at all {} distinct chain-conv shapes of {} at {} px, '
+          'batch {} (int32 sums; int8 with SiLU, and without it on the {} '
+          'project-conv shapes)'.format(
+              card, len(shapes), CLASSIFIER_ARCH, CLASSIFIER_SIZE,
+              CLASSIFIER_BATCH, sum(False in a for a in shapes.values())),
+          flush=True)
+
+    # The epilogue without SiLU against the SiLU kind at project shapes
+    for b, h, cin, cout in ((CLASSIFIER_BATCH, 30, 960, 176),
+                            (CLASSIFIER_BATCH, 15, 1824, 304)):
+        x = _int8_input(rng, device, (b, h, h, cin))
+        wt, scale, bias = _int8_conv_case(rng, device, cin, cout, 1)
+        ms = {act: _graph_ms(lambda act=act: conv_int8.conv_int8(
+            x, wt, scale, bias, (1, 1), (0, 0, 0, 0), y_scale, act=act),
+            reps=20) for act in (False, True)}
+        m = b * h * h
+        bound, by = _bound(m * cin + cin * cout + m * cout,
+                           2.0 * m * cin * cout, INT8_OPS_PER_MS)
+        print('phase 23 on {}: int8 1x1 {}->{} at {}x{}, batch {}: '
+              'without SiLU {:.4f} ms, with SiLU {:.4f} ms (device, '
+              'replayed); bound {:.4f} ms ({})'.format(
+                  card, cin, cout, h, h, b, ms[False], ms[True], bound, by),
+              flush=True)
+
+    # E7 at the bf16 forward's shapes, recorded from one forward
+    seen = {}
+    original = efficientnet.silu_bf16
+
+    def record(x, bias=None, out=None):
+        seen.setdefault((tuple(x.shape), x.stride()), None)
+        return original(x, bias, out)
+
+    model = efficientnet.EfficientNet(config).load_params(
+        efficientnet.init_params(config, seed=0)).set_compute_dtype(
+            torch.bfloat16).eval().to(device)
+    efficientnet.silu_bf16 = record
+    try:
+        with torch.inference_mode():
+            model(torch.zeros((CLASSIFIER_BATCH, CLASSIFIER_SIZE,
+                               CLASSIFIER_SIZE, 3), device=device))
+    finally:
+        efficientnet.silu_bf16 = original
+    del model
+    for shape, stride in sorted(seen):
+        x = torch.empty_strided(shape, stride, dtype=torch.bfloat16,
+                                device=device)
+        x.copy_(torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * 3).to(device))
+        bias = torch.from_numpy(rng.standard_normal(shape[1]).astype(
+            np.float32)).to(device).to(torch.bfloat16)
+        if not torch.equal(silu_bf16.silu_bf16(x, bias),
+                           silu_bf16.silu_bf16_reference(x, bias)):
+            raise AssertionError('phase 23: bias + SiLU at {} differs from '
+                                 'its plain version'.format(shape))
+    print('phase 23 on {}: the bf16 bias + SiLU kernel bit-identical to its '
+          'plain version at all {} distinct shapes of the bf16 forward '
+          '({} of them [64, C, 1, 1] SE tensors)'.format(
+              card, len(seen), sum(s[2:] == (1, 1) for s, _ in seen)),
+          flush=True)
+
+
+def _classifier_on_card(device, path, card):
+    """
+    SpeciesClassifier at 480 px, batch 64, in float32, bf16 and int8
+    (calibrated by calibrate() on 64 crops from RandomState(1)): eager,
+    then replayed from its CUDA graph, identical, each with exact
+    launches (none of ours in float32; E7 147 in bf16; B2 109 and E7 92 in
+    int8); two batches in flight (dispatch, dispatch, fetch, fetch) equal
+    to serial calls; forward and program ms eager and replayed, crops/s,
+    peak memory. Returns {dtype: numbers}.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+
+    s, b = CLASSIFIER_SIZE, CLASSIFIER_BATCH
+    calib = np.random.RandomState(1).randint(0, 256, (b, s, s, 3),
+                                             dtype=np.uint8)
+    rng = np.random.RandomState(2)
+    batch = rng.randint(0, 256, (b, s, s, 3), dtype=np.uint8)
+    other = rng.randint(0, 256, (b, s, s, 3), dtype=np.uint8)
+    results = {}
+    for label, options in (('float32', {}), ('bfloat16', {'dtype':
+                                                          'bfloat16'}),
+                           ('int8', {'quantize': 'int8'})):
+        torch.cuda.reset_peak_memory_stats()
+        clf = SpeciesClassifier(path, options, device=device)
+        if label == 'int8':
+            clf.calibrate(calib)
+        want = efficientnet.forward_launches(
+            clf.config, label == 'int8', clf.compute_dtype)
+        probs = []
+        for i in range(2):
+            _reset_counts()
+            probs.append(clf.classify_batch(list(batch)))
+            counts = _counts()
+            got = (counts[1], counts[4])
+            if got != want:
+                raise AssertionError('phase 23, {}: call {} launched (conv, '
+                                     'silu) {}, want {}'.format(
+                                         label, i + 1, got, want))
+        if clf._programs.replays != (clf.device.type == 'cuda') or \
+                not np.array_equal(probs[0], probs[1]):
+            raise AssertionError('phase 23, {}: replay differs from eager '
+                                 '(replays {})'.format(
+                                     label, clf._programs.replays))
+        if probs[0].shape != (b, CLASSIFIER_CLASSES) or \
+                not np.isfinite(probs[0]).all() or \
+                np.abs(probs[0].sum(1) - 1).max() > 1e-4:
+            raise AssertionError('phase 23, {}: probabilities {} not finite '
+                                 'rows summing to 1'.format(
+                                     label, probs[0].shape))
+        serial_other = clf.classify_batch(list(other))
+        h1 = clf.classify_batch_async(list(batch))
+        h2 = clf.classify_batch_async(list(other))
+        if not (np.array_equal(clf.fetch_batch(h1), probs[0]) and
+                np.array_equal(clf.fetch_batch(h2), serial_other)):
+            raise AssertionError('phase 23, {}: two batches in flight '
+                                 'differ from serial calls'.format(label))
+
+        x_u8 = torch.from_numpy(batch).to(device)
+        with torch.inference_mode():
+            x = (x_u8.float() / 255.0).contiguous()
+            fwd_eager = _time_ms(lambda: clf.model(x), 3, warmup=1)
+            fwd_replay = _graph_ms(lambda: clf.model(x), reps=3)
+
+        def wall_ms(fn, reps):
+            fn()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - start) * 1e3 / reps
+
+        with torch.inference_mode():
+            prog_eager = wall_ms(lambda: clf._program(x_u8).cpu(), 3)
+        crops = list(batch)
+        prog_replay = wall_ms(lambda: clf.classify_batch(crops), 5)
+        results[label] = {
+            'forward_eager': fwd_eager, 'forward_replay': fwd_replay,
+            'program_eager': prog_eager, 'program_replay': prog_replay,
+            'crops_per_s': b / (prog_replay / 1e3),
+            'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+            'top1': probs[0].argmax(1)}
+        print('phase 23 on {}: classifier {}: replay identical to eager, '
+              'launches (conv, silu) {} per forward; two batches in flight '
+              'equal to serial; {}x{} batch of {}: forward {:.3f} ms eager, '
+              '{:.3f} replayed; program {:.3f} ms eager, {:.3f} replayed '
+              '(host staging and the copy back included); {:.1f} crops/s; '
+              'peak {:.2f} GB allocated'.format(
+                  card, label, want, s, s, b, fwd_eager, fwd_replay,
+                  prog_eager, prog_replay, results[label]['crops_per_s'],
+                  results[label]['peak_gb']), flush=True)
+        del clf, x, x_u8
+        torch.cuda.empty_cache()
+    return results
+
+
+def _classifier_card_vs_cpu(device, path, metadata, workdir, card):
+    """
+    The card against the CPU on 4 crops at 224 px: float32 within rtol
+    1e-4 and atol 1e-6; bf16 no further from the CPU's bf16 than that is
+    from the CPU's float32; int8 (both on the CPU's calibration, saved and
+    loaded) within the CPU's own int8-vs-float32 error, with top-1 equal
+    to the CPU's int8 wherever the CPU's top-2 margin exceeds that error.
+    """
+
+    import numpy as np
+
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+    from megadetector_tpu_torch.models.convert_weights import \
+        save_checkpoint
+
+    crops = list(np.random.RandomState(4).randint(0, 256, (4, 224, 224, 3),
+                                                  dtype=np.uint8))
+    small = {'image_size': 224}
+    cpu, gpu = {}, {}
+    for label, options in (('float32', {}), ('bfloat16', {'dtype':
+                                                          'bfloat16'})):
+        opts = dict(small, **options)
+        cpu[label] = SpeciesClassifier(path, opts, device='cpu') \
+            .classify_batch(crops)
+        gpu[label] = SpeciesClassifier(path, opts, device=device) \
+            .classify_batch(crops)
+    clf_cpu = SpeciesClassifier(path, dict(small, quantize='int8'),
+                                device='cpu')
+    clf_cpu.calibrate(crops)
+    q_path = os.path.join(workdir, 'md_smoke_classifier_int8.npz')
+    save_checkpoint(clf_cpu.params, q_path, metadata)
+    cpu['int8'] = clf_cpu.classify_batch(crops)
+    gpu['int8'] = SpeciesClassifier(q_path, dict(small, quantize='int8'),
+                                    device=device).classify_batch(crops)
+
+    def err(a, b):
+        return float(np.abs(a - b).max())
+
+    f32 = cpu['float32']
+    outside = np.abs(gpu['float32'] - f32) > 1e-4 * np.abs(f32) + 1e-6
+    if outside.any():
+        raise AssertionError('phase 23: card vs CPU float32: {} elements '
+                             'outside rtol 1e-4 / atol 1e-6 (max |d| '
+                             '{:.3e})'.format(int(outside.sum()),
+                                              err(gpu['float32'], f32)))
+    own_bf16 = err(cpu['bfloat16'], f32)
+    if err(gpu['bfloat16'], cpu['bfloat16']) > own_bf16:
+        raise AssertionError('phase 23: card vs CPU bf16 max |d| {:.3e} '
+                             'over the CPU\'s own bf16 error {:.3e}'.format(
+                                 err(gpu['bfloat16'], cpu['bfloat16']),
+                                 own_bf16))
+    own_int8 = err(cpu['int8'], f32)
+    top2 = np.sort(cpu['int8'], axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > own_int8
+    if err(gpu['int8'], cpu['int8']) > own_int8 or not np.array_equal(
+            gpu['int8'].argmax(1)[clear], cpu['int8'].argmax(1)[clear]):
+        raise AssertionError('phase 23: card vs CPU int8 max |d| {:.3e} '
+                             '(the CPU\'s own int8 error {:.3e}), or a '
+                             'clear top-1 differs'.format(
+                                 err(gpu['int8'], cpu['int8']), own_int8))
+    print('phase 23 on {}: card vs CPU, 4 crops at 224 px, max |d| of the '
+          'probabilities: float32 {:.3e}; bf16 {:.3e} (the CPU\'s own bf16 '
+          'against float32 {:.3e}); int8 {:.3e} (the CPU\'s own int8 '
+          'against float32 {:.3e}; top-1 equal on {} of 4 crops with a '
+          'clear margin)'.format(
+              card, err(gpu['float32'], f32), err(gpu['bfloat16'],
+                                                  cpu['bfloat16']),
+              own_bf16, err(gpu['int8'], cpu['int8']), own_int8,
+              int(clear.sum())), flush=True)
+
+
+def _two_stage_folder(workdir):
+    """16 synthetic JPEGs (phase 18's writer) and one 1920x1080 mp4v video
+    of 45 frames (phase 21's recipe) in one folder."""
+
+    import cv2
+    import numpy as np
+
+    folder = os.path.join(workdir, 'two_stage')
+    rng = np.random.RandomState(1)
+    _write_folder(folder, _synthetic_images(rng),
+                  ['img_{:02d}.jpg'.format(i) for i in range(16)])
+    base = _large_image(rng, 1080, 1920)
+    out = cv2.VideoWriter(os.path.join(folder, 'clip.mp4'),
+                          cv2.VideoWriter_fourcc(*'mp4v'), 30.0,
+                          (1920, 1080))
+    if not out.isOpened():
+        raise AssertionError('cv2.VideoWriter cannot write mp4v')
+    for i in range(45):
+        out.write(np.ascontiguousarray(np.roll(base, 24 * i,
+                                               axis=1)[..., ::-1]))
+    out.release()
+    return folder
+
+
+def _reference_classifications(data, folder, classifier, options):
+    """SpeciesClassifier.classify_batch on the crops of [data]'s qualifying
+    detections in input order (images, then the video's frames), in the
+    driver's batches; returns {id(det): top-k}."""
+
+    import numpy as np
+
+    from megadetector_tpu_torch.detection.run_md_and_classifier import \
+        _qualifying_detections
+    from megadetector_tpu_torch.models.classifier import extract_crop
+    from megadetector_tpu_torch.visualization import visualization_utils
+
+    out = {}
+    for videos in (False, True):
+        dets, crops = [], []
+        for im in data['images']:
+            if ('frame_rate' in im) != videos:
+                continue
+            qualifying = [d for _, d in _qualifying_detections(im, options)]
+            if not qualifying:
+                continue
+            if videos:
+                frames = dict(_decoded_frames(os.path.join(folder,
+                                                           im['file']), 1))
+                sources = [frames[d['frame_number']] for d in qualifying]
+            else:
+                image = np.asarray(visualization_utils.load_image(
+                    os.path.join(folder, im['file'])))
+                sources = [image] * len(qualifying)
+            by_frame = sorted(range(len(qualifying)), key=lambda i: (
+                qualifying[i].get('frame_number', 0), i))
+            for i in by_frame:
+                crop = extract_crop(sources[i], qualifying[i]['bbox'])
+                if crop.size:
+                    dets.append(qualifying[i])
+                    crops.append(classifier.preprocess_crop(crop))
+        size = options.classifier_batch_size
+        for start in range(0, len(crops), size):
+            probs = classifier.classify_batch(crops[start:start + size],
+                                              pad_to=size)
+            for det, p in zip(dets[start:start + size], probs):
+                out[id(det)] = classifier.top_k(
+                    p, k=options.top_k_classifications)
+    return out
+
+
+def phase_two_stage(device, workdir, float_path, card):
+    """
+    23. The species classifier and the two-stage path: the kernels at the
+    classifier's shapes (_classifier_kernels), SpeciesClassifier on the
+    card (_classifier_on_card), the card against the CPU
+    (_classifier_card_vs_cpu), then run_md_and_classifier over 16
+    synthetic JPEGs and a 1080p video (frame_sample 4) with phase 4's
+    yolov5l6 in bf16 at 1280 px and the classifier in bf16, then int8:
+    the classification threshold set so that 500-2000 crops are
+    classified, the JSON valid, every qualifying detection classified,
+    the results equal to classify_batch on the same crops, launches exact
+    (NMS once per selection program, the stem once per detection program,
+    bias + SiLU once per activated conv after l0 per detection program and
+    per classifier forward, the int8 conv 109 per int8 forward and its
+    calibration forward). Returns the (nms, conv, silu) launches of the
+    two-stage runs.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection import run_md_and_classifier
+    from megadetector_tpu_torch.detection.process_video import \
+        ProcessVideoOptions, process_videos
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import ValidateBatchResultsOptions, validate_batch_results
+    from megadetector_tpu_torch.utils import path_utils
+
+    start = time.time()
+    _classifier_kernels(device, card)
+    print('phase 23: kernels {:.1f} s'.format(time.time() - start),
+          flush=True)
+    path, metadata = _classifier_checkpoint(workdir)
+    t0 = time.time()
+    _classifier_on_card(device, path, card)
+    _classifier_card_vs_cpu(device, path, metadata, workdir, card)
+    print('phase 23: classifier {:.1f} s'.format(time.time() - t0),
+          flush=True)
+
+    folder = _two_stage_folder(workdir)
+    detector = load_detector(float_path, device=device, detector_options={
+        'dtype': 'bfloat16', 'pad_batches_to': 8})
+    # The threshold that leaves about 1,000 animal detections to classify
+    images = load_and_run_detector_batch(
+        detector, path_utils.find_images(folder), batch_size=8, quiet=True)
+    video_options = ProcessVideoOptions()
+    video_options.model_file = detector
+    video_options.input_video_file = folder
+    video_options.output_json_file = os.path.join(workdir, 'v23.json')
+    video_options.frame_sample = 4
+    videos = process_videos(video_options)['images']
+    confs = sorted((d['conf'] for im in images + videos
+                    for d in im['detections'] or [] if d['category'] == '1'),
+                   reverse=True)
+    if len(confs) < TWO_STAGE_CROPS:
+        raise AssertionError('phase 23: only {} animal detections'.format(
+            len(confs)))
+    threshold = confs[TWO_STAGE_CROPS - 1]
+
+    counted = {}
+    n_act = _n_activated_convs(detector.model) - 1
+    for label, clf_options in (('bfloat16', {'dtype': 'bfloat16'}),
+                               ('int8', {'quantize': 'int8'})):
+        options = run_md_and_classifier.MDAndClassifierOptions()
+        options.input_folder = folder
+        options.output_file = os.path.join(workdir,
+                                           'two_stage_{}.json'.format(label))
+        options.detector_model = detector
+        options.classifier_model = path
+        options.classifier_options = clf_options
+        options.classification_confidence_threshold = threshold
+        options.classifier_batch_size = CLASSIFIER_BATCH
+        options.frame_sample = 4
+        options.device = device
+        programs, selects = detector.programs_run, _select_calls(detector)
+        _reset_counts()
+        data = run_md_and_classifier.run_md_and_classifier(options)
+        nms, conv, _, stem, silu = _counts()
+        programs = detector.programs_run - programs
+        selects = _select_calls(detector) - selects
+
+        validation = ValidateBatchResultsOptions()
+        validation.raise_errors = True
+        validation.check_image_existence = False
+        validate_batch_results(options.output_file, options=validation)
+        reference = SpeciesClassifier(path, clf_options, device=device)
+        want = _reference_classifications(data, folder, reference, options)
+        n_img = n_vid = 0
+        for im in data['images']:
+            for det in im['detections'] or []:
+                if id(det) in want:
+                    if det.get('classifications') != want[id(det)]:
+                        raise AssertionError(
+                            'phase 23, {}: {} classified {}, classify_batch '
+                            'gives {}'.format(label, im['file'],
+                                              det.get('classifications'),
+                                              want[id(det)]))
+                    if 'frame_rate' in im:
+                        n_vid += 1
+                    else:
+                        n_img += 1
+                elif 'classifications' in det:
+                    raise AssertionError('phase 23, {}: a detection that '
+                                         'does not qualify was classified'
+                                         .format(label))
+        n = n_img + n_vid
+        if not TWO_STAGE_RANGE[0] <= n <= TWO_STAGE_RANGE[1] or n_vid == 0:
+            raise AssertionError('phase 23, {}: {} crops classified ({} from '
+                                 'the video)'.format(label, n, n_vid))
+        forwards = -(-n_img // CLASSIFIER_BATCH) - (-n_vid //
+                                                     CLASSIFIER_BATCH)
+        b2, e7 = efficientnet.forward_launches(
+            reference.config, label == 'int8', torch.bfloat16)
+        want_counts = (selects, b2 * (forwards + (label == 'int8')),
+                       programs, programs * n_act + forwards * e7)
+        if (nms, conv, stem, silu) != want_counts:
+            raise AssertionError(
+                'phase 23, {}: launches (nms, conv, stem, silu) {}, want {} '
+                '({} detection programs, {} selection programs, {} '
+                'classifier forwards)'.format(
+                    label, (nms, conv, stem, silu), want_counts, programs,
+                    selects, forwards))
+        counted[label] = (nms, conv, silu)
+        steps = options.step_seconds
+        print('phase 23 on {}: run_md_and_classifier, classifier {}: 16 '
+              'JPEGs and a 45-frame 1080p video (frame_sample 4), '
+              'classification threshold {:.4f}: {} crops classified ({} '
+              'from the video) in {} forwards of {}, equal to classify_batch '
+              'on the same crops; launches (nms, conv, stem, silu) {} as '
+              'they imply; seconds: detect {:.3f}, crop (the classifier '
+              'waiting) {:.3f}, classify {:.3f}, total {:.3f}; {:.1f} '
+              'crops/s over crop + classify'.format(
+                  card, label, threshold, n, n_vid, forwards,
+                  CLASSIFIER_BATCH, (nms, conv, stem, silu), steps['detect'],
+                  steps['crop'], steps['classify'], steps['total'],
+                  n / (steps['crop'] + steps['classify'])), flush=True)
+        del reference
+    del detector
+    torch.cuda.empty_cache()
+    return tuple(sum(c[i] for c in counted.values()) for i in range(3))
+
+
 def main():
     import numpy as np
     import torch
@@ -3337,6 +3911,16 @@ def main():
         record['launches'] += nms_launches
         silu_record['launches'] += silu_launches
         print('phase 22 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 23. the species classifier and the two-stage path
+        start = time.time()
+        nms_launches, conv_launches, silu_launches = phase_two_stage(
+            device, workdir, float_path, card)
+        record['launches'] += nms_launches
+        conv_record['launches'] += conv_launches
+        silu_record['launches'] += silu_launches
+        print('phase 23 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

@@ -10,7 +10,12 @@
 //                                * w[n, ky, kx, ci]        (int8 -> int32)
 //   requant 0: out = acc                                   (int32)
 //   requant 1: out = q(silu(acc * scale[n] + bias[n]))     (int8)
+//   requant 2: out = q(acc * scale[n] + bias[n])           (int8)
 //   q(y)   = clamp(rint(y / y_scale), -127, 127)
+// Requant 2 is the chain conv without its activation (chained_conv's
+// act=False: EfficientNet's project convs); it rounds exactly as requant
+// 1 does, an IEEE division by y_scale, and not as the experiments'
+// f32_nosilu, which multiplies by f32(1 / y_scale).
 //
 // Layouts: x NHWC int8, w [Cout, kh, kw, Cin] int8 (contiguous over Cin),
 // out NHWC. Cin must be a multiple of 4; any H, W, Cout, kernel size,
@@ -101,9 +106,16 @@
 namespace {
 
 // Epilogue kinds; kChain is the int8 chain's (int32 out when
-// requant == 0), the others the experiments' (ops/conv_int8.py
-// EXP_EPILOGUES holds the same codes)
-enum Epilogue { kChain = 0, kF32 = 1, kF32NoSilu = 2, kBf16 = 3, kHybrid = 4 };
+// requant == 0) and kChainLinear the chain's without SiLU, the others
+// the experiments' (ops/conv_int8.py EXP_EPILOGUES holds the same codes)
+enum Epilogue {
+  kChain = 0,
+  kF32 = 1,
+  kF32NoSilu = 2,
+  kBf16 = 3,
+  kHybrid = 4,
+  kChainLinear = 5
+};
 
 // Instance code bits (ops/conv_int8.py conv_tiling builds the code)
 enum Instance {
@@ -191,6 +203,8 @@ __device__ __forceinline__ int8_t epilogue_one(const ConvArgs& a, int acc,
                                                float scale, float bias) {
   if constexpr (kEpi == kChain) {
     return md_requant(md_silu(md_affine(acc, scale, bias)), a.y_scale);
+  } else if constexpr (kEpi == kChainLinear) {
+    return md_requant(md_affine(acc, scale, bias), a.y_scale);
   } else {
     return exp_epilogue<kEpi>(acc, scale, bias, a.inv_y);
   }
@@ -427,6 +441,10 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
         store_tile<-1>(a, tile, kBM, kBN, T::kPitch, m0, n0, m_total);
       }
       break;
+    case kChainLinear:
+      store_tile<kChainLinear>(a, tile, kBM, kBN, T::kPitch, m0, n0,
+                               m_total);
+      break;
     case kF32:
       store_tile<kF32>(a, tile, kBM, kBN, T::kPitch, m0, n0, m_total);
       break;
@@ -510,9 +528,11 @@ ConvArgs make_args(const int8_t* x, const int8_t* w, const float* scale,
 
 extern "C" {
 
-// [instance]: ops/conv_int8.py conv_tiling's code (Instance bits).
-// Launches on [stream]. Returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for an instance the data does not allow.
+// [requant]: 0 int32 out, 1 int8 through SiLU (kChain), 2 int8 without
+// it (kChainLinear). [instance]: ops/conv_int8.py conv_tiling's code
+// (Instance bits). Launches on [stream]. Returns cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue for an unknown requant or an
+// instance the data does not allow.
 int md_conv_int8(const int8_t* x, const int8_t* w, const float* scale,
                  const float* bias, void* out, int batch, int h, int w_,
                  int cin, int cout, int kh, int kw, int sh, int sw, int pt,
@@ -527,9 +547,11 @@ int md_conv_int8(const int8_t* x, const int8_t* w, const float* scale,
   a.pl = pl;
   a.ho = ho;
   a.wo = wo;
+  if (requant < 0 || requant > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   a.y_scale = y_scale;
-  a.requant = requant;
-  a.epilogue = kChain;
+  a.requant = requant != 0;
+  a.epilogue = requant == 2 ? kChainLinear : kChain;
   return launch_instance<false>(a, instance,
                                 static_cast<cudaStream_t>(stream));
 }

@@ -292,11 +292,7 @@ def _float_nchw(x, dtype=torch.float32):
 
     if not isinstance(x, QTensor):
         return x
-    if dtype == torch.bfloat16:
-        scale = torch.full((), x.scale, dtype=torch.bfloat16,
-                           device=x.q.device)
-        return (x.q.to(torch.bfloat16) * scale).permute(0, 3, 1, 2)
-    return q.qt_dequant(x).permute(0, 3, 1, 2)
+    return q.qt_dequant(x, dtype).permute(0, 3, 1, 2)
 
 
 def _cat(xs):

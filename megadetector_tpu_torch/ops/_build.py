@@ -40,7 +40,8 @@ _FUNCTIONS = {
     'md_greedy_nms': [_P, _P, _P, _P, _I, _I, ctypes.c_double, _F, _F, _I,
                       _P],
     # x, w, scale, bias, out, batch, h, w, cin, cout, kh, kw, sh, sw,
-    # pad_top, pad_left, ho, wo, y_scale, requant, instance, stream
+    # pad_top, pad_left, ho, wo, y_scale, requant (0 int32, 1 SiLU, 2
+    # linear), instance, stream
     'md_conv_int8': [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _I, _P],
     # x, w1, scale1, bias1, mid_scale, w2, scale2, bias2, cv2_scale,
     # s_in, out_scale, shortcut, out, batch, h, w, c, instance, stream

@@ -8,7 +8,8 @@ and 3x3 stride 2: the XLA branch of quantization.chained_conv), so on a
 card no chain conv runs outside a hand-written kernel. The kernel is an
 implicit GEMM on the int8 tensor cores (wgmma, fed by a cp.async ring in
 shared memory) with the chain epilogue (*scale + bias, SiLU, requant to
-int8) fused; see the source note for what bounds it. conv_tiling picks its
+int8; or without the SiLU, chained_conv's act=False) fused; see the source
+note for what bounds it. conv_tiling picks its
 instance (tile and copy width) for each call.
 
 Layouts: activations NHWC int8; weights [Cout, kh, kw, Cin] int8
@@ -126,12 +127,14 @@ def multiply_to_int8(y, inv_scale):
                        127).to(torch.int8)
 
 
-def chain_epilogue_reference(acc, scale, bias, y_scale):
+def chain_epilogue_reference(acc, scale, bias, y_scale, act=True):
     """int32 accumulators [..., Cout] -> int8: acc * scale + bias, then
-    SiLU as y * sigmoid(y), then round_to_int8 at y_scale."""
+    (with [act]) SiLU as y * sigmoid(y), then round_to_int8 at y_scale."""
 
     y = acc.to(torch.float32) * scale + bias
-    return round_to_int8(y * torch.sigmoid(y), y_scale)
+    if act:
+        y = y * torch.sigmoid(y)
+    return round_to_int8(y, y_scale)
 
 
 def conv_int32_reference(x_q, w, stride, pads):
@@ -153,13 +156,14 @@ def conv_int32_reference(x_q, w, stride, pads):
     return acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
-def conv_int8_reference(x_q, w, scale, bias, stride, pads, y_scale=None):
+def conv_int8_reference(x_q, w, scale, bias, stride, pads, y_scale=None,
+                        act=True):
     """Plain version of conv_int8 (same arguments)."""
 
     acc = conv_int32_reference(x_q, w, stride, pads)
     if y_scale is None:
         return acc
-    return chain_epilogue_reference(acc, scale, bias, y_scale)
+    return chain_epilogue_reference(acc, scale, bias, y_scale, act)
 
 
 def requant_input_reference(x_q, in_ratio):
@@ -247,9 +251,9 @@ def _check_cuda(x_q, w, scale, bias, y_scale):
         raise ValueError('conv_int8: x and w must be 4-byte aligned')
 
 
-def conv_int8(x_q, w, scale, bias, stride, pads, y_scale=None):
+def conv_int8(x_q, w, scale, bias, stride, pads, y_scale=None, act=True):
     """
-    int8 conv with the chain epilogue (every chain conv has SiLU).
+    int8 conv with the chain epilogue.
 
     Args:
         x_q: [B, H, W, Cin] int8 (Cin a multiple of 4 on the card)
@@ -259,6 +263,8 @@ def conv_int8(x_q, w, scale, bias, stride, pads, y_scale=None):
         stride: (sh, sw); pads: (top, bottom, left, right)
         y_scale: the output grid (Python float); None returns the int32
             accumulators
+        act: SiLU before the requant (False: the kernel's kChainLinear
+            epilogue, acc * scale + bias requantized as it is)
 
     Returns:
         [B, Ho, Wo, Cout] int8 at y_scale, or int32 when y_scale is None
@@ -271,7 +277,7 @@ def conv_int8(x_q, w, scale, bias, stride, pads, y_scale=None):
 
     if x_q.device.type == 'cpu' and w.device.type == 'cpu':
         return conv_int8_reference(x_q, w, scale, bias, stride, pads,
-                                   y_scale)
+                                   y_scale, act)
     if x_q.device.type != 'cuda':
         raise ValueError('conv_int8: x on {}; need the CPU or a CUDA device'
                          .format(x_q.device))
@@ -287,16 +293,17 @@ def conv_int8(x_q, w, scale, bias, stride, pads, y_scale=None):
     if out.numel() == 0:
         return out
     if y_scale is None:
-        ys, sp, bp = 0.0, 0, 0
+        ys, sp, bp, requant = 0.0, 0, 0, 0
     else:
         ys, sp, bp = float(y_scale), scale.data_ptr(), bias.data_ptr()
+        requant = 1 if act else 2
 
     lib = _build.load_library()
     with torch.cuda.device(x_q.device):
         err = lib.md_conv_int8(
             x_q.data_ptr(), w.data_ptr(), sp, bp, out.data_ptr(), b, h, wd,
             cin, cout, kh, kw, int(stride[0]), int(stride[1]), int(pads[0]),
-            int(pads[2]), ho, wo, ys, int(y_scale is not None),
+            int(pads[2]), ho, wo, ys, requant,
             _tiling_for(x_q, w, b * ho * wo).code,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, 'md_conv_int8')

@@ -4,17 +4,20 @@ megadetector_tpu/ops/quantization.py, whose numpy parts are carried over
 here because that module imports jax).
 
 - Weights and policy: quantize_conv_weight (symmetric per-output-channel
-  int8), quantize_params_chain and the float-store layer lists.
+  int8), quantize_params_chain (YOLOv5's; EfficientNet's is in
+  models/efficientnet.py) and the float-store layer lists;
+  requalify_quantized.
 - QTensor (int8 NHWC data + a static Python-float scale) and its ops:
   qt_dequant, qt_quantize, qt_requant, qt_concat, qt_add, qt_maxpool,
   qt_upsample2x (float tensors take the plain torch ops; the model,
   models/yolov5.py, picks which).
-- chained_conv: int8 in, int8 out, on the conv kernel (ops/conv_int8);
-  fused_bottleneck: a whole CSP bottleneck on the bottleneck kernel
-  (ops/bottleneck_int8).
+- chained_conv: int8 in, int8 out, on the conv kernel (ops/conv_int8),
+  with or without SiLU (act); fused_bottleneck: a whole CSP bottleneck on
+  the bottleneck kernel (ops/bottleneck_int8).
 - Calibration: quantized_conv (float in and out at the dynamic abs-max
   input scale; the int8 conv runs the conv kernel in its int32 mode on a
-  card) and calibrate_chain_scales.
+  card) and calibrate_chain_scales, for YOLOv5 and EfficientNet (whose
+  residual sums get their own res_scale).
 
 Scale arithmetic happens in Python floats and becomes float32 where the
 JAX module makes it float32: w_scale * f32(x_scale) in chained_conv,
@@ -34,6 +37,7 @@ from megadetector_tpu_torch.device import get_device
 from megadetector_tpu_torch.ops import bottleneck_int8, conv_int8
 from megadetector_tpu_torch.ops.conv_int8 import (round_to_int8,
                                                   scalar_like)
+from megadetector_tpu_torch.ops.silu_bf16 import sigmoid_bf16_reference
 
 SCALE_KEYS = ('x_scale', 'y_scale', 'res_scale')
 
@@ -91,9 +95,17 @@ def quantize_params_chain(params, skip_names=('detect',),
 
 
 def requalify_quantized(params):
-    """Copy of a parameter tree with every static scale (x_scale, y_scale,
+    """
+    Copy of a parameter tree with every static scale (x_scale, y_scale,
     res_scale; 0-d arrays after a checkpoint round trip) as a Python
-    float."""
+    float. Every node is taken as it is, with or without scales: the JAX
+    module's version (ops/quantization.py:165) re-wraps only the nodes
+    that carry a y_scale, so an int8 checkpoint saved before calibration
+    loads there as plain dicts, and its scales become traced leaves that
+    crash the chain after auto-calibration. Here nothing depends on the
+    wrapping: the networks read the scales as Python floats wherever they
+    are.
+    """
 
     if isinstance(params, dict):
         return {k: float(np.asarray(v)) if k in SCALE_KEYS
@@ -115,10 +127,15 @@ class QTensor:
         self.scale = float(scale)
 
 
-def qt_dequant(x):
-    """QTensor -> float32 NHWC tensor."""
+def qt_dequant(x, dtype=torch.float32):
+    """QTensor -> float NHWC tensor in [dtype], as the JAX qt_dequant
+    computes it: q.astype(dtype) * dtype(scale), so in bf16 the scale and
+    the product are rounded to bf16."""
 
-    return x.q.to(torch.float32) * scalar_like(x.scale, x.q)
+    if dtype == torch.float32:
+        return x.q.to(torch.float32) * scalar_like(x.scale, x.q)
+    scale = torch.full((), x.scale, dtype=dtype, device=x.q.device)
+    return x.q.to(dtype) * scale
 
 
 def qt_quantize(x, scale):
@@ -194,11 +211,12 @@ def _pair(stride):
     return (stride, stride) if isinstance(stride, int) else tuple(stride)
 
 
-def chained_conv(x, w, w_scale, bias, x_scale, y_scale, stride, pads):
+def chained_conv(x, w, w_scale, bias, x_scale, y_scale, stride, pads,
+                 act=True):
     """
     int8-in / int8-out conv of the chain: int8 x int8 -> int32, then
-    acc * (w_scale * x_scale) + bias, SiLU, requant at y_scale, fused in
-    the conv kernel (the plain version on the CPU).
+    acc * (w_scale * x_scale) + bias, SiLU (unless not [act]), requant at
+    y_scale, fused in the conv kernel (the plain version on the CPU).
 
     Args:
         x: QTensor (consumed at its own scale) or float NHWC tensor (the
@@ -215,16 +233,19 @@ def chained_conv(x, w, w_scale, bias, x_scale, y_scale, stride, pads):
         x = qt_quantize(x, x_scale)
     scale = w_scale * float(np.float32(x.scale))
     y_q = conv_int8.conv_int8(x.q, w, scale, bias, _pair(stride), pads,
-                              y_scale)
+                              y_scale, act=act)
     return QTensor(y_q, y_scale)
 
 
-def quantized_conv(x, w, w_scale, bias, stride, pads, stats=None):
+def quantized_conv(x, w, w_scale, bias, stride, pads, stats=None,
+                   act=True, dtype=torch.float32):
     """
     int8 conv with float input and output, the calibration forward's: x
     (NHWC) is quantized at the dynamic abs-max scale max(|x|max, 1e-6) /
     127, the conv kernel runs in its int32 mode, and the float epilogue
-    acc * (w_scale * x_scale) + bias and SiLU follow in torch.
+    acc * (w_scale * x_scale) + bias follows in torch, cast to [dtype],
+    then SiLU in that dtype when [act] (in bf16 rounded at each op, as the
+    JAX module's accum_dtype path computes it).
 
     [stats], when a dict, records the input and output abs-max under 'in'
     and 'out' (the largest seen).
@@ -237,8 +258,10 @@ def quantized_conv(x, w, w_scale, bias, stride, pads, stats=None):
     x_q = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
     acc = conv_int8.conv_int8(x_q.contiguous(), w, None, None,
                               _pair(stride), pads, None)
-    y = acc.to(torch.float32) * (w_scale * xs) + bias
-    y = y * torch.sigmoid(y)
+    y = (acc.to(torch.float32) * (w_scale * xs) + bias).to(dtype)
+    if act:
+        y = y * (sigmoid_bf16_reference(y) if dtype == torch.bfloat16
+                 else torch.sigmoid(y))
     if stats is not None:
         stats['out'] = max(stats.get('out', 0.0), float(y.abs().max()))
     return y
@@ -265,24 +288,39 @@ def fused_bottleneck(x, w1, w1_scale, b1, mid_scale, w2, w2_scale, b2,
 #%% Calibration
 
 
+def _calibration_network(config, params_q):
+    """The port's network for [config] (YOLOv5 or EfficientNet) holding
+    [params_q], and the forward that calibration runs on it."""
+
+    from megadetector_tpu_torch.models import efficientnet, yolov5
+
+    if isinstance(config, efficientnet.EfficientNetConfig):
+        model = efficientnet.EfficientNet(config).load_params(params_q)
+        return model, model
+    model = yolov5.YoloV5(config).load_params(params_q)
+    return model, lambda x: model(x, decode=False)
+
+
 def calibrate_chain_scales(config, params_q, sample_images, headroom=1.0,
                            device=None):
     """
-    Calibrate the static x_scale/y_scale of every int8 conv node of
-    [params_q] (quantize_params_chain output, without scales) by running
-    the port's forward over [sample_images] ([N, H, W, 3] float in [0, 1])
-    with every int8 conv in quantized_conv, recording its input and output
-    abs-max. Sets x_scale = max(in * headroom, 1e-6) / 127 and y_scale
-    likewise from out, in place; returns params_q. [device] is as
-    get_device takes it: None means the card, 'cpu' the CPU.
+    Calibrate the static scales of every int8 conv node of [params_q]
+    (quantize_params_chain output, without scales; YOLOv5 or
+    EfficientNet, by [config]'s type) by running the port's float32
+    forward over [sample_images] ([N, H, W, 3] float, as the network
+    takes them) with every int8 conv in quantized_conv, recording its
+    input and output abs-max and, for an EfficientNet project conv under a
+    residual, the float sum's abs-max ('res'). Sets x_scale =
+    max(in * headroom, 1e-6) / 127, y_scale and res_scale likewise, in
+    place; returns params_q. [device] is as get_device takes it: None
+    means the card, 'cpu' the CPU.
     """
 
-    from megadetector_tpu_torch.models.yolov5 import QConv, YoloV5
-
     device = get_device(device)
-    model = YoloV5(config).load_params(params_q).eval().to(device)
+    model, forward = _calibration_network(config, params_q)
+    model = model.eval().to(device)
     qconvs = [(name, m) for name, m in model.named_modules()
-              if isinstance(m, QConv)]
+              if hasattr(m, 'stats') and hasattr(m, 'y_scale')]
     if not qconvs:
         raise ValueError('Calibration matched no quantized convs')
     for _, m in qconvs:
@@ -292,13 +330,16 @@ def calibrate_chain_scales(config, params_q, sample_images, headroom=1.0,
         m.stats = {'in': 0.0, 'out': 0.0}
     x = torch.from_numpy(np.asarray(sample_images, np.float32))
     with torch.inference_mode():
-        model(x.to(device), decode=False)
+        forward(x.to(device))
 
     for name, m in qconvs:
         node = params_q
         # module names are 'layers.<pytree path>'
         for key in name.split('.')[1:]:
             node = node[key]
-        node['x_scale'] = float(max(m.stats['in'] * headroom, 1e-6) / 127.0)
-        node['y_scale'] = float(max(m.stats['out'] * headroom, 1e-6) / 127.0)
+        for key, stat in (('x_scale', 'in'), ('y_scale', 'out'),
+                          ('res_scale', 'res')):
+            if stat in m.stats:
+                node[key] = float(max(m.stats[stat] * headroom, 1e-6) /
+                                  127.0)
     return params_q

@@ -952,3 +952,119 @@ def test_process_videos_on_card_matches_cpu(cuda_device, entry_point_inputs,
                 d for d in by_file['v.mp4']['detections']
                 if d['frame_number'] == n]} for n in (0, 3, 6, 9)]})
     _assert_close_json(frames[0], frames[1], 4)
+
+
+#%% The species classifier (EfficientNetV2)
+
+
+@pytest.mark.parametrize('b,h,cin,cout,k,s', [
+    (4, 30, 960, 176, 1, 1), (2, 15, 1824, 304, 1, 1),
+    (3, 60, 320, 80, 1, 1), (2, 48, 24, 96, 3, 2), (2, 24, 48, 192, 3, 1)])
+@pytest.mark.parametrize('act', [True, False])
+def test_chain_conv_with_and_without_silu_identical_to_plain(
+        cuda_device, b, h, cin, cout, k, s, act):
+    """The int8 conv kernel's chain epilogues at EfficientNetV2 shapes:
+    Cout off the tile's multiples (176, 304, 80), Cin = 24 on the 4-byte
+    copies; without SiLU (kChainLinear) as the plain act=False."""
+
+    rng = np.random.RandomState(cin + cout)
+    x = torch.from_numpy(rng.randint(-127, 128, (b, h, h, cin)).astype(
+        np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (cout, k, k, cin)).astype(
+        np.int8))
+    scale = torch.from_numpy((rng.uniform(0.5, 1.5, cout) / (
+        np.sqrt(cin * k * k) * 127.0 * 127.0 / 3.0)).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-0.5, 0.5, cout).astype(np.float32))
+    pads = (k // 2,) * 4
+    ref = conv_int8.conv_int8_reference(x, w, scale, bias, (s, s), pads,
+                                        4.0 / 127, act)
+    before = conv_int8.launches
+    got = conv_int8.conv_int8(x.to(cuda_device), w.to(cuda_device),
+                              scale.to(cuda_device), bias.to(cuda_device),
+                              (s, s), pads, 4.0 / 127, act=act)
+    torch.cuda.synchronize()
+    assert conv_int8.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+    assert len(torch.unique(ref)) > 100
+
+
+def _classifier_checkpoint(tmp_path, quantize=False):
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.ops import quantization
+
+    config = efficientnet.EfficientNetConfig('efficientnetv2_s', 6)
+    params = efficientnet.init_params(config, seed=0)
+
+    def scaled(node):
+        return {k: scaled(v) if isinstance(v, dict) else
+                (v * np.float32(0.8) if v.ndim == 4 else v)
+                for k, v in node.items()}
+    params = scaled(params)
+    params['fc']['w'] = params['fc']['w'] * np.float32(64.0)
+    if quantize:
+        params = efficientnet.quantize_params_chain(params, config)
+        x = np.random.RandomState(1).randint(0, 256, (4, 96, 96, 3)) / 255.0
+        quantization.calibrate_chain_scales(config, params, x,
+                                            device='cpu')
+    path = str(tmp_path / 'classifier.npz')
+    save_checkpoint(params, path, {'arch': 'efficientnetv2_s',
+                                   'num_classes': 6, 'image_size': 96})
+    return path
+
+
+@pytest.mark.parametrize('precision', ['float32', 'bf16', 'int8'])
+def test_classifier_on_card_matches_cpu(cuda_device, tmp_path, precision):
+    """SpeciesClassifier (efficientnetv2_s at 96 px) on the card: eager,
+    then replayed, identical; launches per forward as forward_launches
+    counts them; the card against the CPU: float32 within rtol 1e-4,
+    bf16 no further than the CPU's bf16 from its float32, int8 (the same
+    calibrated checkpoint) within the CPU's int8-vs-float32 error."""
+
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+
+    options = {'float32': {}, 'bf16': {'dtype': 'bfloat16'},
+               'int8': {'quantize': 'int8'}}[precision]
+    path = _classifier_checkpoint(tmp_path, precision == 'int8')
+    crops = list(np.random.RandomState(2).randint(0, 256, (4, 96, 96, 3),
+                                                  dtype=np.uint8))
+    card = SpeciesClassifier(path, options, device=cuda_device)
+    want = efficientnet.forward_launches(card.config, precision == 'int8',
+                                         card.compute_dtype)
+    out = []
+    for _ in range(3):
+        before = (conv_int8.launches, silu_bf16.launches)
+        out.append(card.classify_batch(crops))
+        torch.cuda.synchronize()
+        assert (conv_int8.launches - before[0],
+                silu_bf16.launches - before[1]) == want
+    assert card._programs.replays == 2
+    assert np.array_equal(out[0], out[1]) and np.array_equal(out[1], out[2])
+    cpu = SpeciesClassifier(path, options, device='cpu').classify_batch(
+        crops)
+    if precision == 'float32':
+        np.testing.assert_allclose(out[0], cpu, rtol=1e-4, atol=1e-6)
+    else:
+        f32 = SpeciesClassifier(path, device='cpu').classify_batch(crops)
+        assert np.abs(out[0] - cpu).max() <= np.abs(cpu - f32).max()
+
+
+def test_classifier_two_batches_in_flight_on_card(cuda_device, tmp_path):
+    """dispatch 1, dispatch 2, fetch 1, fetch 2 on the card (batch 2's
+    replay rewrites the graph's static output before batch 1 is fetched)
+    equals serial calls."""
+
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+
+    clf = SpeciesClassifier(_classifier_checkpoint(tmp_path),
+                            device=cuda_device)
+    rng = np.random.RandomState(3)
+    a = list(rng.randint(0, 256, (4, 96, 96, 3), dtype=np.uint8))
+    b = list(rng.randint(0, 256, (4, 96, 96, 3), dtype=np.uint8))
+    serial_a, serial_b = clf.classify_batch(a), clf.classify_batch(b)
+    h1 = clf.classify_batch_async(a)
+    h2 = clf.classify_batch_async(b)
+    np.testing.assert_array_equal(clf.fetch_batch(h1), serial_a)
+    np.testing.assert_array_equal(clf.fetch_batch(h2), serial_b)
+    assert clf._programs.replays >= 3
+    assert not np.array_equal(serial_a, serial_b)

@@ -5,9 +5,12 @@ modules that hold no jax: it keeps its own copies (ops/boxes,
 utils/ct_utils, utils/path_utils, models/registry,
 visualization/visualization_utils, postprocessing/validate_batch_results,
 the tiled and video drivers, the YOLOv8, RF-DETR and DETR networks and
-their converters and shims). PIL is imported only once a file is decoded
-or drawn on. cv2 is not checked: ops/boxes.py imports it whenever it is
-installed and falls back to numpy where it is not.
+their converters and shims, the classifier, its converter, the two-stage
+driver and the classification toolchain, the ensemble and the taxonomy
+graph, which imports networkx only to build a graph). PIL is imported
+only once a file is decoded or drawn on. cv2 is not checked: ops/boxes.py
+imports it whenever it is installed and falls back to numpy where it is
+not.
 """
 
 import json
@@ -36,7 +39,8 @@ print(json.dumps({'modules': names,
                   'jax_package': sorted(
                       m for m in sys.modules if m == 'megadetector_tpu' or
                       m.startswith('megadetector_tpu.')),
-                  'PIL': 'PIL' in sys.modules}))
+                  'PIL': 'PIL' in sys.modules,
+                  'networkx': 'networkx' in sys.modules}))
 """
 
 
@@ -88,11 +92,23 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.experiments.exp_conv3x3c',
                 'megadetector_tpu_torch.experiments.exp_conv3x3d',
                 'megadetector_tpu_torch.experiments.exp_int8_chain',
-                'megadetector_tpu_torch.experiments.exp_int8_matmul'}
+                'megadetector_tpu_torch.experiments.exp_int8_matmul',
+                'megadetector_tpu_torch.models.efficientnet',
+                'megadetector_tpu_torch.models.classifier',
+                'megadetector_tpu_torch.models.convert_speciesnet',
+                'megadetector_tpu_torch.postprocessing.'
+                'classification_ensemble',
+                'megadetector_tpu_torch.taxonomy_mapping.taxonomy_graph',
+                'megadetector_tpu_torch.detection.run_md_and_classifier',
+                'megadetector_tpu_torch.detection.run_md_and_speciesnet',
+                'megadetector_tpu_torch.classification.crop_detections',
+                'megadetector_tpu_torch.classification.run_classifier',
+                'megadetector_tpu_torch.classification.detect_and_crop'}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
     assert report['PIL'] is False
+    assert report['networkx'] is False
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
@@ -243,5 +259,80 @@ def test_other_families_and_shims_run_without_jax():
     # Boxes 1 and 2 overlap (IoU 0.6 > 0.45); the 0.1 box is below 0.25
     assert report['kept'] == 2
     assert report['rfdetr_type'] == 'rfdetr'
+    assert report['jax'] == []
+    assert report['jax_package'] == []
+
+
+_TWO_STAGE = """
+import json, os, sys, tempfile
+import numpy as np
+import cv2
+from PIL import Image
+sys.modules['networkx'] = None
+from megadetector_tpu_torch.detection import run_md_and_classifier
+from megadetector_tpu_torch.models import efficientnet, yolov5
+from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+from megadetector_tpu_torch.models.convert_weights import save_checkpoint
+tmp = tempfile.mkdtemp()
+folder = os.path.join(tmp, 'media')
+os.makedirs(folder)
+rng = np.random.RandomState(0)
+for i in range(2):
+    Image.fromarray(rng.randint(0, 256, (60, 80, 3), np.uint8)).save(
+        os.path.join(folder, 'im{}.jpg'.format(i)))
+out = cv2.VideoWriter(os.path.join(folder, 'v.mp4'),
+                      cv2.VideoWriter_fourcc(*'mp4v'), 8, (64, 48))
+for _ in range(6):
+    out.write(rng.randint(0, 256, (48, 64, 3), np.uint8))
+out.release()
+det = yolov5.YoloV5Config('yolov5n', num_classes=3)
+save_checkpoint(yolov5.init_params(det, seed=7), os.path.join(tmp, 'd.npz'),
+                {'arch': 'yolov5n', 'model_type': 'yolov5',
+                 'num_classes': 3, 'image_size': 64})
+cfg = efficientnet.EfficientNetConfig('efficientnetv2_test', 4)
+save_checkpoint(efficientnet.init_params(cfg, seed=3),
+                os.path.join(tmp, 'c.npz'),
+                {'arch': 'efficientnetv2_test', 'num_classes': 4,
+                 'image_size': 64})
+counts = {}
+for name, clf in (('float32', {}), ('bfloat16', {'dtype': 'bfloat16'}),
+                  ('int8', {'quantize': 'int8'})):
+    options = run_md_and_classifier.MDAndClassifierOptions()
+    options.input_folder = folder
+    options.output_file = os.path.join(tmp, name + '.json')
+    options.detector_model = os.path.join(tmp, 'd.npz')
+    options.classifier_model = os.path.join(tmp, 'c.npz')
+    options.classifier_options = clf
+    options.classification_confidence_threshold = 0.01
+    options.frame_sample = 2
+    options.device = 'cpu'
+    options.apply_ensemble = True
+    data = run_md_and_classifier.run_md_and_classifier(options)
+    counts[name] = sum('classifications' in d for im in data['images']
+                       for d in im['detections'] or [])
+print(json.dumps({'counts': counts,
+                  'jax': sorted(m for m in sys.modules
+                                if m == 'jax' or m.startswith('jax.')),
+                  'jax_package': sorted(
+                      m for m in sys.modules if m == 'megadetector_tpu' or
+                      m.startswith('megadetector_tpu.'))}))
+"""
+
+
+def test_classifier_and_two_stage_run_without_jax_or_networkx():
+    """The two-stage driver with the classifier in float32, bf16 and int8
+    (auto-calibrated), over images and a video, with the ensemble (no
+    taxonomy file), runs without importing jax, the JAX package or
+    networkx."""
+
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', _TWO_STAGE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sorted(report['counts']) == ['bfloat16', 'float32', 'int8']
+    assert all(n > 0 for n in report['counts'].values()), report['counts']
     assert report['jax'] == []
     assert report['jax_package'] == []
