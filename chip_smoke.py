@@ -169,6 +169,43 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      to classify_batch on the same crops, launches exact, seconds by step
      and crops/s. Its NMS, int8 conv and bias + SiLU launches join those
      kernels' records.
+ 24. the serving daemon: MDServer (port 0) with phase 4's yolov5l6 in
+     bf16, max_batch_size 8, batch_wait_ms 15, warmed by two batches of
+     8; 24 client threads post /v1/detect back to back for 15 s (every
+     third request at threshold 0.2) and one /v1/detect_batch of 8
+     follows: every response equal to
+     generate_detections_one_batch on the decoded image, filtered at its
+     threshold, the batch's order kept, /metrics adding up, launches
+     exact (programs padded to 8, NMS once a selection, stem and bias +
+     SiLU as in phase 10), every canvas's later programs replayed;
+     latency p50 / p90 / p99 over the window's requests, images/s over
+     the window, mean batch fill; client.detect_folder
+     writes a valid file;
+ 25. the bias + SiLU backward kernel (E7 bwd) against its plain version
+     at every distinct shape of phases 26 and 27's bf16 forwards and at
+     l1's [8,128,240,320]: dx bit-identical, db within one bf16 step; ms
+     of kernel, plain version and aten.silu_backward, the bound; at l1's
+     shape also the kernel without a bias (no db);
+ 26. detector training: yolov5l6 (nc 3, seed 0) at 1280x1280 on seeded
+     uint8 images with 1-8 boxes each, bf16 at batch 8 and float32 at
+     batch 8 (4 if 8 does not fit), 21 Adam steps (clip 5, lr 1e-5) on
+     one batch: losses finite, every later one below the first, the last
+     below half of it, E7 forward and backward once per activated conv a
+     bf16 step, nothing of ours in float32; step ms over 20 steps (mean,
+     median, range, sd), the optimizer's ms, images/s, peak memory; one
+     float32 loss and backward at 320 px,
+     batch 2, on the card against the CPU;
+ 27. classifier training: training/train_classifier.train() (its
+     defaults: efficientnetv2_s, 224 px, batch 64) on 3 x 64 JPEG crops,
+     one epoch in float32 and one in bf16: E7 launches per step as
+     forward_launches counts them (forward and backward), the checkpoint
+     loaded in SpeciesClassifier giving the trained module's logits, the
+     steady step ms over 20 steps and the optimizer's share; then
+     classification/train_classifier.main() for an
+     epoch with finetune off and on (on: only the fc changes).
+     Phase 24's NMS, stem and bias + SiLU launches and phases 26-27's bias
+     + SiLU forward launches join those kernels' records; the backward's
+     launches are its own record's.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -180,7 +217,8 @@ in phase 7 and bf16 after phase 13, each replayed and eager; each window
 runs the program twice and reads the second, and the port's kernels
 there must show exactly the launches their wrappers counted.
 Then one JSON line with every kernel's record (time, plain time, bound,
-library yardstick, launches on the main path), and last the device line.
+library yardstick, launches on the main path; E7's backward at l1's
+shape), and last the device line.
 """
 
 import json
@@ -3746,6 +3784,743 @@ def phase_two_stage(device, workdir, float_path, card):
     return tuple(sum(c[i] for c in counted.values()) for i in range(3))
 
 
+#%% 24-27: the serving daemon, E7's backward, detector and classifier
+#%% training
+
+SILU_BACKWARD_REPLACES = 'megadetector_tpu/models/yolov5.py:340'
+SERVING_CLIENTS = 24
+# Phase 24's clients post back to back for this many seconds
+SERVING_WINDOW_S = 15.0
+# Phase 26's detector (nc 3, seed 0) and canvas, and the canvas of its
+# card-vs-CPU step; phase 27's classification.train_classifier.main model
+DETECTOR_TRAIN_ARCH = 'yolov5l6'
+DETECTOR_TRAIN_SIZE = 1280
+DETECTOR_CHECK_SIZE = 320
+# Phase 26's Adam steps (the first builds; the rest are timed) and
+# learning rate. The yolov5l6 has random He weights and no BN: at lr 1e-3
+# (and 1e-4) Adam's first steps move every weight by about lr at once and
+# the loss rises by orders of magnitude before it falls; at 1e-5 it stays
+# below the first step's loss and falls. No later step's loss may reach
+# the first's, and the last must be below DETECTOR_LOSS_FALL of it
+DETECTOR_TRAIN_STEPS = 21
+DETECTOR_TRAIN_LR = 1e-5
+DETECTOR_LOSS_FALL = 0.5
+# Phase 27's steady-state classifier steps on one batch on the card
+CLASSIFIER_TIMED_STEPS = 21
+CLASSIFICATION_MODEL = 'efficientnetv2_s'
+CLASSIFICATION_SIZE = 224
+
+
+def _jpeg_bytes(img, quality=90):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format='JPEG', quality=quality)
+    return buf.getvalue()
+
+
+def _forward_calls(detector):
+    """{key: calls} of the forward programs (one per batch shape)."""
+
+    return {key: entry.calls for key, entry in
+            detector._programs.entries.items()
+            if key[0] == 'forward' and 'select' not in key}
+
+
+def phase_serving(device, workdir, float_path, card):
+    """
+    MDServer on port 0 with phase 4's yolov5l6 in bf16 (1280 px auto
+    canvases, max_batch_size 8, batch_wait_ms 15), warmed by two batches
+    of 8 (both canvases run eagerly, then are captured): 24 client
+    threads post /v1/detect back to back for SERVING_WINDOW_S seconds
+    (every third request at threshold 0.2), then one /v1/detect_batch of
+    8. Latency percentiles and images/s are over the window's requests.
+    Every response equals
+    generate_detections_one_batch on the decoded image, filtered at its
+    threshold; the batch keeps its order;
+    /metrics adds up; launches are exact for the forward programs run (one
+    padded program per canvas of a batch, NMS once a selection, stem and
+    epilogue once per program and activated conv after l0) and every
+    canvas's second and later programs replay. Then client.detect_folder
+    on 8 JPEGs writes a valid file. Returns the serving run's launches
+    (nms, conv, bottleneck, stem, silu).
+    """
+
+    import threading
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import validate_batch_results
+    from megadetector_tpu_torch.serving import MDServer, ServingOptions
+    from megadetector_tpu_torch.serving import client
+    from megadetector_tpu_torch.serving.server import (_decode_image,
+                                                       _filter_record)
+
+    images = _synthetic_images(np.random.RandomState(1))
+    jpegs = [_jpeg_bytes(im) for im in images]
+    options = ServingOptions()
+    options.port = 0
+    options.max_batch_size = 8
+    options.batch_wait_ms = 15.0
+    options.device = str(device)
+    options.detector_options = {'dtype': 'bfloat16'}
+    torch.cuda.reset_peak_memory_stats()
+    server = MDServer(float_path, options).start()
+    detector = server.detector
+    url = 'http://127.0.0.1:{}'.format(server.port)
+    try:
+        results = []
+        errors = []
+        lock = threading.Lock()
+        stop_at = [None]
+
+        def post_loop(i):
+            # One client: requests back to back until the window closes
+            k = 0
+            try:
+                while time.time() < stop_at[0]:
+                    j = (i + k * SERVING_CLIENTS) % len(jpegs)
+                    threshold = 0.2 if (i + k) % 3 == 0 else None
+                    image_id = 'client_{:02d}_{:04d}.jpg'.format(i, k)
+                    start = time.time()
+                    response = client.detect_image_bytes(
+                        url, jpegs[j], image_id=image_id,
+                        detection_threshold=threshold)
+                    latency = time.time() - start
+                    with lock:
+                        results.append((image_id, j, threshold, response,
+                                        latency))
+                    k += 1
+            except Exception as e:
+                errors.append(e)
+
+        replays_before = detector._programs.replays
+        warm = list(zip(['warm_{}.jpg'.format(i) for i in range(8)],
+                        jpegs[:8]))
+        for _ in range(2):
+            client.detect_images(url, warm)
+        metrics_before = client.server_metrics(url)
+        forwards_before = _forward_calls(detector)
+        programs, selects = detector.programs_run, _select_calls(detector)
+        _reset_counts()
+        start = time.time()
+        stop_at[0] = start + SERVING_WINDOW_S
+        threads = [threading.Thread(target=post_loop, args=(i,))
+                   for i in range(SERVING_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.time() - start
+        batch_ids = ['batch_{}.jpg'.format(i) for i in range(8)]
+        envelope = client.detect_images(
+            url, list(zip(batch_ids, jpegs[8:16])))
+        counts = _counts()
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError('serving: client errors {}'.format(errors))
+        programs = detector.programs_run - programs
+        selects = _select_calls(detector) - selects
+        forwards_after = _forward_calls(detector)
+        forwards = {}
+        for key, calls in forwards_after.items():
+            n = calls - forwards_before.get(key, 0)
+            if n:
+                forwards[key[1:4]] = forwards.get(key[1:4], 0) + n
+        if any(b != 8 for b, _, _ in forwards):
+            raise AssertionError('serving: programs not padded to 8: '
+                                 '{}'.format(forwards))
+        _check_launches('serving', detector, counts, programs, selects,
+                        forwards)
+        replays = detector._programs.replays - replays_before
+        want_replays = sum(max(calls - 1, 0) for calls in
+                           forwards_after.values())
+        if replays < want_replays or any(
+                detector._programs.entries[k].graph is None
+                for k, calls in forwards_after.items() if calls >= 2):
+            raise AssertionError(
+                'serving: {} replays; every canvas\'s second and later '
+                'forward programs must replay ({})'.format(replays,
+                                                           want_replays))
+        if [r['file'] for r in envelope['images']] != batch_ids:
+            raise AssertionError('serving: /v1/detect_batch order {}'.format(
+                [r['file'] for r in envelope['images']]))
+        metrics = client.server_metrics(url)
+        n_window = len(results)
+        n_images = n_window + 8
+        batches = metrics['batches_total'] - metrics_before['batches_total']
+        if (metrics['requests_total'] - metrics_before['requests_total'],
+                metrics['images_total'] - metrics_before['images_total'],
+                metrics['failures_total'], metrics['rejected_total']) != \
+                (n_window + 1, n_images, 0, 0) or \
+                abs(metrics['mean_batch_size'] - round(
+                    metrics['images_total'] / metrics['batches_total'],
+                    2)) > 1e-9 or \
+                not batches <= programs <= 2 * batches:
+            raise AssertionError('serving: metrics {} against {} programs '
+                                 'and {} images'.format(metrics, programs,
+                                                        n_images))
+
+        # Each response against the detector on the decoded image: the
+        # detector's record of each distinct JPEG, filtered at the
+        # request's threshold
+        refs = []
+        for start_i in range(0, len(jpegs), 8):
+            chunk = list(range(start_i, min(start_i + 8, len(jpegs))))
+            refs += detector.generate_detections_one_batch(
+                [_decode_image(jpegs[j]) for j in chunk],
+                ['ref_{}.jpg'.format(j) for j in chunk],
+                detection_threshold=options.detection_threshold)
+        served = [(image_id, j, threshold, got)
+                  for image_id, j, threshold, got, _ in results] + \
+            [(batch_ids[i], 8 + i, None, envelope['images'][i])
+             for i in range(8)]
+        for image_id, j, threshold, got in served:
+            ref = dict(refs[j], file=image_id)
+            ref = json.loads(json.dumps(_filter_record(
+                ref, threshold if threshold is not None else
+                options.detection_threshold)))
+            if got != ref:
+                raise AssertionError(
+                    'serving: {} differs from generate_detections_one_'
+                    'batch: {} against {}'.format(image_id, got, ref))
+        n_det = sum(len(r['detections']) for _, _, _, r in served)
+        lat = np.asarray([r[4] for r in results])
+        p50, p90, p99 = np.percentile(lat, [50, 90, 99])
+        print('serving on {}: {} clients posting back to back for {:.1f} s '
+              '({:.3f} s to the last response): {} requests of one image, '
+              'then a batch of 8; {} images, {} detections, {} batches, {} '
+              'device programs {} (every response equal to '
+              'generate_detections_one_batch, batch order kept, metrics add '
+              'up); client latency over the window\'s {} requests p50 '
+              '{:.4f} s, p90 {:.4f} s, p99 {:.4f} s, max {:.4f} s; {:.3f} '
+              'images/s over the window; mean batch fill {:.3f} of 8; {} '
+              'replays; {:.2f} GB peak allocated'.format(
+                  card, SERVING_CLIENTS, SERVING_WINDOW_S, wall, n_window,
+                  n_images, n_det, batches, programs,
+                  sorted(forwards.items()), n_window, p50, p90, p99,
+                  float(lat.max()), n_window / wall,
+                  n_images / (8 * batches), replays,
+                  torch.cuda.max_memory_allocated() / 1e9), flush=True)
+
+        # The client's folder run
+        folder = os.path.join(workdir, 'serving_folder')
+        os.makedirs(folder)
+        for i in range(8):
+            with open(os.path.join(folder, 'f{}.jpg'.format(i)), 'wb') as f:
+                f.write(jpegs[i])
+        out_file = os.path.join(workdir, 'serving_folder.json')
+        client.detect_folder(url, image_folder=folder, output_file=out_file,
+                             chunk_size=8, quiet=True)
+        with open(out_file) as f:
+            written = json.load(f)
+        files = [im['file'] for im in written['images']]
+        failed = [im for im in written['images']
+                  if im.get('detections') is None]
+        report = validate_batch_results(out_file)
+        if written['info']['format_version'] != '1.6' or \
+                files != sorted(files) or len(files) != 8 or failed or \
+                report['validation_results']['validation_errors']:
+            raise AssertionError('serving: detect_folder wrote {} ({} '
+                                 'failed; validation {})'.format(
+                                     files, len(failed), report[
+                                         'validation_results']))
+        print('serving: client.detect_folder wrote a valid MD file of 8 '
+              'images', flush=True)
+    finally:
+        server.shutdown()
+    del server, detector
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _training_silu_shapes():
+    """{[N, C, H, W]: launches per forward} of the bias + SiLU epilogue in
+    phase 26's bf16 yolov5l6 step (1280x1280, batch 8; l0 is a plain conv
+    on float input) and phase 27's efficientnetv2_s step (224 px, batch
+    64), plus l1's [8,128,240,320] at a 960x1280 canvas (the shape of
+    E7's record)."""
+
+    from megadetector_tpu_torch.models import efficientnet, yolov5
+
+    shapes = {(8, 128, 240, 320): 0}
+    for d in yolov5.activated_conv_shapes(
+            yolov5.YoloV5Config('yolov5l6', 3), 1280, 1280, 8):
+        key = (8, d['cout'], d['ho'], d['wo'])
+        shapes[key] = shapes.get(key, 0) + 1
+    for key in efficientnet.activated_conv_shapes(
+            efficientnet.EfficientNetConfig('efficientnetv2_s', 3, 224),
+            224, 64):
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def phase_silu_backward(device):
+    """E7's backward kernel against its plain version at every distinct
+    shape of phases 26 and 27's bf16 forwards (channels_last, as their
+    convs give them): dx identical, db within one bf16 step; ms of the
+    kernel, the plain version and aten.silu_backward (no bias, one
+    rounding) and the bound. Returns the record (at l1's shape)."""
+
+    import torch
+
+    from megadetector_tpu_torch.ops import silu_bf16
+
+    def step(v):
+        e = torch.floor(torch.log2(torch.clamp(v.abs().float(),
+                                               min=2.0 ** -126)))
+        return torch.pow(2.0, e - 7)
+
+    record = None
+    max_err = 0.0
+    per_step_ms = 0.0
+    for shape, per_forward in sorted(_training_silu_shapes().items()):
+        gen = torch.Generator().manual_seed(sum(shape))
+        x = (torch.randn(shape, generator=gen) * 3).to(torch.bfloat16).to(
+            device).contiguous(memory_format=torch.channels_last)
+        g = torch.randn(shape, generator=gen).to(torch.bfloat16).to(
+            device).contiguous(memory_format=torch.channels_last)
+        bias = (torch.rand(shape[1], generator=gen) * 2 - 1).to(
+            torch.bfloat16).to(device)
+        dx, db = silu_bf16.silu_bf16_backward(g, x, bias)
+        torch.cuda.synchronize()
+        ref_dx, ref_db = silu_bf16.silu_bf16_backward_reference(g, x, bias)
+        if not torch.equal(dx.view(torch.int16), ref_dx.view(torch.int16)):
+            raise AssertionError(
+                'E7 backward: dx differs from the plain version at {} ({} '
+                'elements)'.format(shape, int((dx != ref_dx).sum())))
+        d = (db.float() - ref_db.float()).abs()
+        if not bool((d <= step(ref_db)).all()):
+            raise AssertionError(
+                'E7 backward: db beyond one bf16 step of the plain version '
+                'at {}: max |d| {:.3e}'.format(shape, float(d.max())))
+        n_db = int((d > 0).sum())
+        max_err = max(max_err, float(d.max()))
+        ms = _time_ms(lambda: silu_bf16.silu_bf16_backward(g, x, bias),
+                      reps=10)
+        plain_ms = _time_ms(
+            lambda: silu_bf16.silu_bf16_backward_reference(g, x, bias),
+            reps=2, warmup=1)
+        y = x + bias.view(1, -1, 1, 1)
+        lib_ms = _time_ms(lambda: torch.ops.aten.silu_backward(g, y),
+                          reps=10)
+        n = x.numel()
+        bound = _bound(6 * n + 4 * shape[1], 15 * n, F32_OPS_PER_MS)
+        per_step_ms += per_forward * ms
+        print('E7 backward == plain (dx bit-identical, db within one bf16 '
+              'step: {} of {} channels differ) at {} (x{} a step): kernel '
+              '{:.4f} ms, plain {:.4f} ms, aten.silu_backward {:.4f} ms, '
+              'bound {:.4f} ms ({}, {:.0%} of it)'.format(
+                  n_db, shape[1], list(shape), per_forward, ms, plain_ms,
+                  lib_ms, bound[0], bound[1], bound[0] / ms), flush=True)
+        if shape == (8, 128, 240, 320):
+            # The same kernel without a bias takes the no-db path (no
+            # shared-memory atomics): what the db sums cost at this shape
+            nb_dx, _ = silu_bf16.silu_bf16_backward(g, x, None)
+            torch.cuda.synchronize()
+            nb_ref, _ = silu_bf16.silu_bf16_backward_reference(g, x, None)
+            if not torch.equal(nb_dx.view(torch.int16),
+                               nb_ref.view(torch.int16)):
+                raise AssertionError('E7 backward without a bias: dx '
+                                     'differs from the plain version')
+            nb_ms = _time_ms(lambda: silu_bf16.silu_bf16_backward(g, x),
+                             reps=10)
+            nb_bound = _bound(6 * n, 14 * n, F32_OPS_PER_MS)
+            print('E7 backward == plain without a bias (dx bit-identical; '
+                  'no db, so no shared-memory atomics) at {}: kernel {:.4f} '
+                  'ms against {:.4f} ms with the bias; bound {:.4f} ms '
+                  '({:.0%} of it)'.format(list(shape), nb_ms, ms,
+                                          nb_bound[0], nb_bound[0] / nb_ms),
+                  flush=True)
+            del nb_dx, nb_ref
+            record = {'name': 'silu_bf16_backward', 'route': 'cuda',
+                      'source': SILU_SOURCE,
+                      'replaces': SILU_BACKWARD_REPLACES, 'launches': None,
+                      'max_abs_err': None, 'ms': ms, 'plain_ms': plain_ms,
+                      'bound_ms': bound[0], 'bound_by': bound[1],
+                      'library_ms': lib_ms}
+        del x, g, bias, dx, db, ref_dx, ref_db, y
+        torch.cuda.empty_cache()
+    record['max_abs_err'] = max_err
+    print('E7 backward: {:.3f} ms of kernel time per training step of the '
+          'two models together (each shape x its launches per forward)'
+          .format(per_step_ms), flush=True)
+    return record
+
+
+def _detector_targets(rng, batch):
+    import numpy as np
+
+    from megadetector_tpu_torch.training.train_detector import pad_targets
+
+    boxes, classes = [], []
+    for _ in range(batch):
+        n = rng.randint(1, 9)
+        xy = rng.uniform(0.15, 0.85, (n, 2))
+        wh = rng.uniform(0.03, 0.3, (n, 2))
+        boxes.append(np.concatenate([xy, wh], axis=1).astype(np.float32))
+        classes.append(rng.randint(0, 3, n))
+    return pad_targets(boxes, classes, max_targets=8)
+
+
+def _step_spread(step_ms):
+    """'mean M ms (median, min-max, sd) over N steps' of the timed steps
+    (the first, which builds, is left out)."""
+
+    import numpy as np
+
+    t = np.asarray(step_ms[1:])
+    return float(t.mean()), ('{:.1f} ms a step (median {:.1f}, {:.1f}-{:.1f}, '
+                             'sd {:.1f}) over {} steps after the first '
+                             '({:.1f} ms)'.format(
+                                 t.mean(), np.median(t), t.min(), t.max(),
+                                 t.std(), len(t), step_ms[0]))
+
+
+def _timed_optimizer(opt):
+    """Wrap opt.step with CUDA events; returns the list its device ms go
+    into (read after a synchronize)."""
+
+    import torch
+
+    pairs = []
+    inner = opt.step
+
+    def step():
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        inner()
+        end.record()
+        pairs.append((begin, end))
+
+    opt.step = step
+    return pairs
+
+
+def _train_detector(device, params, dtype, batch,
+                    steps=DETECTOR_TRAIN_STEPS):
+    """[steps] Adam steps (clip 5, lr DETECTOR_TRAIN_LR) of yolov5l6 on
+    one repeated batch at 1280x1280; returns (losses, step ms, optimizer
+    ms, peak GB, launches, the activated convs)."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.models import yolov5
+    from megadetector_tpu_torch.ops import silu_bf16
+    from megadetector_tpu_torch.training import optim
+    from megadetector_tpu_torch.training import train_detector as td
+
+    config = yolov5.YoloV5Config(DETECTOR_TRAIN_ARCH, num_classes=3)
+    rng = np.random.RandomState(5)
+    side = DETECTOR_TRAIN_SIZE
+    images = rng.randint(0, 256, (batch, side, side, 3)).astype(np.uint8)
+    targets = _detector_targets(rng, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = yolov5.YoloV5(config).load_params(params).to(device)
+    opt = optim.Optimizer(model.parameters(), optim.chain(
+        optim.clip_by_global_norm(5.0), optim.adam(DETECTOR_TRAIN_LR)))
+    opt_events = _timed_optimizer(opt)
+    train_step = td.make_detector_train_step(config, model, opt, dtype)
+    _reset_counts()
+    silu_bf16.backward_launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        start = time.time()
+        metrics = train_step(images, *targets)
+        losses.append(float(metrics['loss']))
+        torch.cuda.synchronize()
+        times.append((time.time() - start) * 1e3)
+    launches = _counts() + (silu_bf16.backward_launches,)
+    opt_ms = [b.elapsed_time(e) for b, e in opt_events]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_act = _n_activated_convs(model)
+    del model, opt, train_step
+    torch.cuda.empty_cache()
+    return losses, times, opt_ms, peak, launches, n_act
+
+
+def phase_detector_training(device, params, card):
+    """
+    yolov5l6 (nc 3, seed 0) at 1280x1280: bf16 at batch 8, then float32
+    at batch 8 (4 if 8 does not fit), DETECTOR_TRAIN_STEPS Adam steps each
+    on one repeated batch of seeded uint8 images with 1-8 boxes each:
+    every loss finite, none above the first, the last below
+    DETECTOR_LOSS_FALL of the first; the step's spread and the
+    optimizer's share of it; bf16 launches E7 forward and backward once per
+    activated conv a step (l0 included: float input, no fused stem) and
+    nothing else of ours; float32 launches none. Then one float32 loss and
+    backward of yolov5l6 at 320 px, batch 2, on the card against the CPU.
+    Returns the E7 forward and backward launches.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.models import yolov5
+    from megadetector_tpu_torch.training import train_detector as td
+
+    out = {}
+    for name, dtype, batches in (('bf16', torch.bfloat16, (8,)),
+                                 ('float32', torch.float32, (8, 4))):
+        for batch in batches:
+            try:
+                out[name] = (batch,) + _train_detector(device, params, dtype,
+                                                       batch)
+                break
+            except torch.cuda.OutOfMemoryError:
+                print('detector training: float32 at batch {} does not fit '
+                      'in the card\'s memory'.format(batch), flush=True)
+                torch.cuda.empty_cache()
+        else:
+            raise AssertionError('detector training: {} fits no '
+                                 'batch'.format(name))
+        batch, losses, times, opt_ms, peak, launches, n_act = out[name]
+        # On one repeated batch the loss falls: no later step reaches the
+        # first step's loss, and the last is below DETECTOR_LOSS_FALL of it
+        if not all(np.isfinite(losses)) or max(losses[1:]) >= losses[0] or \
+                not losses[-1] < DETECTOR_LOSS_FALL * losses[0]:
+            raise AssertionError('detector training {}: losses {}'.format(
+                name, losses))
+        nms, conv, fused, stem, silu, backward = launches
+        steps = len(losses)
+        want = (0, 0, 0, 0, steps * n_act, steps * n_act) \
+            if name == 'bf16' else (0,) * 6
+        if launches != want:
+            raise AssertionError(
+                'detector training {}: launches (nms, conv, bottleneck, '
+                'stem, E7, E7 backward) {}, want {}'.format(name, launches,
+                                                              want))
+        ms, spread = _step_spread(times)
+        print('detector training {} on {}: {} {}x{} batch {}, lr {:g}, '
+              'losses {}; eager {}, {:.2f} images/s; the optimizer (clip '
+              'and Adam) {:.1f} ms of it (device time between events, mean '
+              'after the first); {:.2f} GB peak allocated; E7 {} and E7 '
+              'backward {} launches ({} a step each)'.format(
+                  name, card, DETECTOR_TRAIN_ARCH, DETECTOR_TRAIN_SIZE,
+                  DETECTOR_TRAIN_SIZE, batch, DETECTOR_TRAIN_LR,
+                  ['{:.4f}'.format(v) for v in losses], spread,
+                  batch * 1e3 / ms, float(np.mean(opt_ms[1:])), peak, silu,
+                  backward, silu // steps), flush=True)
+
+    # The card against the CPU: one float32 loss and backward at 320 px
+    config = yolov5.YoloV5Config(DETECTOR_TRAIN_ARCH, num_classes=3)
+    rng = np.random.RandomState(6)
+    side = DETECTOR_CHECK_SIZE
+    x = torch.from_numpy(rng.randint(0, 256, (2, side, side, 3)).astype(
+        np.float32) / 255.0)
+    targets = [torch.from_numpy(a) for a in _detector_targets(rng, 2)]
+
+    def loss_and_grads(dev):
+        model = yolov5.YoloV5(config).load_params(params).to(dev)
+        model.set_training(torch.float32)
+        loss, _ = td.detection_loss(
+            config, model, x.to(dev), targets[0].to(dev),
+            targets[1].long().to(dev), targets[2].to(dev))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().cpu()
+                             for n, p in model.named_parameters()}
+
+    card_loss, card_grads = loss_and_grads(device)
+    cpu_loss, cpu_grads = loss_and_grads('cpu')
+    errs = sorted(((float((card_grads[n] - g).abs().max()) /
+                    max(float(g.abs().max()), 1e-30), n)
+                   for n, g in cpu_grads.items()), reverse=True)
+    if abs(card_loss - cpu_loss) > 1e-3 * abs(cpu_loss) or errs[0][0] > 1e-2:
+        raise AssertionError(
+            'detector training, card vs CPU: loss {} against {}; largest '
+            'gradient errors (max |d| / max |ref|) {}'.format(
+                card_loss, cpu_loss, errs[:3]))
+    print('detector training, card vs CPU (float32, {} px, batch 2): loss '
+          '{:.6f} against {:.6f}; gradient max |d| / max |ref| per tensor: '
+          'largest {}, median {:.2e}'.format(
+              DETECTOR_CHECK_SIZE, card_loss, cpu_loss,
+              ['{} {:.2e}'.format(n, e) for e, n in errs[:3]],
+              errs[len(errs) // 2][0]), flush=True)
+    return out['bf16'][5][4], out['bf16'][5][5]
+
+
+def _crop_folder(root, rng, n=64):
+    import numpy as np
+    from PIL import Image
+
+    for cls, base in (('bear', 50), ('deer', 120), ('fox', 190)):
+        folder = os.path.join(root, cls)
+        os.makedirs(folder)
+        for i in range(n):
+            h, w = rng.randint(96, 257, 2)
+            arr = np.clip(base + rng.randint(-40, 40, (h, w, 3)), 0,
+                          255).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(
+                folder, '{}_{:03d}.jpg'.format(cls, i)), quality=90)
+
+
+def _classification_dataset(root, crops_dir):
+    """classification_ds.csv, label_index.json and splits.json over the
+    crop folder: locations loc0-loc2 train, loc3 validates."""
+
+    rows = []
+    for cls in sorted(os.listdir(crops_dir)):
+        for i, fn in enumerate(sorted(os.listdir(os.path.join(crops_dir,
+                                                              cls)))):
+            rows.append([cls + '/' + fn, 'ds', 'loc{}'.format(i % 4), cls,
+                         '0.9', cls])
+    os.makedirs(root)
+    with open(os.path.join(root, 'classification_ds.csv'), 'w') as f:
+        f.write('path,dataset,location,dataset_class,confidence,label\n')
+        for r in rows:
+            f.write(','.join(r) + '\n')
+    with open(os.path.join(root, 'label_index.json'), 'w') as f:
+        json.dump({'0': 'bear', '1': 'deer', '2': 'fox'}, f)
+    with open(os.path.join(root, 'splits.json'), 'w') as f:
+        json.dump({'train': [['ds', 'loc0'], ['ds', 'loc1'], ['ds', 'loc2']],
+                   'val': [['ds', 'loc3']], 'test': []}, f)
+    return len(rows)
+
+
+def phase_classifier_training(device, workdir, card):
+    """
+    training/train_classifier.train() on a crop folder it writes (3
+    classes x 64 JPEGs) with the trainer's defaults (efficientnetv2_s,
+    224 px, batch 64), one epoch in float32 and one in bf16: E7 forward
+    and backward launches per bf16 step as forward_launches counts them
+    (none in float32); the checkpoint loads in the port's
+    SpeciesClassifier and its logits equal the trained module's. Then
+    classification/train_classifier.main() for one epoch on a dataset it
+    writes, with finetune off and on. Returns the E7 forward and backward
+    launches.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.classification import train_classifier \
+        as ctc
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+    from megadetector_tpu_torch.models.convert_weights import load_checkpoint
+    from megadetector_tpu_torch.ops import silu_bf16
+    from megadetector_tpu_torch.training import optim
+    from megadetector_tpu_torch.training import train_classifier as tc
+
+    rng = np.random.RandomState(8)
+    crops_dir = os.path.join(workdir, 'train_crops')
+    _crop_folder(crops_dir, rng)
+    e7 = [0, 0]
+    for dtype in ('float32', 'bf16'):
+        options = tc.TrainingOptions()
+        options.num_epochs = 1
+        options.log_every = 1
+        options.dtype = dtype
+        options.device = str(device)
+        ckpt = os.path.join(workdir, 'classifier_{}.npz'.format(dtype))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        silu_bf16.backward_launches = 0
+        start = time.time()
+        model, history = tc.train(crops_dir, ckpt, options)
+        torch.cuda.synchronize()
+        wall = time.time() - start
+        launches = _counts() + (silu_bf16.backward_launches,)
+        steps = len(history)
+        n = efficientnet.forward_launches(model.config, False,
+                                          tc.DTYPES[dtype])[1]
+        want = (0, 0, 0, 0, steps * n, steps * n)
+        if steps != 3 or launches != want or not all(
+                np.isfinite(h['loss']) for h in history):
+            raise AssertionError(
+                'classifier training {}: {} steps, history {}, launches '
+                '(nms, conv, bottleneck, stem, E7, E7 backward) {}, want {}'
+                .format(dtype, steps, history, launches, want))
+        e7[0] += launches[4]
+        e7[1] += launches[5]
+        clf = SpeciesClassifier(ckpt, device=device)
+        side = options.image_size
+        x = torch.from_numpy(rng.randint(0, 256, (4, side, side, 3)).astype(
+            np.float32) / 255.0).to(device)
+        with torch.inference_mode():
+            if not torch.equal(clf.model(x), model(x)):
+                raise AssertionError('classifier training {}: the '
+                                     'checkpoint\'s logits differ from the '
+                                     'trained module\'s'.format(dtype))
+        # Steady-state step ms: more steps of the trained module on one
+        # batch already on the card (after the checkpoint check; not on the
+        # main path's counts)
+        opt = optim.Optimizer(model.parameters(), optim.chain(
+            optim.clip_by_global_norm(1.0), optim.adamw(1e-3)))
+        step = tc.make_train_step(model.config, model, opt, 0.1,
+                                  tc.DTYPES[dtype])
+        images = torch.from_numpy(rng.randint(
+            0, 256, (options.batch_size, options.image_size,
+                     options.image_size, 3)).astype(np.uint8)).to(device)
+        labels = torch.from_numpy(rng.randint(0, 3, options.batch_size)).to(
+            device)
+        opt_events = _timed_optimizer(opt)
+        step_ms = []
+        for _ in range(CLASSIFIER_TIMED_STEPS):
+            start = time.time()
+            step(images, labels)
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - start) * 1e3)
+        ms, spread = _step_spread(step_ms)
+        opt_ms = float(np.mean([b.elapsed_time(e)
+                                for b, e in opt_events[1:]]))
+        print('classifier training {} on {}: {} {} px batch {}, 192 crops, '
+              '{} steps, losses {}; {:.2f} images/s over the epoch ({:.2f} '
+              's: cv2 decode, the first steps\' set-up), then eager {} on a '
+              'batch on the card ({:.1f} images/s; the optimizer (clip and '
+              'AdamW) {:.1f} ms of it); {:.2f} '
+              'GB peak allocated; E7 {} and E7 backward {} launches ({} a '
+              'step each); the checkpoint\'s logits equal the trained '
+              'module\'s'.format(
+                  dtype, card, options.arch, options.image_size,
+                  options.batch_size, steps,
+                  ['{:.4f}'.format(h['loss']) for h in history], 192 / wall,
+                  wall, spread, options.batch_size * 1e3 / ms, opt_ms,
+                  torch.cuda.max_memory_allocated() / 1e9, launches[4],
+                  launches[5], n), flush=True)
+        del model, clf, opt, step
+        torch.cuda.empty_cache()
+
+    ds_dir = os.path.join(workdir, 'classification_ds')
+    n_rows = _classification_dataset(ds_dir, crops_dir)
+    initial = efficientnet.init_params(
+        efficientnet.EfficientNetConfig(CLASSIFICATION_MODEL, 3),
+        train_init=True)
+    for finetune in (False, True):
+        logdir = os.path.join(workdir, 'ctc_{}'.format(finetune))
+        torch.cuda.reset_peak_memory_stats()
+        start = time.time()
+        best = ctc.main(ds_dir, crops_dir, model_name=CLASSIFICATION_MODEL,
+                        finetune=finetune, epochs=1,
+                        img_size=CLASSIFICATION_SIZE, logdir=logdir, seed=0,
+                        device=str(device))
+        torch.cuda.synchronize()
+        wall = time.time() - start
+        trained, _ = load_checkpoint(os.path.join(logdir, 'params.npz'))
+        changed = sorted(
+            '{}/{}'.format(k, leaf) for k in trained for leaf in (
+                trained[k] if 'w' in trained[k] else {})
+            if not np.array_equal(trained[k][leaf], initial[k][leaf]))
+        if best is None or (finetune and changed != ['fc/b', 'fc/w']):
+            raise AssertionError('classification main (finetune {}): best '
+                                 '{}, changed {}'.format(finetune, best,
+                                                         changed))
+        print('classification train_classifier.main (finetune {}) on {}: '
+              '{} crops, val acc_top1 {:.2f}, {:.2f} images/s over train + '
+              'val ({:.2f} s, PIL augmentation included), {:.2f} GB peak '
+              'allocated'.format(finetune, card, n_rows, best['acc_top1'],
+                                 n_rows / wall, wall,
+                                 torch.cuda.max_memory_allocated() / 1e9),
+              flush=True)
+    return e7
+
+
 def main():
     import numpy as np
     import torch
@@ -3923,6 +4698,34 @@ def main():
         print('phase 23 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
+        # 24. the serving daemon
+        start = time.time()
+        counts = phase_serving(device, workdir, float_path, card)
+        record['launches'] += counts[0]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        print('phase 24 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 25. E7's backward kernel vs plain
+        start = time.time()
+        backward_record = phase_silu_backward(device)
+        print('phase 25 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 26, 27. detector and classifier training
+        start = time.time()
+        silu_launches, backward_launches = phase_detector_training(
+            device, params, card)
+        print('phase 26 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+        start = time.time()
+        more = phase_classifier_training(device, workdir, card)
+        silu_record['launches'] += silu_launches + more[0]
+        backward_record['launches'] = backward_launches + more[1]
+        print('phase 27 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
     # 14. the experiments' kernels vs plain
     exp_records = phase_exp_kernels(device)
 
@@ -3932,7 +4735,8 @@ def main():
 
     print(card)
     print(json.dumps({'kernels': [record, conv_record, bottleneck_record,
-                                  stem_record, silu_record] +
+                                  stem_record, silu_record,
+                                  backward_record] +
                       [exp_records[label] for label in sorted(EXPERIMENTS)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -331,6 +331,10 @@ class TorchDetector:
         # n_candidates, each program's final outputs)
         self.host_reads = 0
         self.printed_image_size_warning = False
+        # The checkpoint's metadata and class names (the serving daemon's
+        # model info), as the JAX detector holds them
+        self.metadata = None
+        self.class_names = ['animal', 'person', 'vehicle']
         if self.preprocess_only:
             self.letterbox_stride = 64
             self.default_image_size = int(options.get('image_size', 1280))
@@ -370,6 +374,10 @@ class TorchDetector:
         self.letterbox_stride = int(self.config.max_stride)
         self.default_image_size = int(options.get(
             'image_size', metadata.get('image_size', 1280)))
+        self.metadata = metadata
+        self.class_names = metadata.get(
+            'class_names', ['animal', 'person', 'vehicle'][
+                :self.config.num_classes])
         if verbose:
             print('Loaded model in {:.2f}s'.format(time.time() - start))
         print('TorchDetector using device {}'.format(self.device))

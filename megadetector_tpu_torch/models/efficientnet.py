@@ -30,6 +30,13 @@ QTensor feeding a float conv is dequantized in bf16.
 
 fold_stem is a TPU lane trick and is not ported: a checkpoint with a
 width-folded stem is unfolded on load (unfold_stem, its exact inverse).
+
+Training (set_training): the float weights and the fc are nn.Parameters
+(requires_grad off for inference), kept in float32 as the master copy and
+cast to the training dtype inside each forward, so autograd carries the
+gradient through the cast as jax.grad does through the JAX apply's
+astype; in bf16 silu_bf16's backward is the E7 backward kernel on a card.
+export_params gives them back as a JAX-layout numpy pytree.
 """
 
 import math
@@ -483,6 +490,34 @@ def forward_launches(config, quantized, compute_dtype,
     return n_chain, n_silu
 
 
+def activated_conv_shapes(config, image_size, batch=1):
+    """
+    The output shapes [batch, C, H, W] of every float conv with SiLU of
+    [config]'s network on a [batch, image_size, image_size] input, in
+    forward order (the tensors the bf16 epilogue and its backward take in
+    a bf16 float forward), from a forward on the meta device (no weights,
+    no arithmetic).
+    """
+
+    params = init_params(config)
+    model = EfficientNet(config).load_params(params).to('meta')
+    shapes = []
+
+    def record(module, inputs, output):
+        shapes.append(tuple(output.shape))
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, FloatConv) and m.act]
+    try:
+        with torch.inference_mode():
+            model(torch.zeros((batch, image_size, image_size, 3),
+                              device='meta'))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return shapes
+
+
 #%% The network
 
 
@@ -505,10 +540,11 @@ class FloatConv(nn.Module):
     def __init__(self, node, stride=1, groups=1, act=True):
         super().__init__()
         w = np.asarray(node['w'], np.float32)
-        self.register_buffer('weight', torch.from_numpy(
-            np.ascontiguousarray(w.transpose(3, 2, 0, 1))))
-        self.register_buffer('bias', torch.from_numpy(
-            np.asarray(node['b'], np.float32).copy()))
+        self.weight = nn.Parameter(torch.from_numpy(
+            np.ascontiguousarray(w.transpose(3, 2, 0, 1))),
+            requires_grad=False)
+        self.bias = nn.Parameter(torch.from_numpy(
+            np.asarray(node['b'], np.float32).copy()), requires_grad=False)
         self.stride = stride
         self.padding = w.shape[0] // 2
         self.groups = groups
@@ -516,15 +552,16 @@ class FloatConv(nn.Module):
 
     def forward(self, x, dtype):
         x = _float_nchw(x, dtype)
+        # a no-op in inference (set_compute_dtype cast them); training
+        # casts the float32 parameters here
+        w, b = self.weight.to(dtype), self.bias.to(dtype)
         if dtype == torch.bfloat16:
             # The JAX rounding points: the conv rounds to bf16, + b rounds,
             # then the activation (silu_bf16 adds the bias itself)
-            y = F.conv2d(x, self.weight, None, self.stride, self.padding,
-                         1, self.groups)
-            return silu_bf16(y, self.bias) if self.act else y + \
-                self.bias.view(1, -1, 1, 1)
-        y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                     1, self.groups)
+            y = F.conv2d(x, w, None, self.stride, self.padding, 1,
+                         self.groups)
+            return silu_bf16(y, b) if self.act else y + b.view(1, -1, 1, 1)
+        y = F.conv2d(x, w, b, self.stride, self.padding, 1, self.groups)
         return y * torch.sigmoid(y) if self.act else y
 
 
@@ -681,9 +718,11 @@ class EfficientNet(nn.Module):
         super().__init__()
         self.config = config
         self.compute_dtype = torch.float32
+        # set_training's dtype; None: inference
+        self.train_dtype = None
         self.layers = nn.ModuleDict()
-        self.register_buffer('fc_w', None)
-        self.register_buffer('fc_b', None)
+        self.register_parameter('fc_w', None)
+        self.register_parameter('fc_b', None)
 
     def load_params(self, params_np):
         """Build the conv nodes from [params_np] (a folded stem is
@@ -700,10 +739,12 @@ class EfficientNet(nn.Module):
             self.layers[stage][blk] = Block(params_np[stage][blk], kind,
                                             expansion, s, residual)
         self.layers['head'] = _node(params_np['head'])
-        self.fc_w = torch.from_numpy(
-            np.asarray(params_np['fc']['w'], np.float32).copy())
-        self.fc_b = torch.from_numpy(
-            np.asarray(params_np['fc']['b'], np.float32).copy())
+        self.fc_w = nn.Parameter(torch.from_numpy(
+            np.asarray(params_np['fc']['w'], np.float32).copy()),
+            requires_grad=False)
+        self.fc_b = nn.Parameter(torch.from_numpy(
+            np.asarray(params_np['fc']['b'], np.float32).copy()),
+            requires_grad=False)
         return self
 
     def set_compute_dtype(self, dtype):
@@ -723,19 +764,57 @@ class EfficientNet(nn.Module):
         self.compute_dtype = dtype
         if dtype == torch.float32:
             return self
-        for m in self.modules():
-            if isinstance(m, FloatConv):
-                m.weight = m.weight.to(dtype)
-                m.bias = m.bias.to(dtype)
-        self.fc_w = self.fc_w.to(dtype)
-        self.fc_b = self.fc_b.to(dtype)
+        for p in self.parameters():
+            p.data = p.data.to(dtype)
         return self
+
+    def set_training(self, dtype):
+        """
+        Training mode in [dtype] (float32 or bf16), or back to inference
+        with None: the float parameters (convs and fc, float32: no
+        set_compute_dtype to bf16 before) require grad and are cast to
+        [dtype] in each forward. int8 nodes do not train. Returns self.
+        """
+
+        if dtype is not None and dtype not in COMPUTE_DTYPES:
+            raise ValueError('training dtype must be one of {} or None, got '
+                             '{}'.format(COMPUTE_DTYPES, dtype))
+        if self.compute_dtype != torch.float32:
+            raise ValueError('set_training needs the float32 weights; this '
+                             'model computes in {}'.format(self.compute_dtype))
+        if any(isinstance(m, ChainConv) for m in self.modules()):
+            raise ValueError('int8 convs do not train')
+        self.train_dtype = dtype
+        self.requires_grad_(dtype is not None)
+        return self
+
+    def export_params(self):
+        """The float parameters as a JAX-layout numpy pytree (HWIO conv
+        'w', 'b'; fc 'w' [head, classes], 'b'; float32)."""
+
+        def arr(t):
+            return t.detach().float().cpu().numpy().copy()
+
+        params = {}
+        for name, m in self.layers.named_modules():
+            if isinstance(m, ChainConv):
+                raise ValueError('{}: int8 convs are not exported'.format(
+                    name))
+            if not isinstance(m, FloatConv):
+                continue
+            node = params
+            for key in name.split('.'):
+                node = node.setdefault(key, {})
+            node['w'] = arr(m.weight.permute(2, 3, 1, 0))
+            node['b'] = arr(m.bias)
+        params['fc'] = {'w': arr(self.fc_w), 'b': arr(self.fc_b)}
+        return params
 
     def forward(self, x):
         """x: [B, H, W, 3] float images (normalized by the caller) ->
         [B, num_classes] float32 logits."""
 
-        dtype = self.compute_dtype
+        dtype = self.train_dtype or self.compute_dtype
         x = _nchw(x.to(dtype))
         x = self.layers['stem'](x, dtype)
         for stage, blk, *_ in blocks(self.config):
@@ -746,4 +825,5 @@ class EfficientNet(nn.Module):
         else:
             x = torch.mean(x, (2, 3), dtype=torch.float32).to(x.dtype)
         # bf16 operands multiply exactly into float32 sums
-        return x.float() @ self.fc_w.float() + self.fc_b.float()
+        return x.float() @ self.fc_w.to(dtype).float() + \
+            self.fc_b.to(dtype).float()

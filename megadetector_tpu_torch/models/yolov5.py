@@ -31,6 +31,15 @@ Float tensors stay NCHW and QTensors NHWC; concat, add, pool and upsample
 take either, and float convs (l0, the detect heads) dequantize QTensor
 inputs. Width/height folding and im2col exist only to fit the TPU and are
 not ported (folded checkpoints are unfolded on load).
+
+Training (set_training): the float32 weights stay nn.Parameters, the
+master copy, and each Conv casts its weight and bias to the training dtype
+inside its forward, so autograd carries the gradient through the cast to
+the float32 parameter, as jax.grad does through the JAX apply(dtype=
+bfloat16)'s astype. In bf16 silu_bf16 then records itself for autograd
+(its backward is the E7 backward kernel on a card). export_params is the
+inverse of load_params for float networks: the module's parameters as a
+JAX-layout numpy pytree (HWIO), ready for save_checkpoint.
 """
 
 import math
@@ -334,16 +343,21 @@ class Conv(nn.Module):
         self.stride = s
         self.padding = k // 2 if p is None else p
         self.act = act
+        # Training in bf16 (YoloV5.set_training): the float32 weight and
+        # bias are cast to this dtype in each forward; None: used as held
+        self.cast = None
 
     def forward(self, x):
-        x = _float_nchw(x, self.weight.dtype)
-        if self.weight.dtype == torch.bfloat16:
+        w, b = self.weight, self.bias
+        if self.cast is not None:
+            w, b = w.to(self.cast), b.to(self.cast)
+        x = _float_nchw(x, w.dtype)
+        if w.dtype == torch.bfloat16:
             # The JAX rounding points: the conv rounds to bf16, + b rounds,
             # then the activation (silu_bf16 adds the bias itself)
-            y = F.conv2d(x, self.weight, None, self.stride, self.padding)
-            return silu_bf16(y, self.bias) if self.act else y + \
-                self.bias.view(1, -1, 1, 1)
-        y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+            y = F.conv2d(x, w, None, self.stride, self.padding)
+            return silu_bf16(y, b) if self.act else y + b.view(1, -1, 1, 1)
+        y = F.conv2d(x, w, b, self.stride, self.padding)
         return F.silu(y) if self.act else y
 
 
@@ -557,10 +571,14 @@ class YoloV5(nn.Module):
         super().__init__()
         self.config = config
         self.compute_dtype = torch.float32
+        # set_training's dtype; None: inference
+        self.train_dtype = None
         # The fused stem's weights (set_compute_dtype); None: l0 runs as a
-        # plain conv
+        # plain conv. _stem_versions: l0's weight and bias versions they
+        # were made from
         self.register_buffer('stem_w', None, persistent=False)
         self.register_buffer('stem_b', None, persistent=False)
+        self._stem_versions = None
         self.layers = nn.ModuleDict()
         for i, e in enumerate(config.layers):
             name = 'l{}'.format(i)
@@ -612,17 +630,73 @@ class YoloV5(nn.Module):
             if type(m) is Conv:
                 m.weight.data = m.weight.data.to(dtype)
                 m.bias.data = m.bias.data.to(dtype)
+        if self.stem_w is not None:
+            self._stem_versions = (l0.weight._version, l0.bias._version)
         return self
+
+    def set_training(self, dtype):
+        """
+        Training mode in [dtype] (float32 or bf16), or back to inference
+        with None. Needs float32 weights (no set_compute_dtype to bf16: it
+        casts them in place) and no int8 convs. The float32 weights and
+        biases stay the parameters; in bf16 each Conv casts them in its
+        forward. Returns self.
+        """
+
+        if dtype is not None and dtype not in COMPUTE_DTYPES:
+            raise ValueError('training dtype must be one of {} or None, got '
+                             '{}'.format(COMPUTE_DTYPES, dtype))
+        if self.compute_dtype != torch.float32:
+            raise ValueError('set_training needs the float32 weights; this '
+                             'model computes in {}'.format(self.compute_dtype))
+        if any(type(m) is QConv for m in self.modules()):
+            raise ValueError('int8 convs do not train')
+        cast = dtype if dtype == torch.bfloat16 else None
+        for m in self.modules():
+            if type(m) is Conv:
+                m.cast = cast
+        self.train_dtype = dtype
+        return self
+
+    def export_params(self):
+        """The float parameters as a JAX-layout numpy pytree (HWIO 'w',
+        'b', float32), the inverse of load_params."""
+
+        params = {}
+        for name, m in self.named_modules():
+            if type(m) is QConv:
+                raise ValueError('{}: int8 convs are not exported'.format(
+                    name))
+            if type(m) is not Conv:
+                continue
+            node = params
+            for key in name.split('.')[1:]:
+                node = node.setdefault(key, {})
+            node['w'] = m.weight.detach().float().permute(
+                2, 3, 1, 0).cpu().numpy().copy()
+            node['b'] = m.bias.detach().float().cpu().numpy().copy()
+        return params
 
     def _input(self, x):
         """(l0's NCHW input in the compute dtype, None) for the NHWC
         batch, or (None, l0's output) when the fused stem takes the uint8
-        pixels."""
+        pixels. The fused stem refuses to run on weights made from an l0
+        whose parameters have changed since (an optimizer step, a
+        load_params): set_compute_dtype makes them, once."""
 
         if x.dtype == torch.uint8 and self.stem_w is not None:
+            l0 = self.layers['l0']
+            if self._stem_versions != (l0.weight._version,
+                                       l0.bias._version):
+                raise ValueError(
+                    'The fused stem\'s weights were made from l0\'s weights '
+                    'before they changed; load the trained weights into a '
+                    'new model (export_params, load_params, '
+                    'set_compute_dtype)')
             out = l0_fused.l0_fused(x.contiguous(), self.stem_w, self.stem_b)
             return None, out.permute(0, 3, 1, 2)
-        return network_input(x, self.compute_dtype).permute(0, 3, 1, 2), None
+        dtype = self.train_dtype or self.compute_dtype
+        return network_input(x, dtype).permute(0, 3, 1, 2), None
 
     def forward(self, x, decode=True):
         """

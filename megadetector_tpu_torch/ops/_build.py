@@ -51,6 +51,9 @@ _FUNCTIONS = {
     'md_l0_fused': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, bias (or null), out, n, c, inner, stream
     'md_silu_bf16': [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    # g, x, bias (or null), dx, partials, db, n, c, inner, blocks, stream
+    'md_silu_bf16_backward': [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                              _I, _I, _P],
     # x, w, scale, bias, out, batch, h, w, cin, cout, requant_in, in_ratio,
     # inv_y, epilogue, instance, stream
     'md_conv3x3_int8_exp': [_P, _P, _P, _P, _P] + [_I] * 6 + [_F, _F, _I,

@@ -13,14 +13,37 @@ XLA on the CPU flushes a subnormal intermediate to zero (results below
 
 silu_bf16 takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises.
+
+The gradient: where x or the bias requires grad (and grad mode is on),
+silu_bf16 is a torch.autograd.Function that saves x and the bias and whose
+backward is silu_bf16_backward: the kernel md_silu_bf16_backward of the
+same source on a card (it recomputes y = x + b and the sigmoid rather than
+storing them), silu_bf16_backward_reference on the CPU. Both follow the
+bf16 VJP that JAX takes of y * sigmoid(y), y = x + b (read from
+jax.make_jaxpr of jax.vjp): logistic's JVP is s * (1 - s), and the
+product rule's two terms are g * s and (y * g) * (s * (1 - s)), added in
+that order, every op rounded to bf16. The bias gradient is that dx summed
+over N, H and W per channel in float32 and rounded once to bf16, then cast
+to the float32 parameter by autograd. (JAX's VJP sums in a bf16
+reduce_sum, which XLA on the CPU evaluates one element after another,
+rounding every addition; a parallel sum cannot follow that order, and
+rounding once is the more exact of the two: ROADMAP C, PR 14.)
 """
 
 import torch
 
 from megadetector_tpu_torch.ops import _build
 
-# Kernel launches made by silu_bf16 (the plain version never counts)
+# Kernel launches made by silu_bf16 and silu_bf16_backward (the plain
+# version never counts)
 launches = 0
+backward_launches = 0
+
+# The backward kernel's per-channel sums live in shared memory (float32),
+# up to 48 KB of it
+MAX_BACKWARD_CHANNELS = 12288
+# Blocks of the backward kernel's grid-stride loop, at most
+BACKWARD_BLOCKS = 528
 
 
 def _channel_view(bias, x):
@@ -54,6 +77,29 @@ def silu_bf16_reference(x, bias=None):
     return y * sigmoid_bf16_reference(y)
 
 
+def silu_bf16_backward_reference(g, x, bias=None):
+    """
+    Plain version of the backward of silu_bf16(x, bias) at the output
+    gradient [g] (bf16, x's shape): (dx, db), dx bf16 and db [C] bf16 (None
+    without a bias). The op sequence is JAX's VJP of y * sigmoid(y) in
+    bf16, every op rounded to bf16:
+
+        y = x + b, s = sigmoid(y), i = s * (1 - s),
+        dx = g * s + (y * g) * i
+
+    and db = bf16(sum over N, H, W of float32(dx)).
+    """
+
+    y = x if bias is None else x + _channel_view(bias, x)
+    s = sigmoid_bf16_reference(y)
+    i = s * (1 - s)
+    dx = g * s + (y * g) * i
+    if bias is None:
+        return dx, None
+    dims = (0,) + tuple(range(2, x.dim()))
+    return dx, dx.float().sum(dims).to(torch.bfloat16)
+
+
 def _is_dense(x):
     """True when x's elements fill one block of memory with no gaps or
     overlaps, in any order of its dimensions."""
@@ -81,6 +127,21 @@ def _layout(x):
     return None
 
 
+class _SiluBf16(torch.autograd.Function):
+    """silu_bf16 with its gradient: the forward saves x and the bias; the
+    backward is silu_bf16_backward."""
+
+    @staticmethod
+    def forward(ctx, x, bias):
+        ctx.save_for_backward(x, bias)
+        return _silu_bf16(x, bias, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bias = ctx.saved_tensors
+        return silu_bf16_backward(g, x, bias)
+
+
 def silu_bf16(x, bias=None, out=None):
     """
     bf16 SiLU, with the conv's bias added first (rounded to bf16) when
@@ -97,9 +158,53 @@ def silu_bf16(x, bias=None, out=None):
         the bf16 result (out when given)
 
     CPU tensors run the plain version. CUDA tensors run the kernel (built
-    at first use); anything else raises.
+    at first use); anything else raises. Where grad mode is on and x or
+    the bias requires grad, the call is recorded for autograd (the same
+    forward, no [out]) and its backward is silu_bf16_backward.
     """
 
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (bias is not None and bias.requires_grad)):
+        if out is not None:
+            raise ValueError('silu_bf16: out= cannot be differentiated')
+        return _SiluBf16.apply(x, bias)
+    return _silu_bf16(x, bias, out)
+
+
+def _check_bias(x, bias, name):
+    """(c, inner) of the kernel's channel map for [x] with [bias] (1, 1
+    without one); raises on a layout or bias the kernels do not take."""
+
+    if bias is None:
+        return 1, 1
+    layout = _layout(x)
+    if layout is None:
+        raise ValueError('{}: a bias needs a 4-d tensor, contiguous or '
+                         'channels_last; got shape {} strides {}'.format(
+                             name, tuple(x.shape), x.stride()))
+    c, inner = layout
+    if bias.dtype != torch.bfloat16 or tuple(bias.shape) != (c,) or \
+            bias.device != x.device or not bias.is_contiguous():
+        raise ValueError('{}: bias must be a contiguous [{}] bf16 tensor '
+                         'on {}'.format(name, c, x.device))
+    return c, inner
+
+
+def _check_cuda_input(x, name):
+    if x.device.type != 'cuda':
+        raise ValueError('{}: x on {}; need the CPU or a CUDA device'
+                         .format(name, x.device))
+    if x.dtype != torch.bfloat16:
+        raise ValueError('{}: need a bf16 tensor, got {}'.format(
+            name, x.dtype))
+    if not _is_dense(x):
+        raise ValueError('{}: x must be dense'.format(name))
+    if x.numel() >= 2 ** 31:
+        raise ValueError('{}: {} elements; the kernel takes fewer than '
+                         '2^31'.format(name, x.numel()))
+
+
+def _silu_bf16(x, bias, out):
     global launches
 
     if x.device.type == 'cpu':
@@ -107,29 +212,8 @@ def silu_bf16(x, bias=None, out=None):
         if out is None:
             return y
         return out.copy_(y)
-    if x.device.type != 'cuda':
-        raise ValueError('silu_bf16: x on {}; need the CPU or a CUDA device'
-                         .format(x.device))
-    if x.dtype != torch.bfloat16:
-        raise ValueError('silu_bf16: need a bf16 tensor, got {}'.format(
-            x.dtype))
-    if not _is_dense(x):
-        raise ValueError('silu_bf16: x must be dense')
-    if x.numel() >= 2 ** 31:
-        raise ValueError('silu_bf16: {} elements; the kernel takes fewer '
-                         'than 2^31'.format(x.numel()))
-    c, inner = 1, 1
-    if bias is not None:
-        layout = _layout(x)
-        if layout is None:
-            raise ValueError('silu_bf16: a bias needs a 4-d tensor, '
-                             'contiguous or channels_last; got shape {} '
-                             'strides {}'.format(tuple(x.shape), x.stride()))
-        c, inner = layout
-        if bias.dtype != torch.bfloat16 or tuple(bias.shape) != (c,) or \
-                bias.device != x.device or not bias.is_contiguous():
-            raise ValueError('silu_bf16: bias must be a contiguous [{}] bf16 '
-                             'tensor on {}'.format(c, x.device))
+    _check_cuda_input(x, 'silu_bf16')
+    c, inner = _check_bias(x, bias, 'silu_bf16')
     if out is None:
         out = torch.empty_like(x)
     elif out.dtype != x.dtype or out.shape != x.shape or \
@@ -148,3 +232,53 @@ def silu_bf16(x, bias=None, out=None):
     _build.check_launch(lib, err, 'md_silu_bf16')
     launches += 1
     return out
+
+
+def silu_bf16_backward(g, x, bias=None):
+    """
+    Backward of silu_bf16(x, bias): (dx, db) for the output gradient [g],
+    dx in x's shape and memory format, db [C] bf16 (None without a bias).
+
+    CPU tensors run silu_bf16_backward_reference. CUDA tensors run the
+    kernel md_silu_bf16_backward (one launch: dx and per-block float32
+    channel sums, then a pass that adds the blocks' sums in order and
+    rounds); anything else raises. A [g] whose strides differ from x's is
+    copied into x's layout first.
+    """
+
+    global backward_launches
+
+    if x.device.type == 'cpu':
+        return silu_bf16_backward_reference(g, x, bias)
+    _check_cuda_input(x, 'silu_bf16_backward')
+    c, inner = _check_bias(x, bias, 'silu_bf16_backward')
+    if c > MAX_BACKWARD_CHANNELS:
+        raise ValueError('silu_bf16_backward: {} channels; the kernel takes '
+                         'at most {}'.format(c, MAX_BACKWARD_CHANNELS))
+    if g.dtype != torch.bfloat16 or g.shape != x.shape or \
+            g.device != x.device:
+        raise ValueError('silu_bf16_backward: g must be a bf16 tensor of '
+                         'x\'s shape on {}'.format(x.device))
+    if g.stride() != x.stride():
+        g = torch.empty_like(x).copy_(g)
+    dx = torch.empty_like(x)
+    db = None if bias is None else torch.empty_like(bias)
+    if x.numel() == 0:
+        if db is not None:
+            db.zero_()
+        return dx, db
+    blocks = min(BACKWARD_BLOCKS, -(-x.numel() // 2048))
+    partials = None if bias is None else torch.empty(
+        (blocks, c), dtype=torch.float32, device=x.device)
+
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.md_silu_bf16_backward(
+            g.data_ptr(), x.data_ptr(),
+            0 if bias is None else bias.data_ptr(), dx.data_ptr(),
+            0 if bias is None else partials.data_ptr(),
+            0 if bias is None else db.data_ptr(), x.numel(), int(c),
+            int(inner), blocks, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, err, 'md_silu_bf16_backward')
+    backward_launches += 1
+    return dx, db

@@ -1,9 +1,10 @@
 """
 The port on a CUDA card: the greedy-NMS, int8 conv, fused int8
-bottleneck, fused stem and bf16 epilogue kernels, and the int8
-experiments' conv (every epilogue) and GEMM kernels, against their plain
-versions, and the card's selection, NMS and detectors (float32, int8 chain
-and bf16) against the CPU's.
+bottleneck, fused stem and bf16 epilogue kernels (and the epilogue's
+backward), and the int8 experiments' conv (every epilogue) and GEMM
+kernels, against their plain versions, and the card's selection, NMS,
+detectors (float32, int8 chain and bf16) and training steps (a bf16
+detector step, a classifier step) against the CPU's.
 
 Every test is marked `cuda` and skips without a card. This file imports
 no jax, so it also runs on a machine without the JAX package's
@@ -1068,3 +1069,159 @@ def test_classifier_two_batches_in_flight_on_card(cuda_device, tmp_path):
     np.testing.assert_array_equal(clf.fetch_batch(h2), serial_b)
     assert clf._programs.replays >= 3
     assert not np.array_equal(serial_a, serial_b)
+
+
+#%% E7's backward and the training steps
+
+
+def _bf16_step(v):
+    """The spacing of bf16 values at |v| (2^-133 at least)."""
+
+    e = torch.floor(torch.log2(torch.clamp(v.abs().float(), min=2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+@pytest.mark.parametrize('shape,layout', [
+    ((8, 128, 60, 80), 'channels_last'),
+    ((4, 96, 17, 23), 'nchw'),
+    ((64, 1536, 1, 1), 'se')])
+def test_silu_backward_kernel_identical_to_plain(cuda_device, shape, layout):
+    """E7's backward kernel against silu_bf16_backward_reference on the
+    card: dx bit-identical, db within one bf16 step of the plain version's
+    (float32 partial sums in another order, rounded once); one launch."""
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen) * 3).to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen).to(torch.bfloat16)
+    bias = (torch.rand(shape[1], generator=gen) * 2 - 1).to(torch.bfloat16)
+    if layout == 'channels_last':
+        x = x.contiguous(memory_format=torch.channels_last)
+        g = g.contiguous(memory_format=torch.channels_last)
+    x, g, bias = x.to(cuda_device), g.to(cuda_device), bias.to(cuda_device)
+    before = silu_bf16.backward_launches
+    dx, db = silu_bf16.silu_bf16_backward(g, x, bias)
+    torch.cuda.synchronize()
+    assert silu_bf16.backward_launches == before + 1
+    assert dx.stride() == x.stride()
+    ref_dx, ref_db = silu_bf16.silu_bf16_backward_reference(g, x, bias)
+    assert torch.equal(dx.view(torch.int16), ref_dx.view(torch.int16))
+    assert bool(((db.float() - ref_db.float()).abs() <=
+                 _bf16_step(ref_db)).all())
+    # without a bias: dx only
+    dx, db = silu_bf16.silu_bf16_backward(g, x)
+    assert db is None
+    ref_nobias = silu_bf16.silu_bf16_backward_reference(g, x)[0]
+    assert torch.equal(dx.view(torch.int16), ref_nobias.view(torch.int16))
+    # autograd: silu_bf16 on a tensor that requires grad runs the kernel
+    xg = x.clone().requires_grad_(True)
+    before = silu_bf16.backward_launches
+    silu_bf16.silu_bf16(xg, bias).backward(g)
+    torch.cuda.synchronize()
+    assert silu_bf16.backward_launches == before + 1
+    assert torch.equal(xg.grad.view(torch.int16), ref_dx.view(torch.int16))
+
+
+def _grads_l2(model_a, model_b, ref):
+    """(|a - ref|, |b - ref|) over every parameter's gradient (L2)."""
+
+    da = db = 0.0
+    for pa, pb, pr in zip(model_a.parameters(), model_b.parameters(),
+                          ref.parameters()):
+        r = pr.grad.double().cpu()
+        da += float(((pa.grad.double().cpu() - r) ** 2).sum())
+        db += float(((pb.grad.double().cpu() - r) ** 2).sum())
+    return da ** 0.5, db ** 0.5
+
+
+def test_bf16_detector_step_on_card_matches_cpu(cuda_device):
+    """One bf16 loss and backward of yolov5n (nc 3) at 128 px, batch 2, on
+    the card and on the CPU: E7 forward and backward once per activated
+    conv on the card; the loss within the CPU's own bf16 error of the
+    CPU's, and the card's gradients no further from the CPU's float32
+    ones than the CPU's bf16 gradients are, times 1.5 (L2 over all)."""
+
+    from megadetector_tpu_torch.training import train_detector as td
+
+    config = yolov5.YoloV5Config('yolov5n', num_classes=3)
+    params = yolov5.init_params(config, seed=0)
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randint(0, 256, (2, 128, 128, 3)).astype(
+        np.float32) / 255.0)
+    targets = td.pad_targets(
+        [np.array([[0.5, 0.5, 0.3, 0.25], [0.62, 0.41, 0.2, 0.3]]),
+         np.array([[0.31, 0.52, 0.6, 0.5]])],
+        [np.array([0, 1]), np.array([2])], max_targets=4)
+
+    def run(device, dtype):
+        model = yolov5.YoloV5(config).load_params(params).to(device)
+        model.set_training(dtype)
+        t = [torch.from_numpy(a).to(device) for a in targets]
+        loss, _ = td.detection_loss(config, model, x.to(device), t[0],
+                                    t[1].long(), t[2], dtype)
+        loss.backward()
+        return float(loss.detach()), model
+
+    n_act = sum(1 for m in yolov5.YoloV5(config).modules()
+                if type(m) is yolov5.Conv and m.act)
+    before = (silu_bf16.launches, silu_bf16.backward_launches)
+    card_loss, card = run(cuda_device, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (silu_bf16.launches - before[0],
+            silu_bf16.backward_launches - before[1]) == (n_act, n_act)
+    cpu_loss, cpu = run('cpu', torch.bfloat16)
+    ref_loss, ref = run('cpu', torch.float32)
+    assert abs(card_loss - cpu_loss) <= max(abs(cpu_loss - ref_loss),
+                                            1e-3 * abs(ref_loss))
+    d_card, d_cpu = _grads_l2(card, cpu, ref)
+    assert d_card <= 1.5 * d_cpu, (d_card, d_cpu)
+
+
+@pytest.mark.parametrize('precision', ['float32', 'bf16'])
+def test_classifier_step_on_card_matches_cpu(cuda_device, precision):
+    """One train step of efficientnetv2_test (32 px, batch 6) on the card
+    and on the CPU from the same weights: float32 loss within rtol 1e-5
+    and parameters after the step within rtol 1e-4 (atol 1e-4 * max);
+    bf16 E7 forward and backward launches as forward_launches counts them,
+    the loss within the CPU's own bf16 error."""
+
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.training import optim
+    from megadetector_tpu_torch.training import train_classifier as tc
+
+    dtype = torch.bfloat16 if precision == 'bf16' else torch.float32
+    config = efficientnet.EfficientNetConfig('efficientnetv2_test', 4, 32)
+    params = efficientnet.init_params(config, seed=0)
+    rng = np.random.RandomState(2)
+    images = rng.randint(0, 256, (6, 32, 32, 3)).astype(np.uint8)
+    labels = rng.randint(0, 4, 6).astype(np.int32)
+
+    def step(device, dt):
+        model = tc.make_classifier(config, params, device, dt)
+        opt = optim.Optimizer(model.parameters(), optim.chain(
+            optim.clip_by_global_norm(1.0), optim.adamw(1e-3)))
+        m = tc.make_train_step(config, model, opt, 0.1, dt)(images, labels)
+        return float(m['loss']), model.export_params()
+
+    before = (silu_bf16.launches, silu_bf16.backward_launches)
+    card_loss, card = step(cuda_device, dtype)
+    torch.cuda.synchronize()
+    n = efficientnet.forward_launches(config, False, dtype)[1]
+    assert (silu_bf16.launches - before[0],
+            silu_bf16.backward_launches - before[1]) == (n, n)
+    cpu_loss, cpu = step('cpu', dtype)
+    if precision == 'float32':
+        assert card_loss == pytest.approx(cpu_loss, rel=1e-5)
+
+        def walk(a, b):
+            for k in a:
+                if isinstance(a[k], dict):
+                    walk(a[k], b[k])
+                else:
+                    np.testing.assert_allclose(
+                        a[k], b[k], rtol=1e-4,
+                        atol=1e-4 * np.abs(b[k]).max())
+        walk(card, cpu)
+    else:
+        ref_loss, _ = step('cpu', torch.float32)
+        assert abs(card_loss - cpu_loss) <= max(abs(cpu_loss - ref_loss),
+                                                1e-3 * abs(ref_loss))

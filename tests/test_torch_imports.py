@@ -7,10 +7,11 @@ visualization/visualization_utils, postprocessing/validate_batch_results,
 the tiled and video drivers, the YOLOv8, RF-DETR and DETR networks and
 their converters and shims, the classifier, its converter, the two-stage
 driver and the classification toolchain, the ensemble and the taxonomy
-graph, which imports networkx only to build a graph). PIL is imported
-only once a file is decoded or drawn on. cv2 is not checked: ops/boxes.py
-imports it whenever it is installed and falls back to numpy where it is
-not.
+graph, which imports networkx only to build a graph; the serving daemon
+and client, the trainers, their optimizer and training utilities). PIL is
+imported only once a file is decoded or drawn on. cv2 is not checked:
+ops/boxes.py imports it whenever it is installed and falls back to numpy
+where it is not.
 """
 
 import json
@@ -103,7 +104,14 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.detection.run_md_and_speciesnet',
                 'megadetector_tpu_torch.classification.crop_detections',
                 'megadetector_tpu_torch.classification.run_classifier',
-                'megadetector_tpu_torch.classification.detect_and_crop'}
+                'megadetector_tpu_torch.classification.detect_and_crop',
+                'megadetector_tpu_torch.serving.server',
+                'megadetector_tpu_torch.serving.client',
+                'megadetector_tpu_torch.training.optim',
+                'megadetector_tpu_torch.training.train_detector',
+                'megadetector_tpu_torch.training.train_classifier',
+                'megadetector_tpu_torch.classification.train_utils',
+                'megadetector_tpu_torch.classification.train_classifier'}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
