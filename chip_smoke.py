@@ -206,6 +206,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      Phase 24's NMS, stem and bias + SiLU launches and phases 26-27's bias
      + SiLU forward launches join those kernels' records; the backward's
      launches are its own record's.
+ 28. the folder workflow: BatchJob.run_all (detect, validate, RDE,
+     classify, smooth, preview, report) over phase 18's 64 JPEGs in two
+     camera folders, phase 4's yolov5l6 with each conv rescaled to unit
+     output std and its detect head sharpened on synthetic images
+     (anchor-sized boxes, a few an image above RDE's 0.1 floor; random
+     weights score every box 1.0) in bf16 at 1280 px auto canvases,
+     batch 8, 8 loader threads, at the confidence threshold that leaves
+     about 12 detections an image, RDE at the occurrence threshold of the
+     most frequent repeat, phase 23's EfficientNetV2-M in bf16 on every
+     detection: the detections file equal to load_and_run_detector_batch
+     + write_results_to_file, the filtered file to find_repeat_detections
+     alone, the final file to classify_batch on the same crops followed
+     by the job's post-classification chain, the preview and report.csv
+     (its rows the final file's images), launches exact (the classifier
+     147 bias + SiLU a forward), every canvas's later programs replayed,
+     no child process left; seconds by stage, images/s of the detection
+     stage and of the job;
+ 29. compare_inference_options over 8 of phase 18's 4:3 JPEGs: phase
+     28's yolov5l6 and its int8 checkpoint at phase 28's confidence
+     threshold, dtype bf16 and conv_backend pallas, canvas modes auto and
+     square, augmentation off and on (8
+     jobs: B1, B2, B3, B4 and E7): each job's file equal to
+     load_and_run_detector_batch with its detector and options, each
+     job's launches exact, comparison_summary.json with 28 pairs; each
+     job's images/s. Phases 28-29's launches join those kernels'
+     records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -1070,21 +1096,17 @@ def phase_int8_kernels(device, config):
 
 def _int8_launches(detector, backend):
     """The exact (conv, bottleneck) kernel launches of the int8 chain over
-    the main path's two batches (a 960x1280 and a 768x1280 canvas): under
-    pallas, r fused bottlenecks a batch (bottleneck_tiling) launch the
-    bottleneck kernel r times and take 2 r convs off the conv kernel's 130
-    a batch; under xla every chain conv runs the conv kernel. Returns
-    (want, a note on the routing)."""
+    the main path's two batches (a 960x1280 and a 768x1280 canvas), as
+    _expected_launches has them. Returns (want, a note on the routing)."""
 
-    from megadetector_tpu_torch.models.yolov5 import QConv
-
-    n_qconv = sum(isinstance(m, QConv) for m in detector.model.modules())
-    per_batch = _fused_per_batch(detector.config, ((960, 1280), (768, 1280)))
-    fused = sum(r for r, _ in per_batch.values()) if backend != 'xla' else 0
+    canvases = ((960, 1280), (768, 1280))
+    want = _expected_launches(detector, {(8, h, w): 1 for h, w in canvases},
+                              False, 0)[1:3]
     note = ', '.join('{}x{}: {} of {} bottlenecks fused'.format(
         h, w, r if backend != 'xla' else 0, n)
-        for (h, w), (r, n) in per_batch.items())
-    return (2 * n_qconv - 2 * fused, fused), note
+        for (h, w), (r, n) in _fused_per_batch(detector.config,
+                                               canvases).items())
+    return want, note
 
 
 def phase_int8_main_path(device, workdir, float_path, pairs, batch,
@@ -1486,7 +1508,6 @@ def phase_tta(device, workdir, float_path, q_path, pairs, batch,
         load_and_run_detector_batch
     from megadetector_tpu_torch.models.detector import (
         tta_concatenated_predictions, tta_passes)
-    from megadetector_tpu_torch.models.yolov5 import QConv
 
     configs = (('float32', float_path, {}),
                ('int8 pallas', q_path, {'conv_backend': 'pallas'}),
@@ -1497,22 +1518,14 @@ def phase_tta(device, workdir, float_path, q_path, pairs, batch,
         detector = load_detector(path, device=device, detector_options=dict(
             options, pad_batches_to=8))
         model = detector.model
-        n_qconv = sum(isinstance(m, QConv) for m in model.modules())
-        n_act = _n_activated_convs(model)
         # Expected launches a model call, by pass canvas: (nms, conv,
         # bottleneck, stem, silu)
         want = {}
         for h, w in canvases:
             for i, (_, _, _, _, ph, pw) in enumerate(
                     tta_passes(h, w, detector.letterbox_stride)):
-                fused = 0
-                if label.startswith('int8'):
-                    fused = _fused_per_batch(detector.config,
-                                             ((ph, pw),))[(ph, pw)][0]
-                bf16 = label == 'bf16'
-                want[(h, w, i)] = (
-                    0, n_qconv - 2 * fused, fused, int(bf16 and i == 0),
-                    (n_act - (i == 0)) if bf16 else 0)
+                want[(h, w, i)] = (0,) + _pass_expected(detector, 8, ph, pw,
+                                                        i == 0)
         calls, hooks = _pass_launches(detector)
         detector.programs_run = 0
         _reset_counts()
@@ -2498,36 +2511,62 @@ def _counted(detector, fn):
             _select_calls(detector) - selects)
 
 
-def _check_launches(label, detector, counts, programs, selects,
-                    forwards):
-    """The launches [forwards] implies, exactly: [forwards] is
-    {(batch, height, width): device programs of that shape}. NMS once a
-    selection program; under dtype bf16 the stem once and the epilogue
-    once per activated conv after l0 a program; under the int8 chain with
-    conv_backend pallas the bottleneck kernel once per bottleneck that
-    bottleneck_tiling fuses and the conv kernel on every other chain
-    conv."""
+def _pass_expected(detector, batch, height, width, first):
+    """(conv, bottleneck, stem, silu) launches of one model call on a
+    [batch, height, width] canvas. Under the int8 chain with conv_backend
+    pallas the bottleneck kernel once per bottleneck that
+    bottleneck_tiling fuses and the conv kernel on every other chain conv
+    (under xla on every one); under dtype bf16 the stem on the [first]
+    (or only) pass and the epilogue after every activated float conv but
+    that pass's l0 (under int8 only l0 is a float conv, which the scaled
+    TTA passes run as a plain conv)."""
 
     import torch
 
     from megadetector_tpu_torch.models.yolov5 import QConv
     from megadetector_tpu_torch.ops import bottleneck_int8
 
-    nms, conv, fused, stem, silu = counts
-    n = sum(forwards.values())
     n_qconv = sum(isinstance(m, QConv) for m in detector.model.modules())
     bf16 = detector.compute_dtype == torch.bfloat16
-    want_fused = 0
+    fused = 0
     if n_qconv and detector.conv_backend != 'xla':
-        for (b, h, w), k in forwards.items():
-            want_fused += k * sum(
-                m for (bh, bw, c), m in _bottleneck_counts(
-                    detector.config, h, w, b).items()
-                if bottleneck_int8.bottleneck_tiling(b, bh, bw, c))
-    want = (selects, n * n_qconv - 2 * want_fused, want_fused,
-            n if bf16 else 0,
-            n * (_n_activated_convs(detector.model) - 1)
-            if bf16 and not n_qconv else 0)
+        fused = sum(m for (h, w, c), m in _bottleneck_counts(
+            detector.config, height, width, batch).items()
+            if bottleneck_int8.bottleneck_tiling(batch, h, w, c))
+    return (n_qconv - 2 * fused, fused, int(bf16 and first),
+            _n_activated_convs(detector.model) - first if bf16 else 0)
+
+
+def _expected_launches(detector, forwards, augment, selects):
+    """(nms, conv, bottleneck, stem, silu) that [forwards] ({(batch,
+    height, width): device programs of that shape}) implies: each model
+    call as _pass_expected has it; NMS once a selection program
+    ([selects]: escalation runs a second in the same program) or, under
+    test-time augmentation, once a program on the merged candidates of
+    its three pass canvases (tta_passes)."""
+
+    from megadetector_tpu_torch.models.detector import tta_passes
+
+    want = [sum(forwards.values()) if augment else selects, 0, 0, 0, 0]
+    for (b, h, w), k in forwards.items():
+        passes = [(ph, pw) for _, _, _, _, ph, pw in tta_passes(
+            h, w, detector.letterbox_stride)] if augment else [(h, w)]
+        for i, (ph, pw) in enumerate(passes):
+            for j, n in enumerate(_pass_expected(detector, b, ph, pw,
+                                                 i == 0)):
+                want[j + 1] += k * n
+    return tuple(want)
+
+
+def _check_launches(label, detector, counts, programs, selects,
+                    forwards):
+    """The launches [forwards] implies, exactly (_expected_launches):
+    [forwards] is {(batch, height, width): device programs of that
+    shape}, each a plain program."""
+
+    nms, conv, fused, stem, silu = counts
+    n = sum(forwards.values())
+    want = _expected_launches(detector, forwards, False, selects)
     if programs != n or (nms, conv, fused, stem, silu) != want or \
             not n <= selects <= 2 * n:
         raise AssertionError(
@@ -4521,6 +4560,641 @@ def phase_classifier_training(device, workdir, card):
     return e7
 
 
+#%% 28-29: the folder workflow and the inference-options comparison
+
+# Phase 28's detections an image at its confidence threshold (random
+# weights emit 300), and the bounds its mean must meet
+WORKFLOW_DETECTIONS = 12
+WORKFLOW_DETECTION_RANGE = (5, 20)
+# Phase 28's detector: phase 4's yolov5l6 with every conv rescaled in
+# forward order so its output has std 1 on a synthetic image (random He
+# weights without BN grow the activations until bf16 rounding drowns the
+# head's signal and every box scores 1.0 at several times the image's
+# size), then its detect head rescaled per channel (as
+# tests/torch_port_data.py sharpens yolov5n): box outputs to std
+# WORKFLOW_BOX_STD (anchor-sized boxes), class logits to std
+# WORKFLOW_LOGIT_STD, objectness to that std around WORKFLOW_OBJECTNESS (a
+# few boxes an image above RDE's 0.1 floor)
+WORKFLOW_BOX_STD = 0.5
+WORKFLOW_LOGIT_STD = 2.0
+WORKFLOW_OBJECTNESS = -7.5
+# Phase 29's images (the 4:3 ones of phase 18's folder: one full batch)
+COMPARISON_IMAGES = 8
+
+
+def _program_calls(detector):
+    """{program key: calls so far} of the detector's program cache."""
+
+    return {key: entry.calls
+            for key, entry in detector._programs.entries.items()}
+
+
+def _program_deltas(detector, before):
+    """Programs run since [before] (_program_calls): ({(batch, height,
+    width): forward or augment programs}, augment?, selection programs,
+    new forward or augment keys)."""
+
+    forwards, selects, new, augment = {}, 0, 0, False
+    for key, calls in _program_calls(detector).items():
+        delta = calls - before.get(key, 0)
+        if not delta:
+            continue
+        if 'select' in key:
+            selects += delta
+        elif key[0] in ('forward', 'augment'):
+            shape = tuple(key[1:4])
+            forwards[shape] = forwards.get(shape, 0) + delta
+            augment = augment or key[0] == 'augment'
+            new += key not in before
+    return forwards, augment, selects, new
+
+
+def _children():
+    """Live child processes of this one (from /proc)."""
+
+    pid = str(os.getpid())
+    out = []
+    for entry in os.listdir('/proc'):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(os.path.join('/proc', entry, 'stat')) as f:
+                fields = f.read().rsplit(')', 1)[1].split()
+        except OSError:
+            continue
+        if fields[1] == pid and fields[0] != 'Z':
+            out.append(int(entry))
+    return out
+
+
+def _workflow_folder(workdir):
+    """Phase 18's 64 JPEGs as a job folder of two cameras: the 4:3 ones
+    under cam0, the 16:9 ones under cam1 (four full batches of 8 a
+    canvas)."""
+
+    import shutil
+
+    source = os.path.join(workdir, 'folder')
+    folder = os.path.join(workdir, 'workflow_images')
+    for i in range(64):
+        camera = os.path.join(folder, 'cam{}'.format(i % 2))
+        os.makedirs(camera, exist_ok=True)
+        shutil.copyfile(os.path.join(source, 'img_{:02d}.jpg'.format(i)),
+                        os.path.join(camera, 'img_{:02d}.jpg'.format(i)))
+    return folder
+
+
+def _tree_bytes(root):
+    """{path relative to [root]: bytes} of every file under it."""
+
+    out = {}
+    for base, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(base, name)
+            with open(path, 'rb') as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def _without_time(path):
+    with open(path) as f:
+        data = json.load(f)
+    data['info'].pop('detection_completion_time', None)
+    return data
+
+
+def _expected_final_file(job, classifier, c_options):
+    """The job's final file rebuilt from its filtered file: classify_batch
+    on the qualifying crops (_reference_classifications), then the job's
+    post-classification chain run by the port's own functions (non-animal
+    classifications stripped, image-level smoothing, unused categories
+    dropped)."""
+
+    from megadetector_tpu_torch.postprocessing import \
+        classification_postprocessing as cp
+
+    with open(job.filtered_file) as f:
+        data = json.load(f)
+    want = _reference_classifications(data, job.options.input_path,
+                                      classifier, c_options)
+    for im in data['images']:
+        for det in im['detections'] or []:
+            if id(det) in want:
+                det['classifications'] = want[id(det)]
+    data['classification_categories'] = {
+        str(i): name for i, name in enumerate(classifier.class_names)}
+    cp.strip_classifications_from_nonanimal_detections(data)
+    cp.smooth_classification_results_image_level(
+        data, options=job._smoothing_options())
+    used = {c[0] for im in data['images']
+            for det in im['detections'] or []
+            for c in det.get('classifications') or []}
+    data['classification_categories'] = {
+        k: v for k, v in data['classification_categories'].items()
+        if k in used}
+    return data, len(want)
+
+
+def _workflow_checkpoint(device, workdir, float_path):
+    """Phase 28's detector (see WORKFLOW_BOX_STD) from phase 4's
+    checkpoint, in float32 on [device]: each conv but the detect head's,
+    in forward order, scaled so that its output has std 1 on a 4:3
+    synthetic image at 320 px; then the detect head per output channel on
+    two 4:3 images at the auto canvas. Saved beside it; returns the path."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.models.convert_weights import (
+        load_checkpoint, save_checkpoint)
+    from megadetector_tpu_torch.models.yolov5 import (Conv, YoloV5,
+                                                      YoloV5Config)
+    from megadetector_tpu_torch.ops.boxes import letterbox
+
+    params, metadata = load_checkpoint(float_path)
+    config = YoloV5Config(metadata['arch'], metadata['num_classes'])
+    model = YoloV5(config).load_params(params).eval().to(device)
+    images = _synthetic_images(np.random.RandomState(28))[:4:2]
+
+    def batch(size, n):
+        x = np.stack([letterbox(img, (size, size), stride=64, auto=True)[0]
+                      for img in images[:n]])
+        return torch.from_numpy(x.astype(np.float32) / 255.0).to(device)
+
+    small = batch(320, 1)
+    convs = [(name, m) for name, m in model.named_modules()
+             if type(m) is Conv]
+    order, std = [], {}
+
+    def recorder(name):
+        def hook(module, inputs, output):
+            order.append(name)
+            std[name] = float(output.float().std())
+        return hook
+
+    with torch.inference_mode():
+        hooks = [m.register_forward_hook(recorder(n)) for n, m in convs]
+        model(small, decode=False)
+        modules = dict(convs)
+        scales = {}
+        for name in list(dict.fromkeys(order)):
+            model(small, decode=False)
+            scale = 1.0 / max(std[name], 1e-30)
+            modules[name].weight.mul_(scale)
+            modules[name].bias.mul_(scale)
+            scales[name] = scale
+        for hook in hooks:
+            hook.remove()
+        heads = [h.float().cpu().numpy()
+                 for h in model(batch(int(metadata['image_size']), 2),
+                                decode=False)]
+    del model
+    for name, scale in scales.items():
+        node = params
+        for key in name.split('.')[1:]:
+            node = node[key]
+        node['w'] = node['w'] * np.float32(scale)
+        node['b'] = node['b'] * np.float32(scale)
+    no = config.num_outputs
+    detect = params['l{}'.format(len(config.layers) - 1)]
+    for level, head in enumerate(heads):
+        out = head.reshape(-1, head.shape[-1])
+        w = detect['m{}'.format(level)]['w']
+        b = detect['m{}'.format(level)]['b']
+        for channel in range(out.shape[1]):
+            kind = channel % no
+            std = WORKFLOW_BOX_STD if kind < 4 else WORKFLOW_LOGIT_STD
+            scale = std / max(float(out[:, channel].std()), 1e-30)
+            w[..., channel] *= scale
+            b[channel] = -float(out[:, channel].mean()) * scale + (
+                WORKFLOW_OBJECTNESS if kind == 4 else 0.0)
+    path = os.path.join(workdir, 'md_smoke_workflow.npz')
+    save_checkpoint(params, path, metadata)
+    return path
+
+
+def phase_workflow(device, workdir, float_path, card):
+    """
+    28. The folder workflow: BatchJob.run_all over phase 18's 64 JPEGs in
+    two camera folders, with phase 4's yolov5l6 (its detect head rescaled
+    by _workflow_checkpoint) in bf16 (1280 px auto canvases,
+    batch 8, 8 loader threads) at the confidence threshold that
+    leaves about WORKFLOW_DETECTIONS detections an image, RDE at the
+    occurrence threshold of the most frequent repeat (so at least one
+    location's repeats are flagged) and phase 23's EfficientNetV2-M in
+    bf16 on every detection. Checks: the detections file equals
+    load_and_run_detector_batch + write_results_to_file on the same files
+    and options; the filtered file equals find_repeat_detections run alone
+    on it; the final file equals classify_batch on the same crops followed
+    by the job's post-classification chain; the preview's index.html and
+    report.csv exist and the report's rows are the final file's images;
+    launches exact (_expected_launches, and 147 epilogues a classifier
+    forward); every canvas's later programs replayed; no child process
+    that the job started left. Then, beside the detector's live CUDA
+    context, RDE alone with its comparisons in a spawned process pool
+    (its filtered file identical to the job's) and the preview rendered
+    in a spawned pool (every file identical to the job's threaded
+    preview), and no child process left. Prints each stage's seconds and
+    the images/s of the detection stage and of the whole job. Returns the
+    (nms, stem, silu) launches of run_all, the detector's checkpoint and
+    the confidence threshold.
+    """
+
+    import collections
+    import csv
+    import math
+    from multiprocessing import resource_tracker
+
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import (
+        load_and_run_detector_batch, write_results_to_file)
+    from megadetector_tpu_torch.detection.run_md_and_classifier import \
+        MDAndClassifierOptions
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+    from megadetector_tpu_torch.postprocessing import \
+        postprocess_batch_results as ppr
+    from megadetector_tpu_torch.postprocessing.repeat_detection_elimination \
+        import repeat_detections_core as rde
+    from megadetector_tpu_torch.utils import path_utils
+    from megadetector_tpu_torch.workflows import manage_local_batch
+
+    start = time.time()
+    folder = _workflow_folder(workdir)
+    files = path_utils.find_images(folder, recursive=True)
+    classifier_path = os.path.join(workdir, 'md_smoke_classifier.npz')
+    if not os.path.isfile(classifier_path):
+        classifier_path, _ = _classifier_checkpoint(workdir)
+    workflow_path = _workflow_checkpoint(device, workdir, float_path)
+    detector = load_detector(workflow_path, device=device, detector_options={
+        'dtype': 'bfloat16', 'pad_batches_to': 8})
+
+    # The threshold that leaves about WORKFLOW_DETECTIONS an image
+    first = load_and_run_detector_batch(detector, files, batch_size=8,
+                                        quiet=True)
+    confs = sorted((d['conf'] for im in first for d in im['detections']),
+                   reverse=True)
+    threshold = confs[WORKFLOW_DETECTIONS * len(files) - 1]
+    # The occurrence threshold of the most frequent repeat at either
+    # camera
+    probe = os.path.join(workdir, 'workflow_probe.json')
+    write_results_to_file(
+        load_and_run_detector_batch(detector, files, batch_size=8,
+                                    quiet=True,
+                                    confidence_threshold=threshold),
+        probe, relative_path_base=folder)
+    probe_options = rde.RepeatDetectionOptions()
+    probe_options.occurrenceThreshold = 2
+    probe_options.bWriteFilteringFolder = False
+    repeats = rde.find_repeat_detections(probe, None, probe_options)
+    occurrences = max(len({i['filename'] for i in c['instances']})
+                      for cs in repeats.suspicious_detections.values()
+                      for c in cs) if repeats.suspicious_detections else 0
+    print('phase 28: setup {:.1f} s: detect head rescaled; confidences at '
+          'ranks 1, 64, 768, 3072 of {}: {}; confidence threshold {:.4f}, '
+          'RDE occurrence threshold {} (the most frequent repeat)'.format(
+              time.time() - start,
+              len(confs), [confs[min(i, len(confs) - 1)]
+                           for i in (0, 63, 767, 3071)],
+              threshold, occurrences), flush=True)
+    if occurrences < 3:
+        raise AssertionError('phase 28: no box recurs in 3 images of a '
+                             'camera ({})'.format(occurrences))
+
+    options = manage_local_batch.BatchJobOptions()
+    options.input_path = folder
+    options.output_base = os.path.join(workdir, 'workflow_jobs')
+    options.job_name = 'smoke'
+    options.model_file = detector
+    options.confidence_threshold = threshold
+    options.rde_occurrence_threshold = occurrences
+    options.preview_sample_size = 100
+    options.classifier_model = classifier_path
+    options.classifier_options = {'dtype': 'bfloat16'}
+    options.classification_confidence_threshold = threshold
+    options.device = device
+    job = manage_local_batch.BatchJob(options)
+    seconds = {}
+
+    def timed(name, method):
+        def run(*args, **kwargs):
+            t0 = time.time()
+            out = method(*args, **kwargs)
+            seconds[name] = seconds.get(name, 0.0) + time.time() - t0
+            return out
+        return run
+
+    for name in ('enumerate_images', 'run_detector', 'validate', 'run_rde',
+                 'run_classifier', 'build_preview', 'build_report'):
+        setattr(job, name, timed(name, getattr(job, name)))
+
+    # Earlier phases may leave children of their own. multiprocessing's
+    # resource tracker, once started, lives as long as this process: it
+    # is started before the baseline, so that the spawned pools below
+    # are held to leaving nothing
+    resource_tracker.ensure_running()
+    children = set(_children())
+    before = _program_calls(detector)
+    replays, programs = detector._programs.replays, detector.programs_run
+    _reset_counts()
+    t0 = time.time()
+    final = job.run_all()
+    total = time.time() - t0
+    nms, conv, fused, stem, silu = _counts()
+    forwards, _, selects, new = _program_deltas(detector, before)
+    replays = detector._programs.replays - replays
+    programs = detector.programs_run - programs
+    left = sorted(set(_children()) - children)
+    if left:
+        raise AssertionError('phase 28: the job left child processes: '
+                             '{}'.format(left))
+
+    # The detections file against the direct calls
+    direct = os.path.join(workdir, 'workflow_direct.json')
+    write_results_to_file(
+        load_and_run_detector_batch(detector, files, batch_size=8,
+                                    quiet=True,
+                                    confidence_threshold=threshold),
+        direct, relative_path_base=folder)
+    if _without_time(job.detections_file) != _without_time(direct):
+        raise AssertionError('phase 28: the job\'s detections differ from '
+                             'load_and_run_detector_batch\'s')
+    with open(job.detections_file) as f:
+        detections = json.load(f)
+    per_image = sum(len(im['detections'] or [])
+                    for im in detections['images']) / len(files)
+    if not WORKFLOW_DETECTION_RANGE[0] <= per_image <= \
+            WORKFLOW_DETECTION_RANGE[1]:
+        raise AssertionError('phase 28: {:.2f} detections an image'.format(
+            per_image))
+
+    # RDE alone on the detections file, its comparisons in a spawned
+    # process pool (one worker a camera) beside the detector's live CUDA
+    # context; the job's run used threads
+    alone = os.path.join(workdir, 'workflow_rde_alone.json')
+    rde_options = rde.RepeatDetectionOptions()
+    rde_options.occurrenceThreshold = occurrences
+    rde_options.imageBase = folder
+    rde_options.outputBase = os.path.join(workdir, 'workflow_rde_alone')
+    rde_options.parallelizationUsesThreads = False
+    t0 = time.time()
+    rde.find_repeat_detections(job.detections_file, alone, rde_options)
+    spawned_seconds = {'run_rde': time.time() - t0}
+    with open(alone, 'rb') as a, open(job.filtered_file, 'rb') as b:
+        if a.read() != b.read():
+            raise AssertionError('phase 28: the filtered file differs from '
+                                 'find_repeat_detections run alone in '
+                                 'spawned processes')
+
+    # The preview again, rendered in a spawned process pool: the same
+    # files as the job's threaded preview
+    threaded = ppr.process_batch_results
+
+    def spawned(p_options):
+        p_options.parallelize_rendering_with_threads = False
+        return threaded(p_options)
+
+    ppr.process_batch_results = spawned
+    try:
+        t0 = time.time()
+        manage_local_batch.BatchJob.build_preview(job, stage='spawned')
+        spawned_seconds['build_preview'] = time.time() - t0
+    finally:
+        ppr.process_batch_results = threaded
+    preview = _tree_bytes(job.preview_dir)
+    if _tree_bytes(job.preview_dir + '_spawned') != preview or \
+            'index.html' not in preview:
+        raise AssertionError('phase 28: the preview rendered in spawned '
+                             'processes differs from the threaded one')
+    left = sorted(set(_children()) - children)
+    if left:
+        raise AssertionError('phase 28: the spawned pools left child '
+                             'processes: {}'.format(left))
+    with open(job.filtered_file) as f:
+        flipped = sum(d['conf'] < 0 for im in json.load(f)['images']
+                      for d in im['detections'] or [])
+    if flipped < occurrences:
+        raise AssertionError('phase 28: RDE flagged {} detections'.format(
+            flipped))
+
+    # The classification stage against classify_batch
+    reference = SpeciesClassifier(classifier_path, {'dtype': 'bfloat16'},
+                                  device=device)
+    c_options = MDAndClassifierOptions()
+    c_options.classification_confidence_threshold = threshold
+    want, n_crops = _expected_final_file(job, reference, c_options)
+    with open(final) as f:
+        got = json.load(f)
+    if got != want or n_crops == 0:
+        raise AssertionError('phase 28: the final file differs from '
+                             'classify_batch + the post-classification '
+                             'chain ({} crops; categories of the filtered '
+                             'file\'s detections: {})'.format(
+                                 n_crops, sorted(collections.Counter(
+                                     (d['category'], d['conf'] >= 0)
+                                     for im in want['images']
+                                     for d in im['detections'] or [])
+                                     .items())))
+    forwards_clf = math.ceil(n_crops / c_options.classifier_batch_size)
+    _, e7 = efficientnet.forward_launches(reference.config, False,
+                                          torch.bfloat16)
+    del reference
+
+    # Preview and report
+    for path in (os.path.join(job.preview_dir, 'index.html'),
+                 job.report_file):
+        if not os.path.isfile(path):
+            raise AssertionError('phase 28: {} missing'.format(path))
+    with open(job.report_file) as f:
+        rows = list(csv.DictReader(f))
+    typical = got['info']['detector_metadata'].get(
+        'typical_detection_threshold', 0.2)
+    if [r['image_path'] for r in rows] != \
+            [im['file'] for im in got['images']] or any(
+                int(r['n_detections']) != sum(
+                    d['conf'] >= typical for d in im['detections'] or [])
+                for r, im in zip(rows, got['images'])):
+        raise AssertionError('phase 28: report.csv\'s rows do not match '
+                             'the final file')
+
+    want_counts = _expected_launches(detector, forwards, False, selects)
+    want_counts = want_counts[:4] + (want_counts[4] + forwards_clf * e7,)
+    if (nms, conv, fused, stem, silu) != want_counts or \
+            programs != sum(forwards.values()) or \
+            replays < programs - new or any(
+                entry.calls > 1 and entry.graph is None
+                for key, entry in detector._programs.entries.items()
+                if key[0] == 'forward'):
+        raise AssertionError(
+            'phase 28: launches (nms, conv, bottleneck, stem, silu) {}, '
+            'want {} ({} detection programs {}, {} selection programs, {} '
+            'classifier forwards); {} replays, {} new programs'.format(
+                (nms, conv, fused, stem, silu), want_counts, programs,
+                sorted(forwards.items()), selects, forwards_clf, replays,
+                new))
+    print('phase 28 on {}: BatchJob.run_all over 64 JPEGs in 2 cameras: '
+          '{:.2f} detections an image at {:.4f}, {} flagged by RDE, {} '
+          'crops classified in {} forwards of 64; detections, filtered '
+          'and final files equal to the direct calls; launches (nms, conv, '
+          'bottleneck, stem, silu) {} as they imply ({} detection programs '
+          '{}, {} replayed); no child process left'.format(
+              card, per_image, threshold, flipped, n_crops, forwards_clf,
+              want_counts, programs, sorted(forwards.items()), replays),
+          flush=True)
+    print('phase 28 on {}: spawned process pools beside the live CUDA '
+          'context: RDE alone (one worker a camera) {:.3f} s, its filtered '
+          'file identical to the job\'s (threads, {:.3f} s); the preview '
+          '{:.3f} s, {} files identical to the job\'s (threads, {:.3f} s); '
+          'no child process left'.format(
+              card, spawned_seconds['run_rde'], seconds['run_rde'],
+              spawned_seconds['build_preview'], len(preview),
+              seconds['build_preview']), flush=True)
+    print('phase 28 on {}: seconds by stage: {}; total {:.3f}; detection '
+          'stage {:.3f} images/s (its own measure {:.3f}), whole job '
+          '{:.3f} images/s'.format(
+              card, ', '.join('{} {:.3f}'.format(k, v)
+                              for k, v in seconds.items()),
+              total, len(files) / seconds['run_detector'],
+              job.detection_images_per_second, len(files) / total),
+          flush=True)
+    del detector
+    torch.cuda.empty_cache()
+    return (nms, stem, silu), workflow_path, threshold
+
+
+def phase_comparison(device, workdir, float_path, threshold, card):
+    """
+    29. The inference-options comparison: compare_inference_options over
+    COMPARISON_IMAGES of phase 18's 4:3 JPEGs with model_files phase 28's
+    yolov5l6 ([float_path]) and its int8 checkpoint (quantize_checkpoint,
+    calibrated as phase 7 calibrates), at phase 28's confidence threshold
+    (random weights' 300 boxes an image make the 28 pairs' IoU matching
+    take about a minute), detector_options dtype bf16 and conv_backend
+    pallas (the float model ignores the backend; the int8 model runs
+    int8 + bf16 as in phase 11), canvas modes auto and square,
+    augmentation off and on: 8 jobs. Checks: each job's file
+    equals load_and_run_detector_batch with that job's detector and
+    options; each job's launches exact (_expected_launches, counted from
+    0 just before the job); comparison_summary.json valid with 28 pairs
+    and every job run. Prints each job's images/s. Returns the summed
+    (nms, conv, bottleneck, stem, silu) launches of the jobs.
+    """
+
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection import run_detector_batch as rdb
+    from megadetector_tpu_torch.models.convert_weights import \
+        quantize_checkpoint
+    from megadetector_tpu_torch.workflows import \
+        compare_inference_options as cio
+
+    start = time.time()
+    q_path = os.path.join(workdir, 'md_smoke_workflow_int8.npz')
+    quantize_checkpoint(float_path, q_path, calibration_images=np.random
+                        .RandomState(1).uniform(0, 1, (2, 320, 320, 3))
+                        .astype(np.float32), device=device)
+    print('phase 29: int8 checkpoint calibrated in {:.1f} s'.format(
+        time.time() - start), flush=True)
+
+    folder = os.path.join(workdir, 'comparison_images')
+    os.makedirs(folder, exist_ok=True)
+    for i in range(COMPARISON_IMAGES):
+        name = 'img_{:02d}.jpg'.format(2 * i)
+        shutil.copyfile(os.path.join(workdir, 'folder', name),
+                        os.path.join(folder, name))
+
+    loaded = []
+    load_detector = rdb.load_detector
+    run_job = cio.run_comparison_job
+
+    def recording_load(*args, **kwargs):
+        detector = load_detector(*args, **kwargs)
+        loaded.append(detector)
+        return detector
+
+    totals = [0, 0, 0, 0, 0]
+    checked = []
+
+    def counted_job(job, options, image_file_names):
+        del loaded[:]
+        _reset_counts()
+        ran = run_job(job, options, image_file_names)
+        counts = _counts()
+        (detector,) = loaded
+        forwards, augment, selects, _ = _program_deltas(detector, {})
+        want = _expected_launches(detector, forwards, augment, selects)
+        if counts != want:
+            raise AssertionError(
+                'phase 29, {}: launches (nms, conv, bottleneck, stem, silu) '
+                '{}, want {} (programs {}, {} selection programs)'.format(
+                    job['job_name'], counts, want, sorted(forwards.items()),
+                    selects))
+        totals[:] = [a + b for a, b in zip(totals, counts)]
+        direct = os.path.join(workdir, 'comparison_direct.json')
+        rdb.write_results_to_file(
+            rdb.load_and_run_detector_batch(
+                detector, list(image_file_names),
+                confidence_threshold=options.detection_threshold,
+                quiet=True, batch_size=options.batch_size,
+                augment=job['augment']),
+            direct, relative_path_base=options.input_folder,
+            detector_file=str(job['model_file']))
+        if _without_time(direct) != _without_time(job['job_output_file']):
+            raise AssertionError('phase 29, {}: the job\'s file differs '
+                                 'from load_and_run_detector_batch\'s'
+                                 .format(job['job_name']))
+        checked.append((job['job_name'], counts, sorted(forwards.items())))
+        del loaded[:], detector
+        torch.cuda.empty_cache()
+        return ran
+
+    options = cio.InferenceComparisonOptions()
+    options.input_folder = folder
+    options.output_folder = os.path.join(workdir, 'comparison')
+    options.model_files = [float_path, q_path]
+    options.canvas_modes = ['auto', 'square']
+    options.augment_states = [False, True]
+    options.detector_options = {'dtype': 'bfloat16',
+                                'conv_backend': 'pallas'}
+    options.visualization_sample = COMPARISON_IMAGES
+    options.detection_threshold = threshold
+    options.device = device
+    rdb.load_detector = recording_load
+    cio.run_comparison_job = counted_job
+    try:
+        start = time.time()
+        summary = cio.compare_inference_options(options)
+        elapsed = time.time() - start
+    finally:
+        rdb.load_detector = load_detector
+        cio.run_comparison_job = run_job
+    with open(summary['summary_file']) as f:
+        written = json.load(f)
+    if len(written['jobs']) != 8 or any(j['skipped'] for j in
+                                        written['jobs']) or \
+            len(written.get('pairwise_agreement', [])) != 28 or \
+            len(checked) != 8:
+        raise AssertionError('phase 29: comparison_summary.json holds {} '
+                             'jobs and {} pairs'.format(
+                                 len(written['jobs']),
+                                 len(written.get('pairwise_agreement', []))))
+    for job, (name, counts, forwards) in zip(written['jobs'], checked):
+        print('phase 29 on {}: job {}: {:.3f} images/s ({:.3f} s); '
+              'launches (nms, conv, bottleneck, stem, silu) {} as programs '
+              '{} imply; equal to load_and_run_detector_batch'.format(
+                  card, name, job['images_per_second'], job['elapsed'],
+                  counts, forwards), flush=True)
+    print('phase 29 on {}: compare_inference_options: 8 jobs over {} '
+          'JPEGs, 28 pairs in comparison_summary.json, {:.1f} s in all'
+          .format(card, COMPARISON_IMAGES, elapsed), flush=True)
+    return tuple(totals)
+
+
 def main():
     import numpy as np
     import torch
@@ -4724,6 +5398,26 @@ def main():
         silu_record['launches'] += silu_launches + more[0]
         backward_record['launches'] = backward_launches + more[1]
         print('phase 27 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 28, 29. the folder workflow and the inference-options comparison
+        start = time.time()
+        (nms_launches, stem_launches, silu_launches), workflow_path, \
+            threshold = phase_workflow(device, workdir, float_path, card)
+        record['launches'] += nms_launches
+        stem_record['launches'] += stem_launches
+        silu_record['launches'] += silu_launches
+        print('phase 28 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+        start = time.time()
+        counts = phase_comparison(device, workdir, workflow_path, threshold,
+                                  card)
+        record['launches'] += counts[0]
+        conv_record['launches'] += counts[1]
+        bottleneck_record['launches'] += counts[2]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        print('phase 29 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

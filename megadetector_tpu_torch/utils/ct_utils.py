@@ -3,9 +3,12 @@ The numeric and container helpers the port's detector, drivers and writer
 use: its own copy of the functions of megadetector_tpu/utils/ct_utils.py
 that emit MD-format JSON (float truncation and rounding, the YOLO and xyxy
 box conventions, sorting, the JSON writer, --detector_options parsing and
-printing, argparse -> options objects).
+printing, argparse -> options objects), and those the folder workflows
+use (IoU, max confidence, dictionary inversion, list chunking, camera
+folders, the datetime JSON handler).
 """
 
+import datetime
 import inspect
 import json
 import math
@@ -96,14 +99,41 @@ def sort_list_of_dicts_by_key(L, k, reverse=False, none_handling='smallest'):  #
     return sorted(L, key=_key, reverse=reverse)
 
 
-def write_json(path, content, indent=1, force_str=False, ensure_ascii=True,
+def json_serialize_datetime(obj):
+    """json.dump default handler serializing datetimes to ISO format."""
+
+    if isinstance(obj, (datetime.datetime, datetime.date)):
+        return obj.isoformat()
+    raise TypeError('Object of type {} is not JSON serializable'.format(
+        type(obj)))
+
+
+def write_json(path,
+               content,
+               indent=1,
+               force_str=False,
+               serialize_datetimes=False,
+               ensure_ascii=True,
                encoding='utf-8'):
     """
     json.dump as every results file is written: indent=1, '\\n' newlines,
-    optional str() fallback for values JSON cannot hold.
+    optional str() fallback for values JSON cannot hold and ISO datetimes.
     """
 
-    default_handler = str if force_str else None
+    def _default(obj):
+        if serialize_datetimes:
+            try:
+                return json_serialize_datetime(obj)
+            except TypeError:
+                pass
+        if force_str:
+            return str(obj)
+        raise TypeError('Object of type {} is not JSON serializable'.format(
+            type(obj)))
+
+    default_handler = None
+    if force_str or serialize_datetimes:
+        default_handler = _default
     parent_dir = os.path.dirname(path)
     if len(parent_dir) > 0:
         os.makedirs(parent_dir, exist_ok=True)
@@ -152,3 +182,96 @@ def dict_to_kvp_list(d, item_separator=' ', kv_separator='=',
             v = str(v)
         tokens.append('{}{}{}'.format(k, kv_separator, v))
     return item_separator.join(tokens)
+
+
+def get_iou(bb1, bb2):
+    """Intersection-over-union of two boxes in MD xywh format."""
+
+    ax0, ay0, ax1, ay1 = convert_xywh_to_xyxy(bb1)
+    bx0, by0, bx1, by1 = convert_xywh_to_xyxy(bb2)
+
+    assert ax0 < ax1 and ay0 < ay1, 'Malformed bounding box'
+    assert bx0 < bx1 and by0 < by1, 'Malformed bounding box'
+
+    ix0 = max(ax0, bx0)
+    iy0 = max(ay0, by0)
+    ix1 = min(ax1, bx1)
+    iy1 = min(ay1, by1)
+
+    if ix1 < ix0 or iy1 < iy0:
+        return 0.0
+
+    inter = (ix1 - ix0) * (iy1 - iy0)
+    union = (ax1 - ax0) * (ay1 - ay0) + (bx1 - bx0) * (by1 - by0) - inter
+    iou = inter / float(union)
+    assert 0.0 <= iou <= 1.0, 'Illegal IoU {}'.format(iou)
+    return iou
+
+
+def get_max_conf(im):
+    """
+    Maximum detection confidence for an image dict in the MD output format;
+    0.0 for failures / empty / missing detection lists.
+    """
+
+    detections = im.get('detections', None) if isinstance(im, dict) else None
+    if not detections:
+        return 0.0
+    return max(d['conf'] for d in detections)
+
+
+def invert_dictionary(d, verify_unique=False):
+    """Swap keys and values; optionally assert values were unique."""
+
+    inverted = {v: k for k, v in d.items()}
+    if verify_unique:
+        assert len(inverted) == len(d), \
+            'Cannot invert dictionary with non-unique values'
+    return inverted
+
+
+def split_list_into_n_chunks(L, n, chunk_strategy='greedy'): # noqa
+    """
+    Split list L into n chunks. 'greedy' keeps chunks contiguous
+    (sizes differ by at most 1); 'balanced' deals round-robin.
+    """
+
+    if chunk_strategy == 'greedy':
+        k, m = divmod(len(L), n)
+        return [L[i * k + min(i, m):(i + 1) * k + min(i + 1, m)]
+                for i in range(n)]
+    elif chunk_strategy == 'balanced':
+        chunks = [[] for _ in range(n)]
+        for i, item in enumerate(L):
+            chunks[i % n].append(item)
+        return chunks
+    else:
+        raise ValueError(
+            'Invalid chunk strategy {}'.format(chunk_strategy))
+
+
+def image_file_to_camera_folder(image_fn):
+    """
+    Map an image path to its "camera folder": the containing folder, with
+    trailing capture-point folders like RECNX101 / 100EK113 / DCIM variants
+    stripped, since those subdivide one physical camera's images.
+    """
+
+    import re
+
+    folder = os.path.dirname(image_fn.replace('\\', '/'))
+
+    # Patterns produced by common trail cameras (Reconyx, Bushnell, ...)
+    patterns = [r'RECNX\d+$', r'\d{3}RECNX$', r'DCIM$', r'\d{3}EK\d{3}$',
+                r'\d{3}_BTCF$', r'\d{3}MEDIA$']
+    stripped = True
+    while stripped and len(folder) > 0:
+        stripped = False
+        leaf = os.path.basename(folder)
+        for p in patterns:
+            if re.match(p, leaf, re.IGNORECASE):
+                folder = os.path.dirname(folder)
+                stripped = True
+                break
+    return folder
+

@@ -2,7 +2,7 @@
 Image and video enumeration for the port: its own copy of
 megadetector_tpu/utils/path_utils.py find_images, read_list_from_file,
 the video helpers (VIDEO_EXTENSIONS, is_video_file, find_video_strings,
-find_videos) and flatten_path.
+find_videos), flatten_path, is_image_file and recursive_file_list.
 """
 
 import glob
@@ -91,3 +91,38 @@ def flatten_path(pathname, separator_chars=SEPARATOR_CHARS,
     for c in separator_chars:
         s = s.replace(c, separator_char_replacement)
     return s
+
+
+def is_image_file(s, img_extensions=IMG_EXTENSIONS):
+    """True if the filename [s] has an image extension (case-insensitive)."""
+
+    return os.path.splitext(s)[1].lower() in img_extensions
+
+
+def recursive_file_list(base_dir, convert_slashes=True,
+                        return_relative_paths=False, sort_files=True,
+                        recursive=True):
+    """
+    List all files under [base_dir]. Forward slashes by default; sorted.
+    """
+
+    assert os.path.isdir(base_dir), '{} is not a folder'.format(base_dir)
+
+    all_files = []
+    if recursive:
+        for root, _, files in os.walk(base_dir):
+            for fn in files:
+                all_files.append(os.path.join(root, fn))
+    else:
+        for fn in os.listdir(base_dir):
+            full = os.path.join(base_dir, fn)
+            if os.path.isfile(full):
+                all_files.append(full)
+
+    if return_relative_paths:
+        all_files = [os.path.relpath(fn, base_dir) for fn in all_files]
+    if convert_slashes:
+        all_files = [fn.replace('\\', '/') for fn in all_files]
+    if sort_files:
+        all_files = sorted(all_files)
+    return all_files

@@ -1,13 +1,16 @@
 """
 Image loading and box rendering for the port: its own copy of
 megadetector_tpu/visualization/visualization_utils.py load_image,
-render_detection_bounding_boxes and what it calls. Images are converted
+render_detection_bounding_boxes and what it calls, and the previews'
+open_image, resize_image (with exif_preserving_save) and
+render_db_bounding_boxes. Images are converted
 to RGB and EXIF orientation is applied as the MD loader does (rotate by
 {3: 180, 6: 270, 8: 90} degrees with expand=True; mirrored orientations
 unsupported). PIL is imported only when an image is loaded or drawn on.
 """
 
 import math
+import os
 
 # EXIF tag 274 = Orientation; values map to counterclockwise PIL rotations
 EXIF_ORIENTATION_TAG = 274
@@ -53,10 +56,11 @@ TEXTALIGN_LEFT = 0
 TEXTALIGN_RIGHT = 1
 
 
-def load_image(input_file, ignore_exif_rotation=False):
+def open_image(input_file, ignore_exif_rotation=False):
     """
     Open a local image file (or a binary stream) with PIL, convert it to
-    RGB, apply its EXIF orientation and decode the pixels.
+    RGB and apply its EXIF orientation. Lazy: the pixels are decoded at
+    first use; see load_image() for the eager version.
     """
 
     from PIL import Image
@@ -81,8 +85,85 @@ def load_image(input_file, ignore_exif_rotation=False):
         except Exception:
             pass
 
+    return image
+
+
+def load_image(input_file, ignore_exif_rotation=False):
+    """Eager version of open_image(): decodes the pixels before returning."""
+
+    image = open_image(input_file, ignore_exif_rotation=ignore_exif_rotation)
     image.load()
     return image
+
+
+def exif_preserving_save(pil_image, output_file, quality='keep',
+                         default_quality=85, verbose=False):
+    """Save a PIL image, keeping JPEG quality/EXIF where possible."""
+
+    os.makedirs(os.path.dirname(os.path.abspath(output_file)), exist_ok=True)
+    kwargs = {}
+    exif = pil_image.info.get('exif', None)
+    if exif is not None:
+        kwargs['exif'] = exif
+    if output_file.lower().endswith(('.jpg', '.jpeg')):
+        if quality == 'keep':
+            try:
+                pil_image.save(output_file, quality='keep', **kwargs)
+                return
+            except Exception:
+                kwargs['quality'] = default_quality
+        else:
+            kwargs['quality'] = quality if isinstance(quality, int) \
+                else default_quality
+    pil_image.save(output_file, **kwargs)
+
+
+def resize_image(image, target_width=-1, target_height=-1, output_file=None,
+                 no_enlarge_width=False, verbose=False, quality='keep'):
+    """
+    Resize a PIL image (or filename) to the given size; -1 in one dimension
+    preserves aspect ratio; -1 in both is a no-op (but still writes
+    output_file when given).
+    """
+
+    from PIL import Image
+
+    if isinstance(image, str):
+        image = load_image(image)
+
+    if target_width is None:
+        target_width = -1
+    if target_height is None:
+        target_height = -1
+
+    resize_required = not (target_width == -1 and target_height == -1)
+
+    if resize_required and (target_width == -1 or target_height == -1):
+        aspect_ratio = image.size[0] / image.size[1]
+        if target_width != -1:
+            target_height = int(target_width / aspect_ratio)
+        else:
+            target_width = int(aspect_ratio * target_height)
+
+    if no_enlarge_width and target_width > image.size[0]:
+        resize_required = False
+
+    if (target_width == image.size[0]) and (target_height == image.size[1]):
+        resize_required = False
+
+    if not resize_required:
+        if output_file is not None:
+            exif_preserving_save(image, output_file, quality=quality)
+        return image
+
+    assert target_width > 0 and target_height > 0, \
+        'Invalid resize target {}x{}'.format(target_width, target_height)
+
+    resized = image.resize((target_width, target_height),
+                           Image.Resampling.LANCZOS)
+    if output_file is not None:
+        exif_preserving_save(resized, output_file, quality=quality)
+    return resized
 
 
 def _get_font(size):
@@ -231,4 +312,58 @@ def render_detection_bounding_boxes(
             expansion=expansion, display_str_list=display_strs,
             colormap=colormap, label_font_size=label_font_size)
 
+    return image
+
+
+def render_db_bounding_boxes(boxes, classes, image, original_size=None,
+                             label_map=None,
+                             thickness=DEFAULT_BOX_THICKNESS,
+                             expansion=0, colormap=None,
+                             label_font_size=DEFAULT_LABEL_FONT_SIZE,
+                             boxes_are_normalized=False):
+    """
+    Render COCO-Camera-Traps-style boxes (absolute-pixel x, y, w, h unless
+    boxes_are_normalized) with class labels on a PIL image, in place;
+    [original_size] rescales boxes annotated on a different resolution.
+    """
+
+    display_boxes = []
+    display_strs = []
+    if original_size is not None and \
+            tuple(original_size) != tuple(image.size):
+        image_size = original_size
+    else:
+        image_size = image.size
+    img_width, img_height = image_size
+
+    for box, clss in zip(boxes, classes):
+        x_min, y_min, width_of_box, height_of_box = box
+        if boxes_are_normalized:
+            x_min *= img_width
+            y_min *= img_height
+            width_of_box *= img_width
+            height_of_box *= img_height
+        # Normalize against the annotation-time size so rendering on a
+        # resized image lands correctly
+        display_boxes.append([y_min / img_height, x_min / img_width,
+                              (y_min + height_of_box) / img_height,
+                              (x_min + width_of_box) / img_width])
+        if label_map is not None and clss in label_map:
+            display_strs.append([str(label_map[clss])])
+        elif label_map is not None and str(clss) in label_map:
+            display_strs.append([str(label_map[str(clss)])])
+        else:
+            display_strs.append([str(clss)])
+
+    for box, clss, strs in zip(display_boxes, classes, display_strs):
+        try:
+            clss_int = int(clss)
+        except (TypeError, ValueError):
+            clss_int = abs(hash(str(clss))) % 100
+        draw_bounding_box_on_image(
+            image, box[0], box[1], box[2], box[3], clss=clss_int,
+            thickness=thickness, expansion=expansion,
+            display_str_list=strs, use_normalized_coordinates=True,
+            label_font_size=label_font_size,
+            colormap=colormap or DEFAULT_COLORS)
     return image

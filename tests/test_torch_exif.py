@@ -1,6 +1,7 @@
 """
-The port's EXIF reader (megadetector_tpu_torch/utils/read_exif.py, its own
-copy of ReadExifOptions, _clean_value and read_pil_exif) against the JAX
+The port's EXIF reader (ReadExifOptions, _clean_value and read_pil_exif,
+as the batch driver imports them from megadetector_tpu_torch/utils/
+read_exif.py, which re-exports data_management/read_exif.py) against the JAX
 package's megadetector_tpu/data_management/read_exif.py on the same JPEGs:
 IFD0 and Exif sub-IFD tags, GPS, rationals, bytes under each
 byte_handling, tag filters, an image without EXIF and a file that is no

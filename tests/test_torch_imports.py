@@ -8,7 +8,9 @@ the tiled and video drivers, the YOLOv8, RF-DETR and DETR networks and
 their converters and shims, the classifier, its converter, the two-stage
 driver and the classification toolchain, the ensemble and the taxonomy
 graph, which imports networkx only to build a graph; the serving daemon
-and client, the trainers, their optimizer and training utilities). PIL is
+and client, the trainers, their optimizer and training utilities; the
+folder workflow and the inference-options comparison with their
+postprocessing, rendering, sequence and EXIF modules). PIL is
 imported only once a file is decoded or drawn on. cv2 is not checked:
 ops/boxes.py imports it whenever it is installed and falls back to numpy
 where it is not.
@@ -111,7 +113,31 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.training.train_detector',
                 'megadetector_tpu_torch.training.train_classifier',
                 'megadetector_tpu_torch.classification.train_utils',
-                'megadetector_tpu_torch.classification.train_classifier'}
+                'megadetector_tpu_torch.classification.train_classifier',
+                'megadetector_tpu_torch.utils.write_html_image_list',
+                'megadetector_tpu_torch.visualization.'
+                'visualize_detector_output',
+                'megadetector_tpu_torch.visualization.'
+                'render_images_with_thumbnails',
+                'megadetector_tpu_torch.postprocessing.compare_batch_results',
+                'megadetector_tpu_torch.workflows.compare_inference_options',
+                'megadetector_tpu_torch.postprocessing.'
+                'repeat_detection_elimination.repeat_detections_core',
+                'megadetector_tpu_torch.postprocessing.'
+                'repeat_detection_elimination.find_repeat_detections',
+                'megadetector_tpu_torch.postprocessing.'
+                'repeat_detection_elimination.remove_repeat_detections',
+                'megadetector_tpu_torch.postprocessing.'
+                'subset_json_detector_output',
+                'megadetector_tpu_torch.postprocessing.'
+                'classification_postprocessing',
+                'megadetector_tpu_torch.data_management.cct_json_utils',
+                'megadetector_tpu_torch.data_management.read_exif',
+                'megadetector_tpu_torch.postprocessing.'
+                'postprocess_batch_results',
+                'megadetector_tpu_torch.postprocessing.generate_csv_report',
+                'megadetector_tpu_torch.postprocessing.combine_batch_outputs',
+                'megadetector_tpu_torch.workflows.manage_local_batch'}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
