@@ -232,6 +232,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      job's launches exact, comparison_summary.json with 28 pairs; each
      job's images/s. Phases 28-29's launches join those kernels'
      records.
+ 30. int8 static-scale checkpoints: quantize_checkpoint(mode='static') on
+     phase 4's yolov5l6 (96 int8 convs: 46 1x1, 50 3x3; float
+     activations between them), calibrated on the card on phase 7's two
+     320 px images; load_detector over the 16 images at batch 8, eager
+     then replayed, identical, the conv kernel in its int32 mode once per
+     int8 conv a forward and NMS once a selection program
+     (_expected_launches); that mode against its plain version at the
+     path's 3x3 s2 and 1x1 shapes; card vs CPU at 320 px (phase 8's
+     bars); forward and whole-program ms eager and replayed beside the
+     chain's of phase 7;
+ 31. utils/validate_weights on phase 4's checkpoint with skip_export
+     (convert, golden over 6 synthetic images, int8 chain drift at bound
+     1.0 as --dry_run sets it for random weights, capacity): status ok,
+     each stage's numbers; then utils/accelerator_test on the card:
+     platform gpu, its NMS-kernel smoke test ok;
+ 32. create_classification_dataset over phase 27's crops, then
+     evaluate_model on the card with phase 27's float32 classifier: the
+     written probabilities against classify_batch on the same crops, the
+     metric files against a numpy recomputation;
+ 33. utils/profiling: xla_trace (torch.profiler, CUDA activity) around a
+     replayed bf16 program inside annotate('md_program'): the trace file
+     names the span and our kernels it launched (stem, bias + SiLU, NMS's
+     two passes) up to the counters. Phases 30-31's NMS and conv
+     launches join those kernels' records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -1115,7 +1139,8 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
     both conv backends, and the forward's CUDA-event ms on [batch] (one
     960x1280 batch of 8); returns (int8 checkpoint path, {backend: (conv
     launches, bottleneck launches)}, {backend: images/s}, {backend:
-    forward ms}, last detector)."""
+    forward ms}, last detector, {backend: phase_program_cache's
+    numbers})."""
 
     import numpy as np
     import torch
@@ -1133,7 +1158,7 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
     print('int8 checkpoint: quantize_checkpoint calibrated on the card in '
           '{:.1f} s'.format(time.time() - start), flush=True)
 
-    launches, rates, forward_ms, detections = {}, {}, {}, {}
+    launches, rates, forward_ms, detections, programs = {}, {}, {}, {}, {}
     for backend in ('xla', 'pallas'):
         torch.cuda.reset_peak_memory_stats()
         detector = load_detector(q_path, device=device, detector_options={
@@ -1163,7 +1188,8 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
               '{:.3f} ms per 960x1280 batch of 8 (eager)'.format(
                   backend, n_det, batches, got[0], got[1], routing,
                   rates[backend], forward_ms[backend]), flush=True)
-        phase_program_cache(detector, batch, 'int8 ' + backend)
+        programs[backend] = phase_program_cache(detector, batch,
+                                                'int8 ' + backend)
         if profile:
             _profile_both(detector, batch, 'int8 ' + backend)
     if detections['xla'] != detections['pallas']:
@@ -1171,7 +1197,7 @@ def phase_int8_main_path(device, workdir, float_path, pairs, batch,
                              'backends')
     print('int8 detections identical under conv_backend xla and pallas',
           flush=True)
-    return q_path, launches, rates, forward_ms, detector
+    return q_path, launches, rates, forward_ms, detector, programs
 
 
 def phase_int8_card_vs_cpu(q_path, detector):
@@ -2157,7 +2183,7 @@ def _folder_run_costs(detector, folder, buckets, infos, ceiling):
     emission), thread x8 with cv2's own thread pool cut to one thread,
     the 64 decoded images as in-memory pairs (letterbox only) on one and
     eight threads, a call's fixed cost against its cost an image (the
-    folder once and three times over) in thread and process mode, and
+    folder once and twice over) in thread and process mode, and
     process mode's fixed costs (a spawned pool of 8 answering 64 trivial
     calls; a worker's imports; one image's info pickled)."""
 
@@ -2212,18 +2238,18 @@ def _folder_run_costs(detector, folder, buckets, infos, ceiling):
                          rate(pairs, loader_workers=8)), flush=True)
     del pairs
 
-    # A call's fixed cost against its cost an image: the folder three
-    # times over (192 images) beside the 64
+    # A call's fixed cost against its cost an image: the folder twice
+    # over (128 images) beside the 64
     paths = [info['file'] for info in infos]
     for label, kwargs in (('thread x8', dict(loader_workers=8)),
                           ('process x8', dict(loader_workers=8,
                                               loader_pool_type='process'))):
         t64 = len(paths) / rate(paths, warm=False, **kwargs)
-        t192 = 3 * len(paths) / rate(paths * 3, warm=False, **kwargs)
-        per_image = (t192 - t64) / (2 * len(paths))
-        print('folder run bf16, {}: 64 images in {:.3f} s, 192 in {:.3f} '
+        t128 = 2 * len(paths) / rate(paths * 2, warm=False, **kwargs)
+        per_image = (t128 - t64) / len(paths)
+        print('folder run bf16, {}: 64 images in {:.3f} s, 128 in {:.3f} '
               's: {:.3f} ms an image ({:.3f} images/s) after a fixed {:.3f} '
-              's a call'.format(label, t64, t192, per_image * 1e3,
+              's a call'.format(label, t64, t128, per_image * 1e3,
                                 1 / per_image, t64 - len(paths) * per_image),
               flush=True)
     code = ('import time; t = time.time(); import numpy, cv2, PIL.Image; '
@@ -2518,18 +2544,22 @@ def _pass_expected(detector, batch, height, width, first):
     bottleneck_tiling fuses and the conv kernel on every other chain conv
     (under xla on every one); under dtype bf16 the stem on the [first]
     (or only) pass and the epilogue after every activated float conv but
-    that pass's l0 (under int8 only l0 is a float conv, which the scaled
-    TTA passes run as a plain conv)."""
+    that pass's l0 (under the int8 chain only l0 is a float conv, which
+    the scaled TTA passes run as a plain conv). A static int8 checkpoint's
+    convs each launch the conv kernel once (int32 mode), fused or not."""
 
     import torch
 
     from megadetector_tpu_torch.models.yolov5 import QConv
     from megadetector_tpu_torch.ops import bottleneck_int8
 
-    n_qconv = sum(isinstance(m, QConv) for m in detector.model.modules())
+    qconvs = [m for m in detector.model.modules() if isinstance(m, QConv)]
+    n_qconv = len(qconvs)
     bf16 = detector.compute_dtype == torch.bfloat16
     fused = 0
-    if n_qconv and detector.conv_backend != 'xla':
+    # static int8 convs (mode='static') never fuse: the chain's do
+    if n_qconv and detector.conv_backend != 'xla' and \
+            all(m.y_scale is not None for m in qconvs):
         fused = sum(m for (h, w, c), m in _bottleneck_counts(
             detector.config, height, width, batch).items()
             if bottleneck_int8.bottleneck_tiling(batch, h, w, c))
@@ -5195,6 +5225,479 @@ def phase_comparison(device, workdir, float_path, threshold, card):
     return tuple(totals)
 
 
+#%% 30-33: static int8, the weight gate and the probe, classifier
+#   evaluation, the trace
+
+# The JAX package's quantize_params on yolov5l6 (nc 3): its int8 convs,
+# 1x1 and 3x3
+STATIC_INT8_CONVS = (96, 46, 50)
+
+
+def phase_static_int8(device, workdir, float_path, pairs, batch, chain,
+                      card):
+    """
+    30. int8 static-scale checkpoints: quantize_checkpoint(mode='static')
+    on phase 4's yolov5l6, calibrated on the card on phase 7's two 320 px
+    images; load_detector on cuda over the 16 images at batch 8, eager
+    then replayed (_eager_then_replayed: identical detections, equal
+    launches): the conv kernel (B2, int32 mode) once per static int8 conv
+    of each of the two batches (96 a forward), NMS once a selection
+    program, nothing else of ours (_expected_launches); then the same in
+    bf16, where the stem (once a forward) and the bias + SiLU epilogue
+    (once per activated float conv after l0) join them; B2's int32 mode
+    against its plain version at the static path's 3x3 s2 (l1) and 1x1
+    (l6.cv1) shapes; the card against the CPU at 320 px in both dtypes
+    (phase 8's and phase 13's bars); forward and program ms eager and
+    replayed beside [chain] (phase 7's program-cache numbers by backend).
+    Returns the (NMS, conv, stem, epilogue) launches of both dtypes.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.models.convert_weights import \
+        quantize_checkpoint
+    from megadetector_tpu_torch.models.yolov5 import QConv
+    from megadetector_tpu_torch.ops import conv_int8
+
+    s_path = os.path.join(workdir, 'md_smoke_int8_static.npz')
+    start = time.time()
+    calib = np.random.RandomState(1).uniform(
+        0, 1, (2, 320, 320, 3)).astype(np.float32)
+    quantize_checkpoint(float_path, s_path, mode='static',
+                        calibration_images=calib, device=device)
+    calib_s = time.time() - start
+
+    torch.cuda.reset_peak_memory_stats()
+    detector = load_detector(s_path, device=device,
+                             detector_options={'pad_batches_to': 8})
+    qconvs = [m for m in detector.model.modules() if isinstance(m, QConv)]
+    n_1x1 = sum(m.weight.shape[1] == 1 for m in qconvs)
+    if (len(qconvs), n_1x1, len(qconvs) - n_1x1) != STATIC_INT8_CONVS or \
+            any(m.y_scale is not None or m.x_scale is None
+                for m in qconvs):
+        raise AssertionError('static yolov5l6: {} int8 convs ({} 1x1), '
+                             'want (int8, 1x1, 3x3) {}'.format(
+                                 len(qconvs), n_1x1, STATIC_INT8_CONVS))
+    results, counts, batches, rate = _eager_then_replayed(
+        detector, pairs, 'int8 static')
+    selects = _select_calls(detector) // 3
+    want = _expected_launches(detector, {(8, 960, 1280): 1,
+                                         (8, 768, 1280): 1}, False, selects)
+    if batches != 2 or counts != want or want[1] != 2 * len(qconvs) or \
+            any(want[2:]):
+        raise AssertionError(
+            'int8 static: {} batches (want 2), launches (nms, conv, '
+            'bottleneck, stem, silu) {}, want {} ({} selection programs)'
+            .format(batches, counts, want, selects))
+    n_det = _write_and_check(results, pairs, s_path, os.path.join(
+        workdir, 'smoke_int8_static.json'))
+    print('int8 static main path on {}: quantize_checkpoint(mode=static) '
+          'calibrated on the card in {:.1f} s; 16 images, {} detections, '
+          '{} device batches; launches (nms, conv, bottleneck, stem, silu) '
+          '{} as _expected_launches has them ({} int8 convs a forward: {} '
+          '1x1, {} 3x3; NMS once a selection program); {:.3f} images/s '
+          'through load_and_run_detector_batch (third pass, replayed)'
+          .format(card, calib_s, n_det, batches, counts, len(qconvs), n_1x1,
+                  len(qconvs) - n_1x1, rate), flush=True)
+
+    # The same checkpoint in bf16: the float convs run in bf16 (the stem
+    # kernel on l0, the bias + SiLU epilogue after every other activated
+    # one), each static conv's epilogue casts to bf16 and its SiLU
+    # follows in bf16
+    detector_bf16 = load_detector(s_path, device=device, detector_options={
+        'pad_batches_to': 8, 'dtype': 'bfloat16'})
+    results_bf16, counts_bf16, batches_bf16, rate_bf16 = \
+        _eager_then_replayed(detector_bf16, pairs, 'int8 static bf16')
+    selects = _select_calls(detector_bf16) // 3
+    want = _expected_launches(detector_bf16, {(8, 960, 1280): 1,
+                                              (8, 768, 1280): 1}, False,
+                              selects)
+    if batches_bf16 != 2 or counts_bf16 != want or \
+            want[1] != 2 * len(qconvs) or want[2] or want[3] != 2 or \
+            not want[4]:
+        raise AssertionError(
+            'int8 static bf16: {} batches (want 2), launches (nms, conv, '
+            'bottleneck, stem, silu) {}, want {} ({} selection programs)'
+            .format(batches_bf16, counts_bf16, want, selects))
+    n_det = _write_and_check(results_bf16, pairs, s_path, os.path.join(
+        workdir, 'smoke_int8_static_bf16.json'))
+    print('int8 static bf16 main path on {}: 16 images, {} detections, {} '
+          'device batches; launches (nms, conv, bottleneck, stem, silu) {} '
+          'as _expected_launches has them; {:.3f} images/s through '
+          'load_and_run_detector_batch (third pass, replayed)'.format(
+              card, n_det, batches_bf16, counts_bf16, rate_bf16), flush=True)
+
+    # B2's int32 mode at the static path's shapes (l1: 3x3 s2; l6.cv1: 1x1)
+    rng = np.random.RandomState(30)
+    for name, shape, cout, k, stride, pads in (
+            ('l1 3x3 s2 [8,480,640,64]->128', (8, 480, 640, 64), 128, 3,
+             (2, 2), (1, 1, 1, 1)),
+            ('l6.cv1 1x1 [8,60,80,512]->256', (8, 60, 80, 512), 256, 1,
+             (1, 1), (0, 0, 0, 0))):
+        x = _int8_input(rng, device, shape)
+        w, scale, bias = _int8_conv_case(rng, device, shape[3], cout, k)
+        got = conv_int8.conv_int8(x, w, None, None, stride, pads, None)
+        torch.cuda.synchronize()
+        ref = conv_int8.conv_int8_reference(x, w, None, None, stride, pads,
+                                            None)
+        if not torch.equal(got, ref):
+            raise AssertionError('int32 conv kernel disagrees with its '
+                                 'plain version on {}: {} elements differ'
+                                 .format(name, int((got != ref).sum())))
+        ms = _time_ms(lambda: conv_int8.conv_int8(x, w, None, None, stride,
+                                                  pads, None), reps=10)
+        plain_ms = _time_ms(lambda: conv_int8.conv_int8_reference(
+            x, w, None, None, stride, pads, None), reps=2, warmup=1)
+        print('  int32 conv kernel == plain on the static path\'s {}: '
+              'kernel {:.4f} ms, plain {:.4f} ms'.format(name, ms, plain_ms),
+              flush=True)
+        del x, w, got, ref
+
+    # The card against the CPU at 320 px in both dtypes, phase 8's and
+    # phase 13's bars
+    x = np.random.RandomState(2).rand(2, 320, 320, 3).astype(np.float32)
+    for dtype, ours in (('float32', detector), ('bfloat16', detector_bf16)):
+        cpu = load_detector(s_path, device='cpu',
+                            detector_options={'dtype': dtype})
+        with torch.inference_mode():
+            ref = cpu.model(torch.from_numpy(x), decode=True).float().numpy()
+            got = ours.model(torch.from_numpy(x).to(device),
+                             decode=True).float().cpu().numpy()
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError('int8 static {} forward: shape {} vs {} or '
+                                 'non-finite'.format(dtype, got.shape,
+                                                     ref.shape))
+        d_score = np.percentile(np.abs(got[..., 4:5] * got[..., 5:] -
+                                       ref[..., 4:5] * ref[..., 5:]), 99)
+        d_xy = np.percentile(np.abs(got[..., :2] - ref[..., :2]), 99)
+        if not (d_score < 0.02 and d_xy < 2.0):
+            raise AssertionError('int8 static {} card vs CPU: score p99 {} '
+                                 '(limit 0.02), xy p99 {} px (limit 2)'
+                                 .format(dtype, d_score, d_xy))
+        print('int8 static {} card vs CPU yolov5l6 at 320 px: decoded score '
+              'p99 |d| {:.3e} (limit 0.02), xy p99 |d| {:.3e} px (limit 2)'
+              .format(dtype, d_score, d_xy), flush=True)
+        del cpu
+
+    ours = phase_program_cache(detector, batch, 'int8 static')
+    ours_bf16 = phase_program_cache(detector_bf16, batch, 'int8 static bf16')
+    print('int8 static vs the chain on {}, 960x1280 batch of 8, eager / '
+          'replayed ms: forward static {:.3f} / {:.3f}, static bf16 {:.3f} / '
+          '{:.3f}, chain xla {:.3f} / {:.3f}, chain pallas {:.3f} / {:.3f}; '
+          'whole program static {:.3f} / {:.3f}, static bf16 {:.3f} / '
+          '{:.3f}, chain xla {:.3f} / {:.3f}, chain pallas {:.3f} / {:.3f}'
+          .format(
+              card, ours['forward_eager'], ours['forward_replay'],
+              ours_bf16['forward_eager'], ours_bf16['forward_replay'],
+              chain['xla']['forward_eager'], chain['xla']['forward_replay'],
+              chain['pallas']['forward_eager'],
+              chain['pallas']['forward_replay'], ours['program_eager'],
+              ours['program_replay'], ours_bf16['program_eager'],
+              ours_bf16['program_replay'], chain['xla']['program_eager'],
+              chain['xla']['program_replay'],
+              chain['pallas']['program_eager'],
+              chain['pallas']['program_replay']), flush=True)
+    del detector, detector_bf16
+    torch.cuda.empty_cache()
+    return (counts[0] + counts_bf16[0], counts[1] + counts_bf16[1],
+            counts_bf16[3], counts_bf16[4])
+
+
+def phase_validate_and_probe(device, workdir, float_path, card):
+    """
+    31. utils/validate_weights on phase 4's checkpoint with skip_export
+    (the export stage waits for ROADMAP A10), on the card: convert (the
+    .npz passes), golden (6 synthetic images at 1280 px through the batch
+    driver), int8 (quantize_checkpoint mode='chain' calibrated on the card
+    on those images, held to the gate's own default drift bound) and
+    capacity; status ok and every stage printed; launches exact: each
+    calibration forward launches the conv kernel once per int8 conv
+    (dynamic scale, int32 mode), and each detector the gate loads as
+    _expected_launches has it from its program cache. Then
+    utils/accelerator_test on the card: platform gpu, the NMS kernel's
+    smoke test ok. Returns the gate's (NMS, conv) launches.
+    """
+
+    from megadetector_tpu_torch.detection import run_detector
+    from megadetector_tpu_torch.detection import run_detector_batch
+    from megadetector_tpu_torch.ops import quantization
+    from megadetector_tpu_torch.utils import accelerator_test
+    from megadetector_tpu_torch.utils import validate_weights as vw
+
+    options = vw.ValidateWeightsOptions()
+    options.checkpoint = float_path
+    options.scratch_dir = os.path.join(workdir, 'validate_weights')
+    options.skip_export = True
+    options.verbose = False
+
+    # Every detector the gate loads, and every calibration forward's int8
+    # convs, for the launches they imply
+    detectors, calibrations = [], []
+    load, calibrate = run_detector.load_detector, \
+        quantization._calibration_forward
+
+    def loading(*args, **kwargs):
+        detectors.append(load(*args, **kwargs))
+        return detectors[-1]
+
+    def calibrating(*args, **kwargs):
+        calibrations.append(calibrate(*args, **kwargs))
+        return calibrations[-1]
+
+    run_detector.load_detector = run_detector_batch.load_detector = loading
+    quantization._calibration_forward = calibrating
+    _reset_counts()
+    start = time.time()
+    try:
+        report = vw.validate_weights(options)
+        counts = _counts()
+    finally:
+        run_detector.load_detector = run_detector_batch.load_detector = load
+        quantization._calibration_forward = calibrate
+    want = [0, sum(len(convs) for convs in calibrations), 0, 0, 0]
+    for detector in detectors:
+        forwards, augment, selects, _ = _program_deltas(detector, {})
+        for j, n in enumerate(_expected_launches(detector, forwards, augment,
+                                                 selects)):
+            want[j] += n
+    stages = ('convert', 'golden', 'int8', 'capacity', 'export')
+    if report['status'] != 'ok' or [report[s]['status'] for s in stages] \
+            != ['ok'] * 4 + ['skipped'] or counts != tuple(want) or \
+            len(detectors) != 3 or len(calibrations) != 1 or \
+            not want[0] or not want[1]:
+        raise AssertionError('validate_weights on the card: {}; {} '
+                             'detectors, {} calibration forwards; launches '
+                             '(nms, conv, bottleneck, stem, silu) {}, want {}'
+                             .format(json.dumps(report), len(detectors),
+                                     len(calibrations), counts, want))
+    print('validate_weights (--skip_export) on {}: status {} in {:.1f} s; '
+          'launches (nms, conv, bottleneck, stem, silu) {} as they imply '
+          '(a calibration forward of {} int8 convs; {} detectors\' '
+          'programs {}); int8 drift held to the gate\'s default bound {}'
+          .format(card, report['status'], time.time() - start, counts,
+                  len(calibrations[0]), len(detectors),
+                  [sorted(_program_deltas(d, {})[0].items())
+                   for d in detectors], options.int8_p99_score_drift),
+          flush=True)
+    del detectors
+    for stage in stages:
+        print('  {}: {}'.format(stage, json.dumps({
+            k: v for k, v in report[stage].items() if k != 'errors'})),
+            flush=True)
+
+    result = accelerator_test.accelerator_test(verbose=False,
+                                               device=str(device))
+    if result['platform'] != 'gpu' or not result['smoke_test_ok'] or \
+            result['error'] is not None:
+        raise AssertionError('accelerator_test on the card: {}'.format(
+            result))
+    print('accelerator_test on {}: platform {}, {} device(s) {}, power '
+          'limits {}, smoke test ({}) ok in {:.3f} s'.format(
+              card, result['platform'], result['n_devices'],
+              result['devices'], result['power_limits'],
+              result['smoke_test'], result['smoke_test_seconds']),
+          flush=True)
+    return counts[0], counts[1]
+
+
+def phase_classifier_evaluation(device, workdir, card):
+    """
+    32. classification/create_classification_dataset over phase 27's crops
+    (each a ground-truth box of a queried image, 4 locations), then
+    classification/evaluate_model on the card with phase 27's float32
+    classifier (efficientnetv2_s, 224 px): every written probability
+    within 2e-6 of classify_batch on the same crops in the same batches
+    (the file holds 6 decimals), the confusion matrices, the per-label
+    statistics and the overall metrics against a numpy recomputation
+    from those probabilities. Returns nothing: the classifier's float32
+    forward runs no kernel of ours.
+    """
+
+    import shutil
+
+    import numpy as np
+
+    from megadetector_tpu_torch.classification import \
+        create_classification_dataset as ccd
+    from megadetector_tpu_torch.classification import evaluate_model as em
+    from megadetector_tpu_torch.classification.crop_detections import \
+        crop_filename
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+    from megadetector_tpu_torch.visualization import visualization_utils
+
+    src = os.path.join(workdir, 'train_crops')
+    ckpt = os.path.join(workdir, 'classifier_float32.npz')
+    crops = os.path.join(workdir, 'eval_crops')
+    queried = {}
+    for cls in sorted(os.listdir(src)):
+        for i, fn in enumerate(sorted(os.listdir(os.path.join(src, cls)))):
+            image = 'ds/loc{}/{}'.format(i % 4, fn)
+            dst = os.path.join(crops, crop_filename(image, 0))
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            shutil.copy(os.path.join(src, cls, fn), dst)
+            queried[image] = {'dataset': 'ds', 'location': 'loc{}'.format(
+                i % 4), 'class': cls, 'label': [cls],
+                'bbox': [[0.0, 0.0, 1.0, 1.0]]}
+    queried_path = os.path.join(workdir, 'eval_queried_images.json')
+    with open(queried_path, 'w') as f:
+        json.dump(queried, f)
+    ds_dir = os.path.join(workdir, 'eval_dataset')
+    start = time.time()
+    rows, label_index, splits = ccd.create_classification_dataset(
+        queried_path, crops, ds_dir, split_fractions=(0.5, 0.25, 0.25))
+    ds_s = time.time() - start
+    out_dir = os.path.join(workdir, 'eval_out')
+    start = time.time()
+    overall = em.evaluate_model(ckpt, ds_dir, crops, out_dir, batch_size=32,
+                                device=device)
+    eval_s = time.time() - start
+
+    names = [label_index[str(i)] for i in range(len(label_index))]
+    classifier = SpeciesClassifier(ckpt, device=device)
+    columns = [classifier.class_names.index(n) for n in names]
+    cms = np.load(os.path.join(out_dir, 'confusion_matrices.npz'))
+    with open(os.path.join(out_dir, 'label_stats.csv')) as f:
+        stats = [line.strip().split(',') for line in f][1:]
+    n_evaluated = 0
+    for row in overall:
+        split = row['split']
+        with open(os.path.join(out_dir, 'outputs_{}.csv'.format(split))) \
+                as f:
+            f.readline()
+            lines = [line.strip().split(',') for line in f]
+        images = [np.asarray(visualization_utils.load_image(
+            os.path.join(crops, line[0]))) for line in lines]
+        probs = np.concatenate([classifier.classify_batch(images[i:i + 32])
+                                for i in range(0, len(images), 32)])
+        probs = probs[:, columns].astype(np.float64)
+        written = np.asarray([line[3:] for line in lines], np.float64)
+        labels = np.asarray([names.index(line[1]) for line in lines])
+        weights = np.asarray([line[2] for line in lines], np.float64)
+        err = float(np.abs(written - probs).max())
+        losses = -np.log(probs[np.arange(len(labels)), labels] + 1e-12)
+        top3 = np.argsort(-probs, axis=1)[:, :3]
+        want = {'loss': losses.mean(),
+                'acc_top1': (probs.argmax(1) == labels).mean(),
+                'acc_top3': (top3 == labels[:, None]).any(1).mean()}
+        cm = np.zeros((len(names), len(names)), np.int64)
+        for t, p in zip(labels, probs.argmax(1)):
+            cm[t, p] += 1
+        recall = [cm[i, i] / max(cm[i].sum(), 1) for i in range(len(names))]
+        got_recall = [float(r[3]) for r in stats if r[0] == split]
+        if err > 2e-6 or not np.array_equal(cms[split], cm) or any(
+                abs(row[k] - v) > 1e-5 * max(1.0, abs(v))
+                for k, v in want.items()) or not np.allclose(
+                    got_recall, recall, rtol=1e-9) or \
+                abs(weights.sum() - len(labels)) > 1e-3:
+            raise AssertionError(
+                'evaluate_model split {}: probabilities max |d| {} (limit '
+                '2e-6), metrics {} vs {}, confusion {} vs {}, recall {} vs '
+                '{}'.format(split, err, row, want, cms[split].tolist(),
+                            cm.tolist(), got_recall, recall))
+        n_evaluated += len(labels)
+    if n_evaluated != len(rows) or len(overall) != 3:
+        raise AssertionError('evaluate_model: {} of {} crops over {} '
+                             'splits'.format(n_evaluated, len(rows),
+                                             len(overall)))
+    print('create_classification_dataset + evaluate_model on {}: {} crops, '
+          '{} labels, splits {}; dataset {:.2f} s, evaluation {:.2f} s '
+          '({:.1f} crops/s, efficientnetv2_s float32 224 px, batch 32); '
+          'probabilities equal classify_batch on the same crops (6 '
+          'decimals), metric files equal their numpy recomputation; {}'
+          .format(card, len(rows), len(names),
+                  {k: len(v) for k, v in splits.items()}, ds_s, eval_s,
+                  len(rows) / eval_s, [
+                      {k: round(v, 4) if isinstance(v, float) else v
+                       for k, v in row.items()} for row in overall]),
+          flush=True)
+
+
+def phase_trace(device, workdir, float_path, batch, card):
+    """
+    33. utils/profiling on the card: xla_trace (torch.profiler, CUDA
+    activity) around three replayed bf16 programs on [batch] (phase 4's
+    yolov5l6, a 960x1280 batch of 8): a lead-in (a window may drop its
+    first device activities, PERF.md section 7), then two inside
+    annotate('md_program'). The Chrome trace it writes must name that
+    span, and the kernels of ours that it attributes to the two spans
+    (each kernel's correlation id names the host call that launched it,
+    the graph launch inside the span) must be exactly those the
+    wrappers' counters give for the two programs: the stem, the bias +
+    SiLU epilogue and NMS's two passes. Returns nothing: its launches are
+    a trace's, not the main path's.
+    """
+
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.utils import profiling
+
+    detector = load_detector(float_path, device=device, detector_options={
+        'dtype': 'bf16'})
+    for _ in range(2):
+        detector.run_program(batch, 0.005, 0.45)
+    torch.cuda.synchronize()
+    log_dir = os.path.join(workdir, 'trace')
+    start = time.time()
+    with profiling.xla_trace(log_dir):
+        detector.run_program(batch, 0.005, 0.45)
+        torch.cuda.synchronize()
+        _reset_counts()
+        for _ in range(2):
+            with profiling.annotate('md_program'):
+                detector.run_program(batch, 0.005, 0.45)
+        torch.cuda.synchronize()
+        counts = _counts()
+    files = [f for f in os.listdir(log_dir) if f.startswith('trace_')]
+    if len(files) != 1:
+        raise AssertionError('xla_trace wrote {}'.format(files))
+    path = os.path.join(log_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    spans = [(e['ts'], e['ts'] + e['dur']) for e in events
+             if e.get('name') == 'md_program' and
+             e.get('cat') == 'user_annotation']
+    launched_in_span = {
+        e['args']['correlation'] for e in events
+        if e.get('cat') in ('cuda_runtime', 'cuda_driver') and
+        'correlation' in e.get('args', {}) and
+        any(a <= e['ts'] <= b for a, b in spans)}
+    kernels, attributed = {}, {}
+    for e in events:
+        if e.get('cat') != 'kernel':
+            continue
+        kernels[e['name']] = kernels.get(e['name'], 0) + 1
+        if e.get('args', {}).get('correlation') in launched_in_span:
+            attributed[e['name']] = attributed.get(e['name'], 0) + 1
+    ours = {name: sum(n for k, n in attributed.items() if name in k)
+            for name in PORT_KERNELS}
+    want = {'l0_fused_kernel': counts[3],
+            'silu_bf16': counts[4],
+            'nms_mask_kernel': counts[0], 'nms_sweep_kernel': counts[0]}
+    got = {'l0_fused_kernel': ours['l0_fused_kernel'],
+           'silu_bf16': ours['silu_bf16_vec8_kernel'] +
+           ours['silu_bf16_kernel'],
+           'nms_mask_kernel': ours['nms_mask_kernel'],
+           'nms_sweep_kernel': ours['nms_sweep_kernel']}
+    if len(spans) != 2 or got != want or not all(want.values()):
+        raise AssertionError('trace {}: {} md_program host spans; our '
+                             'kernels launched inside them {}, the counters '
+                             '{} (two programs)'.format(path, len(spans),
+                                                        got, want))
+    print('profiling.xla_trace on {} around a lead-in and 2 annotated '
+          'replayed bf16 programs ({:.2f} s): {} ({:.1f} MB), {} '
+          'md_program host spans, {} kernels in all, {} launched inside '
+          'the spans; ours there {}, exactly the counters'.format(
+              card, time.time() - start, os.path.relpath(path, workdir),
+              os.path.getsize(path) / 1e6, len(spans),
+              sum(kernels.values()), sum(attributed.values()), got),
+          flush=True)
+    del detector
+    torch.cuda.empty_cache()
+
+
 def main():
     import numpy as np
     import torch
@@ -5218,12 +5721,17 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     import importlib.util
-    print('device: torch {} CUDA {} python {}; {} (count {}); {}; cv2 {}'
+    print('device: torch {} CUDA {} python {}; {} (count {}); {}; cv2 {}; '
+          'pandas {}; tensorflow {}'
           .format(torch.__version__, torch.version.cuda,
                   sys.version.split()[0], torch.cuda.get_device_name(0),
                   torch.cuda.device_count(), card,
                   'present' if importlib.util.find_spec('cv2')
-                  else 'absent (numpy letterbox)'), flush=True)
+                  else 'absent (numpy letterbox)',
+                  'present' if importlib.util.find_spec('pandas')
+                  else 'absent',
+                  'present' if importlib.util.find_spec('tensorflow')
+                  else 'absent (no .pb detector)'), flush=True)
 
     # 2. build
     start = time.time()
@@ -5278,9 +5786,9 @@ def main():
         conv_record, bottleneck_record = phase_int8_kernels(device, config)
 
         # 7. int8 main path
-        q_path, counts, rates, forward_ms, detector = phase_int8_main_path(
-            device, workdir, float_path, pairs, batch,
-            profile='--profile' in sys.argv[1:])
+        q_path, counts, rates, forward_ms, detector, chain_programs = \
+            phase_int8_main_path(device, workdir, float_path, pairs, batch,
+                                 profile='--profile' in sys.argv[1:])
         conv_record['launches'] = counts['xla'][0]
         bottleneck_record['launches'] = counts['pallas'][1]
         print('int8 main path throughput on {}: {:.3f} images/s '
@@ -5418,6 +5926,39 @@ def main():
         stem_record['launches'] += counts[3]
         silu_record['launches'] += counts[4]
         print('phase 29 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 30. int8 static-scale checkpoints
+        start = time.time()
+        nms_launches, conv_launches, stem_launches, silu_launches = \
+            phase_static_int8(device, workdir, float_path, pairs, batch,
+                              chain_programs, card)
+        record['launches'] += nms_launches
+        conv_record['launches'] += conv_launches
+        stem_record['launches'] += stem_launches
+        silu_record['launches'] += silu_launches
+        print('phase 30 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 31. the weight-validation gate, then the accelerator probe
+        start = time.time()
+        nms_launches, conv_launches = phase_validate_and_probe(
+            device, workdir, float_path, card)
+        record['launches'] += nms_launches
+        conv_record['launches'] += conv_launches
+        print('phase 31 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 32. the classifier's dataset and evaluation
+        start = time.time()
+        phase_classifier_evaluation(device, workdir, card)
+        print('phase 32 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 33. a trace of a replayed bf16 program
+        start = time.time()
+        phase_trace(device, workdir, float_path, batch, card)
+        print('phase 33 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

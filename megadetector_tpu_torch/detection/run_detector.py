@@ -180,7 +180,8 @@ def load_detector(model_file, force_cpu=False, detector_options=None,
         device: keyword only: 'cuda', 'cuda:N', 'cpu' or None (CUDA, or
             the CPU with force_cpu); CUDA without a card raises, so the
             CPU needs 'cpu' (or force_cpu). A device other than the CPU
-            together with force_cpu raises ValueError.
+            together with force_cpu raises ValueError, and so does a .pb
+            graph asked for anywhere but the CPU.
     """
 
     if force_cpu:
@@ -189,11 +190,28 @@ def load_detector(model_file, force_cpu=False, detector_options=None,
                              'device={!r}'.format(device))
         device = 'cpu'
     model_file = resolve_model_file(model_file)
-    if model_file.endswith(('.pb', '.mdpkg')):
+    if model_file.endswith('.mdpkg'):
         raise NotImplementedError(
-            '{}: the PyTorch port loads converted .npz checkpoints and '
-            'reference .pt files only'.format(model_file))
+            '{}: .mdpkg artifacts hold JAX programs; the port loads '
+            'converted .npz checkpoints, reference .pt files and legacy '
+            '.pb graphs (its own exported artifact is ROADMAP A10)'.format(
+                model_file))
     start = time.time()
+    if model_file.endswith('.pb'):
+        # Legacy MDv2-v4 frozen graphs run on TF's CPU runtime only, so
+        # they must be asked for on the CPU: never silently in place of
+        # the card
+        if str(device) != 'cpu':
+            raise ValueError(
+                '{}: the legacy .pb detectors (MDv2-v4) run on '
+                'tensorflow\'s CPU runtime; load them with device=\'cpu\' '
+                '(or force_cpu=True), not device={!r}'.format(
+                    model_file, device))
+        from megadetector_tpu_torch.detection.tf_detector import TFDetector
+        detector = TFDetector(model_file, detector_options=detector_options,
+                              verbose=verbose)
+        print('Loaded model in {:.2f} seconds'.format(time.time() - start))
+        return detector
     if model_file.endswith('.pt'):
         # A reference checkpoint: converted once into the model folder,
         # then loaded. The name hashes the file's first MiB and its size,

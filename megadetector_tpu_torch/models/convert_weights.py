@@ -19,7 +19,9 @@ int8-chain checkpoints load too. The JAX package writes them width-folded
 quantizes, megadetector_tpu/ops/folding.py); the port unfolds them on load
 (unfold_early_params), which is exact. The port's own quantize_checkpoint
 writes unfolded int8 checkpoints with the same layer policy, which the JAX
-TPUDetector loads unchanged.
+TPUDetector loads unchanged. Static-scale checkpoints (mode='static':
+float32 x_scale per int8 conv, float activations between layers, never
+folded) load and are written by both packages alike.
 """
 
 import io
@@ -884,48 +886,67 @@ def _share_merged_scales(params_q):
         node['y_scale'] = y_scale
 
 
+QUANTIZATION_MODES = ('chain', 'static')
+
+
 def quantize_checkpoint(input_path, output_path, calibration_folder=None,
                         calibration_image_size=None, n_calibration_images=8,
-                        verbose=False, calibration_images=None, device=None):
+                        verbose=False, mode='chain', *,
+                        calibration_images=None, device=None):
     """
-    Write an int8-chain checkpoint from a converted float checkpoint
-    (counterpart of the JAX package's quantize_checkpoint, mode='chain',
-    the only mode the port writes), calibrating with the port's own
-    forward on [device] (None: the card; pass 'cpu' for the CPU).
+    Write an int8 checkpoint from a converted float checkpoint (the JAX
+    package's quantize_checkpoint, whose positional arguments these are),
+    calibrating with the port's own forward on [device] (keyword only;
+    None: the card; pass 'cpu' for the CPU).
 
-    The policy is the JAX package's for MDv5a: l0 float, every later conv
-    int8 with calibrated static scales, the detect heads float; l2's cv1
-    and cv2 share the scales of the merged node the JAX package folds
-    them into. The checkpoint is written unfolded; the JAX TPUDetector
+    mode='chain' (default): the JAX package's MDv5a policy. l0 float,
+    every later conv int8 with calibrated static x/y scales, the detect
+    heads float; l2's cv1 and cv2 share the scales of the merged node the
+    JAX package folds them into. Written unfolded; the JAX TPUDetector
     loads it as it is.
 
-    Calibration images: [calibration_images] ([N, H, W, 3] float in
-    [0, 1]), else up to n_calibration_images from [calibration_folder]
-    letterboxed to the square calibration canvas, else 4 uniform-noise
-    canvases from RandomState(0). The canvas defaults to the checkpoint's
-    image_size.
+    mode='static': quantization.quantize_params' policy (int8 where c_in
+    * k * k >= 288 and c_out >= 64, the detect heads included once
+    3 * (5 + nc) >= 64) with a calibrated float32 x_scale per int8 conv
+    and float activations between layers; not folded, as the JAX package
+    writes it.
+
+    Any other mode raises ValueError (the JAX package writes every mode
+    but 'chain' as a static checkpoint named 'int8-<mode>').
+
+    Calibration images: [calibration_images] (keyword only; [N, H, W, 3]
+    float in [0, 1]), else up to n_calibration_images from
+    [calibration_folder] letterboxed to the square calibration canvas,
+    else 4 uniform-noise canvases from RandomState(0). The canvas defaults
+    to the checkpoint's image_size.
     """
 
     from megadetector_tpu_torch.models.yolov5 import YoloV5Config
     from megadetector_tpu_torch.ops import quantization as q
 
+    if mode not in QUANTIZATION_MODES:
+        raise ValueError('quantize_checkpoint: mode must be one of {}, got '
+                         '{!r}'.format(QUANTIZATION_MODES, mode))
     params, metadata = load_checkpoint(input_path)
     metadata = metadata or {}
     arch = metadata.get('arch', 'yolov5l6')
     if not arch.startswith('yolov5'):
         raise ValueError(
-            'int8-chain quantization supports the yolov5 family only '
-            '(checkpoint arch: {})'.format(arch))
+            'int8-{} quantization supports the yolov5 family only '
+            '(checkpoint arch: {})'.format(mode, arch))
     config = YoloV5Config(arch, num_classes=int(metadata.get('num_classes',
                                                              3)),
                           anchors=metadata.get('anchors'))
     params = unfold_early_params(params, config)
     if any(k.split('/')[-1] == 'w_q' for k in flatten_params(params)):
         raise ValueError('{} is already quantized'.format(input_path))
-    detect_name = 'l{}'.format(len(config.layers) - 1)
-    params_q = q.quantize_params_chain(
-        params, skip_names=(detect_name,),
-        float_store_names=q.DEFAULT_FLOAT_STORE_LAYERS_FOLDED)
+    if mode == 'chain':
+        detect_name = 'l{}'.format(len(config.layers) - 1)
+        params_q = q.quantize_params_chain(
+            params, skip_names=(detect_name,),
+            float_store_names=q.DEFAULT_FLOAT_STORE_LAYERS_FOLDED)
+    else:
+        params_q = q.quantize_params(params)
 
     s = int(calibration_image_size or metadata.get('image_size', 640))
     if calibration_images is not None:
@@ -951,12 +972,16 @@ def quantize_checkpoint(input_path, output_path, calibration_folder=None,
         samples = np.random.RandomState(0).uniform(
             0, 1, (4, s, s, 3)).astype(np.float32)
 
-    q.calibrate_chain_scales(config, params_q, samples, device=device)
-    _share_merged_scales(params_q)
+    if mode == 'chain':
+        q.calibrate_chain_scales(config, params_q, samples, device=device)
+        _share_merged_scales(params_q)
+    else:
+        q.calibrate_activation_scales(config, params_q, samples,
+                                      device=device)
 
     metadata = dict(metadata)
     metadata['quantized'] = True
-    metadata['quantization'] = 'int8-chain'
+    metadata['quantization'] = 'int8-' + mode
     save_checkpoint(params_q, output_path, metadata)
     if verbose:
         print('Quantized {} -> {}'.format(input_path, output_path))

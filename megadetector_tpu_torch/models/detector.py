@@ -14,11 +14,12 @@ decoded forward, then ops/nms.batched_nms. The letterbox stride is the
 config's max_stride: 64 or 32 for YOLOv5, 32 for YOLOv8, patch x windows
 for RF-DETR (56 for the published presets), the patch for DETR.
 
-Float and int8-chain checkpoints load (quantized checkpoints written
-width-folded by the JAX package are unfolded on load), and compute in
-float32 or bf16 (dtype): bf16 casts the float layers (all of a float
-checkpoint; l0 and the detect heads of an int8 one) as the JAX detector
-does, and outside the strict modes runs l0 as the fused stem kernel from
+Float, int8-chain and int8 static-scale checkpoints load (quantized
+checkpoints written width-folded by the JAX package are unfolded on load),
+and compute in float32 or bf16 (dtype): bf16 casts the float layers (all
+of a float checkpoint; l0 and the detect heads of a chain one; every conv
+a static one keeps float, whose int8 convs then give bf16 outputs) as the
+JAX detector does, and outside the strict modes runs l0 as the fused stem kernel from
 the uint8 pixels. conv_backend picks how the int8 chain's bottlenecks run:
 'xla' (default) runs each of their convs on the int8 conv kernel, 'pallas'
 (and 'pallas-interpret', the same output) runs each bottleneck as the

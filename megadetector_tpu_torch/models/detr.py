@@ -24,7 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from megadetector_tpu_torch.models.params import ParamNetwork
+from megadetector_tpu_torch.models.params import (  # noqa: F401
+    ParamNetwork, num_params)
 from megadetector_tpu_torch.models.rfdetr import layer_norm
 
 
@@ -178,13 +179,15 @@ def _gelu(x):
     return F.gelu(x, approximate='tanh')
 
 
-def apply(config, params, x, dtype, decode=True):
+def apply(config, params, x, dtype=None, decode=True):
     """
-    Run the network on [B, H, W, 3] images in [dtype] (H, W multiples of
-    the patch size). decode=True: [B, num_queries, 5+nc] (obj = 1); else
+    Run the network on [B, H, W, 3] images in [dtype] (None: x's dtype;
+    H, W multiples of the patch size). decode=True: [B, num_queries, 5+nc] (obj = 1); else
     (class_logits, raw boxes).
     """
 
+    if dtype is None:
+        dtype = x.dtype
     x = x.to(dtype)
     c = config
     b, img_h, img_w, _ = x.shape

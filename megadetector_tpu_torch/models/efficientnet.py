@@ -47,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from megadetector_tpu_torch.models.convert_weights import fuse_conv_bn
+from megadetector_tpu_torch.models.params import num_params  # noqa: F401
 from megadetector_tpu_torch.models.yolov5 import _float_nchw
 from megadetector_tpu_torch.ops import quantization as q
 from megadetector_tpu_torch.ops.quantization import QTensor
@@ -197,19 +198,6 @@ def init_params(config, seed=0, train_init=False):
         'b': np.zeros((config.num_classes,), np.float32),
     }
     return params
-
-
-def num_params(params):
-    """Parameter count: every array leaf (static scales are not
-    parameters, as in the JAX module, where they are pytree aux data)."""
-
-    total = 0
-    for v in params.values():
-        if isinstance(v, dict):
-            total += num_params(v)
-        elif not isinstance(v, float):
-            total += int(np.prod(np.shape(v)))
-    return total
 
 
 #%% Stem folding (the JAX package's TPU layout, undone on load)

@@ -10,7 +10,22 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from megadetector_tpu_torch.models.yolov5 import COMPUTE_DTYPES, network_input
+
+
+def num_params(params):
+    """Parameter count of a JAX-layout tree: every array leaf, 0-d ones
+    included (a static checkpoint's float32 x_scale, as in the JAX
+    modules); the Python-float scales of the chain are not parameters, as
+    in the JAX modules, where they are pytree aux data. Each model module
+    re-exports it under the JAX module's name."""
+
+    total = 0
+    for v in params.values():
+        if isinstance(v, dict):
+            total += num_params(v)
+        elif not isinstance(v, float):
+            total += int(np.prod(np.shape(v)))
+    return total
 
 
 class ParamTree(nn.Module):
@@ -74,6 +89,9 @@ class ParamNetwork(nn.Module):
         """Compute in [dtype]; bf16 casts the 4-d leaves (conv weights)
         only, as the JAX detector's _cast does."""
 
+        # models.yolov5 imports num_params from here, so its names are
+        # imported where they are used
+        from megadetector_tpu_torch.models.yolov5 import COMPUTE_DTYPES
         if dtype not in COMPUTE_DTYPES:
             raise ValueError('compute dtype must be one of {}, got {}'.format(
                 COMPUTE_DTYPES, dtype))
@@ -82,6 +100,7 @@ class ParamNetwork(nn.Module):
         return self
 
     def forward(self, x, decode=True):
+        from megadetector_tpu_torch.models.yolov5 import network_input
         return type(self).apply(self.config, self.params,
                                 network_input(x, self.compute_dtype),
                                 self.compute_dtype, decode=decode)

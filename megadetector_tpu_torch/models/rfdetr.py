@@ -43,7 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from megadetector_tpu_torch.models.params import ParamNetwork
+from megadetector_tpu_torch.models.params import (  # noqa: F401
+    ParamNetwork, num_params)
 from megadetector_tpu_torch.ops.decode import topk_lower_index_first
 
 #%% Config (the JAX module's presets)
@@ -567,15 +568,17 @@ def select_queries(config, params, tokens, level_shapes):
     return q_content, ref_boxes, top_idx
 
 
-def apply(config, params, x, dtype, decode=True):
+def apply(config, params, x, dtype=None, decode=True):
     """
-    Run RF-DETR on [B, H, W, 3] images in [dtype] (H, W multiples of
-    config.size_multiple). decode=True: [B, Q, 5+nc] (obj = 1, sigmoid
+    Run RF-DETR on [B, H, W, 3] images in [dtype] (None: x's dtype; H, W
+    multiples of config.size_multiple). decode=True: [B, Q, 5+nc] (obj = 1, sigmoid
     class scores, cxcywh in canvas pixels); else (class_logits [B, Q, nc],
     normalized boxes [B, Q, 4]).
     """
 
     c = config
+    if dtype is None:
+        dtype = x.dtype
     hh, ww = x.shape[1:3]
     tokens, level_shapes = pyramid(config, params, x, dtype)
     queries, ref_boxes, _ = select_queries(config, params, tokens,

@@ -22,9 +22,12 @@ kernel) straight from uint8 pixels; otherwise uint8 input becomes bf16(u8 /
 255), as the JAX detector's program computes it. The detect heads run in
 bf16 and are decoded in float32.
 
-int8-chain parameters (nodes with 'w_q', ops/quantization.py) load as
-QConv modules: with calibrated scales they take and give QTensors (int8
-NHWC + a static scale) through the int8 conv kernel, and
+int8 parameters (nodes with 'w_q', ops/quantization.py) load as QConv
+modules. Chain nodes (x_scale and y_scale) take and give QTensors (int8
+NHWC + a static scale) through the int8 conv kernel; static nodes
+(mode='static' checkpoints: x_scale alone, detect heads included once nc
+>= 17) take and give float tensors, the int8 conv kernel in its int32 mode
+between a quantize and a float epilogue; and
 YoloV5(fuse_bottlenecks=True) runs every bottleneck whose convs are both
 chained as the fused bottleneck kernel (the JAX conv_backend=pallas route).
 Float tensors stay NCHW and QTensors NHWC; concat, add, pool and upsample
@@ -51,6 +54,7 @@ import torch.nn.functional as F
 
 from megadetector_tpu_torch.device import device_constant
 from megadetector_tpu_torch.models.convert_weights import params_to_torch
+from megadetector_tpu_torch.models.params import num_params  # noqa: F401
 from megadetector_tpu_torch.ops import bottleneck_int8, l0_fused
 from megadetector_tpu_torch.ops import quantization as q
 from megadetector_tpu_torch.ops.conv_int8 import scalar_like
@@ -363,30 +367,42 @@ class Conv(nn.Module):
 
 class QConv(nn.Module):
     """
-    int8 conv of the chain, in place of a Conv (+ SiLU): int8 weight
-    [Cout, kh, kw, Cin], float32 w_scale and bias buffers, Python-float
-    x_scale / y_scale.
+    int8 conv in place of a Conv: int8 weight [Cout, kh, kw, Cin], float32
+    w_scale and bias buffers; a chain node's x_scale / y_scale are Python
+    floats, a static node's x_scale a float32 0-d buffer.
 
-    Calibrated (with scales), it returns a QTensor at y_scale
-    (quantization.chained_conv). Uncalibrated, it is the calibration
-    forward's float-in / float-out quantized_conv; setting [stats] to a
-    dict records its input and output abs-max there.
+    A chain node (x_scale and y_scale, SiLU) returns a QTensor at y_scale
+    (quantization.chained_conv). A static node (mode='static': x_scale
+    alone; the detect heads too, without SiLU) takes and gives float
+    tensors in the input's dtype: quantization.quantized_conv at the
+    static scale, the conv kernel in its int32 mode and the float
+    epilogue in torch, as the JAX module's quantized_conv computes it.
+    Uncalibrated (no scale), it is the calibration forward's
+    quantized_conv at the dynamic scale; setting [stats] to a dict
+    records its input and output abs-max there.
     """
 
     def __init__(self, conv, node):
         super().__init__()
-        if not conv.act:
-            raise ValueError('int8 convs without SiLU (the detect heads) '
-                             'are not part of the chain')
-        if ('x_scale' in node) != ('y_scale' in node):
-            raise NotImplementedError(
-                'int8 conv nodes with only some static scales (the JAX '
-                'package\'s mode=static checkpoints) are not ported')
+        if 'y_scale' in node and 'x_scale' not in node:
+            raise ValueError('an int8 chain conv node needs its x_scale')
+        if 'y_scale' in node and not conv.act:
+            raise ValueError('int8 chain convs without SiLU (the detect '
+                             'heads) are not part of the chain')
         self.register_buffer('weight', node['w_q'])
         self.register_buffer('w_scale', node['w_scale'])
         self.register_buffer('bias', node['b'])
-        self.x_scale = node.get('x_scale')
         self.y_scale = node.get('y_scale')
+        if self.y_scale is not None:
+            self.x_scale = node['x_scale']
+        else:
+            # The static input scale (None uncalibrated) as a float32 0-d
+            # tensor on the module's device: dividing by it is an IEEE
+            # division on the card too
+            self.register_buffer(
+                'x_scale', None if 'x_scale' not in node else
+                torch.tensor(np.float32(node['x_scale'])), persistent=False)
+        self.act = conv.act
         self.stride = conv.stride
         self.pads = q.conv_pads(conv.padding, self.weight.shape[1])
         self.stats = None
@@ -398,9 +414,11 @@ class QConv(nn.Module):
             return q.chained_conv(x, self.weight, self.w_scale, self.bias,
                                   self.x_scale, self.y_scale, self.stride,
                                   self.pads)
-        y = q.quantized_conv(_float_nchw(x).permute(0, 2, 3, 1),
-                             self.weight, self.w_scale, self.bias,
-                             self.stride, self.pads, self.stats)
+        x = _float_nchw(x)
+        y = q.quantized_conv(x.permute(0, 2, 3, 1), self.weight,
+                             self.w_scale, self.bias, self.stride,
+                             self.pads, self.stats, act=self.act,
+                             dtype=x.dtype, x_scale=self.x_scale)
         return y.permute(0, 3, 1, 2)
 
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from megadetector_tpu_torch.models.convert_weights import _TorchKeyReader
+from megadetector_tpu_torch.models.params import num_params  # noqa: F401
 from megadetector_tpu_torch.models.yolov5 import (
     COMPUTE_DTYPES, SPPF, Conv, _upsample2x, load_conv_params, network_input)
 

@@ -1,7 +1,8 @@
 """
 Host-side letterbox geometry and box rescaling for the port (its own copy
 of megadetector_tpu/ops/boxes.py letterbox, auto_target_shape,
-resize_long_side, scale_coords and xyxy2xywh, with the same rounding).
+resize_long_side, compute_stride_target_shape, scale_coords, clip_coords,
+xyxy2xywh and xywh2xyxy, with the same rounding).
 
 - letterbox(): scale the image so it fits the target canvas, then pad
   with gray (114) to a stride multiple ('auto') or to the exact canvas.
@@ -171,6 +172,21 @@ def _numpy_bilinear_resize(im, new_wh):
     return out.astype(im.dtype)
 
 
+def compute_stride_target_shape(image_shape, image_size, stride, pad=0.5):
+    """
+    The reference's 'modern' target-shape computation
+    (pytorch_detector.py:1090-1101): normalize the image shape by its long
+    side, scale to [image_size], divide by stride, add [pad], ceil, multiply
+    back by stride. Returns an (h, w) int array.
+    """
+
+    max_dimension = max(image_shape[:2])
+    normalized = np.array([image_shape[0] / max_dimension,
+                           image_shape[1] / max_dimension])
+    return (np.ceil(((normalized * image_size) / stride) + pad)
+            .astype(int) * stride)
+
+
 def scale_coords(img1_shape, coords, img0_shape, ratio_pad=None):
     """
     Rescale xyxy [coords] (numpy [N,4], modified in place and returned) from
@@ -191,9 +207,16 @@ def scale_coords(img1_shape, coords, img0_shape, ratio_pad=None):
     coords[:, [0, 2]] -= pad[0]
     coords[:, [1, 3]] -= pad[1]
     coords[:, :4] /= gain
-    coords[:, [0, 2]] = coords[:, [0, 2]].clip(0, img0_shape[1])
-    coords[:, [1, 3]] = coords[:, [1, 3]].clip(0, img0_shape[0])
+    clip_coords(coords, img0_shape)
     return coords
+
+
+def clip_coords(boxes, shape):
+    """Clip xyxy boxes (numpy, in place) to (h, w) image bounds."""
+
+    boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, shape[1])
+    boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, shape[0])
+    return boxes
 
 
 def xyxy2xywh(x):
@@ -204,4 +227,15 @@ def xyxy2xywh(x):
     y[:, 1] = (x[:, 1] + x[:, 3]) / 2
     y[:, 2] = x[:, 2] - x[:, 0]
     y[:, 3] = x[:, 3] - x[:, 1]
+    return y
+
+
+def xywh2xyxy(x):
+    """Center-format xywh -> xyxy (numpy [N,4])."""
+
+    y = np.copy(x).astype(np.float64)
+    y[:, 0] = x[:, 0] - x[:, 2] / 2
+    y[:, 1] = x[:, 1] - x[:, 3] / 2
+    y[:, 2] = x[:, 0] + x[:, 2] / 2
+    y[:, 3] = x[:, 1] + x[:, 3] / 2
     return y

@@ -4,9 +4,10 @@ megadetector_tpu/ops/quantization.py, whose numpy parts are carried over
 here because that module imports jax).
 
 - Weights and policy: quantize_conv_weight (symmetric per-output-channel
-  int8), quantize_params_chain (YOLOv5's; EfficientNet's is in
-  models/efficientnet.py) and the float-store layer lists;
-  requalify_quantized.
+  int8), quantize_params (the static-scale policy: a conv becomes int8
+  when c_in * k * k >= 288 and c_out >= 64), quantize_params_chain
+  (YOLOv5's; EfficientNet's is in models/efficientnet.py) and the
+  float-store layer lists; requalify_quantized.
 - QTensor (int8 NHWC data + a static Python-float scale) and its ops:
   qt_dequant, qt_quantize, qt_requant, qt_concat, qt_add, qt_maxpool,
   qt_upsample2x (float tensors take the plain torch ops; the model,
@@ -14,10 +15,14 @@ here because that module imports jax).
 - chained_conv: int8 in, int8 out, on the conv kernel (ops/conv_int8),
   with or without SiLU (act); fused_bottleneck: a whole CSP bottleneck on
   the bottleneck kernel (ops/bottleneck_int8).
-- Calibration: quantized_conv (float in and out at the dynamic abs-max
-  input scale; the int8 conv runs the conv kernel in its int32 mode on a
-  card) and calibrate_chain_scales, for YOLOv5 and EfficientNet (whose
-  residual sums get their own res_scale).
+- quantized_conv: float in and out, the int8 conv on the conv kernel in
+  its int32 mode and the float epilogue in torch. With a static x_scale
+  (mode='static' checkpoints) it is that path's conv: no reduction and no
+  host read, so the forward can be captured into a CUDA graph. Without
+  one it quantizes at the dynamic abs-max input scale: the calibration
+  forward of calibrate_chain_scales (YOLOv5 and EfficientNet, whose
+  residual sums get their own res_scale) and of
+  calibrate_activation_scales (the static x_scale).
 
 Scale arithmetic happens in Python floats and becomes float32 where the
 JAX module makes it float32: w_scale * f32(x_scale) in chained_conv,
@@ -65,13 +70,42 @@ def quantize_conv_weight(w):
     return w_q, scale.astype(np.float32)
 
 
+def quantize_params(params, min_channels=32):
+    """
+    The static-scale policy (mode='static'): every conv node ({'w', 'b'},
+    a 4-d w) with c_in * k * k >= min_channels * 9 and c_out >= 64 becomes
+    {'w_q', 'w_scale', 'b'}; the others stay float32 {'w', 'b'}. The
+    detect heads are convs like any other, so they quantize once
+    3 * (5 + nc) >= 64. x_scale comes from calibrate_activation_scales.
+    """
+
+    def convert(node):
+        if isinstance(node, dict):
+            if 'w' in node and 'b' in node and \
+                    getattr(node['w'], 'ndim', 0) == 4:
+                w = np.asarray(node['w'])
+                k, _, c_in, c_out = w.shape
+                if c_in * k * k >= min_channels * 9 and c_out >= 64:
+                    w_q, scale = quantize_conv_weight(w)
+                    return {'w_q': w_q, 'w_scale': scale,
+                            'b': np.asarray(node['b'], np.float32)}
+                return {'w': w.astype(np.float32),
+                        'b': np.asarray(node['b'], np.float32)}
+            return {key: convert(value) for key, value in node.items()}
+        return node
+
+    return convert(params)
+
+
 def quantize_params_chain(params, skip_names=('detect',),
+                          keep_float_first=True,
                           float_store_names=DEFAULT_FLOAT_STORE_LAYERS):
     """
     Quantize a yolov5-style parameter tree for the chain: conv nodes get
     w_q/w_scale/b (x_scale/y_scale come from calibrate_chain_scales).
     Layers in [float_store_names] stay float {'w', 'b'}, and so do the
-    top-level [skip_names] (the detect heads).
+    top-level [skip_names] (the detect heads). [keep_float_first] is
+    unused, as in the JAX module, whose positional order this keeps.
     """
 
     float_store = tuple(float_store_names or ())
@@ -238,14 +272,16 @@ def chained_conv(x, w, w_scale, bias, x_scale, y_scale, stride, pads,
 
 
 def quantized_conv(x, w, w_scale, bias, stride, pads, stats=None,
-                   act=True, dtype=torch.float32):
+                   act=True, dtype=torch.float32, x_scale=None):
     """
-    int8 conv with float input and output, the calibration forward's: x
-    (NHWC) is quantized at the dynamic abs-max scale max(|x|max, 1e-6) /
-    127, the conv kernel runs in its int32 mode, and the float epilogue
-    acc * (w_scale * x_scale) + bias follows in torch, cast to [dtype],
-    then SiLU in that dtype when [act] (in bf16 rounded at each op, as the
-    JAX module's accum_dtype path computes it).
+    int8 conv with float input and output, the JAX module's
+    quantized_conv: x (NHWC) is quantized at [x_scale] (a float32 0-d
+    tensor on x's device: the static scale) or, without one, at the
+    dynamic abs-max scale max(|x|max, 1e-6) / 127; the conv kernel runs in
+    its int32 mode, and the float epilogue acc * (w_scale * x_scale) +
+    bias follows in torch, cast to [dtype], then SiLU in that dtype when
+    [act] (in bf16 rounded at each op, as the JAX module's accum_dtype
+    path computes it).
 
     [stats], when a dict, records the input and output abs-max under 'in'
     and 'out' (the largest seen).
@@ -254,11 +290,13 @@ def quantized_conv(x, w, w_scale, bias, stride, pads, stats=None,
     x = x.to(torch.float32)
     if stats is not None:
         stats['in'] = max(stats.get('in', 0.0), float(x.abs().max()))
-    xs = torch.clamp(x.abs().max(), min=1e-6) / scalar_like(127.0, x)
-    x_q = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+    if x_scale is None:
+        x_scale = torch.clamp(x.abs().max(), min=1e-6) / scalar_like(127.0,
+                                                                     x)
+    x_q = torch.clamp(torch.round(x / x_scale), -127, 127).to(torch.int8)
     acc = conv_int8.conv_int8(x_q.contiguous(), w, None, None,
                               _pair(stride), pads, None)
-    y = (acc.to(torch.float32) * (w_scale * xs) + bias).to(dtype)
+    y = (acc.to(torch.float32) * (w_scale * x_scale) + bias).to(dtype)
     if act:
         y = y * (sigmoid_bf16_reference(y) if dtype == torch.bfloat16
                  else torch.sigmoid(y))
@@ -301,6 +339,39 @@ def _calibration_network(config, params_q):
     return model, lambda x: model(x, decode=False)
 
 
+def _calibration_forward(config, params_q, sample_images, device):
+    """The port's float32 forward of [params_q] over [sample_images] on
+    [device] with every uncalibrated int8 conv in quantized_conv at its
+    dynamic scale, each recording its abs-max statistics; returns the
+    [(module name, stats dict)] of those convs."""
+
+    device = get_device(device)
+    model, forward = _calibration_network(config, params_q)
+    model = model.eval().to(device)
+    qconvs = [(name, m) for name, m in model.named_modules()
+              if hasattr(m, 'stats') and hasattr(m, 'y_scale')]
+    if not qconvs:
+        raise ValueError('Calibration matched no quantized convs')
+    for _, m in qconvs:
+        if m.y_scale is not None or getattr(m, 'x_scale', None) is not None:
+            raise ValueError('calibration: the parameters are already '
+                             'calibrated')
+        m.stats = {'in': 0.0, 'out': 0.0}
+    x = torch.from_numpy(np.asarray(sample_images, np.float32))
+    with torch.inference_mode():
+        forward(x.to(device))
+    return [(name, m.stats) for name, m in qconvs]
+
+
+def _node_at(params_q, name):
+    """The parameter node of module [name] ('layers.<pytree path>')."""
+
+    node = params_q
+    for key in name.split('.')[1:]:
+        node = node[key]
+    return node
+
+
 def calibrate_chain_scales(config, params_q, sample_images, headroom=1.0,
                            device=None):
     """
@@ -316,30 +387,32 @@ def calibrate_chain_scales(config, params_q, sample_images, headroom=1.0,
     means the card, 'cpu' the CPU.
     """
 
-    device = get_device(device)
-    model, forward = _calibration_network(config, params_q)
-    model = model.eval().to(device)
-    qconvs = [(name, m) for name, m in model.named_modules()
-              if hasattr(m, 'stats') and hasattr(m, 'y_scale')]
-    if not qconvs:
-        raise ValueError('Calibration matched no quantized convs')
-    for _, m in qconvs:
-        if m.y_scale is not None:
-            raise ValueError('calibrate_chain_scales: the parameters are '
-                             'already calibrated')
-        m.stats = {'in': 0.0, 'out': 0.0}
-    x = torch.from_numpy(np.asarray(sample_images, np.float32))
-    with torch.inference_mode():
-        forward(x.to(device))
-
-    for name, m in qconvs:
-        node = params_q
-        # module names are 'layers.<pytree path>'
-        for key in name.split('.')[1:]:
-            node = node[key]
+    for name, stats in _calibration_forward(config, params_q, sample_images,
+                                            device):
+        node = _node_at(params_q, name)
         for key, stat in (('x_scale', 'in'), ('y_scale', 'out'),
                           ('res_scale', 'res')):
-            if stat in m.stats:
-                node[key] = float(max(m.stats[stat] * headroom, 1e-6) /
+            if stat in stats:
+                node[key] = float(max(stats[stat] * headroom, 1e-6) /
                                   127.0)
+    return params_q
+
+
+def calibrate_activation_scales(config, params_q, sample_images,
+                                percentile_headroom=1.0, device=None):
+    """
+    Calibrate the static input scale of every int8 conv of [params_q]
+    (quantize_params output, YOLOv5): the port's float32 forward over
+    [sample_images] ([N, H, W, 3] float in [0, 1]) with every int8 conv
+    quantizing at its dynamic abs-max scale records each one's input
+    abs-max, and x_scale = float32(max(absmax * percentile_headroom,
+    1e-6) / 127) is set in place, as the JAX module writes it. Returns
+    params_q. [device] is as get_device takes it: None means the card,
+    'cpu' the CPU.
+    """
+
+    for name, stats in _calibration_forward(config, params_q, sample_images,
+                                            device):
+        _node_at(params_q, name)['x_scale'] = np.float32(
+            max(stats['in'] * percentile_headroom, 1e-6) / 127.0)
     return params_q

@@ -3,8 +3,9 @@ The port on a CUDA card: the greedy-NMS, int8 conv, fused int8
 bottleneck, fused stem and bf16 epilogue kernels (and the epilogue's
 backward), and the int8 experiments' conv (every epilogue) and GEMM
 kernels, against their plain versions, and the card's selection, NMS,
-detectors (float32, int8 chain and bf16) and training steps (a bf16
-detector step, a classifier step) against the CPU's.
+detectors (float32, int8 chain, int8 static and bf16) and training steps
+(a bf16 detector step, a classifier step) against the CPU's; the
+accelerator probe on the card.
 
 Every test is marked `cuda` and skips without a card. This file imports
 no jax, so it also runs on a machine without the JAX package's
@@ -1225,3 +1226,87 @@ def test_classifier_step_on_card_matches_cpu(cuda_device, precision):
         ref_loss, _ = step('cpu', torch.float32)
         assert abs(card_loss - cpu_loss) <= max(abs(cpu_loss - ref_loss),
                                                 1e-3 * abs(ref_loss))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_static_int8_detector_on_card_matches_cpu(cuda_device, tmp_path,
+                                                  dtype):
+    """An int8 static-scale yolov5s6 (quantize_checkpoint mode='static',
+    calibrated on the CPU) on the card in [dtype]: under both conv
+    backends the conv kernel launches once per int8 conv a forward (int32
+    mode; static convs never fuse), in bf16 the stem once a forward and
+    the bias + SiLU epilogue once per activated float conv after l0, and
+    nothing else of ours but NMS; the replayed program gives the eager
+    one's detections; the forward agrees with the CPU's in the same dtype
+    within the int8 bounds of the test above."""
+
+    config = yolov5.YoloV5Config('yolov5s6', num_classes=3)
+    f_path = str(tmp_path / 'float.npz')
+    save_checkpoint(yolov5.init_params(config, seed=0), f_path, {
+        'arch': 'yolov5s6', 'model_type': 'yolov5', 'num_classes': 3,
+        'image_size': 256})
+    s_path = str(tmp_path / 'static.npz')
+    quantize_checkpoint(f_path, s_path, calibration_image_size=256,
+                        mode='static', device='cpu')
+    imgs = data.images()
+    ids = ['im{}'.format(i) for i in range(len(imgs))]
+    results = {}
+    for backend in ('xla', 'pallas'):
+        detector = run_detector.load_detector(
+            s_path, device='cuda', detector_options={'conv_backend': backend,
+                                                     'dtype': dtype})
+        n_qconv = sum(isinstance(m, yolov5.QConv)
+                      for m in detector.model.modules())
+        n_activated = sum(type(m) is yolov5.Conv and m.act
+                          for m in detector.model.modules())
+        assert n_qconv > 20 and n_activated > 10
+        bf16 = dtype == 'bfloat16'
+        forwards = []
+        hook = detector.model.register_forward_pre_hook(
+            lambda *_: forwards.append(1))
+        before = (conv_int8.launches, bottleneck_int8.launches,
+                  l0_fused.launches, silu_bf16.launches)
+        eager = detector.generate_detections_one_batch(
+            imgs, ids, detection_threshold=0.005)
+        torch.cuda.synchronize()
+        after = (conv_int8.launches, bottleneck_int8.launches,
+                 l0_fused.launches, silu_bf16.launches)
+        hook.remove()
+        n = len(forwards)
+        assert [a - b for a, b in zip(after, before)] == \
+            [n_qconv * n, 0, n if bf16 else 0,
+             (n_activated - 1) * n if bf16 else 0]
+        replayed = detector.generate_detections_one_batch(
+            imgs, ids, detection_threshold=0.005)
+        assert detector._programs.replays > 0
+        assert replayed == eager
+        results[backend] = eager
+    assert results['xla'] == results['pallas']
+    assert sum(len(r['detections']) for r in results['xla']) > 0
+
+    x = torch.from_numpy(np.random.RandomState(2).rand(
+        2, 256, 256, 3).astype(np.float32))
+    cpu = run_detector.load_detector(s_path, device='cpu',
+                                     detector_options={'dtype': dtype})
+    with torch.inference_mode():
+        ref = cpu.model(x, decode=True).float().numpy()
+        got = detector.model(x.to(cuda_device),
+                             decode=True).float().cpu().numpy()
+    assert np.isfinite(got).all() and got.shape == ref.shape
+    d_score = np.abs(got[..., 4:5] * got[..., 5:] - ref[..., 4:5] *
+                     ref[..., 5:])
+    assert np.percentile(d_score, 99) < 0.02
+    assert np.percentile(np.abs(got[..., :2] - ref[..., :2]), 99) < 2.0
+
+
+def test_accelerator_probe_on_card(cuda_device):
+    from megadetector_tpu_torch.utils.accelerator_test import \
+        accelerator_test
+
+    before = cuda_nms.launches
+    result = accelerator_test(verbose=False)
+    assert result['platform'] == 'gpu' and result['error'] is None
+    assert result['smoke_test_ok'] and result['n_devices'] >= 1
+    assert result['devices'][0] == torch.cuda.get_device_name(0)
+    assert cuda_nms.launches == before + 1
+

@@ -10,8 +10,12 @@ driver and the classification toolchain, the ensemble and the taxonomy
 graph, which imports networkx only to build a graph; the serving daemon
 and client, the trainers, their optimizer and training utilities; the
 folder workflow and the inference-options comparison with their
-postprocessing, rendering, sequence and EXIF modules). PIL is
-imported only once a file is decoded or drawn on. cv2 is not checked:
+postprocessing, rendering, sequence and EXIF modules; the weight
+validation gate and its comparator, the classifier's dataset and
+evaluation modules, the accelerator and profiling utilities and the
+legacy .pb detector). PIL is imported only once a file is decoded or
+drawn on; tensorflow only once a .pb detector is built, pandas only
+inside the functions that build data frames. cv2 is not checked:
 ops/boxes.py imports it whenever it is installed and falls back to numpy
 where it is not.
 """
@@ -43,7 +47,9 @@ print(json.dumps({'modules': names,
                       m for m in sys.modules if m == 'megadetector_tpu' or
                       m.startswith('megadetector_tpu.')),
                   'PIL': 'PIL' in sys.modules,
-                  'networkx': 'networkx' in sys.modules}))
+                  'networkx': 'networkx' in sys.modules,
+                  'tensorflow': 'tensorflow' in sys.modules,
+                  'pandas': 'pandas' in sys.modules}))
 """
 
 
@@ -137,12 +143,23 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'postprocess_batch_results',
                 'megadetector_tpu_torch.postprocessing.generate_csv_report',
                 'megadetector_tpu_torch.postprocessing.combine_batch_outputs',
-                'megadetector_tpu_torch.workflows.manage_local_batch'}
+                'megadetector_tpu_torch.workflows.manage_local_batch',
+                'megadetector_tpu_torch.utils.md_tests',
+                'megadetector_tpu_torch.utils.validate_weights',
+                'megadetector_tpu_torch.classification.'
+                'create_classification_dataset',
+                'megadetector_tpu_torch.classification.evaluate_model',
+                'megadetector_tpu_torch.utils.accelerator_test',
+                'megadetector_tpu_torch.utils.gpu_test',
+                'megadetector_tpu_torch.utils.profiling',
+                'megadetector_tpu_torch.detection.tf_detector'}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
     assert report['PIL'] is False
     assert report['networkx'] is False
+    assert report['tensorflow'] is False
+    assert report['pandas'] is False
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():

@@ -13,7 +13,17 @@ shares with the JAX package, held to the JAX detector on the CPU:
 - use_mesh, the JAX driver's option: both CLIs given
   --detector_options use_mesh=false write the same JSON, and the detector
   takes it as a no-op (one card);
-- is_gpu_available(detector_file=None), called both ways.
+- is_gpu_available(detector_file=None), called both ways;
+- quantize_checkpoint(input_path, output_path, calibration_folder=None,
+  calibration_image_size=None, n_calibration_images=8, verbose=False,
+  mode='chain'), JAX's positional order, with calibration_images and
+  device keyword-only: JAX's keyword and positional call forms write the
+  same file, which holds JAX's int8 weights and (within calibration's
+  float noise) its scales; mode='static' positional; other modes raise;
+- JAX's signatures elsewhere: rfdetr.apply and detr.apply with dtype=None
+  (the input's dtype), quantize_params_chain's keep_float_first in third
+  place, num_params in every detector family, and ops/boxes'
+  compute_stride_target_shape, clip_coords and xywh2xyxy.
 
 Each parity case runs the port's and the JAX package's
 load_and_run_detector_batch on the same yolov5n .npz and image folder and
@@ -257,3 +267,218 @@ def test_is_gpu_available_takes_the_jax_arguments(option_inputs):
     assert run_detector.is_gpu_available(model) is want
     assert run_detector.is_gpu_available(detector_file=model) is want
     jax_run_detector.is_gpu_available(model)
+
+
+#%% quantize_checkpoint's JAX signature (mode) and the other signatures
+
+
+@pytest.fixture(scope='module')
+def float_yolov5n(tmp_path_factory):
+    """(root, a yolov5n float checkpoint at 64 px, JAX's int8-chain file
+    of it)."""
+
+    from megadetector_tpu.models.convert_weights import \
+        quantize_checkpoint as jax_quantize_checkpoint
+
+    root = tmp_path_factory.mktemp('torch_quantize_forms')
+    cfg = yolov5.YoloV5Config('yolov5n', num_classes=3)
+    f_path = str(root / 'float.npz')
+    save_checkpoint(yolov5.init_params(cfg, seed=0), f_path, {
+        'arch': 'yolov5n', 'model_type': 'yolov5', 'num_classes': 3,
+        'image_size': 64, 'anchors': cfg.anchors.tolist()})
+    jax_path = str(root / 'chain_jax.npz')
+    jax_quantize_checkpoint(f_path, jax_path, calibration_image_size=64,
+                            mode='chain')
+    return root, f_path, jax_path
+
+
+def _written(path):
+    from megadetector_tpu_torch.models.convert_weights import (
+        flatten_params, load_checkpoint)
+
+    params, metadata = load_checkpoint(path)
+    return flatten_params(params), metadata
+
+
+def test_quantize_checkpoint_takes_the_jax_call_forms(float_yolov5n):
+    """JAX's call forms of quantize_checkpoint (validate_weights passes
+    mode='chain'; a positional mode is the seventh argument) write the
+    same file as the default call and as JAX's quantize_checkpoint: its
+    int8 weights, w_scale and biases bit for bit once JAX's folded l0-l3
+    are unfolded, its scales within calibration's float noise (as
+    tests/test_torch_int8.py holds them)."""
+
+    from megadetector_tpu.models.convert_weights import \
+        load_checkpoint as jax_load_checkpoint
+    from megadetector_tpu_torch.models.convert_weights import (
+        flatten_params, quantize_checkpoint, unfold_early_params)
+
+    root, f_path, jax_path = float_yolov5n
+    forms = {
+        'keyword': lambda out: quantize_checkpoint(
+            f_path, out, calibration_image_size=64, mode='chain',
+            device='cpu'),
+        'positional': lambda out: quantize_checkpoint(
+            f_path, out, None, 64, 8, False, 'chain', device='cpu'),
+        'default': lambda out: quantize_checkpoint(
+            f_path, out, calibration_image_size=64, device='cpu')}
+    written = {}
+    for name, call in forms.items():
+        out = str(root / '{}.npz'.format(name))
+        assert call(out) == out
+        written[name] = _written(out)
+    ours, metadata = written['default']
+    assert metadata['quantization'] == 'int8-chain'
+    for name in ('keyword', 'positional'):
+        assert written[name][1] == metadata
+        assert sorted(written[name][0]) == sorted(ours)
+        for k, v in ours.items():
+            assert written[name][0][k].tobytes() == v.tobytes(), (name, k)
+
+    cfg = yolov5.YoloV5Config('yolov5n', num_classes=3)
+    ref = flatten_params(unfold_early_params(
+        jax_load_checkpoint(jax_path)[0], cfg))
+    assert sorted(ref) == sorted(ours)
+    rel = []
+    for k, v in ours.items():
+        if k.endswith(('x_scale', 'y_scale')):
+            rel.append(abs(float(v) / float(ref[k]) - 1.0))
+            assert rel[-1] <= 5e-2, k
+        else:
+            assert v.dtype == ref[k].dtype and v.tobytes() == \
+                ref[k].tobytes(), k
+    assert len(rel) > 20 and np.median(rel) <= 1e-2
+
+
+def test_quantize_checkpoint_mode_static_and_unknown_modes(float_yolov5n):
+    from megadetector_tpu_torch.models.convert_weights import \
+        quantize_checkpoint
+
+    root, f_path, _ = float_yolov5n
+    out = str(root / 'static.npz')
+    quantize_checkpoint(f_path, out, None, 64, 8, False, 'static',
+                        device='cpu')
+    params, metadata = _written(out)
+    assert metadata['quantization'] == 'int8-static'
+    assert any(k.endswith('x_scale') for k in params)
+    assert not any(k.endswith('y_scale') for k in params)
+    for mode in ('dynamic', 'Chain', None):
+        with pytest.raises(ValueError, match='mode'):
+            quantize_checkpoint(f_path, str(root / 'x.npz'), mode=mode,
+                                device='cpu')
+    with pytest.raises(TypeError):
+        # calibration_images and device are keyword-only
+        quantize_checkpoint(f_path, out, None, 64, 8, False, 'chain', None,
+                            'cpu')
+
+
+def _default(fn, name):
+    import inspect
+
+    return inspect.signature(fn).parameters[name].default
+
+
+@pytest.mark.parametrize('family', ['rfdetr', 'detr'])
+def test_apply_dtype_defaults_to_the_input_dtype(family):
+    import importlib
+
+    jax_module = importlib.import_module('megadetector_tpu.models.' + family)
+    ours = importlib.import_module('megadetector_tpu_torch.models.' + family)
+    assert _default(ours.apply, 'dtype') is None
+    assert _default(jax_module.apply, 'dtype') is None
+    if family == 'rfdetr':
+        config = ours.RFDetrConfig('rfdetr_test', image_size=112)
+        net = ours.RFDetr(config)
+        shape = (1, 112, 112, 3)
+    else:
+        config = ours.DetrConfig('detr_tiny', image_size=64)
+        net = ours.Detr(config)
+        shape = (1, 64, 64, 3)
+    net.load_params(ours.init_params(config, seed=0)).eval()
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        0, 1, shape).astype(np.float32))
+    with torch.inference_mode():
+        implicit = ours.apply(config, net.params, x)
+        explicit = ours.apply(config, net.params, x, torch.float32)
+    assert implicit.dtype == torch.float32
+    assert torch.equal(implicit, explicit)
+
+
+def test_quantize_params_chain_takes_jax_positional_order():
+    from megadetector_tpu.ops import quantization as jax_q
+    from megadetector_tpu_torch.models.convert_weights import flatten_params
+    from megadetector_tpu_torch.ops import quantization as q
+
+    params = yolov5.init_params(yolov5.YoloV5Config('yolov5n', 3), seed=2)
+    assert _default(q.quantize_params_chain, 'keep_float_first') is True
+    for args in ((('l24',), True, ('l0',)), (('l24',), False, ('l0', 'l1'))):
+        ours = flatten_params(q.quantize_params_chain(params, *args))
+        ref = flatten_params(jax_q.quantize_params_chain(params, *args))
+        assert sorted(ours) == sorted(ref)
+        for k in ref:
+            assert ours[k].tobytes() == ref[k].tobytes(), (args, k)
+
+
+@pytest.mark.parametrize('family', ['yolov5', 'yolov8', 'rfdetr', 'detr'])
+def test_num_params_matches_jax(family):
+    import importlib
+
+    jax_module = importlib.import_module('megadetector_tpu.models.' + family)
+    ours = importlib.import_module('megadetector_tpu_torch.models.' + family)
+    config = {'yolov5': lambda m: m.YoloV5Config('yolov5n', 3),
+              'yolov8': lambda m: m.YoloV8Config('yolov8n', 3),
+              'rfdetr': lambda m: m.RFDetrConfig('rfdetr_test'),
+              'detr': lambda m: m.DetrConfig('detr_tiny')}[family]
+    params = jax_module.init_params(config(jax_module), seed=0)
+    trees = [params]
+    if family == 'yolov5':
+        # a static tree: its float32 x_scale leaves count, as in JAX
+        from megadetector_tpu.ops import quantization as jax_q
+        static = jax_q.quantize_params(params)
+        x = np.random.RandomState(0).uniform(0, 1, (1, 64, 64, 3)).astype(
+            np.float32)
+        jax_q.calibrate_activation_scales(jax_module.apply,
+                                          config(jax_module), static, x)
+        trees.append(static)
+    for tree in trees:
+        assert ours.num_params(tree) == jax_module.num_params(tree) > 0
+
+
+def test_compute_stride_target_shape_matches_jax():
+    from megadetector_tpu.ops import boxes as jax_boxes
+    from megadetector_tpu_torch.ops import boxes
+
+    for shape in ((480, 640, 3), (1080, 1920), (3000, 4000), (640, 480),
+                  (100, 1000)):
+        for size in (640, 1280):
+            for stride in (32, 64):
+                for pad in (0.0, 0.5):
+                    a = boxes.compute_stride_target_shape(shape, size,
+                                                          stride, pad)
+                    b = jax_boxes.compute_stride_target_shape(shape, size,
+                                                              stride, pad)
+                    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _xywh(seed):
+    return np.random.RandomState(seed).uniform(-50, 700, (64, 4)).astype(
+        np.float32)
+
+
+def test_xywh2xyxy_matches_jax():
+    from megadetector_tpu.ops import boxes as jax_boxes
+    from megadetector_tpu_torch.ops import boxes
+
+    a, b = boxes.xywh2xyxy(_xywh(0)), jax_boxes.xywh2xyxy(_xywh(0))
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_clip_coords_matches_jax():
+    from megadetector_tpu.ops import boxes as jax_boxes
+    from megadetector_tpu_torch.ops import boxes
+
+    for dtype in (np.float32, np.float64):
+        got, want = _xywh(1).astype(dtype), _xywh(1).astype(dtype)
+        assert boxes.clip_coords(got, (480, 640)) is got
+        jax_boxes.clip_coords(want, (480, 640))
+        assert np.array_equal(got, want) and got.max() <= 640

@@ -103,8 +103,10 @@ def test_checkpoint_format_shared_with_jax(tmp_path):
 
 def test_quantized_checkpoint_is_refused(tmp_path):
     """int8 checkpoints load (int8 leaves kept, static scales as Python
-    floats); the model refuses only the JAX package's mode=static nodes
-    (an x_scale without a y_scale), which the port does not run."""
+    floats). The JAX package's mode=static nodes (an x_scale without a
+    y_scale) load as static int8 convs since the port runs them
+    (tests/test_torch_static_int8.py); the model refuses a node that is
+    neither: a y_scale without its x_scale."""
 
     from megadetector_tpu_torch.ops import quantization
 
@@ -118,7 +120,13 @@ def test_quantized_checkpoint_is_refused(tmp_path):
     loaded, _ = convert_weights.load_checkpoint(path)
     assert loaded['l1']['w_q'].dtype == np.int8
     assert isinstance(loaded['l1']['x_scale'], float)
-    with pytest.raises(NotImplementedError, match='int8'):
+    model = yolov5.YoloV5(config).load_params(loaded)
+    l1 = model.layers['l1']
+    assert isinstance(l1, yolov5.QConv) and l1.y_scale is None
+    assert float(l1.x_scale) == np.float32(0.02)
+    del loaded['l1']['x_scale']
+    loaded['l1']['y_scale'] = 0.02
+    with pytest.raises(ValueError, match='x_scale'):
         yolov5.YoloV5(config).load_params(loaded)
 
 
