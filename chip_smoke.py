@@ -244,9 +244,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      chain's of phase 7;
  31. utils/validate_weights on phase 4's checkpoint with skip_export
      (convert, golden over 6 synthetic images, int8 chain drift at bound
-     1.0 as --dry_run sets it for random weights, capacity): status ok,
-     each stage's numbers; then utils/accelerator_test on the card:
-     platform gpu, its NMS-kernel smoke test ok;
+     1.0 as --dry_run sets it for random weights, capacity; the export
+     stage's artifact of eight 1280 px float32 programs is phase 35's
+     work, at batch 8): status ok, each stage's numbers; then
+     utils/accelerator_test on the card: platform gpu, its NMS-kernel
+     smoke test ok;
  32. create_classification_dataset over phase 27's crops, then
      evaluate_model on the card with phase 27's float32 classifier: the
      written probabilities against classify_batch on the same crops, the
@@ -255,13 +257,36 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      replayed bf16 program inside annotate('md_program'): the trace file
      names the span and our kernels it launched (stem, bias + SiLU, NMS's
      two passes) up to the counters. Phases 30-31's NMS and conv
-     launches join those kernels' records.
+     launches join those kernels' records;
+ 34. the path kernels as custom operators: each through torch.ops.mdtorch
+     on CUDA tensors at a yolov5l6 shape (NMS by value and with the
+     threshold in device memory at K = 2048, the conv in its three modes,
+     the bottleneck with and without its residual, the stem, bias + SiLU)
+     against its plain version on the CPU under its kernel's bar; the
+     device-side threshold split bit for bit threshold_split's at the
+     thresholds the phases use;
+ 35. detection/export_detector: yolov5l6 from seed 0 at full width and
+     depth, in bf16 (B1, B4, E7) and in the int8 chain under
+     conv_backend=pallas (B1, B2, B3), exported for the card at batch 8
+     (the square, 4:3 and 5:3 canvases, capacities 512 to 8192); the
+     artifact loaded in a fresh ExportedDetector and run over the 16
+     images through load_and_run_detector_batch, eager then replayed,
+     beside the live detector: results identical, launches equal; export
+     seconds, artifact MB, load seconds, program ms eager and replayed
+     against the live detector's. The artifact's launches join the
+     kernels' records;
+ 36. utils/integration_tests on the card: its Python tiers (single image
+     against batch, batch-size invariance, augmentation, video, tiled,
+     postprocessing and RDE), seconds. With --cli its CLI tier too (every
+     CLI of the port as a subprocess, export -> batch from the artifact
+     identical to the checkpoint's run).
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
 identical; images/s come from a third pass, all replays (the driver's
 loader threads, whose images it takes in input order).
-With --profile: torch.profiler over one device program on a 960x1280
+With --cli: phase 36's CLI tier (left out by default to keep the run
+inside its time limit). With --profile: torch.profiler over one device program on a 960x1280
 batch of 8 (device time by kernel, idle share), int8 under both backends
 in phase 7 and bf16 after phase 13, each replayed and eager; each window
 runs the program twice and reads the second, and the port's kernels
@@ -5408,7 +5433,8 @@ def phase_static_int8(device, workdir, float_path, pairs, batch, chain,
 def phase_validate_and_probe(device, workdir, float_path, card):
     """
     31. utils/validate_weights on phase 4's checkpoint with skip_export
-    (the export stage waits for ROADMAP A10), on the card: convert (the
+    (the export stage's eight 1280 px float32 programs would take minutes
+    and gigabytes; phase 35 exports on the card), on the card: convert (the
     .npz passes), golden (6 synthetic images at 1280 px through the batch
     driver), int8 (quantize_checkpoint mode='chain' calibrated on the card
     on those images, held to the gate's own default drift bound) and
@@ -5698,6 +5724,238 @@ def phase_trace(device, workdir, float_path, batch, card):
     torch.cuda.empty_cache()
 
 
+def phase_custom_ops(device):
+    """
+    34. Each path kernel through its custom operator on CUDA tensors
+    against its plain version on the same tensors (plain PyTorch on the
+    card, as phases 3, 6 and 9 hold the kernels), under its kernel's bar
+    (NMS, the int8 conv and bottleneck, bias + SiLU: identical; the stem:
+    l0_fused.plain_bar), and the device-side threshold split against
+    threshold_split. Returns the thresholds checked.
+    """
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.ops import (bottleneck_int8, conv_int8,
+                                            cuda_nms, l0_fused, silu_bf16)
+
+    ops = torch.ops.mdtorch
+    rng = np.random.RandomState(34)
+    checked = []
+
+    def same(label, got, want):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError('torch.ops.mdtorch.{} on the card differs '
+                                 'from its plain version'.format(label))
+        checked.append(label)
+
+    xy = rng.rand(8, 2048, 2).astype(np.float32) * 1200
+    wh = rng.rand(8, 2048, 2).astype(np.float32) * 200 + 1
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)).to(device)
+    valid = torch.from_numpy(rng.rand(8, 2048) > 0.1).to(device)
+    for iou in (0.45, 0.6):
+        want = cuda_nms.greedy_nms_keep_reference(boxes, valid, iou)
+        same('greedy_nms_keep at {}'.format(iou),
+             ops.greedy_nms_keep(boxes, valid, iou), want)
+        same('greedy_nms_keep_t at {}'.format(iou), ops.greedy_nms_keep_t(
+            boxes, valid, torch.tensor(iou, device=device)), want)
+
+    def int8(shape):
+        return torch.from_numpy(rng.randint(-127, 128, shape)
+                                .astype(np.int8)).to(device)
+
+    def f32(shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale)
+                                .astype(np.float32)).to(device)
+
+    # l4's 3x3 and its C3's 1x1 at 960x1280 (160x120 at stride 8), batch 2
+    x = int8((2, 120, 160, 128))
+    for label, w, stride, pads, y_scale, act in (
+            ('conv_int8 int32', int8((128, 3, 3, 128)), [1, 1],
+             [1, 1, 1, 1], None, True),
+            ('conv_int8 silu', int8((128, 3, 3, 128)), [1, 1], [1, 1, 1, 1],
+             0.05, True),
+            ('conv_int8 linear s2', int8((256, 3, 3, 128)), [2, 2],
+             [1, 1, 1, 1], 0.05, False),
+            ('conv_int8 1x1', int8((256, 1, 1, 128)), [1, 1], [0, 0, 0, 0],
+             0.05, True)):
+        scale = f32((w.shape[0],), 1e-5).abs()
+        bias = f32((w.shape[0],), 0.1)
+        args = (x, w, None if y_scale is None else scale,
+                None if y_scale is None else bias, stride, pads, y_scale,
+                act)
+        same(label, ops.conv_int8(*args),
+             conv_int8.conv_int8_reference(*args))
+    for shortcut in (True, False):
+        args = (x, int8((128, 1, 1, 128)), f32((128,), 1e-5).abs(),
+                f32((128,), 0.1), 0.04, int8((128, 3, 3, 128)),
+                f32((128,), 1e-5).abs(), f32((128,), 0.1), 0.05, 0.03,
+                shortcut)
+        same('bottleneck_int8 shortcut={}'.format(shortcut),
+             ops.bottleneck_int8(*args),
+             bottleneck_int8.bottleneck_int8_reference(*args)[0])
+    images = torch.from_numpy(rng.randint(0, 256, (2, 480, 640, 3))
+                              .astype(np.uint8)).to(device)
+    w, b = l0_fused.prepare_l0_weights({'w': rng.randn(6, 6, 3, 64) * 0.05,
+                                        'b': rng.randn(64) * 0.1})
+    w, b = w.to(device), b.to(device)
+    got = ops.l0_fused(images, w, b)
+    n_diff, max_diff, outside = l0_fused.plain_bar(
+        got, l0_fused.l0_fused_reference(images, w, b))
+    if outside or n_diff > l0_fused.DIFF_SHARE * got.numel():
+        raise AssertionError('torch.ops.mdtorch.l0_fused: {} elements '
+                             'differ, {} outside the bar'.format(n_diff,
+                                                                 outside))
+    checked.append('l0_fused ({} elements differ, max {})'.format(
+        n_diff, max_diff))
+    x = f32((2, 128, 120, 160), 3.0).to(torch.bfloat16)
+    bias = f32((128,), 1.0).to(torch.bfloat16)
+    same('silu_bf16', ops.silu_bf16(x, bias),
+         silu_bf16.silu_bf16_reference(x, bias))
+    out = torch.empty_like(x)
+    ops.silu_bf16_out(x, bias, out)
+    same('silu_bf16_out', out, silu_bf16.silu_bf16_reference(x, bias))
+
+    thresholds = (0.45, 0.6, 0.5, 0.005, 0.1, 0.2, 0.3)
+    for t in thresholds:
+        m, m_hi, m_lo, tie_up = cuda_nms.threshold_split(t)
+        got = cuda_nms.threshold_split_tensor(torch.tensor(
+            t, dtype=torch.float32, device=device)).cpu().numpy()
+        want = np.array([m, m_hi, m_lo, float(tie_up)])
+        if not np.array_equal(got.view(np.int64), want.view(np.int64)):
+            raise AssertionError('threshold_split_tensor({}) on the card: '
+                                 '{}, threshold_split {}'.format(t, got,
+                                                                 want))
+    print('custom operators on the card: {}; each equal to its plain '
+          'version under its bar; the device threshold split bit for bit '
+          'threshold_split\'s at {}'.format('; '.join(checked),
+                                              list(thresholds)), flush=True)
+    return thresholds
+
+
+# Phase 35's capacity ladder: random weights escalate every batch to 8192
+EXPORT_LADDER = [512, 1024, 2048, 4096, 8192]
+
+
+def _program_ms(detector, batch, graphs):
+    """Mean ms of detector.run_program on [batch] (thresholds 0.005 and
+    0.45), eager (graphs False) or replayed; the outputs read back."""
+
+    detector._cuda_graphs = graphs
+    try:
+        return _time_ms(lambda: detector.run_program(batch, 0.005, 0.45),
+                        reps=10 if graphs else 3)
+    finally:
+        detector._cuda_graphs = True
+
+
+def phase_export(device, workdir, float_path, q_path, pairs, card):
+    """
+    35. The exported artifact on the card for bf16 and the int8 chain
+    under conv_backend=pallas: results identical to the live detector's,
+    eager and replayed, with equal launches. Returns the artifact's
+    launches (nms, conv, bottleneck, stem, silu) over its runs.
+    """
+
+    import numpy as np
+
+    from megadetector_tpu_torch.detection import export_detector as ed
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+
+    totals = [0] * 5
+    for label, path, options in (
+            ('bf16', float_path, {'dtype': 'bf16'}),
+            ('int8 pallas', q_path, {'conv_backend': 'pallas'})):
+        artifact = os.path.join(workdir, 'export_{}.mdpkg'.format(
+            label.replace(' ', '_')))
+        start = time.time()
+        manifest = ed.export_detector(
+            path, artifact, batch_sizes=[8], aspects=['4:3', '5:3'],
+            topk_ladder=EXPORT_LADDER, platforms=['cuda'],
+            detector_options=options)
+        export_s = time.time() - start
+        artifact_mb = os.path.getsize(artifact) / 1e6
+        start = time.time()
+        exported = load_detector(artifact, device=device)
+        load_s = time.time() - start
+        live = load_detector(path, detector_options=options, device=device)
+        runs = {}
+        for name, detector in (('live', live), ('artifact', exported)):
+            runs[name] = []
+            for _ in range(2):
+                _reset_counts()
+                results = load_and_run_detector_batch(
+                    detector, pairs, batch_size=8, quiet=True)
+                runs[name].append((results, _counts()))
+        for i, kind in enumerate(('eager', 'replayed')):
+            if runs['artifact'][i][0] != runs['live'][i][0]:
+                raise AssertionError('{} artifact: {} results differ from '
+                                     'the live detector\'s'.format(label,
+                                                                   kind))
+            if runs['artifact'][i][1] != runs['live'][i][1]:
+                raise AssertionError(
+                    '{} artifact: {} launches (nms, conv, bottleneck, stem, '
+                    'silu) {}, live {}'.format(label, kind,
+                                               runs['artifact'][i][1],
+                                               runs['live'][i][1]))
+        if runs['artifact'][0][0] != runs['artifact'][1][0] or \
+                exported._programs.replays == 0:
+            raise AssertionError('{} artifact: replayed results differ from '
+                                 'eager, or nothing replayed'.format(label))
+        for i in range(2):
+            totals = [a + b for a, b in zip(totals, runs['artifact'][i][1])]
+        infos = [live.preprocess_image(img, image_id=name)
+                 for name, img in pairs[:16:2]]
+        batch = np.stack([info['img_processed'] for info in infos])
+        ms = {name: (_program_ms(d, batch, False), _program_ms(d, batch,
+                                                               True))
+              for name, d in (('live', live), ('artifact', exported))}
+        n_det = sum(len(r['detections']) for r in runs['artifact'][0][0])
+        print('export {} on {}: {} programs ({} canvases, capacities {}) '
+              'in {:.1f} s, artifact {:.1f} MB, loaded in {:.2f} s; 16 '
+              'images through load_and_run_detector_batch, eager then '
+              'replayed: {} detections identical to the live detector\'s, '
+              'launches (nms, conv, bottleneck, stem, silu) {} and {} equal '
+              'to its; program on a {}x{} batch of 8: artifact {:.3f} / '
+              '{:.3f} ms eager / replayed, live {:.3f} / {:.3f} ms'.format(
+                  label, card, len(manifest['program_sha256']),
+                  manifest['canvases'], manifest['topk_ladder'], export_s,
+                  artifact_mb, load_s, n_det, runs['artifact'][0][1],
+                  runs['artifact'][1][1], batch.shape[1], batch.shape[2],
+                  ms['artifact'][0], ms['artifact'][1], ms['live'][0],
+                  ms['live'][1]), flush=True)
+        del exported, live
+        os.remove(artifact)
+    return totals
+
+
+def phase_integration(workdir, card, cli):
+    """36. utils/integration_tests on the card: its Python tiers, and
+    with [cli] its CLI tier."""
+
+    from megadetector_tpu_torch.utils import integration_tests
+
+    options = integration_tests.MDTestOptions()
+    options.scratch_dir = os.path.join(workdir, 'integration')
+    options.force_cpu = False
+    options.verbose = False
+    options.skip_cli_tests = not cli
+    start = time.time()
+    status = integration_tests.run_tests(options)
+    expected = ['single_image', 'batch_folder', 'augmented', 'video',
+                'tiled', 'postprocessing'] + (['cli'] if cli else [])
+    if sorted(status) != sorted(expected) or \
+            set(status.values()) != {'ok'}:
+        raise AssertionError('integration tests on the card: {}'.format(
+            status))
+    print('integration tests on {}: {} in {:.1f} s{}'.format(
+        card, json.dumps(status), time.time() - start,
+        '' if cli else ' (the CLI tier runs with --cli)'), flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -5959,6 +6217,30 @@ def main():
         start = time.time()
         phase_trace(device, workdir, float_path, batch, card)
         print('phase 33 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 34. the path kernels as custom operators
+        start = time.time()
+        phase_custom_ops(device)
+        print('phase 34 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 35. the exported artifact
+        start = time.time()
+        counts = phase_export(device, workdir, float_path, q_path, pairs,
+                              card)
+        record['launches'] += counts[0]
+        conv_record['launches'] += counts[1]
+        bottleneck_record['launches'] += counts[2]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        print('phase 35 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 36. the integration harness
+        start = time.time()
+        phase_integration(workdir, card, '--cli' in sys.argv[1:])
+        print('phase 36 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

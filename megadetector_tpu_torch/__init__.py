@@ -13,7 +13,9 @@ utils/ct_utils, utils/path_utils, models/registry,
 visualization/visualization_utils). The TPU kernels on its paths are
 hand-written CUDA kernels under csrc/ (greedy NMS, the int8 chain conv,
 the fused int8 bottleneck, the fused uint8 stem and the bf16 conv
-epilogue), built with nvcc at first use (ops/_build.py). Entry points run
+epilogue), built with nvcc at first use (ops/_build.py) and called as
+torch custom operators (mdtorch::*), so that torch.export traces them as
+one node each (detection/export_detector.py). Entry points run
 on the card unless the caller asks for the CPU (device='cpu' or the
 force_cpu detector option).
 """

@@ -20,8 +20,8 @@ weights sum to the split size.
         clf.npz dataset_dir --cropped_images_dir crops --output_dir out \
         [--device cpu]
 
-trace_model (a standalone serialized artifact) waits for the port's
-exported artifact (ROADMAP A10) and raises NotImplementedError.
+trace_model writes the classifier forward as a standalone torch.export
+program (weights baked in), loaded with torch.export.load.
 """
 
 import argparse
@@ -128,17 +128,60 @@ def check_override(params, key, override):
     return override
 
 
-def trace_model(model_name, ckpt_path, num_classes, img_size):
+def trace_model(model_name, ckpt_path, num_classes, img_size, *,
+                device=None):
     """
     Compile the trained classifier into a standalone serialized artifact
-    (the JAX module writes a jax.export program). Not ported: the port's
-    exported artifact is ROADMAP A10; raises NotImplementedError.
+    (reference: evaluate_model.py:87-120, a TorchScript trace; the JAX
+    module writes a jax.export program): a torch.export program of the
+    float32 forward at [1, img_size, img_size, 3] float32 (the input
+    normalized by the caller) -> [1, num_classes] logits, parameters baked
+    in, traced on [device] (keyword only: 'cuda', 'cuda:N', 'cpu' or
+    None, the card). Writes <root>_compiled<ext> next to [ckpt_path] and
+    its <root>_compiled.trace.json sidecar; reused when the sidecar
+    matches this request and the checkpoint has not been rewritten since.
+    Returns its path; load with torch.export.load.
     """
 
-    raise NotImplementedError(
-        'trace_model: a standalone classifier artifact waits for the '
-        'port\'s exported artifact, ROADMAP A10 ({}, {})'.format(
-            model_name, ckpt_path))
+    import torch
+
+    from megadetector_tpu_torch.device import get_device
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.models.convert_weights import load_checkpoint
+
+    device = get_device(device)
+    root, ext = os.path.splitext(ckpt_path)
+    compiled_path = root + '_compiled' + ext
+    sidecar_path = root + '_compiled.trace.json'
+    trace_key = {'model_name': model_name, 'num_classes': num_classes,
+                 'img_size': img_size,
+                 'ckpt_mtime': os.path.getmtime(ckpt_path),
+                 'platform': device.type}
+    if os.path.exists(compiled_path):
+        # Reuse only when the artifact matches this exact request and
+        # the checkpoint hasn't been rewritten since
+        try:
+            with open(sidecar_path) as f:
+                if json.load(f) == trace_key:
+                    return compiled_path
+        except (OSError, ValueError):
+            pass
+        print('Stale compiled artifact at {}; re-tracing'.format(
+            compiled_path))
+
+    params, metadata = load_checkpoint(ckpt_path)
+    arch = (metadata or {}).get('arch', model_name)
+    config = efficientnet.EfficientNetConfig(arch, num_classes=num_classes)
+    model = efficientnet.EfficientNet(config).load_params(params).eval().to(
+        device)
+    x = torch.zeros((1, img_size, img_size, 3), dtype=torch.float32,
+                    device=device)
+    with torch.no_grad():
+        program = torch.export.export(model, (x,), strict=False)
+    torch.export.save(program, compiled_path)
+    with open(sidecar_path, 'w') as f:
+        json.dump(trace_key, f)
+    return compiled_path
 
 
 def evaluate_model(checkpoint_path, dataset_dir, cropped_images_dir,

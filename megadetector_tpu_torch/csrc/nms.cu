@@ -94,11 +94,10 @@ __device__ __forceinline__ void inter_union(float4 a, float area_a, float4 b,
 }
 
 // RN(inter / uni) > thresh exactly: the sign of inter - m * uni in double
-template <bool kTieUp>
-__device__ __forceinline__ bool over_exact(float inter, float uni,
-                                           double m) {
+__device__ __forceinline__ bool over_exact(float inter, float uni, double m,
+                                           bool tie_up) {
   const double d = __fma_rn(-m, (double)uni, (double)inter);
-  return kTieUp ? d >= 0.0 : d > 0.0;
+  return tie_up ? d >= 0.0 : d > 0.0;
 }
 
 // Pair p of the n x n upper triangle of tiles (row tile r <= column tile
@@ -118,11 +117,22 @@ __device__ __forceinline__ void triangle_tile(int p, int n, int& r, int& c) {
 // (+inf / -inf where |m| is too small for one): inter > uni * m_hi proves
 // an overlap and inter < uni * m_lo its absence despite the product's
 // rounding, and only the rare test in between takes the exact double path.
-template <bool kTieUp>
+// kSplit 0 / 1: the split by value, tie_up false / true; kSplit 2: the
+// split read from device memory (split[0..3] = m, m_hi, m_lo, tie_up, as
+// doubles), so that one captured launch serves every threshold.
+template <int kSplit>
 __global__ void __launch_bounds__(kMaskThreads)
     nms_mask_kernel(const float* __restrict__ boxes, int k, int row_words,
                     int n_tiles, double m, float m_hi, float m_lo,
+                    const double* __restrict__ split,
                     u64* __restrict__ mask) {
+  bool tie_up = kSplit == 1;
+  if (kSplit == 2) {
+    m = split[0];
+    m_hi = (float)split[1];
+    m_lo = (float)split[2];
+    tie_up = split[3] != 0.0;
+  }
   int tile_r, tile_c;
   triangle_tile(blockIdx.x, n_tiles, tile_r, tile_c);
   const int b = blockIdx.y;
@@ -182,7 +192,7 @@ __global__ void __launch_bounds__(kMaskThreads)
         unsure[h] &= unsure[h] - 1ULL;
         float inter, uni;
         inter_union(a[h], area[h], cw_cols[c], cw_area[c], inter, uni);
-        if (over_exact<kTieUp>(inter, uni, m)) bits[h] |= 1ULL << c;
+        if (over_exact(inter, uni, m, tie_up)) bits[h] |= 1ULL << c;
       }
     }
     const int n_cols = k - w * kWord;
@@ -319,30 +329,27 @@ __global__ void __launch_bounds__(kSweepThreads)
     out[j] = ((removed[j >> 6] >> (j & 63)) & 1ULL) ? 0 : 1;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches both passes on [stream]. mask is caller-allocated scratch of
-// batch * k * row_words words (row_words = ceil(k / 64) rounded up to
-// even), 16-byte aligned. m and tie_up come from the threshold (see the
-// note above). Returns cudaGetLastError() (0 = launched).
-int md_greedy_nms(const float* boxes, const uint8_t* valid,
-                  unsigned long long* mask, uint8_t* keep, int batch, int k,
-                  double m, float m_hi, float m_lo, int tie_up,
-                  void* stream) {
+// Both passes on [stream]: the split by value, or from [split] when it is
+// not null.
+int greedy_nms(const float* boxes, const uint8_t* valid,
+               unsigned long long* mask, uint8_t* keep, int batch, int k,
+               double m, float m_hi, float m_lo, int tie_up,
+               const double* split, void* stream) {
   if (batch <= 0 || k <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int words = (k + kWord - 1) / kWord;
   const int row_words = (words + 1) & ~1;
   const int n_tiles = (k + kTile - 1) / kTile;
   const dim3 grid((unsigned)(n_tiles * (n_tiles + 1) / 2), (unsigned)batch);
-  if (tie_up)
-    nms_mask_kernel<true><<<grid, kMaskThreads, 0, s>>>(
-        boxes, k, row_words, n_tiles, m, m_hi, m_lo, mask);
+  if (split)
+    nms_mask_kernel<2><<<grid, kMaskThreads, 0, s>>>(
+        boxes, k, row_words, n_tiles, 0.0, 0.f, 0.f, split, mask);
+  else if (tie_up)
+    nms_mask_kernel<1><<<grid, kMaskThreads, 0, s>>>(
+        boxes, k, row_words, n_tiles, m, m_hi, m_lo, nullptr, mask);
   else
-    nms_mask_kernel<false><<<grid, kMaskThreads, 0, s>>>(
-        boxes, k, row_words, n_tiles, m, m_hi, m_lo, mask);
+    nms_mask_kernel<0><<<grid, kMaskThreads, 0, s>>>(
+        boxes, k, row_words, n_tiles, m, m_hi, m_lo, nullptr, mask);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -357,6 +364,32 @@ int md_greedy_nms(const float* boxes, const uint8_t* valid,
   nms_sweep_kernel<<<batch, kSweepThreads, smem, s>>>(mask, valid, k, words,
                                                       row_words, keep);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches both passes on [stream]. mask is caller-allocated scratch of
+// batch * k * row_words words (row_words = ceil(k / 64) rounded up to
+// even), 16-byte aligned. m and tie_up come from the threshold (see the
+// note above). Returns cudaGetLastError() (0 = launched).
+int md_greedy_nms(const float* boxes, const uint8_t* valid,
+                  unsigned long long* mask, uint8_t* keep, int batch, int k,
+                  double m, float m_hi, float m_lo, int tie_up,
+                  void* stream) {
+  return greedy_nms(boxes, valid, mask, keep, batch, k, m, m_hi, m_lo,
+                    tie_up, nullptr, stream);
+}
+
+// md_greedy_nms with the split in device memory: split[0..3] = m, m_hi,
+// m_lo, tie_up as float64 (ops/cuda_nms.py threshold_split_tensor), read
+// by the mask pass at run time.
+int md_greedy_nms_dev(const float* boxes, const uint8_t* valid,
+                      unsigned long long* mask, uint8_t* keep, int batch,
+                      int k, const double* split, void* stream) {
+  return greedy_nms(boxes, valid, mask, keep, batch, k, 0.0, 0.f, 0.f, 0,
+                    split, stream);
 }
 
 const char* md_cuda_error_string(int err) {

@@ -169,7 +169,9 @@ def load_detector(model_file, force_cpu=False, detector_options=None,
     """
     Load a TorchDetector from a converted checkpoint (.npz + metadata, or
     a folder with weights.npz + metadata.json), a reference YOLOv5 .pt
-    (converted once into the model folder) or a known model name.
+    (converted once into the model folder) or a known model name; or an
+    ExportedDetector from the port's exported artifact (.mdpkg, written
+    by detection/export_detector; a JAX .mdpkg raises ValueError).
     The positional arguments are the JAX package's load_detector's.
 
     Args:
@@ -190,13 +192,17 @@ def load_detector(model_file, force_cpu=False, detector_options=None,
                              'device={!r}'.format(device))
         device = 'cpu'
     model_file = resolve_model_file(model_file)
-    if model_file.endswith('.mdpkg'):
-        raise NotImplementedError(
-            '{}: .mdpkg artifacts hold JAX programs; the port loads '
-            'converted .npz checkpoints, reference .pt files and legacy '
-            '.pb graphs (its own exported artifact is ROADMAP A10)'.format(
-                model_file))
     start = time.time()
+    if model_file.endswith('.mdpkg'):
+        # The port's own exported artifact; a JAX .mdpkg (StableHLO
+        # programs) is refused with ValueError
+        from megadetector_tpu_torch.detection.export_detector import \
+            ExportedDetector
+        detector = ExportedDetector(model_file,
+                                    detector_options=detector_options,
+                                    verbose=verbose, device=device)
+        print('Loaded model in {:.2f} seconds'.format(time.time() - start))
+        return detector
     if model_file.endswith('.pb'):
         # Legacy MDv2-v4 frozen graphs run on TF's CPU runtime only, so
         # they must be asked for on the CPU: never silently in place of

@@ -48,13 +48,33 @@ def device_constant(values, dtype, device):
     capture a copy from the host: a program's first, eager run makes its
     constants here, and the captured run reads the same tensors. Callers
     never write to them.
+
+    While a program is traced (torch.export, torch.compile) the tensor is
+    made, or taken from the store, outside the tracer's fake tensor mode:
+    the store never holds a fake tensor, which a later eager call would
+    receive, and the traced graph takes the real tensor as a constant on
+    [device] (no copy from the host inside the program). A tensor that is
+    not a plain one (made under a fake tensor mode outside a compiler's
+    trace) is returned and not stored.
     """
 
     arr = np.asarray(values)
+    if torch.compiler.is_compiling():
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        from torch.fx.experimental.proxy_tensor import \
+            disable_proxy_modes_tracing
+        with unset_fake_temporarily(), disable_proxy_modes_tracing():
+            return _stored_constant(arr, dtype, device)
+    return _stored_constant(arr, dtype, device)
+
+
+def _stored_constant(arr, dtype, device):
     key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, str(device))
     tensor = _CONSTANTS.get(key)
     if tensor is None:
         tensor = torch.as_tensor(arr).to(dtype).to(device)
+        if type(tensor) is not torch.Tensor:
+            return tensor
         _CONSTANTS[key] = tensor
     return tensor
 

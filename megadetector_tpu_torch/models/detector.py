@@ -343,7 +343,15 @@ class TorchDetector:
             return
         self._programs = ProgramCache(self.device)
         self._cuda_graphs = self.device.type == 'cuda'
+        self._load_model(model_path, options, verbose)
+        print('{} using device {}'.format(type(self).__name__, self.device))
 
+    def _load_model(self, model_path, options, verbose):
+        """The network and its checkpoint's metadata: sets model, config,
+        model_type, conv_backend, _fused_decode, letterbox_stride,
+        default_image_size, metadata and class_names."""
+
+        strict = 'strict' in self.compatibility_mode
         start = time.time()
         params, metadata = load_checkpoint(model_path)
         metadata = metadata or {}
@@ -381,7 +389,6 @@ class TorchDetector:
                 :self.config.num_classes])
         if verbose:
             print('Loaded model in {:.2f}s'.format(time.time() - start))
-        print('TorchDetector using device {}'.format(self.device))
 
     #%% Preprocessing
 
@@ -626,18 +633,12 @@ class TorchDetector:
         """
 
         key = key + (self._fused_decode,)
-        graphs = self._cuda_graphs
         forward_out, static = self._programs.run(
-            key, forward, host_inputs=host_inputs, graphs=graphs)
+            key, forward, host_inputs=host_inputs, graphs=self._cuda_graphs)
 
         def select_and_suppress(capacity):
-            out, _ = self._programs.run(
-                key + ('select', capacity, float(conf_thres),
-                       float(iou_thres)),
-                lambda *f: self._select_and_suppress(capacity, conf_thres,
-                                                     iou_thres, *f),
-                device_inputs=forward_out, graphs=graphs, capture=static)
-            return out
+            return self._run_select(key, capacity, conf_thres, iou_thres,
+                                    forward_out, static)
 
         topk = self.pre_nms_topk
         out = select_and_suppress(topk)
@@ -651,10 +652,30 @@ class TorchDetector:
                 new_topk = topk
                 while new_topk < needed:
                     new_topk *= 2
-                topk = min(new_topk, self.max_pre_nms_topk)
+                topk = self._effective_topk(min(new_topk,
+                                                self.max_pre_nms_topk))
                 out = select_and_suppress(topk)
         self.programs_run += 1
         return self._read_outputs(out), topk
+
+    def _run_select(self, key, capacity, conf_thres, iou_thres, forward_out,
+                    static):
+        """Selection + NMS at [capacity] on the forward's outputs, a
+        program per (forward key, capacity, thresholds)."""
+
+        out, _ = self._programs.run(
+            key + ('select', capacity, float(conf_thres), float(iou_thres)),
+            lambda *f: self._select_and_suppress(capacity, conf_thres,
+                                                 iou_thres, *f),
+            device_inputs=forward_out, graphs=self._cuda_graphs,
+            capture=static)
+        return out
+
+    def _effective_topk(self, topk):
+        """The capacity an escalation to [topk] runs at: [topk] itself
+        (an exported artifact rounds it up to its capacity ladder)."""
+
+        return topk
 
     def _augment_program(self, images_u8, height, width, conf_thres,
                          iou_thres):

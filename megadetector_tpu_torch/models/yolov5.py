@@ -695,6 +695,18 @@ class YoloV5(nn.Module):
             node['b'] = m.bias.detach().float().cpu().numpy().copy()
         return params
 
+    def check_stem(self):
+        """Raise ValueError when the fused stem's weights were made from an
+        l0 whose parameters have changed since."""
+
+        l0 = self.layers['l0']
+        if self.stem_w is not None and self._stem_versions != (
+                l0.weight._version, l0.bias._version):
+            raise ValueError(
+                'The fused stem\'s weights were made from l0\'s weights '
+                'before they changed; load the trained weights into a new '
+                'model (export_params, load_params, set_compute_dtype)')
+
     def _input(self, x):
         """(l0's NCHW input in the compute dtype, None) for the NHWC
         batch, or (None, l0's output) when the fused stem takes the uint8
@@ -703,14 +715,10 @@ class YoloV5(nn.Module):
         load_params): set_compute_dtype makes them, once."""
 
         if x.dtype == torch.uint8 and self.stem_w is not None:
-            l0 = self.layers['l0']
-            if self._stem_versions != (l0.weight._version,
-                                       l0.bias._version):
-                raise ValueError(
-                    'The fused stem\'s weights were made from l0\'s weights '
-                    'before they changed; load the trained weights into a '
-                    'new model (export_params, load_params, '
-                    'set_compute_dtype)')
+            # A trace sees the parameters through stand-ins with versions
+            # of their own: the exporter checks before it traces
+            if not torch.compiler.is_compiling():
+                self.check_stem()
             out = l0_fused.l0_fused(x.contiguous(), self.stem_w, self.stem_b)
             return None, out.permute(0, 3, 1, 2)
         dtype = self.train_dtype or self.compute_dtype

@@ -39,6 +39,9 @@ _FUNCTIONS = {
     # boxes, valid, mask, keep, batch, k, m, m_hi, m_lo, tie_up, stream
     'md_greedy_nms': [_P, _P, _P, _P, _I, _I, ctypes.c_double, _F, _F, _I,
                       _P],
+    # boxes, valid, mask, keep, batch, k, split (float64 [4] on the card),
+    # stream
+    'md_greedy_nms_dev': [_P, _P, _P, _P, _I, _I, _P, _P],
     # x, w, scale, bias, out, batch, h, w, cin, cout, kh, kw, sh, sw,
     # pad_top, pad_left, ho, wo, y_scale, requant (0 int32, 1 SiLU, 2
     # linear), instance, stream

@@ -18,7 +18,8 @@ the 16 x 8 pixel tiles would leave most of the card idle. The model
 bottleneck_tiling is None, decided from the shape before any launch.
 
 bottleneck_int8 takes the plain version only for tensors on the CPU. For
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises. It calls the custom
+operator mdtorch::bottleneck_int8, one node of a traced graph.
 """
 
 import collections
@@ -155,13 +156,41 @@ def bottleneck_int8(x_q, w1, scale1, bias1, mid_scale, w2, scale2, bias2,
     at first use); anything else raises.
     """
 
+    if x_q.device.type not in ('cpu', 'cuda'):
+        raise ValueError('bottleneck_int8: tensors on {}; need the CPU or '
+                         'one CUDA device'.format(x_q.device))
+    out_scale = (s_in + cv2_scale) if shortcut else cv2_scale
+    out = torch.ops.mdtorch.bottleneck_int8(
+        x_q, w1, scale1, bias1, float(mid_scale), w2, scale2, bias2,
+        float(cv2_scale), float(s_in), bool(shortcut))
+    return out, out_scale
+
+
+@torch.library.custom_op('mdtorch::bottleneck_int8', mutates_args=(),
+                         device_types='cpu')
+def _bottleneck_int8_op(x_q: torch.Tensor, w1: torch.Tensor,
+                        scale1: torch.Tensor, bias1: torch.Tensor,
+                        mid_scale: float, w2: torch.Tensor,
+                        scale2: torch.Tensor, bias2: torch.Tensor,
+                        cv2_scale: float, s_in: float,
+                        shortcut: bool) -> torch.Tensor:
+    return bottleneck_int8_reference(x_q, w1, scale1, bias1, mid_scale, w2,
+                                     scale2, bias2, cv2_scale, s_in,
+                                     shortcut)[0]
+
+
+@_bottleneck_int8_op.register_fake
+def _bottleneck_int8_fake(x_q, w1, scale1, bias1, mid_scale, w2, scale2,
+                          bias2, cv2_scale, s_in, shortcut):
+    return torch.empty_like(x_q)
+
+
+@_bottleneck_int8_op.register_kernel('cuda')
+def _bottleneck_int8_cuda(x_q, w1, scale1, bias1, mid_scale, w2, scale2,
+                          bias2, cv2_scale, s_in, shortcut):
     global launches
 
     args = (x_q, w1, scale1, bias1, w2, scale2, bias2)
-    if all(t.device.type == 'cpu' for t in args):
-        return bottleneck_int8_reference(x_q, w1, scale1, bias1, mid_scale,
-                                         w2, scale2, bias2, cv2_scale, s_in,
-                                         shortcut)
     if x_q.device.type != 'cuda' or any(t.device != x_q.device
                                         for t in args):
         raise ValueError('bottleneck_int8: tensors on {}; need the CPU or '
@@ -197,7 +226,7 @@ def bottleneck_int8(x_q, w1, scale1, bias1, mid_scale, w2, scale2, bias2,
     out_scale = (s_in + cv2_scale) if shortcut else cv2_scale
     out = torch.empty_like(x_q)
     if out.numel() == 0:
-        return out, out_scale
+        return out
     lib = _build.load_library()
     with torch.cuda.device(x_q.device):
         err = lib.md_bottleneck_int8(
@@ -209,4 +238,4 @@ def bottleneck_int8(x_q, w1, scale1, bias1, mid_scale, w2, scale2, bias2,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, 'md_bottleneck_int8')
     launches += 1
-    return out, out_scale
+    return out

@@ -20,10 +20,13 @@ and the int8 experiments' epilogues (experiments/exp_pallas_conv3x3*.py,
 E1-E4): see its docstring and the source note.
 
 conv_int8 and conv3x3_int8_exp take the plain version only for tensors on
-the CPU. For CUDA tensors they launch the kernel or raise.
+the CPU. For CUDA tensors they launch the kernel or raise. conv_int8 calls
+the custom operator mdtorch::conv_int8 (its int32, SiLU-requant and
+linear-requant modes alike), one node of a traced graph.
 """
 
 import collections
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -273,19 +276,51 @@ def conv_int8(x_q, w, scale, bias, stride, pads, y_scale=None, act=True):
     at first use); anything else raises.
     """
 
+    if x_q.device.type not in ('cpu', 'cuda'):
+        raise ValueError('conv_int8: x on {}; need the CPU or a CUDA device'
+                         .format(x_q.device))
+    return torch.ops.mdtorch.conv_int8(
+        x_q, w, scale, bias, [int(v) for v in stride],
+        [int(v) for v in pads],
+        None if y_scale is None else float(y_scale), bool(act))
+
+
+@torch.library.custom_op('mdtorch::conv_int8', mutates_args=(),
+                         device_types='cpu')
+def _conv_int8_op(x_q: torch.Tensor, w: torch.Tensor,
+                  scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+                  stride: List[int], pads: List[int], y_scale: Optional[float],
+                  act: bool) -> torch.Tensor:
+    return conv_int8_reference(x_q, w, scale, bias, stride, pads, y_scale,
+                               act)
+
+
+def _output_shape(x_q, w, stride, pads):
+    b, h, wd, _ = x_q.shape
+    cout, kh, kw, _ = w.shape
+    ho = (h + pads[0] + pads[1] - kh) // stride[0] + 1
+    wo = (wd + pads[2] + pads[3] - kw) // stride[1] + 1
+    return b, ho, wo, cout
+
+
+@_conv_int8_op.register_fake
+def _conv_int8_fake(x_q, w, scale, bias, stride, pads, y_scale, act):
+    return x_q.new_empty(
+        _output_shape(x_q, w, stride, pads),
+        dtype=torch.int32 if y_scale is None else torch.int8)
+
+
+@_conv_int8_op.register_kernel('cuda')
+def _conv_int8_cuda(x_q, w, scale, bias, stride, pads, y_scale, act):
     global launches
 
-    if x_q.device.type == 'cpu' and w.device.type == 'cpu':
-        return conv_int8_reference(x_q, w, scale, bias, stride, pads,
-                                   y_scale, act)
     if x_q.device.type != 'cuda':
         raise ValueError('conv_int8: x on {}; need the CPU or a CUDA device'
                          .format(x_q.device))
     _check_cuda(x_q, w, scale, bias, y_scale)
     b, h, wd, cin = x_q.shape
     cout, kh, kw, _ = w.shape
-    ho = (h + pads[0] + pads[1] - kh) // stride[0] + 1
-    wo = (wd + pads[2] + pads[3] - kw) // stride[1] + 1
+    _, ho, wo, _ = _output_shape(x_q, w, stride, pads)
     if ho <= 0 or wo <= 0:
         raise ValueError('conv_int8: empty output {}x{}'.format(ho, wo))
     out = torch.empty((b, ho, wo, cout), device=x_q.device,

@@ -12,7 +12,13 @@ The constants and helpers below restate the kernel's geometry for the CPU
 tests (tests/test_torch_nms_sweep.py).
 
 greedy_nms_keep takes the plain version only for tensors on the CPU. For a
-CUDA tensor it launches the kernel or raises KernelError.
+CUDA tensor it launches the kernel or raises KernelError. It calls the
+custom operators mdtorch::greedy_nms_keep (the threshold a Python number,
+its split passed by value) and mdtorch::greedy_nms_keep_t (the threshold
+a 0-d tensor on the boxes' device, its split computed there by
+threshold_split_tensor and read by the kernel from device memory, so that
+one captured CUDA graph or exported program serves every threshold). Each
+is one node of a traced graph; both give the same keep mask.
 """
 
 import functools
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from megadetector_tpu_torch.ops import _build
+from megadetector_tpu_torch.ops.decode import threshold_tensor
 
 # Kernel launches made by greedy_nms_keep (the plain version never counts)
 launches = 0
@@ -79,6 +86,33 @@ def threshold_split(thresh):
     return m, m_hi, m_lo, tie_up
 
 
+def threshold_split_tensor(thresh):
+    """
+    threshold_split of a 0-d float32 tensor, computed with torch ops on
+    its device (so a CUDA graph can capture it): float64 [4] holding m,
+    m_hi, m_lo and tie_up (1.0 or 0.0), bit for bit threshold_split's.
+    Every step is exact in float64 but the two float32 roundings, which
+    are corrected toward their bound as threshold_split corrects them.
+    """
+
+    t = thresh.reshape(()).to(torch.float32)
+    inf = torch.full((), float('inf'), dtype=torch.float32, device=t.device)
+    t_next = torch.nextafter(t, inf)
+    m = (t.double() + t_next.double()) * 0.5
+    tie_up = (t_next.view(torch.int32) & 1) == 0
+    margin = m.abs() * 2.0 ** -19
+    hi, lo = m + margin, m - margin
+    m_hi = hi.float()
+    m_hi = torch.where(m_hi.double() < hi, torch.nextafter(m_hi, inf), m_hi)
+    m_lo = lo.float()
+    m_lo = torch.where(m_lo.double() > lo, torch.nextafter(m_lo, -inf),
+                       m_lo)
+    bounded = torch.isfinite(m) & (m.abs() >= 2.0 ** -60)
+    return torch.stack([m, torch.where(bounded, m_hi, inf).double(),
+                        torch.where(bounded, m_lo, -inf).double(),
+                        tie_up.double()])
+
+
 def pairwise_iou_xyxy(boxes):
     """IoU matrix [..., K, K] for xyxy boxes [..., K, 4] (JAX formula)."""
 
@@ -102,14 +136,15 @@ def greedy_nms_keep_reference(boxes, valid, thresh):
     Args:
         boxes: [B, K, 4] float32 xyxy, class-offset, score-sorted
         valid: [B, K] bool
-        thresh: IoU threshold (compared in float32, strict '>')
+        thresh: IoU threshold, a number or a 0-d tensor (compared in
+            float32, strict '>')
 
     Returns:
         [B, K] bool keep mask
     """
 
     k = boxes.shape[1]
-    thr = torch.tensor(thresh, dtype=torch.float32, device=boxes.device)
+    thr = threshold_tensor(thresh, boxes.device)
     overlap = torch.triu(pairwise_iou_xyxy(boxes.float()) > thr,
                          diagonal=1)
     keep = valid.clone()
@@ -122,16 +157,62 @@ def greedy_nms_keep(boxes, valid, thresh):
     """
     Greedy NMS keep mask [B, K] bool for score-sorted, class-offset xyxy
     boxes [B, K, 4] float32 and valid [B, K] bool: box i, while kept,
-    suppresses every j > i with IoU(i, j) > thresh.
+    suppresses every j > i with IoU(i, j) > thresh. [thresh] is a number,
+    or a 0-d float32 tensor on the boxes' device.
 
     CPU tensors run the plain version. CUDA tensors run the kernel
     (built at first use); anything else raises.
     """
 
+    if boxes.device.type not in ('cpu', 'cuda'):
+        raise ValueError('greedy_nms_keep: boxes on {}; need the CPU or a '
+                         'CUDA device'.format(boxes.device))
+    if isinstance(thresh, torch.Tensor):
+        return torch.ops.mdtorch.greedy_nms_keep_t(boxes, valid, thresh)
+    return torch.ops.mdtorch.greedy_nms_keep(boxes, valid, float(thresh))
+
+
+@torch.library.custom_op('mdtorch::greedy_nms_keep', mutates_args=(),
+                         device_types='cpu')
+def _greedy_nms_keep_op(boxes: torch.Tensor, valid: torch.Tensor,
+                        thresh: float) -> torch.Tensor:
+    return greedy_nms_keep_reference(boxes, valid, thresh)
+
+
+@_greedy_nms_keep_op.register_kernel('cuda')
+def _greedy_nms_keep_cuda(boxes, valid, thresh):
+    return _launch(boxes, valid, thresh, None)
+
+
+@torch.library.custom_op('mdtorch::greedy_nms_keep_t', mutates_args=(),
+                         device_types='cpu')
+def _greedy_nms_keep_t_op(boxes: torch.Tensor, valid: torch.Tensor,
+                          thresh: torch.Tensor) -> torch.Tensor:
+    return greedy_nms_keep_reference(boxes, valid, thresh)
+
+
+@_greedy_nms_keep_t_op.register_kernel('cuda')
+def _greedy_nms_keep_t_cuda(boxes, valid, thresh):
+    if thresh.device != boxes.device or thresh.numel() != 1:
+        raise ValueError('greedy_nms_keep: a tensor threshold must be one '
+                         'value on the boxes\' device {}, got {} on {}'
+                         .format(boxes.device, tuple(thresh.shape),
+                                 thresh.device))
+    return _launch(boxes, valid, None, threshold_split_tensor(thresh))
+
+
+@_greedy_nms_keep_op.register_fake
+@_greedy_nms_keep_t_op.register_fake
+def _greedy_nms_keep_fake(boxes, valid, thresh):
+    return torch.empty_like(valid)
+
+
+def _launch(boxes, valid, thresh, split):
+    """The kernel on CUDA tensors: the split of [thresh] by value, or
+    [split] (threshold_split_tensor) read from device memory."""
+
     global launches
 
-    if boxes.device.type == 'cpu' and valid.device.type == 'cpu':
-        return greedy_nms_keep_reference(boxes, valid, thresh)
     if boxes.device.type != 'cuda' or valid.device != boxes.device:
         raise ValueError('greedy_nms_keep: boxes on {} and valid on {}; '
                          'need both on the CPU or both on one CUDA '
@@ -163,14 +244,21 @@ def greedy_nms_keep(boxes, valid, thresh):
     lib = _build.load_library()
     mask = torch.empty((b, k, row_words(k)), dtype=torch.int64,
                        device=boxes.device)
-    m, m_hi, m_lo, tie_up = threshold_split(thresh)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
     # The launch goes to the runtime's current device: make it the
     # tensors' device, and use its current torch stream
     with torch.cuda.device(boxes.device):
-        err = lib.md_greedy_nms(
-            boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
-            keep.data_ptr(), b, k, m, m_hi, m_lo, int(tie_up),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(lib, err, 'md_greedy_nms')
+        if split is None:
+            m, m_hi, m_lo, tie_up = threshold_split(thresh)
+            err = lib.md_greedy_nms(
+                boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+                keep.data_ptr(), b, k, m, m_hi, m_lo, int(tie_up), stream)
+            name = 'md_greedy_nms'
+        else:
+            err = lib.md_greedy_nms_dev(
+                boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+                keep.data_ptr(), b, k, split.data_ptr(), stream)
+            name = 'md_greedy_nms_dev'
+    _build.check_launch(lib, err, name)
     launches += 1
     return keep

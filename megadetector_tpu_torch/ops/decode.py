@@ -15,12 +15,23 @@ sort keeps equal keys in input order, i.e. lower index first.
 
 Nothing here copies from the host or reads a device value back, so the
 selection can be captured into a CUDA graph: constants come from
-device_constant, thresholds are filled on the device.
+device_constant, and a threshold is filled on the device from a number or
+taken as a 0-d tensor already there (one captured graph or exported
+program then serves every threshold).
 """
 
 import torch
 
 from megadetector_tpu_torch.device import device_constant
+
+
+def threshold_tensor(thresh, device):
+    """[thresh] as a float32 0-d tensor on [device]: a 0-d tensor as it is
+    (cast to float32), a number filled on the device."""
+
+    if isinstance(thresh, torch.Tensor):
+        return thresh.reshape(()).to(torch.float32)
+    return torch.full((), thresh, dtype=torch.float32, device=device)
 
 
 def topk_lower_index_first(values, k):
@@ -48,7 +59,8 @@ def select_topk_candidates(head_outputs, anchors, strides, num_classes,
         strides: per-level stride tuple
         num_classes: nc
         conf_thres: confidence floor (objectness AND obj*cls, as in the
-            reference filter chain); compared in float32
+            reference filter chain), a number or a 0-d tensor on the
+            heads' device; compared in float32
         k: candidate count to keep across all levels
 
     Returns:
@@ -63,7 +75,7 @@ def select_topk_candidates(head_outputs, anchors, strides, num_classes,
     b = head_outputs[0].shape[0]
     anchors = device_constant(anchors, torch.float32, device)
     na = anchors.shape[1]
-    thr = torch.full((), conf_thres, dtype=torch.float32, device=device)
+    thr = threshold_tensor(conf_thres, device)
 
     xs, ranked_list, level_offsets, level_widths = [], [], [], []
     n_above = None

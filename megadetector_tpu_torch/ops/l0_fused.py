@@ -17,7 +17,8 @@ version, so kernel and plain version agree within plain_bar, not bit for
 bit.
 
 l0_fused takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises. It calls the custom operator
+mdtorch::l0_fused, one node of a traced graph.
 """
 
 import numpy as np
@@ -145,10 +146,29 @@ def l0_fused(images_u8, w, bias):
     at first use); anything else raises.
     """
 
+    if images_u8.device.type not in ('cpu', 'cuda'):
+        raise ValueError('l0_fused: images on {}; need the CPU or a CUDA '
+                         'device'.format(images_u8.device))
+    return torch.ops.mdtorch.l0_fused(images_u8, w, bias)
+
+
+@torch.library.custom_op('mdtorch::l0_fused', mutates_args=(),
+                         device_types='cpu')
+def _l0_fused_op(images_u8: torch.Tensor, w: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    return l0_fused_reference(images_u8, w, bias)
+
+
+@_l0_fused_op.register_fake
+def _l0_fused_fake(images_u8, w, bias):
+    b, h, wd, c = _check_geometry(images_u8, w, bias)
+    return images_u8.new_empty((b, h // 2, wd // 2, c), dtype=torch.bfloat16)
+
+
+@_l0_fused_op.register_kernel('cuda')
+def _l0_fused_cuda(images_u8, w, bias):
     global launches
 
-    if images_u8.device.type == 'cpu':
-        return l0_fused_reference(images_u8, w, bias)
     if images_u8.device.type != 'cuda':
         raise ValueError('l0_fused: images on {}; need the CPU or a CUDA '
                          'device'.format(images_u8.device))

@@ -16,7 +16,8 @@ from megadetector_tpu_torch.ops.cuda_nms import (
     greedy_nms_keep,
     pairwise_iou_xyxy as _pairwise_iou_xyxy,  # noqa: F401  (JAX name)
 )
-from megadetector_tpu_torch.ops.decode import topk_lower_index_first
+from megadetector_tpu_torch.ops.decode import (threshold_tensor,
+                                               topk_lower_index_first)
 
 # Class-offset floor: the offset is max(this, per-image max valid
 # coordinate + 1), so shifted classes never overlap at any canvas size
@@ -41,7 +42,8 @@ def nms_on_candidates(cands, iou_thres, max_det=300, class_agnostic=False):
         cands: dict with 'boxes_cxcywh' [B, K, 4] float32 canvas pixels,
             'scores' [B, K] float32 descending, 'classes' [B, K] int32,
             'valid' [B, K] bool, optional 'n_candidates' [B]
-        iou_thres: suppression threshold
+        iou_thres: suppression threshold, a number or a 0-d float32
+            tensor on the boxes' device
         max_det: detections kept per image
         class_agnostic: suppress across classes when True
 
@@ -94,7 +96,8 @@ def batched_nms(pred, conf_thres, iou_thres, max_det=300,
         pred: [B, A, 5+C] decoded predictions (cx, cy, w, h in canvas
             pixels; objectness; per-class confidences)
         conf_thres: confidence floor on objectness AND on the final
-            objectness * class score (compared in float32)
+            objectness * class score (compared in float32), a number or a
+            0-d tensor on pred's device
         iou_thres / max_det / class_agnostic: as nms_on_candidates
         pre_nms_topk: candidate set size entering NMS
 
@@ -103,7 +106,7 @@ def batched_nms(pred, conf_thres, iou_thres, max_det=300,
     """
 
     num_classes = pred.shape[-1] - 5
-    thr = torch.full((), conf_thres, dtype=torch.float32, device=pred.device)
+    thr = threshold_tensor(conf_thres, pred.device)
     obj = pred[..., 4]
     cls_conf = pred[..., 5:] * pred[..., 4:5]
     best_score = cls_conf.amax(dim=-1)

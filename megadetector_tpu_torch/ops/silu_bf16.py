@@ -12,7 +12,9 @@ XLA on the CPU flushes a subnormal intermediate to zero (results below
 2^-126 in magnitude).
 
 silu_bf16 takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises. It calls the custom operator
+mdtorch::silu_bf16 (mdtorch::silu_bf16_out, which writes [out], where out=
+is given), one node of a traced graph.
 
 The gradient: where x or the bias requires grad (and grad mode is on),
 silu_bf16 is a torch.autograd.Function that saves x and the bias and whose
@@ -29,6 +31,8 @@ reduce_sum, which XLA on the CPU evaluates one element after another,
 rounding every addition; a parallel sum cannot follow that order, and
 rounding once is the more exact of the two: ROADMAP C, PR 14.)
 """
+
+from typing import Optional
 
 import torch
 
@@ -205,13 +209,56 @@ def _check_cuda_input(x, name):
 
 
 def _silu_bf16(x, bias, out):
+    # The operators' fake versions take any other device (the meta
+    # device included): refuse it here
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError('silu_bf16: x on {}; need the CPU or a CUDA device'
+                         .format(x.device))
+    if out is None:
+        return torch.ops.mdtorch.silu_bf16(x, bias)
+    torch.ops.mdtorch.silu_bf16_out(x, bias, out)
+    return out
+
+
+@torch.library.custom_op('mdtorch::silu_bf16', mutates_args=(),
+                         device_types='cpu')
+def _silu_bf16_op(x: torch.Tensor,
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return silu_bf16_reference(x, bias)
+
+
+@_silu_bf16_op.register_fake
+def _silu_bf16_fake(x, bias):
+    return torch.empty_like(x)
+
+
+@_silu_bf16_op.register_kernel('cuda')
+def _silu_bf16_cuda(x, bias):
+    return _launch(x, bias, None)
+
+
+@torch.library.custom_op('mdtorch::silu_bf16_out', mutates_args=('out',),
+                         device_types='cpu')
+def _silu_bf16_out_op(x: torch.Tensor, bias: Optional[torch.Tensor],
+                      out: torch.Tensor) -> None:
+    out.copy_(silu_bf16_reference(x, bias))
+
+
+@_silu_bf16_out_op.register_fake
+def _silu_bf16_out_fake(x, bias, out):
+    return None
+
+
+@_silu_bf16_out_op.register_kernel('cuda')
+def _silu_bf16_out_cuda(x, bias, out):
+    _launch(x, bias, out)
+
+
+def _launch(x, bias, out):
+    """The kernel on a CUDA tensor, into [out] (a new tensor when None)."""
+
     global launches
 
-    if x.device.type == 'cpu':
-        y = silu_bf16_reference(x, bias)
-        if out is None:
-            return y
-        return out.copy_(y)
     _check_cuda_input(x, 'silu_bf16')
     c, inner = _check_bias(x, bias, 'silu_bf16')
     if out is None:

@@ -3,13 +3,13 @@ One-command real-weight validation gate (the port's counterpart of
 megadetector_tpu/utils/validate_weights.py): the moment real
 MegaDetector weights become available,
 
-    python -m megadetector_tpu_torch.utils.validate_weights ckpt \
-        --skip_export
+    python -m megadetector_tpu_torch.utils.validate_weights ckpt
 
 runs the acceptance chain on the port's batch driver and detector, on the
 card (force_cpu runs it on the CPU) — conversion, golden
-generation/comparison, int8-chain drift bounds and candidate-capacity
-sufficiency — so parity is a button, not a week of ad-hoc scripts.
+generation/comparison, int8-chain drift bounds, candidate-capacity
+sufficiency and the exported artifact — so parity is a button, not a
+week of ad-hoc scripts.
 
 Stages (each reported, any failure fails the gate):
 
@@ -27,9 +27,13 @@ Stages (each reported, any failure fails the gate):
 4. capacity  — scan above-floor candidate counts at the 0.005 floor and
                report whether pre_nms_topk=512 suffices (and what the
                escalation ladder must cover).
-5. export    — not ported: the port has no exported artifact yet
-               (ROADMAP A10). The gate raises NotImplementedError before
-               any stage runs unless skip_export (--skip_export) is set.
+5. export    — export the checkpoint as the port's artifact
+               (detection/export_detector: batch sizes 1 and 4, aspects
+               4:3, 3:4 and 16:9, capacities 512 and 2048), run it
+               against the live detector on three images (escalation off
+               on both sides) requiring identical detections, and require
+               a one-byte tamper of its programs to be refused
+               (ValueError).
 
 Dry-run mode (--dry_run) exercises every stage on a synthetic
 random-weight checkpoint on the CPU, proving the gate end-to-end in
@@ -285,10 +289,72 @@ def _stage_capacity(options, scratch, model_file, image_dir, report):
     report['capacity'] = stage
 
 
-EXPORT_NOT_PORTED = (
-    'validate_weights: the export stage (an AOT artifact, reloaded and '
-    'tamper-checked) waits for the port\'s exported artifact, ROADMAP A10; '
-    'run with skip_export (--skip_export)')
+def _stage_export(options, scratch, model_file, image_dir, report):
+    import zipfile
+
+    from megadetector_tpu_torch.detection.export_detector import (
+        MANIFEST_NAME, export_detector)
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.utils.path_utils import find_images
+    from megadetector_tpu_torch.visualization.visualization_utils import \
+        load_image
+
+    artifact = os.path.join(scratch, 'validated.mdpkg')
+    export_detector(model_file, artifact, batch_sizes=[1, 4],
+                    aspects=['4:3', '3:4', '16:9'],
+                    topk_ladder=[512, 2048],
+                    detector_options=_detector_options(options))
+
+    # Live against artifact on the first three images. Escalation is
+    # pinned off on both sides, so both run the 512-capacity program
+    # (random-weight dry runs overflow the floor; escalation is the
+    # capacity stage's); the artifact runs the live detector's ops and
+    # kernels, so its detections must be identical
+    live = load_detector(
+        model_file,
+        detector_options=_detector_options(
+            options, {'auto_escalate_topk': False}))
+    # The artifact bakes image_size in: only the options ExportedDetector
+    # takes
+    exported_options = {'auto_escalate_topk': False}
+    if options.force_cpu:
+        exported_options['force_cpu'] = True
+    exported = load_detector(artifact, detector_options=exported_options)
+    stage = {'status': 'ok', 'artifact': artifact,
+             'artifact_mb': round(os.path.getsize(artifact) / 1e6, 3)}
+    n_checked = 0
+    for fn in find_images(image_dir, recursive=True)[:3]:
+        pil = load_image(fn)
+        a = live.generate_detections_one_image(
+            pil, fn, detection_threshold=0.005)
+        b = exported.generate_detections_one_image(
+            pil, fn, detection_threshold=0.005)
+        if a != b:
+            stage['status'] = 'FAILED'
+            stage['reason'] = 'artifact mismatch on {}: {} live against ' \
+                '{} exported detections'.format(
+                    fn, len(a.get('detections') or []),
+                    len(b.get('detections') or []))
+            break
+        n_checked += 1
+    stage['n_images_checked'] = n_checked
+
+    # Tamper check: flipping one byte of every program must be refused
+    tampered = os.path.join(scratch, 'tampered.mdpkg')
+    with zipfile.ZipFile(artifact) as src, \
+            zipfile.ZipFile(tampered, 'w') as dst:
+        for name in src.namelist():
+            blob = src.read(name)
+            if name != MANIFEST_NAME and name.endswith('.pt2'):
+                blob = blob[:-1] + bytes([blob[-1] ^ 0xFF])
+            dst.writestr(name, blob)
+    try:
+        load_detector(tampered, detector_options=exported_options)
+        stage['status'] = 'FAILED'
+        stage['reason'] = 'tampered artifact loaded without error'
+    except ValueError:
+        stage['tamper_rejected'] = True
+    report['export'] = stage
 
 
 def validate_weights(options):
@@ -297,8 +363,6 @@ def validate_weights(options):
     only if every stage passed.
     """
 
-    if not options.skip_export:
-        raise NotImplementedError(EXPORT_NOT_PORTED)
     t_start = time.time()
     scratch = options.scratch_dir or tempfile.mkdtemp(
         prefix='md_validate_')
@@ -328,7 +392,11 @@ def validate_weights(options):
     _log(options, 'stage 4/5: candidate-capacity sufficiency')
     _stage_capacity(options, scratch, model_file, image_dir, report)
 
-    report['export'] = {'status': 'skipped'}
+    if options.skip_export:
+        report['export'] = {'status': 'skipped'}
+    else:
+        _log(options, 'stage 5/5: export + integrity')
+        _stage_export(options, scratch, model_file, image_dir, report)
 
     failed = [k for k, v in report.items()
               if isinstance(v, dict) and v.get('status') == 'FAILED']
@@ -345,8 +413,8 @@ def validate_weights(options):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description='Validate a detector checkpoint end-to-end: '
-                    'convert, golden, int8 drift, capacity scan (the AOT '
-                    'export stage is not ported: pass --skip_export)')
+                    'convert, golden, int8 drift, capacity scan, '
+                    'exported-artifact integrity')
     parser.add_argument('checkpoint', nargs='?', default=None,
                         help='torch .pt or converted .npz checkpoint')
     parser.add_argument('--expected_results_file', default=None,
@@ -371,8 +439,6 @@ def main(argv=None):
                              'random-weight checkpoint (no real '
                              'weights needed)')
     args = parser.parse_args(argv)
-    if not args.skip_export:
-        raise NotImplementedError(EXPORT_NOT_PORTED)
 
     options = ValidateWeightsOptions()
     options.expected_results_file = args.expected_results_file

@@ -5,7 +5,9 @@ backward), and the int8 experiments' conv (every epilogue) and GEMM
 kernels, against their plain versions, and the card's selection, NMS,
 detectors (float32, int8 chain, int8 static and bf16) and training steps
 (a bf16 detector step, a classifier step) against the CPU's; the
-accelerator probe on the card.
+accelerator probe on the card; the path kernels through their custom
+operators (mdtorch::*), the NMS kernel's device-memory threshold in one
+captured graph, and the exported artifact against the live detector.
 
 Every test is marked `cuda` and skips without a card. This file imports
 no jax, so it also runs on a machine without the JAX package's
@@ -1310,3 +1312,179 @@ def test_accelerator_probe_on_card(cuda_device):
     assert result['devices'][0] == torch.cuda.get_device_name(0)
     assert cuda_nms.launches == before + 1
 
+
+
+#%% The path kernels as custom operators (mdtorch::*)
+
+
+def _op_cases(rng):
+    """{label: (operator, CPU arguments, plain output)} at small
+    shapes."""
+
+    def int8(shape):
+        return torch.from_numpy(rng.randint(-127, 128, shape)
+                                .astype(np.int8))
+
+    def f32(shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale)
+                                .astype(np.float32))
+
+    ops = torch.ops.mdtorch
+    boxes, valid = (torch.from_numpy(a) for a in _offset_boxes(rng, 4, 700))
+    x = int8((2, 30, 40, 64))
+    cases = {
+        'nms_value': (ops.greedy_nms_keep, (boxes, valid, 0.45)),
+        'nms_tensor': (ops.greedy_nms_keep_t,
+                       (boxes, valid, torch.tensor(0.45))),
+    }
+    for label, w, stride, pads, y_scale, act in (
+            ('conv_int32', int8((64, 3, 3, 64)), [1, 1], [1, 1, 1, 1], None,
+             True),
+            ('conv_silu', int8((64, 3, 3, 64)), [1, 1], [1, 1, 1, 1], 0.05,
+             True),
+            ('conv_linear_s2', int8((128, 3, 3, 64)), [2, 2], [1, 1, 1, 1],
+             0.05, False)):
+        scale, bias = f32((w.shape[0],), 1e-4).abs(), f32((w.shape[0],), 0.1)
+        cases[label] = (ops.conv_int8, (
+            x, w, None if y_scale is None else scale,
+            None if y_scale is None else bias, stride, pads, y_scale, act))
+    for shortcut in (True, False):
+        cases['bottleneck_{}'.format(shortcut)] = (ops.bottleneck_int8, (
+            x, int8((64, 1, 1, 64)), f32((64,), 1e-4).abs(),
+            f32((64,), 0.1), 0.04, int8((64, 3, 3, 64)),
+            f32((64,), 1e-4).abs(), f32((64,), 0.1), 0.05, 0.03, shortcut))
+    w, b = l0_fused.prepare_l0_weights({'w': rng.randn(6, 6, 3, 32) * 0.1,
+                                        'b': rng.randn(32) * 0.1})
+    cases['l0_fused'] = (ops.l0_fused, (torch.from_numpy(
+        rng.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8)), w, b))
+    cases['silu_bf16'] = (ops.silu_bf16, (
+        f32((2, 32, 12, 20), 3.0).to(torch.bfloat16),
+        f32((32,), 1.0).to(torch.bfloat16)))
+    return cases
+
+
+_PLAIN = {
+    'greedy_nms_keep': cuda_nms.greedy_nms_keep_reference,
+    'greedy_nms_keep_t': cuda_nms.greedy_nms_keep_reference,
+    'conv_int8': conv_int8.conv_int8_reference,
+    'bottleneck_int8': lambda *a: bottleneck_int8.bottleneck_int8_reference(
+        *a)[0],
+    'l0_fused': l0_fused.l0_fused_reference,
+    'silu_bf16': silu_bf16.silu_bf16_reference}
+
+_OP_COUNTERS = {'nms': (cuda_nms, 'launches'),
+                'conv': (conv_int8, 'launches'),
+                'bottleneck': (bottleneck_int8, 'launches'),
+                'l0': (l0_fused, 'launches'), 'silu': (silu_bf16,
+                                                      'launches')}
+
+
+@pytest.mark.parametrize('label', [
+    'nms_value', 'nms_tensor', 'conv_int32', 'conv_silu', 'conv_linear_s2',
+    'bottleneck_True', 'bottleneck_False', 'l0_fused', 'silu_bf16'])
+def test_custom_op_on_card_is_its_kernel(cuda_device, label):
+    op, args = _op_cases(np.random.RandomState(17))[label]
+    module, name = _OP_COUNTERS[label.split('_')[0]]
+    args = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+            for a in args]
+    before = getattr(module, name)
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert got.device.type == 'cuda'
+    assert getattr(module, name) == before + 1
+    # The plain version on the same tensors (plain PyTorch on the card),
+    # as the kernels' own tests hold them
+    plain = _PLAIN[op.__name__.split('.')[-1]](*args)
+    if label == 'l0_fused':
+        n_diff, _, outside = l0_fused.plain_bar(got, plain)
+        assert outside == 0 and n_diff <= l0_fused.DIFF_SHARE * plain.numel()
+    else:
+        assert got.dtype == plain.dtype and torch.equal(got, plain)
+
+
+def test_silu_out_op_on_card(cuda_device):
+    _, (x, bias) = _op_cases(np.random.RandomState(18))['silu_bf16']
+    x, bias = x.to(cuda_device), bias.to(cuda_device)
+    y = x.clone()
+    torch.ops.mdtorch.silu_bf16_out(y, bias, y)
+    assert torch.equal(y, silu_bf16.silu_bf16_reference(x, bias))
+
+
+def test_threshold_split_on_card_is_bit_identical(cuda_device):
+    rng = np.random.RandomState(19)
+    values = [0.0, 1.0, 0.45, 0.5, 0.6, 1e-40, 1.4e-45, -0.45] + list(
+        rng.rand(300).astype(np.float32))
+    for v in values:
+        v = float(np.float32(v))
+        m, m_hi, m_lo, tie_up = cuda_nms.threshold_split(v)
+        got = cuda_nms.threshold_split_tensor(torch.tensor(
+            v, device=cuda_device)).cpu().numpy()
+        want = np.array([m, m_hi, m_lo, float(tie_up)])
+        assert np.array_equal(got.view(np.int64), want.view(np.int64)), v
+
+
+def test_nms_device_threshold_entry_in_one_graph(cuda_device):
+    """B1's device-memory threshold entry: the keep mask of the by-value
+    entry at every threshold, from one captured CUDA graph whose
+    threshold tensor is refilled before each replay."""
+
+    boxes, valid = (torch.from_numpy(a).to(cuda_device)
+                    for a in _offset_boxes(np.random.RandomState(20), 8,
+                                           2048))
+    thresh = torch.tensor(0.45, device=cuda_device)
+    cuda_nms.greedy_nms_keep(boxes, valid, thresh)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+        keep = cuda_nms.greedy_nms_keep(boxes, valid, thresh)
+    for t in (0.3, 0.45, 0.5, 0.6, 0.85):
+        thresh.fill_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(keep, cuda_nms.greedy_nms_keep(boxes, valid, t))
+
+
+@pytest.mark.parametrize('case', ['bf16', 'int8_pallas'])
+def test_exported_artifact_on_card(cuda_device, tmp_path, case):
+    """The artifact exported for the card against the live detector, each
+    eager then replayed: identical detections, equal launches; and the
+    live detector's outputs unchanged by the export."""
+
+    from megadetector_tpu_torch.detection import export_detector as ed
+    from megadetector_tpu_torch.models import program_cache
+
+    imgs = data.images()
+    model = str(tmp_path / 'md_v5a.0.0_cuda_export.npz')
+    save_checkpoint(data.sharpened_params(imgs), model, data.METADATA)
+    options = {'dtype': 'bf16'}
+    if case == 'int8_pallas':
+        q_path = str(tmp_path / 'q.npz')
+        quantize_checkpoint(model, q_path,
+                            calibration_images=[im[:192, :256]
+                                                for im in imgs[:4]],
+                            calibration_image_size=256, device='cuda')
+        model, options = q_path, {'conv_backend': 'pallas'}
+    live = run_detector.load_detector(model, detector_options=options)
+    before = live.generate_detections_one_batch(imgs[:4],
+                                                detection_threshold=0.005)
+    artifact = str(tmp_path / 'x.mdpkg')
+    ed.export_detector(model, artifact, batch_sizes=[4], aspects=['4:3'],
+                       topk_ladder=[512, 1024], detector_options=options)
+    exported = run_detector.load_detector(artifact)
+    for threshold in (0.005, 0.005, 0.2, 0.005):
+        c0 = program_cache.read_counters()
+        want = live.generate_detections_one_batch(
+            imgs[:4], detection_threshold=threshold)
+        c1 = program_cache.read_counters()
+        got = exported.generate_detections_one_batch(
+            imgs[:4], detection_threshold=threshold)
+        c2 = program_cache.read_counters()
+        assert got == want
+        assert [b - a for a, b in zip(c1, c2)] == \
+            [b - a for a, b in zip(c0, c1)]
+    assert live.generate_detections_one_batch(
+        imgs[:4], detection_threshold=0.005) == before
+    assert exported._programs.replays > 0
+    # One selection graph served both thresholds
+    assert not any(isinstance(k[-1], float)
+                   for k in exported._programs.entries)

@@ -13,7 +13,9 @@ Classifier evaluation in the port, held to the JAX package on the CPU:
   probabilities within 1e-5 (float32; JAX's default folded stem sums in
   another order), the same predictions, so identical confusion matrices
   and label statistics; given JAX's probabilities every file
-  byte-identical to JAX's; the CLI; trace_model refused naming A10.
+  byte-identical to JAX's; the CLI; trace_model's torch.export program
+(written, reused, and within the classifier float bar of JAX's
+deserialized program).
 """
 
 import json
@@ -22,6 +24,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from megadetector_tpu.classification import \
@@ -234,6 +237,32 @@ def test_given_jax_probabilities_every_file_is_jax_s(evaluation, world,
     assert _tree(folder) == _tree(out['ref'][0])
 
 
+def test_trace_model_matches_the_jax_program(evaluation, tmp_path):
+    """The port's traced classifier against JAX's deserialized program on
+    the same checkpoint and input, within the classifier float bar
+    (rtol 1e-4, atol 1e-4 * max|ref|)."""
+
+    from jax import export as jax_export
+
+    _, ckpt, _ = evaluation
+    paths = []
+    for name in ('ours', 'ref'):
+        path = str(tmp_path / '{}.npz'.format(name))
+        shutil.copyfile(ckpt, path)
+        paths.append(path)
+    ours = torch.export.load(em.trace_model('efficientnetv2_test', paths[0],
+                                            3, 64, device='cpu'))
+    with open(jax_em.trace_model('efficientnetv2_test', paths[1], 3, 64),
+              'rb') as f:
+        ref = jax_export.deserialize(bytearray(f.read()))
+    x = np.random.RandomState(7).rand(1, 64, 64, 3).astype(np.float32)
+    got = ours.module()(torch.from_numpy(x)).numpy()
+    want = np.asarray(ref.call(x))
+    assert got.shape == want.shape == (1, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+
+
 def test_metric_helpers_match_jax():
     rng = np.random.RandomState(0)
     cm = rng.randint(0, 5, (4, 4))
@@ -264,8 +293,24 @@ def test_cli_and_trace_model(evaluation, world, tmp_path, capsys):
               world['detections'], '--val_frac', '0.25', '--test_frac',
               '0.25', '--seed', '1', '--confidence_threshold', '0.5'])
     assert _tree(cli_ds) == _tree(ds_dir)
-    with pytest.raises(NotImplementedError, match='A10'):
-        em.trace_model('efficientnetv2_test', ckpt, 3, 64)
+    # trace_model writes <root>_compiled<ext> and its sidecar, and reuses
+    # them for the same request on an unchanged checkpoint
+    copy = str(tmp_path / 'traced.npz')
+    shutil.copyfile(ckpt, copy)
+    compiled = em.trace_model('efficientnetv2_test', copy, 3, 64,
+                              device='cpu')
+    assert compiled == str(tmp_path / 'traced_compiled.npz')
+    with open(str(tmp_path / 'traced_compiled.trace.json')) as f:
+        assert json.load(f) == {
+            'model_name': 'efficientnetv2_test', 'num_classes': 3,
+            'img_size': 64, 'ckpt_mtime': os.path.getmtime(copy),
+            'platform': 'cpu'}
+    stamp = os.path.getmtime(compiled)
+    assert em.trace_model('efficientnetv2_test', copy, 3, 64,
+                          device='cpu') == compiled
+    assert os.path.getmtime(compiled) == stamp
+    program = torch.export.load(compiled)
+    assert tuple(program.module()(torch.zeros(1, 64, 64, 3)).shape) == (1, 3)
     capsys.readouterr()
     with open(os.path.join(ds_dir, 'label_index.json')) as f:
         assert sorted(json.load(f).values()) == sorted(LABELS)

@@ -13,7 +13,8 @@ folder workflow and the inference-options comparison with their
 postprocessing, rendering, sequence and EXIF modules; the weight
 validation gate and its comparator, the classifier's dataset and
 evaluation modules, the accelerator and profiling utilities and the
-legacy .pb detector). PIL is imported only once a file is decoded or
+legacy .pb detector; the exported artifact, mAP evaluation, frame
+extraction, the URL helpers and the integration harness). PIL is imported only once a file is decoded or
 drawn on; tensorflow only once a .pb detector is built, pandas only
 inside the functions that build data frames. cv2 is not checked:
 ops/boxes.py imports it whenever it is installed and falls back to numpy
@@ -152,7 +153,12 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.utils.accelerator_test',
                 'megadetector_tpu_torch.utils.gpu_test',
                 'megadetector_tpu_torch.utils.profiling',
-                'megadetector_tpu_torch.detection.tf_detector'}
+                'megadetector_tpu_torch.detection.tf_detector',
+                'megadetector_tpu_torch.detection.export_detector',
+                'megadetector_tpu_torch.postprocessing.evaluate_detections',
+                'megadetector_tpu_torch.utils.extract_frames_from_video',
+                'megadetector_tpu_torch.utils.url_utils',
+                'megadetector_tpu_torch.utils.integration_tests'}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []

@@ -5,10 +5,12 @@ synthetic graphs (skipped where tensorflow is absent, as that test is):
 the same results for the same images, one at a time and in batches
 (in-graph resize, the batch-1 contract, contained failures);
 run_detector.load_detector dispatches .pb files to it on the CPU only
-(the default, the card, raises), and still refuses .mdpkg; without
+(the default, the card, raises), and refuses a .mdpkg that is not the
+port's own artifact (a JAX one included); without
 tensorflow the error names it.
 """
 
+import os
 import sys
 
 import numpy as np
@@ -82,10 +84,19 @@ def test_pb_refused_off_the_cpu(synthetic_pb, device):
 
 
 def test_mdpkg_still_refused(tmp_path):
+    """A .mdpkg that is not the port's artifact is refused with
+    ValueError: an empty file, and a JAX artifact (format_version 1,
+    StableHLO programs). The port's own artifacts load
+    (tests/test_torch_export_detector.py)."""
+
     path = tmp_path / 'x.mdpkg'
     path.write_bytes(b'')
-    with pytest.raises(NotImplementedError, match='A10'):
+    with pytest.raises(ValueError, match='not a detector artifact'):
         run_detector.load_detector(str(path), device='cpu')
+    jax_artifact = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                'data', 'stub_golden_model.mdpkg')
+    with pytest.raises(ValueError, match='JAX artifact'):
+        run_detector.load_detector(jax_artifact, device='cpu')
 
 
 def test_missing_tensorflow_is_named(synthetic_pb, monkeypatch):

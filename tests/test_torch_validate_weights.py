@@ -11,8 +11,9 @@ is held to JAX's in tests/test_torch_md_tests.py:
   JAX's; a doctored expected file fails the golden stage in both;
 - the int8 stage on the port (quantize_checkpoint mode='chain', force_cpu)
   and the CLI's --dry_run --skip_export;
-- the export stage waits for ROADMAP A10: without skip_export the gate
-  raises NotImplementedError naming it before any stage runs;
+- the export stage runs by default (skip_export false): the port's
+  artifact exported, identical to the live detector on three images with
+  escalation off, a one-byte tamper of its programs refused;
 - _match_drift identical to JAX's on seeded detection lists; on boxes
   that truncation left with no width (random weights give them), JAX's
   raises (get_iou's assertion; ROADMAP C) and the port's matches a box
@@ -22,6 +23,7 @@ is held to JAX's in tests/test_torch_md_tests.py:
 import copy
 import json
 import os
+import zipfile
 
 import numpy as np
 import pytest
@@ -198,15 +200,28 @@ def test_int8_stage_and_the_dry_run_cli(stub_checkpoint, image_dir,
 
 
 def test_export_stage_is_refused_before_any_stage(stub_checkpoint,
-                                                  tmp_path):
-    scratch = tmp_path / 'refused'
-    with pytest.raises(NotImplementedError, match='A10'):
-        vw.validate_weights(_options(vw, stub_checkpoint, str(scratch),
-                                     skip_export=False))
-    assert not scratch.exists()
-    with pytest.raises(NotImplementedError, match='A10'):
-        vw.main(['--dry_run', '--scratch_dir', str(tmp_path / 'dry')])
-    assert not (tmp_path / 'dry').exists()
+                                                  image_dir, tmp_path):
+    """The export stage is no longer refused: it runs by default, after
+    the four other stages, and passes on the stub."""
+
+    assert vw.ValidateWeightsOptions().skip_export is False
+    scratch = str(tmp_path / 'export')
+    report = vw.validate_weights(_options(vw, stub_checkpoint, scratch,
+                                          image_dir=image_dir,
+                                          skip_export=False))
+    assert report['status'] == 'ok', report
+    stage = report['export']
+    assert stage['status'] == 'ok' and stage['tamper_rejected'] is True
+    assert stage['n_images_checked'] == 3
+    assert stage['artifact'] == os.path.join(scratch, 'validated.mdpkg')
+    with zipfile.ZipFile(stage['artifact']) as z:
+        manifest = json.loads(z.read('manifest.json'))
+    assert manifest['batch_sizes'] == [1, 4]
+    assert manifest['topk_ladder'] == [512, 2048]
+    assert manifest['platforms'] == ['cpu']
+    assert len(manifest['canvases']) == 4
+    assert list(report)[:6] == ['checkpoint', 'convert', 'golden', 'int8',
+                                'capacity', 'export']
 
 
 def _random_detections(rng, files, n):
