@@ -280,6 +280,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      postprocessing and RDE), seconds. With --cli its CLI tier too (every
      CLI of the port as a subprocess, export -> batch from the artifact
      identical to the checkpoint's run).
+ 37. the detection-postprocessing tools: phase 28's 64 JPEGs through
+     phase 28's yolov5l6 in bf16 (A, at phase 28's threshold) and its
+     int8 chain under conv_backend pallas in bf16 (B, calibrated on the
+     card on the rescale's two images; phase 29's noise-calibrated
+     checkpoint scores every box 0.006; at its own threshold),
+     load_and_run_detector_batch at batch 8, launches exact; merge_detections
+     (A's detections kept, the file valid), compare_model_confidence_values
+     and calibrate_threshold (matched pairs above 0), add_max_conf,
+     categorize_detections_by_size, remap_detection_categories, JSON ->
+     CSV -> JSON (A's detections back), load_api_results (64 rows),
+     md_to_coco, md_to_labelme, md_to_wi, render_detection_confusion_matrix
+     of B against A's COCO file, separate_detections_into_folders (each
+     image in one folder) and top_folders_to_bottom, create_crop_folder
+     (one crop a selected detection), the crops classified by phase 23's
+     EfficientNetV2-M in bf16 (147 bias + SiLU a forward, exact) and mapped
+     back by crop_results_to_image_results onto every cropped detection;
+     seconds by step, and whether matplotlib is installed. Its launches
+     join the B1, B2, B3, B4 and E7 records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -5956,6 +5974,412 @@ def phase_integration(workdir, card, cli):
         '' if cli else ' (the CLI tier runs with --cli)'), flush=True)
 
 
+
+#%% 37: the detection-postprocessing tools
+
+
+def _counted_detection(label, detector, model_file, files, folder,
+                       threshold, out_file):
+    """load_and_run_detector_batch (batch 8) over [files] at [threshold],
+    then write_results_to_file relative to [folder] (its detector named
+    [model_file]); the launches counted
+    from 0 just before and held to what its programs imply
+    (_check_launches). Returns the (nms, conv, bottleneck, stem, silu)
+    launches and the programs run."""
+
+    from megadetector_tpu_torch.detection.run_detector_batch import (
+        load_and_run_detector_batch, write_results_to_file)
+
+    before = _program_calls(detector)
+    programs = detector.programs_run
+    _reset_counts()
+    results = load_and_run_detector_batch(detector, files, batch_size=8,
+                                          quiet=True,
+                                          confidence_threshold=threshold)
+    counts = _counts()
+    forwards, _, selects, _ = _program_deltas(detector, before)
+    _check_launches(label, detector, counts, detector.programs_run -
+                    programs, selects, forwards)
+    write_results_to_file(results, out_file, relative_path_base=folder,
+                          detector_file=model_file)
+    return counts, sum(forwards.values())
+
+
+def _detections(data):
+    """{file: detections} of a results dict."""
+
+    return {im['file']: im['detections'] for im in data['images']}
+
+
+def phase_postprocessing(device, workdir, workflow_path, classifier_path,
+                         threshold, card):
+    """
+    37. The detection-postprocessing tools on two detectors' results:
+    over phase 28's workflow folder (64 JPEGs in two cameras), detector A
+    ([workflow_path], phase 28's yolov5l6, bf16) at phase 28's confidence
+    threshold and detector B (the int8 chain of the same checkpoint,
+    quantize_checkpoint calibrated on the card on the two 320 px images
+    that _workflow_checkpoint rescaled on, conv_backend pallas, bf16) at
+    the threshold that leaves as many detections, each through
+    load_and_run_detector_batch (batch 8) and write_results_to_file,
+    launches exact (_expected_launches; the calibration one conv kernel
+    launch a chain conv). Then merge_detections of B into A (A's
+    detections kept, the file valid), compare_model_confidence_values
+    and calibrate_threshold of A against B (matched pairs above 0);
+    add_max_conf, categorize_detections_by_size, a category remap, the
+    JSON -> CSV -> JSON round trip (A's detections back), load_api_results
+    (64 rows), md_to_coco, md_to_labelme and md_to_wi of A;
+    render_detection_confusion_matrix of B against A's COCO file;
+    separate_detections_into_folders of A (each image in one folder),
+    then top_folders_to_bottom; create_crop_folder of A (one crop for
+    each detection its options select), the crops classified on the card
+    by the EfficientNetV2-M at [classifier_path] in bf16
+    (SpeciesClassifier.classify_batch, batches of 64, 147 bias + SiLU
+    launches a forward, exact), their MD-format file mapped back with
+    crop_results_to_image_results (each cropped detection given its
+    crop's classifications). Prints each step's seconds and whether
+    matplotlib is installed (the plots are held to the JAX package on the
+    CPU). Returns the phase's (nms, conv, bottleneck, stem, silu)
+    launches.
+    """
+
+    import importlib.util
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.models.classifier import SpeciesClassifier
+    from megadetector_tpu_torch.models.convert_weights import \
+        quantize_checkpoint
+    from megadetector_tpu_torch.ops.boxes import letterbox
+    from megadetector_tpu_torch.postprocessing import (
+        add_max_conf, categorize_detections_by_size, convert_output_format,
+        create_crop_folder, detector_calibration, load_api_results,
+        md_to_coco, md_to_labelme, md_to_wi, merge_detections,
+        remap_detection_categories, render_detection_confusion_matrix,
+        separate_detections_into_folders, top_folders_to_bottom)
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import validate_batch_results
+    from megadetector_tpu_torch.utils import ct_utils, path_utils
+    from megadetector_tpu_torch.visualization import visualization_utils
+
+    start = time.time()
+    print('phase 37: matplotlib {} on this machine (plot_utils and the '
+          'calibration plot are held to the JAX package on the CPU)'.format(
+              'present' if importlib.util.find_spec('matplotlib')
+              else 'absent'), flush=True)
+    folder = _workflow_folder(workdir)
+    files = path_utils.find_images(folder, recursive=True)
+    out = os.path.join(workdir, 'postprocessing')
+    os.makedirs(out, exist_ok=True)
+    seconds = {}
+    totals = [0, 0, 0, 0, 0]
+
+    def step(name, fn):
+        t0 = time.time()
+        value = fn()
+        seconds[name] = time.time() - t0
+        return value
+
+    def fail(message):
+        raise AssertionError('phase 37: ' + message)
+
+    # 1. Two detectors' results, written by the card. B is the int8 chain
+    # of A's checkpoint calibrated on the two images A's rescale used
+    # (phase 29's checkpoint, calibrated on uniform noise, scores every
+    # box of this model 0.006); it runs at its own threshold, the one
+    # that leaves as many detections as A's
+    q_path = os.path.join(out, 'workflow_int8_images.npz')
+    calibration = np.stack([
+        letterbox(img, (320, 320), stride=64, auto=False)[0]
+        for img in _synthetic_images(np.random.RandomState(28))[:4:2]
+    ]).astype(np.float32) / 255.0
+    _reset_counts()
+    step('quantize_B', lambda: quantize_checkpoint(
+        workflow_path, q_path, calibration_images=calibration,
+        device=device))
+    calibration_counts = _counts()
+    thresholds = {'A': threshold}
+    result_files = []
+    for label, path, options in (
+            ('A', workflow_path, {'dtype': 'bfloat16'}),
+            ('B', q_path, {'dtype': 'bfloat16', 'conv_backend': 'pallas'})):
+        result_file = os.path.join(out, 'results_{}.json'.format(label))
+
+        def run():
+            detector = load_detector(path, device=device,
+                                     detector_options=options)
+            if label not in thresholds:
+                confs = sorted((d['conf'] for im in
+                                load_and_run_detector_batch(
+                                    detector, files, batch_size=8,
+                                    quiet=True)
+                                for d in im['detections']), reverse=True)
+                thresholds[label] = confs[
+                    WORKFLOW_DETECTIONS * len(files) - 1]
+            counts = _counted_detection(
+                'phase 37 on {}, detector {} ({}) over {} JPEGs at '
+                '{:.4f}'.format(card, label, options, len(files),
+                                thresholds[label]),
+                detector, path, files, folder, thresholds[label],
+                result_file)
+            del detector
+            torch.cuda.empty_cache()
+            return counts
+
+        counts, programs = step('detect_' + label, run)
+        totals = [a + b for a, b in zip(totals, counts)]
+        result_files.append(result_file)
+    # The calibration ran the int8 chain's convs once each (B2 in its
+    # int32 mode): as many as one of B's forwards runs, fused or not
+    chain = (counts[1] + 2 * counts[2]) // programs
+    if calibration_counts != (0, chain, 0, 0, 0):
+        fail('the calibration\'s launches (nms, conv, bottleneck, stem, '
+             'silu) {}, want {} conv'.format(calibration_counts, chain))
+    totals[1] += calibration_counts[1]
+    a_file, b_file = result_files
+    with open(a_file) as f:
+        a = json.load(f)
+    with open(b_file) as f:
+        n_b = sum(len(im['detections'] or []) for im in json.load(f)['images'])
+    a_detections = _detections(a)
+    n_a = sum(len(d or []) for d in a_detections.values())
+
+    # 2. Merge B into A
+    merged_file = os.path.join(out, 'merged.json')
+    merged = step('merge_detections', lambda: merge_detections
+                  .merge_detections([b_file], a_file, merged_file))
+    transferred = 0
+    for fn, dets in _detections(merged).items():
+        kept = a_detections[fn] or []
+        if (dets or [])[:len(kept)] != kept:
+            fail('merge_detections changed A\'s detections of ' + fn)
+        transferred += len(dets or []) - len(kept)
+    errors = validate_batch_results(merged_file)['validation_results']
+    if errors['validation_errors']:
+        fail('the merged file is invalid: {}'.format(
+            errors['validation_errors'][:3]))
+
+    # 3. Calibrate A against B
+    matches = step('calibration', lambda: detector_calibration
+                   .compare_model_confidence_values(a_file, b_file)
+                   .calibration_matches)
+    calibrated = step('calibrate_threshold', lambda: detector_calibration
+                      .calibrate_threshold(a_file, b_file, threshold))
+    if not matches:
+        fail('no detection of A matched one of B')
+    print('phase 37 on {}: A {} detections, B {}; {} of B\'s merged into '
+          'A (the file valid); {} matched pairs of A and B, A\'s threshold '
+          '{:.4f} is B\'s {:.4f} (B ran at {:.4f})'.format(
+              card, n_a, n_b, transferred, len(matches), threshold,
+              calibrated, thresholds['B']), flush=True)
+
+    # 4. A through the conversion tools
+    with_max = step('add_max_conf', lambda: add_max_conf.add_max_conf(
+        a_file, os.path.join(out, 'max_conf.json')))
+    if any(im['max_detection_conf'] != ct_utils.get_max_conf(im)
+           for im in with_max['images']):
+        fail('add_max_conf')
+    size_options = categorize_detections_by_size.SizeCategorizationOptions()
+    size_options.size_thresholds = [0.01, 0.05]
+    size_options.size_category_names = ['medium', 'large']
+    sized = step('categorize_by_size', lambda: categorize_detections_by_size
+                 .categorize_detections_by_size(
+                     a_file, os.path.join(out, 'sized.json'), size_options))
+    recategorized = sum(d['category'] not in a['detection_categories']
+                        for im in sized['images']
+                        for d in im['detections'] or [])
+    names = a['detection_categories']
+    target = {str(len(names) - i): name
+              for i, name in enumerate(sorted(names.values()))}
+    remapped = step('remap_categories', lambda: remap_detection_categories
+                    .remap_detection_categories(
+                        a_file, os.path.join(out, 'remapped.json'), target))
+    if [[target[d['category']] for d in im['detections'] or []]
+            for im in remapped['images']] != \
+            [[names[d['category']] for d in a_detections[im['file']] or []]
+             for im in remapped['images']]:
+        fail('remap_detection_categories changed a category\'s name')
+
+    def round_trip():
+        csv_file = convert_output_format.convert_json_to_csv(
+            a_file, os.path.join(out, 'a.csv'))
+        return convert_output_format.convert_csv_to_json(
+            csv_file, os.path.join(out, 'a_from_csv.json'))
+
+    with open(step('csv_round_trip', round_trip)) as f:
+        if _detections(json.load(f)) != a_detections:
+            fail('the CSV round trip changed A\'s detections')
+    table, _ = step('load_api_results',
+                    lambda: load_api_results.load_api_results(a_file))
+    if len(table) != len(files):
+        fail('load_api_results read {} rows'.format(len(table)))
+    coco_file = os.path.join(out, 'coco.json')
+    coco = step('md_to_coco', lambda: md_to_coco.md_to_coco(
+        a_file, coco_file, image_folder=folder))
+    if len(coco['images']) != len(files) or \
+            len(coco['annotations']) != n_a or \
+            any(im['width'] is None for im in coco['images']):
+        fail('md_to_coco: {} images, {} boxes'.format(
+            len(coco['images']), len(coco['annotations'])))
+    labelme_folder = os.path.join(out, 'labelme')
+    shutil.copytree(folder, labelme_folder)
+    written = step('md_to_labelme', lambda: md_to_labelme.md_to_labelme(
+        a_file, labelme_folder))
+    wi = step('md_to_wi', lambda: md_to_wi.md_to_wi(
+        a_file, os.path.join(out, 'wi.json')))
+    if len(written) != len(files) or len(wi['predictions']) != len(files):
+        fail('{} labelme files, {} WI predictions'.format(
+            len(written), len(wi['predictions'])))
+
+    # 5. B against A's COCO file as ground truth
+    confusion_file = os.path.join(out, 'confusion.html')
+    confusion = step('confusion_matrix', lambda:
+                     render_detection_confusion_matrix
+                     .render_detection_confusion_matrix(
+                         b_file, coco_file, confusion_file,
+                         confidence_threshold=thresholds['B']))
+    if not os.path.isfile(confusion_file) or \
+            not confusion['per_category']:
+        fail('render_detection_confusion_matrix wrote nothing')
+
+    # 6. Folders by class, then by camera
+    separate_options = \
+        separate_detections_into_folders.SeparateDetectionsIntoFoldersOptions()
+    separate_options.results_file = a_file
+    separate_options.base_input_folder = folder
+    separate_options.base_output_folder = os.path.join(out, 'separated')
+    mapping = step('separate_into_folders', lambda:
+                   separate_detections_into_folders
+                   .separate_detections_into_folders(separate_options))
+    separated = sorted(_tree_bytes(separate_options.base_output_folder))
+    if sorted(mapping) != [os.path.relpath(p, folder) for p in files] or \
+            separated != sorted(
+            os.path.relpath(p, separate_options.base_output_folder)
+            for p in mapping.values()):
+        fail('separate_detections_into_folders: {} files for {} '
+             'images'.format(len(separated), len(files)))
+    bottom_options = top_folders_to_bottom.TopFoldersToBottomOptions(
+        separate_options.base_output_folder,
+        os.path.join(out, 'by_camera'))
+    bottom = step('top_folders_to_bottom', lambda: top_folders_to_bottom
+                  .top_folders_to_bottom(bottom_options))
+    if len(bottom) != len(files):
+        fail('top_folders_to_bottom moved {} files'.format(len(bottom)))
+
+    # 7. The crop folder, its crops classified on the card, mapped back
+    crop_options = create_crop_folder.CreateCropFolderOptions()
+    crops_folder = os.path.join(out, 'crops')
+    tagged_file = os.path.join(out, 'tagged.json')
+    crops_file = os.path.join(out, 'crops.json')
+    tagged = step('create_crop_folder', lambda: create_crop_folder
+                  .create_crop_folder(a_file, folder, crops_folder,
+                                      tagged_file, crops_file,
+                                      crop_options))
+    # The detections the options select; those whose box covers no pixel
+    # (visualization_utils.crop_image's rounding) give no crop file
+    sizes = {im['file_name']: (im['width'], im['height'])
+             for im in coco['images']}
+    selected, empty = 0, 0
+    for fn, dets in a_detections.items():
+        w, h = sizes[fn]
+        for d in dets or []:
+            if d['conf'] < crop_options.confidence_threshold or (
+                    crop_options.categories_to_crop is not None and
+                    d['category'] not in crop_options.categories_to_crop):
+                continue
+            x, y, bw, bh = d['bbox']
+            selected += 1
+            empty += min(int(round((x + bw) * w)), w) <= \
+                max(int(round(x * w)), 0) or \
+                min(int(round((y + bh) * h)), h) <= max(int(round(y * h)), 0)
+    with open(crops_file) as f:
+        crops = json.load(f)
+    n_tagged = sum('crop_filename' in d for im in tagged['images']
+                   for d in im['detections'] or [])
+    n_written = len(_tree_bytes(crops_folder))
+    if not selected == n_tagged == len(crops['images']) or \
+            n_written != selected - empty or n_written == 0:
+        fail('{} detections selected ({} of them empty), {} tagged, {} '
+             'crop records, {} crop files'.format(
+                 selected, empty, n_tagged, len(crops['images']),
+                 n_written))
+    crops['images'] = [im for im in crops['images'] if os.path.isfile(
+        os.path.join(crops_folder, im['file']))]
+
+    classifier = SpeciesClassifier(classifier_path, {'dtype': 'bfloat16'},
+                                   device=device)
+
+    def classify():
+        arrays = [classifier.preprocess_crop(np.asarray(
+            visualization_utils.load_image(os.path.join(
+                crops_folder, im['file'])))) for im in crops['images']]
+        _reset_counts()
+        for first in range(0, len(arrays), CLASSIFIER_BATCH):
+            probs = classifier.classify_batch(
+                arrays[first:first + CLASSIFIER_BATCH],
+                pad_to=CLASSIFIER_BATCH)
+            for im, p in zip(crops['images'][first:], probs):
+                im['detections'][0]['classifications'] = \
+                    classifier.top_k(p, k=5)
+        return _counts()
+
+    counts = step('classify_crops', classify)
+    forwards = math.ceil(len(crops['images']) / CLASSIFIER_BATCH)
+    _, e7 = efficientnet.forward_launches(classifier.config, False,
+                                          torch.bfloat16)
+    if counts != (0, 0, 0, 0, forwards * e7):
+        fail('the classifier\'s launches (nms, conv, bottleneck, stem, '
+             'silu) {} over {} forwards, want {} bias + SiLU a forward'
+             .format(counts, forwards, e7))
+    totals = [a + b for a, b in zip(totals, counts)]
+    crops['classification_categories'] = {
+        str(i): name for i, name in enumerate(classifier.class_names)}
+    del classifier
+    torch.cuda.empty_cache()
+    classified_file = os.path.join(out, 'crops_classified.json')
+    ct_utils.write_json(classified_file, crops)
+    final = step('crop_results_to_image_results', lambda: create_crop_folder
+                 .crop_results_to_image_results(
+                     tagged_file, classified_file,
+                     os.path.join(out, 'final.json')))
+    with open(classified_file) as f:
+        by_crop = {im['file']: im['detections'][0]['classifications']
+                   for im in json.load(f)['images']}
+    mapped = [d.get('classifications') == by_crop[d['crop_filename']]
+              for im in final['images'] for d in im['detections'] or []
+              if d.get('crop_filename') in by_crop]
+    if len(mapped) != n_written or not all(mapped):
+        fail('{} of {} cropped detections carry their crop\'s '
+             'classifications'.format(sum(mapped), n_written))
+    print('phase 37 on {}: {} recategorized by size; 64 rows, {} COCO '
+          'boxes, {} labelme files, {} WI predictions, {} images in {} '
+          'folders and back by camera; confusion matrix of B against A '
+          '{}; {} crops written ({} boxes too small to crop), classified '
+          'in {} forwards of {} (launches '
+          '(nms, conv, bottleneck, stem, silu) {}) and mapped back onto '
+          'every cropped detection'.format(
+              card, recategorized, len(coco['annotations']), len(written),
+              len(wi['predictions']), len(mapping),
+              len({os.path.dirname(os.path.relpath(
+                  p, separate_options.base_output_folder)).split(os.sep)[0]
+                   for p in mapping.values()}),
+              json.dumps(confusion['per_category'], sort_keys=True),
+              n_written, empty, forwards, CLASSIFIER_BATCH, counts),
+          flush=True)
+    print('phase 37 on {}: seconds by step: {}; total {:.3f}'.format(
+        card, ', '.join('{} {:.3f}'.format(k, v)
+                        for k, v in seconds.items()),
+        time.time() - start), flush=True)
+    return tuple(totals)
+
+
 def main():
     import numpy as np
     import torch
@@ -6241,6 +6665,20 @@ def main():
         start = time.time()
         phase_integration(workdir, card, '--cli' in sys.argv[1:])
         print('phase 36 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 37. the detection-postprocessing tools on two detectors' results
+        start = time.time()
+        counts = phase_postprocessing(
+            device, workdir, workflow_path,
+            os.path.join(workdir, 'md_smoke_classifier.npz'), threshold,
+            card)
+        record['launches'] += counts[0]
+        conv_record['launches'] += counts[1]
+        bottleneck_record['launches'] += counts[2]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        print('phase 37 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

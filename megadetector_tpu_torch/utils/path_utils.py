@@ -2,12 +2,16 @@
 Image and video enumeration for the port: its own copy of
 megadetector_tpu/utils/path_utils.py find_images, read_list_from_file,
 the video helpers (VIDEO_EXTENSIONS, is_video_file, find_video_strings,
-find_videos), flatten_path, is_image_file and recursive_file_list.
+find_videos), flatten_path, is_image_file, recursive_file_list and
+path_is_abs.
 """
 
 import glob
 import json
+import ntpath
 import os
+import posixpath
+import re
 
 # The image extensions of the MD enumeration contract
 IMG_EXTENSIONS = ('.jpg', '.jpeg', '.gif', '.png', '.tif', '.tiff', '.bmp',
@@ -126,3 +130,9 @@ def recursive_file_list(base_dir, convert_slashes=True,
     if sort_files:
         all_files = sorted(all_files)
     return all_files
+
+
+def path_is_abs(p):
+    """True for absolute paths on either POSIX or Windows conventions."""
+
+    return posixpath.isabs(p) or ntpath.isabs(p) or re.match(r'^[A-Za-z]:', p)

@@ -3,8 +3,8 @@ Image loading and box rendering for the port: its own copy of
 megadetector_tpu/visualization/visualization_utils.py load_image,
 render_detection_bounding_boxes and what it calls, and the previews'
 open_image, resize_image (with exif_preserving_save) and
-render_db_bounding_boxes. Images are converted
-to RGB and EXIF orientation is applied as the MD loader does (rotate by
+render_db_bounding_boxes, and the crop folder's crop_image. Images are
+converted to RGB and EXIF orientation is applied as the MD loader does (rotate by
 {3: 180, 6: 270, 8: 90} degrees with expand=True; mirrored orientations
 unsupported). PIL is imported only when an image is loaded or drawn on.
 """
@@ -164,6 +164,31 @@ def resize_image(image, target_width=-1, target_height=-1, output_file=None,
     if output_file is not None:
         exif_preserving_save(resized, output_file, quality=quality)
     return resized
+
+
+def crop_image(detections, image, confidence_threshold=0.15, expansion=0):
+    """
+    Crop detections above [confidence_threshold] out of a PIL image.
+    Returns a list of PIL images, one per qualifying detection; boxes are in
+    normalized MD xywh format; [expansion] is in pixels per side.
+    """
+
+    crops = []
+    img_w, img_h = image.size
+    for d in detections:
+        if d['conf'] < confidence_threshold:
+            continue
+        x, y, w, h = d['bbox']
+        left = int(round(x * img_w)) - expansion
+        top = int(round(y * img_h)) - expansion
+        right = int(round((x + w) * img_w)) + expansion
+        bottom = int(round((y + h) * img_h)) + expansion
+        left = max(left, 0)
+        top = max(top, 0)
+        right = min(right, img_w)
+        bottom = min(bottom, img_h)
+        crops.append(image.crop((left, top, right, bottom)))
+    return crops
 
 
 def _get_font(size):

@@ -14,9 +14,11 @@ postprocessing, rendering, sequence and EXIF modules; the weight
 validation gate and its comparator, the classifier's dataset and
 evaluation modules, the accelerator and profiling utilities and the
 legacy .pb detector; the exported artifact, mAP evaluation, frame
-extraction, the URL helpers and the integration harness). PIL is imported only once a file is decoded or
+extraction, the URL helpers and the integration harness; the
+detection-postprocessing tools and plot_utils). PIL is imported only once a file is decoded or
 drawn on; tensorflow only once a .pb detector is built, pandas only
-inside the functions that build data frames. cv2 is not checked:
+inside the functions that build data frames, matplotlib only inside the
+functions that plot. cv2 is not checked:
 ops/boxes.py imports it whenever it is installed and falls back to numpy
 where it is not.
 """
@@ -30,6 +32,14 @@ import sys
 import megadetector_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The detection-postprocessing tools (postprocessing/<name>.py)
+POSTPROCESSING_TOOLS = (
+    'load_api_results', 'add_max_conf', 'convert_output_format',
+    'merge_detections', 'remap_detection_categories',
+    'categorize_detections_by_size', 'md_to_coco', 'md_to_labelme',
+    'md_to_wi', 'separate_detections_into_folders', 'top_folders_to_bottom',
+    'create_crop_folder', 'detector_calibration',
+    'render_detection_confusion_matrix', 'analyze_classification_results')
 PACKAGE_DIR = os.path.dirname(os.path.abspath(
     megadetector_tpu_torch.__file__))
 
@@ -50,7 +60,8 @@ print(json.dumps({'modules': names,
                   'PIL': 'PIL' in sys.modules,
                   'networkx': 'networkx' in sys.modules,
                   'tensorflow': 'tensorflow' in sys.modules,
-                  'pandas': 'pandas' in sys.modules}))
+                  'pandas': 'pandas' in sys.modules,
+                  'matplotlib': 'matplotlib' in sys.modules}))
 """
 
 
@@ -158,7 +169,10 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.postprocessing.evaluate_detections',
                 'megadetector_tpu_torch.utils.extract_frames_from_video',
                 'megadetector_tpu_torch.utils.url_utils',
-                'megadetector_tpu_torch.utils.integration_tests'}
+                'megadetector_tpu_torch.utils.integration_tests'} | {
+                    'megadetector_tpu_torch.postprocessing.' + name
+                    for name in POSTPROCESSING_TOOLS} | {
+                    'megadetector_tpu_torch.visualization.plot_utils'}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
@@ -166,6 +180,7 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
     assert report['networkx'] is False
     assert report['tensorflow'] is False
     assert report['pandas'] is False
+    assert report['matplotlib'] is False
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
@@ -393,3 +408,87 @@ def test_classifier_and_two_stage_run_without_jax_or_networkx():
     assert all(n > 0 for n in report['counts'].values()), report['counts']
     assert report['jax'] == []
     assert report['jax_package'] == []
+
+
+_TOOLS = """
+import importlib, json, os, sys, tempfile
+# Importing any of these now raises ImportError
+for blocked in ('jax', 'megadetector_tpu', 'tqdm'):
+    sys.modules[blocked] = None
+import numpy as np
+from PIL import Image
+names = json.loads(sys.argv[1])
+for name in names:
+    importlib.import_module(name)
+from megadetector_tpu_torch.postprocessing import (
+    convert_output_format, create_crop_folder, merge_detections)
+from megadetector_tpu_torch.utils import ct_utils
+tmp = tempfile.mkdtemp()
+rng = np.random.RandomState(0)
+images = os.path.join(tmp, 'images')
+os.makedirs(os.path.join(images, 'cam'))
+for i in range(3):
+    Image.fromarray(rng.randint(0, 256, (48, 64, 3), np.uint8)).save(
+        os.path.join(images, 'cam', 'im{}.jpg'.format(i)))
+
+
+def results(seed):
+    r = np.random.RandomState(seed)
+    return {'info': {'format_version': '1.4'},
+            'detection_categories': {'1': 'animal', '2': 'person'},
+            'images': [{'file': 'cam/im{}.jpg'.format(i), 'detections': [
+                {'category': str(r.randint(1, 3)),
+                 'conf': round(float(r.uniform(0.2, 0.9)), 3),
+                 'bbox': [round(float(v), 4) for v in
+                          r.uniform(0.05, 0.45, 4)]}
+                for _ in range(2)]} for i in range(3)]}
+
+
+a, b = (os.path.join(tmp, n) for n in ('a.json', 'b.json'))
+ct_utils.write_json(a, results(1))
+ct_utils.write_json(b, results(2))
+merged = merge_detections.merge_detections(b, a, os.path.join(tmp, 'm.json'))
+csv_file = convert_output_format.convert_json_to_csv(a)
+back = convert_output_format.convert_csv_to_json(
+    csv_file, os.path.join(tmp, 'back.json'))
+options = create_crop_folder.CreateCropFolderOptions()
+options.n_threads = 2
+cropped = create_crop_folder.create_crop_folder(
+    a, images, os.path.join(tmp, 'crops'),
+    crops_output_file=os.path.join(tmp, 'crops.json'), options=options)
+with open(back) as f:
+    round_trip = json.load(f)
+print(json.dumps({
+    'merged': sum(len(im['detections']) for im in merged['images']),
+    'round_trip': [im['detections'] for im in round_trip['images']] ==
+    [im['detections'] for im in results(1)['images']],
+    'crops': sorted(os.listdir(os.path.join(tmp, 'crops', 'cam'))),
+    'tagged': sum('crop_filename' in d for im in cropped['images']
+                  for d in im['detections']),
+    'blocked': [m for m in ('jax', 'megadetector_tpu', 'tqdm')
+                if sys.modules[m] is not None]}))
+"""
+
+
+def test_postprocessing_tools_run_without_jax_or_tqdm():
+    """Each detection-postprocessing module and plot_utils imports with
+    jax, the JAX package and tqdm made unimportable; merge_detections,
+    convert_output_format (JSON -> CSV -> JSON) and create_crop_folder
+    (a thread pool) then run on a tiny input."""
+
+    names = ['megadetector_tpu_torch.postprocessing.' + name
+             for name in POSTPROCESSING_TOOLS] + [
+        'megadetector_tpu_torch.visualization.plot_utils']
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', _TOOLS, json.dumps(names)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report['merged'] > 6
+    assert report['round_trip'] is True
+    assert report['crops'] == ['im{}_crop_{:03d}.jpg'.format(i, j)
+                               for i in range(3) for j in range(2)]
+    assert report['tagged'] == 6
+    assert report['blocked'] == []
