@@ -5,8 +5,9 @@ Smoke run of the PyTorch port (megadetector_tpu_torch) on one CUDA card.
     python3 chip_smoke.py [--profile]
 
 Phases, each of which raises on failure (non-zero exit, no result line):
-  1. device: torch/CUDA versions and the card's name and power limit;
-     TF32 off so float32 is float32;
+  1. device: torch/CUDA versions and the card's name and power limit,
+     whether cv2, pandas, tensorflow and networkx are installed; TF32 off
+     so float32 is float32;
   2. build: nvcc compiles megadetector_tpu_torch/csrc/*.cu; ptxas's
      register lines, and its C7520 / C7514 lines (a kernel whose wgmma it
      serialized), are printed: the GEMM kernel must have none;
@@ -224,14 +225,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      no child process left; seconds by stage, images/s of the detection
      stage and of the job;
  29. compare_inference_options over 8 of phase 18's 4:3 JPEGs: phase
-     28's yolov5l6 and its int8 checkpoint at phase 28's confidence
-     threshold, dtype bf16 and conv_backend pallas, canvas modes auto and
-     square, augmentation off and on (8
-     jobs: B1, B2, B3, B4 and E7): each job's file equal to
-     load_and_run_detector_batch with its detector and options, each
-     job's launches exact, comparison_summary.json with 28 pairs; each
-     job's images/s. Phases 28-29's launches join those kernels'
-     records.
+     28's yolov5l6 at phase 28's confidence threshold and its int8
+     checkpoint (calibrated on the card on the two synthetic images the
+     rescale used, letterboxed to 320 px, as phase 37's B) at its own
+     threshold, the one that leaves 12 detections an image, printed;
+     dtype bf16 and conv_backend pallas, canvas modes auto and square,
+     augmentation off and on (8 jobs: B1, B2, B3, B4 and E7): each job's
+     file equal to load_and_run_detector_batch with its detector, options
+     and threshold and holding at least one detection, each job's
+     launches exact, comparison_summary.json with 28 pairs; each job's
+     images/s. Phases 28-29's launches join those kernels' records.
  30. int8 static-scale checkpoints: quantize_checkpoint(mode='static') on
      phase 4's yolov5l6 (96 int8 convs: 46 1x1, 50 3x3; float
      activations between them), calibrated on the card on phase 7's two
@@ -298,6 +301,29 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      back by crop_results_to_image_results onto every cropped detection;
      seconds by step, and whether matplotlib is installed. Its launches
      join the B1, B2, B3, B4 and E7 records.
+ 38. the classifier-training workflow: a COCO Camera Traps database over
+     phase 28's 64 JPEGs (four locations, deer and fox, one box an image,
+     no sizes) through add_width_and_height_to_db (PIL's sizes),
+     integrity_check_json_db (no error; a broken category reference
+     raises), subset_json_db per camera and coco_tools.combine_cct_files
+     (the database back), sample_json_db and cct_to_md (valid); a label
+     spec CSV through csv_to_json and json_validator.run_validator (one
+     label capped and prioritized: 56 queried images); phase 28's
+     yolov5l6 in bf16 over the folder at phase 28's threshold (B1, B4,
+     E7, launches exact), its results cached twice by
+     cache_batchapi_outputs (overlapping halves: each image once);
+     crop_detections, create_classification_dataset (location splits),
+     classification/train_classifier.main for one epoch (efficientnetv2_s,
+     224 px, float32) and evaluate_model; identify_mislabeled_candidates
+     (files equal to the candidates recomputed from the CSV),
+     save_mislabeled and filter_queried_images (exactly their images
+     dropped), run_classifier, map_classification_categories of a
+     two-target spec, aggregate_classifier_probs (each row sums to 1 within
+     1e-5), merge_classification_detection_output (both merged files
+     valid); analyze_failed_images over the crops flags exactly a planted
+     truncated JPEG; nothing after the detector launches a kernel of ours;
+     seconds by step, launches, crops, candidates, merged detections. Its
+     launches join the B1, B4 and E7 records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -5137,40 +5163,77 @@ def phase_workflow(device, workdir, float_path, card):
     return (nms, stem, silu), workflow_path, threshold
 
 
+def _rescale_calibration():
+    """The int8 calibration batch of phases 29 and 37: the two synthetic
+    4:3 images that _workflow_checkpoint rescaled on, letterboxed to 320
+    px, float32 in [0, 1] (uniform noise gives a chain that scores every
+    box of phase 28's rescaled model 0.006)."""
+
+    import numpy as np
+
+    from megadetector_tpu_torch.ops.boxes import letterbox
+
+    return np.stack([
+        letterbox(img, (320, 320), stride=64, auto=False)[0]
+        for img in _synthetic_images(np.random.RandomState(28))[:4:2]
+    ]).astype(np.float32) / 255.0
+
+
+def _detections_rank_threshold(detector, files, n):
+    """The confidence of the [n]th most confident detection of [detector]
+    over [files] (load_and_run_detector_batch at batch 8 and its default
+    floor): the threshold that leaves [n] detections."""
+
+    from megadetector_tpu_torch.detection.run_detector_batch import \
+        load_and_run_detector_batch
+
+    confs = sorted((d['conf'] for im in load_and_run_detector_batch(
+        detector, files, batch_size=8, quiet=True)
+        for d in im['detections'] or []), reverse=True)
+    if len(confs) < n:
+        raise AssertionError('{} detections at the floor, want at least {}'
+                             .format(len(confs), n))
+    return confs[n - 1]
+
+
 def phase_comparison(device, workdir, float_path, threshold, card):
     """
     29. The inference-options comparison: compare_inference_options over
     COMPARISON_IMAGES of phase 18's 4:3 JPEGs with model_files phase 28's
     yolov5l6 ([float_path]) and its int8 checkpoint (quantize_checkpoint,
-    calibrated as phase 7 calibrates), at phase 28's confidence threshold
-    (random weights' 300 boxes an image make the 28 pairs' IoU matching
-    take about a minute), detector_options dtype bf16 and conv_backend
-    pallas (the float model ignores the backend; the int8 model runs
-    int8 + bf16 as in phase 11), canvas modes auto and square,
-    augmentation off and on: 8 jobs. Checks: each job's file
-    equals load_and_run_detector_batch with that job's detector and
-    options; each job's launches exact (_expected_launches, counted from
+    calibrated on the card as phase 37 calibrates: _rescale_calibration),
+    detector_options dtype bf16 and conv_backend pallas (the float model
+    ignores the backend; the int8 model runs int8 + bf16 as in phase 11),
+    canvas modes auto and square, augmentation off and on: 8 jobs. The
+    float jobs run at phase 28's confidence threshold (random weights' 300
+    boxes an image make the 28 pairs' IoU matching take about a minute),
+    the int8 jobs at their own, the one that leaves as many detections
+    (WORKFLOW_DETECTIONS an image) on a first auto-canvas pass, printed.
+    Checks: each job's file equals load_and_run_detector_batch with that
+    job's detector, options and threshold, and holds at least one
+    detection; each job's launches exact (_expected_launches, counted from
     0 just before the job); comparison_summary.json valid with 28 pairs
     and every job run. Prints each job's images/s. Returns the summed
     (nms, conv, bottleneck, stem, silu) launches of the jobs.
     """
 
+    import copy
     import shutil
 
-    import numpy as np
     import torch
 
     from megadetector_tpu_torch.detection import run_detector_batch as rdb
     from megadetector_tpu_torch.models.convert_weights import \
         quantize_checkpoint
+    from megadetector_tpu_torch.utils import path_utils
     from megadetector_tpu_torch.workflows import \
         compare_inference_options as cio
 
     start = time.time()
     q_path = os.path.join(workdir, 'md_smoke_workflow_int8.npz')
-    quantize_checkpoint(float_path, q_path, calibration_images=np.random
-                        .RandomState(1).uniform(0, 1, (2, 320, 320, 3))
-                        .astype(np.float32), device=device)
+    quantize_checkpoint(float_path, q_path,
+                        calibration_images=_rescale_calibration(),
+                        device=device)
     print('phase 29: int8 checkpoint calibrated in {:.1f} s'.format(
         time.time() - start), flush=True)
 
@@ -5180,6 +5243,19 @@ def phase_comparison(device, workdir, float_path, threshold, card):
         name = 'img_{:02d}.jpg'.format(2 * i)
         shutil.copyfile(os.path.join(workdir, 'folder', name),
                         os.path.join(folder, name))
+    detector = rdb.load_detector(q_path, device=device, detector_options={
+        'dtype': 'bfloat16', 'conv_backend': 'pallas'})
+    thresholds = {float_path: threshold, q_path: _detections_rank_threshold(
+        detector, path_utils.find_images(folder),
+        WORKFLOW_DETECTIONS * COMPARISON_IMAGES)}
+    del detector
+    torch.cuda.empty_cache()
+    print('phase 29 on {}: the float jobs at phase 28\'s threshold {:.4f}, '
+          'the int8 jobs at {:.4f} (the confidence ranked {} of an '
+          'auto-canvas pass over the {} images)'.format(
+              card, threshold, thresholds[q_path],
+              WORKFLOW_DETECTIONS * COMPARISON_IMAGES, COMPARISON_IMAGES),
+          flush=True)
 
     loaded = []
     load_detector = rdb.load_detector
@@ -5194,6 +5270,8 @@ def phase_comparison(device, workdir, float_path, threshold, card):
     checked = []
 
     def counted_job(job, options, image_file_names):
+        options = copy.copy(options)
+        options.detection_threshold = thresholds[job['model_file']]
         del loaded[:]
         _reset_counts()
         ran = run_job(job, options, image_file_names)
@@ -5217,11 +5295,18 @@ def phase_comparison(device, workdir, float_path, threshold, card):
                 augment=job['augment']),
             direct, relative_path_base=options.input_folder,
             detector_file=str(job['model_file']))
-        if _without_time(direct) != _without_time(job['job_output_file']):
+        written = _without_time(job['job_output_file'])
+        if _without_time(direct) != written:
             raise AssertionError('phase 29, {}: the job\'s file differs '
                                  'from load_and_run_detector_batch\'s'
                                  .format(job['job_name']))
-        checked.append((job['job_name'], counts, sorted(forwards.items())))
+        n = sum(len(im['detections'] or []) for im in written['images'])
+        if not n:
+            raise AssertionError('phase 29, {}: no detection at {:.4f}'
+                                 .format(job['job_name'],
+                                         options.detection_threshold))
+        checked.append((job['job_name'], counts, sorted(forwards.items()),
+                        n, options.detection_threshold))
         del loaded[:], detector
         torch.cuda.empty_cache()
         return ran
@@ -5256,12 +5341,14 @@ def phase_comparison(device, workdir, float_path, threshold, card):
                              'jobs and {} pairs'.format(
                                  len(written['jobs']),
                                  len(written.get('pairwise_agreement', []))))
-    for job, (name, counts, forwards) in zip(written['jobs'], checked):
-        print('phase 29 on {}: job {}: {:.3f} images/s ({:.3f} s); '
-              'launches (nms, conv, bottleneck, stem, silu) {} as programs '
-              '{} imply; equal to load_and_run_detector_batch'.format(
-                  card, name, job['images_per_second'], job['elapsed'],
-                  counts, forwards), flush=True)
+    for job, (name, counts, forwards, n, at) in zip(written['jobs'],
+                                                    checked):
+        print('phase 29 on {}: job {}: {:.3f} images/s ({:.3f} s); {} '
+              'detections at {:.4f}; launches (nms, conv, bottleneck, stem, '
+              'silu) {} as programs {} imply; equal to '
+              'load_and_run_detector_batch'.format(
+                  card, name, job['images_per_second'], job['elapsed'], n,
+                  at, counts, forwards), flush=True)
     print('phase 29 on {}: compare_inference_options: 8 jobs over {} '
           'JPEGs, 28 pairs in comparison_summary.json, {:.1f} s in all'
           .format(card, COMPARISON_IMAGES, elapsed), flush=True)
@@ -6051,13 +6138,10 @@ def phase_postprocessing(device, workdir, workflow_path, classifier_path,
     import torch
 
     from megadetector_tpu_torch.detection.run_detector import load_detector
-    from megadetector_tpu_torch.detection.run_detector_batch import \
-        load_and_run_detector_batch
     from megadetector_tpu_torch.models import efficientnet
     from megadetector_tpu_torch.models.classifier import SpeciesClassifier
     from megadetector_tpu_torch.models.convert_weights import \
         quantize_checkpoint
-    from megadetector_tpu_torch.ops.boxes import letterbox
     from megadetector_tpu_torch.postprocessing import (
         add_max_conf, categorize_detections_by_size, convert_output_format,
         create_crop_folder, detector_calibration, load_api_results,
@@ -6092,17 +6176,12 @@ def phase_postprocessing(device, workdir, workflow_path, classifier_path,
 
     # 1. Two detectors' results, written by the card. B is the int8 chain
     # of A's checkpoint calibrated on the two images A's rescale used
-    # (phase 29's checkpoint, calibrated on uniform noise, scores every
-    # box of this model 0.006); it runs at its own threshold, the one
-    # that leaves as many detections as A's
+    # (_rescale_calibration, as phase 29's); it runs at its own threshold,
+    # the one that leaves as many detections as A's
     q_path = os.path.join(out, 'workflow_int8_images.npz')
-    calibration = np.stack([
-        letterbox(img, (320, 320), stride=64, auto=False)[0]
-        for img in _synthetic_images(np.random.RandomState(28))[:4:2]
-    ]).astype(np.float32) / 255.0
     _reset_counts()
     step('quantize_B', lambda: quantize_checkpoint(
-        workflow_path, q_path, calibration_images=calibration,
+        workflow_path, q_path, calibration_images=_rescale_calibration(),
         device=device))
     calibration_counts = _counts()
     thresholds = {'A': threshold}
@@ -6116,13 +6195,8 @@ def phase_postprocessing(device, workdir, workflow_path, classifier_path,
             detector = load_detector(path, device=device,
                                      detector_options=options)
             if label not in thresholds:
-                confs = sorted((d['conf'] for im in
-                                load_and_run_detector_batch(
-                                    detector, files, batch_size=8,
-                                    quiet=True)
-                                for d in im['detections']), reverse=True)
-                thresholds[label] = confs[
-                    WORKFLOW_DETECTIONS * len(files) - 1]
+                thresholds[label] = _detections_rank_threshold(
+                    detector, files, WORKFLOW_DETECTIONS * len(files))
             counts = _counted_detection(
                 'phase 37 on {}, detector {} ({}) over {} JPEGs at '
                 '{:.4f}'.format(card, label, options, len(files),
@@ -6380,6 +6454,455 @@ def phase_postprocessing(device, workdir, workflow_path, classifier_path,
     return tuple(totals)
 
 
+#%% 38: the classifier-training workflow
+
+# Phase 38's label spec (output_label,type,content): two labels over the
+# two cameras' datasets, canid capped and cam1 sampled first
+WORKFLOW_SPEC_CSV = (
+    'output_label,type,content\n'
+    'cervid,row,cam0|deer\n'
+    'cervid,row,cam1|deer\n'
+    'canid,row,cam0|fox\n'
+    'canid,row,cam1|fox\n'
+    'canid,max_count,24\n'
+    'canid,prioritize,"[[\'cam1\']]"\n')
+# The two-target spec that map_classification_categories maps onto the
+# classifier's labels
+WORKFLOW_TARGETS = {
+    'ungulate': {'dataset_labels': {'cam0': ['deer'], 'cam1': ['deer']}},
+    'carnivore': {'dataset_labels': {'cam0': ['fox'], 'cam1': ['fox']}}}
+
+
+def _workflow_database(folder):
+    """A COCO Camera Traps database over phase 28's 64 JPEGs in [folder]
+    (cam0, cam1): four locations (each camera's first and last 32 image
+    numbers), deer or fox by the parity of the image's number within its
+    camera, one box an image (seeded, in pixels of PIL's size); no width
+    or height. Returns (the database, {file_name: PIL's (w, h)})."""
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(38)
+    db = {'info': {'version': '1.0', 'description': 'chip_smoke phase 38'},
+          'images': [], 'annotations': [],
+          'categories': [{'id': 1, 'name': 'deer'}, {'id': 2,
+                                                     'name': 'fox'}]}
+    sizes = {}
+    for i in range(64):
+        name = 'cam{}/img_{:02d}.jpg'.format(i % 2, i)
+        with Image.open(os.path.join(folder, name)) as im:
+            sizes[name] = im.size
+        w, h = sizes[name]
+        x, y = rng.uniform(0.05, 0.5, 2)
+        bw, bh = rng.uniform(0.1, 0.4, 2)
+        db['images'].append({'id': 'im{:02d}'.format(i), 'file_name': name,
+                             'location': 'cam{}_{}'.format(i % 2, i // 32),
+                             'datetime': '2024-03-{:02d} 06:00:00'.format(
+                                 1 + i % 28)})
+        db['annotations'].append({
+            'id': 'ann{:02d}'.format(i), 'image_id': 'im{:02d}'.format(i),
+            'category_id': 1 + (i // 2) % 2,
+            'bbox': [round(float(x * w), 1), round(float(y * h), 1),
+                     round(float(bw * w), 1), round(float(bh * h), 1)]})
+    return db, sizes
+
+
+def phase_classifier_workflow(device, workdir, workflow_path, threshold,
+                              card):
+    """
+    38. The classifier-training workflow's host tools, from a CCT database
+    through the card's detections to a trained, evaluated and merged
+    classifier, over phase 28's workflow folder (64 JPEGs in cam0, cam1).
+    1. The database (_workflow_database): add_width_and_height_to_db fills
+    the sizes (PIL's); integrity_check_json_db with its image checks
+    reports no error and raises AssertionError on a copy with a broken
+    category reference; subset_json_db per camera, then
+    coco_tools.combine_cct_files of the two subsets, gives back its images
+    and annotations; sample_json_db takes a seeded sample; cct_to_md
+    writes the ground truth, valid (validate_batch_results).
+    2. WORKFLOW_SPEC_CSV through csv_to_json, then
+    json_validator.run_validator on the image source built from the
+    database (canid capped at 24, cam1 first): queried_images.json of 56
+    images.
+    3. Phase 28's yolov5l6 (saved as md_vsmoke_workflow.npz: the cache
+    reads a version after the name's last 'v') in bf16 through
+    load_and_run_detector_batch at batch 8 at phase 28's threshold,
+    launches exact (B1, B4, E7); cache_batchapi_outputs.cache_json of the
+    first 40 images' results, then of the last 40: the cache holds each
+    image once, as the card wrote it.
+    4. crop_detections (square crops at the threshold),
+    create_classification_dataset (location splits), then
+    classification/train_classifier.main for one epoch (efficientnetv2_s,
+    224 px, float32, its defaults) and evaluate_model (outputs_*.csv).
+    5. identify_mislabeled_candidates on the test split at half the
+    largest wrong-label margin (the files equal the candidates recomputed
+    from the CSV), save_mislabeled of their images, filter_queried_images
+    (exactly those images dropped); run_classifier (the merged file and
+    the per-crop CSV); map_classification_categories (pair route) of
+    WORKFLOW_TARGETS onto the classifier's labels;
+    aggregate_classifier_probs of run_classifier's CSV (each row's targets
+    sum to 1 within 1e-5); merge_classification_detection_output of the
+    evaluation CSV into the card's results; both merged files valid.
+    6. analyze_failed_images over the crop folder and one truncated JPEG
+    planted there flags exactly that file.
+    Steps 4-6 run no kernel of ours (float32): their launches are checked
+    to be 0. Prints each step's seconds, the launches and the counts.
+    Returns the phase's (nms, conv, bottleneck, stem, silu) launches.
+    """
+
+    import copy
+    import csv
+
+    import torch
+
+    from megadetector_tpu_torch.classification import (
+        aggregate_classifier_probs, analyze_failed_images,
+        cache_batchapi_outputs, crop_detections,
+        create_classification_dataset, csv_to_json, evaluate_model,
+        identify_mislabeled_candidates, json_validator,
+        map_classification_categories, merge_classification_detection_output,
+        run_classifier, save_mislabeled)
+    from megadetector_tpu_torch.classification import train_classifier \
+        as ctc
+    from megadetector_tpu_torch.data_management import (
+        add_width_and_height_to_db, cct_to_md, coco_tools,
+        integrity_check_json_db, subset_json_db)
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.models.convert_weights import (
+        load_checkpoint, save_checkpoint)
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import validate_batch_results
+    from megadetector_tpu_torch.utils import ct_utils, path_utils
+
+    start = time.time()
+    folder = _workflow_folder(workdir)
+    files = path_utils.find_images(folder, recursive=True)
+    out = os.path.join(workdir, 'classifier_workflow')
+    os.makedirs(out, exist_ok=True)
+    seconds = {}
+
+    def step(name, fn):
+        t0 = time.time()
+        value = fn()
+        seconds[name] = time.time() - t0
+        return value
+
+    def fail(message):
+        raise AssertionError('phase 38: ' + message)
+
+    def valid(path):
+        errors = validate_batch_results(path)['validation_results']
+        if errors['validation_errors']:
+            fail('{} is invalid: {}'.format(
+                os.path.basename(path), errors['validation_errors'][:3]))
+
+    def without_ids(db):
+        """Annotations as (image, category name, bbox), sorted."""
+        names = {c['id']: c['name'] for c in db['categories']}
+        return sorted((a['image_id'], names[a['category_id']], a['bbox'])
+                      for a in db['annotations'])
+
+    # 1. The database
+    db, sizes = _workflow_database(folder)
+    db_file = os.path.join(out, 'db.json')
+    db = step('add_width_and_height', lambda: add_width_and_height_to_db
+              .add_width_and_height_to_db(db, folder, db_file))
+    if {im['file_name']: (im.get('width'), im.get('height'))
+            for im in db['images']} != sizes:
+        fail('add_width_and_height_to_db\'s sizes differ from PIL\'s')
+    options = integrity_check_json_db.IntegrityCheckOptions()
+    options.baseDir = folder
+    options.bCheckImageSizes = True
+    options.bCheckImageExistence = True
+    options.bFindUnusedImages = True
+    options.bRequireLocation = True
+    options.verbose = False
+    categories, _, error_info = step(
+        'integrity_check', lambda: integrity_check_json_db
+        .integrity_check_json_db(db_file, options))
+    if error_info['validation_errors'] or error_info['unused_images'] or \
+            sorted(c['count'] for c in categories) != [32, 32]:
+        fail('integrity_check_json_db: {}, categories {}'.format(
+            error_info, categories))
+    broken = copy.deepcopy(db)
+    broken['annotations'][5]['category_id'] = 99
+    try:
+        integrity_check_json_db.integrity_check_json_db(broken, options)
+    except AssertionError:
+        pass
+    else:
+        fail('integrity_check_json_db accepted a broken category reference')
+    parts = []
+    for camera in ('cam0/', 'cam1/'):
+        parts.append(os.path.join(out, 'db_{}.json'.format(camera[:-1])))
+        subset_json_db.subset_json_db(db_file, camera, parts[-1])
+    combined = step('subset_and_combine', lambda: coco_tools
+                    .combine_cct_files(parts, os.path.join(
+                        out, 'db_combined.json')))
+    if sorted(combined['images'], key=lambda im: im['id']) != \
+            db['images'] or without_ids(combined) != without_ids(db):
+        fail('the two cameras\' subsets combined differ from the database')
+    sampling = subset_json_db.DbSamplingOptions()
+    sampling.category_name_to_max_count = {'default': -1, 'fox': 10}
+    sampling.random_seed = 38
+    sample = subset_json_db.sample_json_db(copy.deepcopy(db), sampling)
+    if len(sample['images']) != 42:
+        fail('sample_json_db kept {} images, want 32 deer + 10 fox'.format(
+            len(sample['images'])))
+    truth_file = os.path.join(out, 'ground_truth.json')
+    truth = step('cct_to_md', lambda: cct_to_md.cct_to_md(db_file,
+                                                          truth_file))
+    valid(truth_file)
+    if sum(len(im['detections']) for im in truth['images']) != 64:
+        fail('cct_to_md wrote {} boxes'.format(sum(
+            len(im['detections']) for im in truth['images'])))
+
+    # 2. The label spec and the queried images
+    spec_csv = os.path.join(out, 'label_spec.csv')
+    with open(spec_csv, 'w') as f:
+        f.write(WORKFLOW_SPEC_CSV)
+    spec = {label: csv_to_json.order_spec_dict(s) for label, s in
+            csv_to_json.csv_to_jsondict(spec_csv).items()}
+    spec_file = os.path.join(out, 'label_spec.json')
+    ct_utils.write_json(spec_file, spec)
+    names = {c['id']: c['name'] for c in db['categories']}
+    image_to_class = {a['image_id']: names[a['category_id']]
+                      for a in db['annotations']}
+    source = {im['file_name']: {'dataset': im['file_name'].split('/')[0],
+                                'class': image_to_class[im['id']],
+                                'location': im['location']}
+              for im in db['images']}
+    source_file = os.path.join(out, 'image_source.json')
+    ct_utils.write_json(source_file, source)
+    validator_dir = os.path.join(out, 'validator')
+    queried = step('json_validator', lambda: json_validator.run_validator(
+        spec_file, source_file, output_dir=validator_dir,
+        images_dir=folder))
+    queried_file = os.path.join(validator_dir, 'queried_images.json')
+    with open(queried_file) as f:
+        written = json.load(f)
+    n_cam1_fox = sum(info['dataset'] == 'cam1' and info['label'] ==
+                     ['canid'] for info in written.values())
+    if len(queried) != 56 or written != queried or n_cam1_fox != 16:
+        fail('queried_images.json holds {} images ({} canid of cam1), '
+             'want 32 cervid + 24 canid with cam1 first'.format(
+                 len(written), n_cam1_fox))
+
+    # 3. Detections from the card, cached
+    model_file = os.path.join(out, 'md_vsmoke_workflow.npz')
+    params, metadata = load_checkpoint(workflow_path)
+    save_checkpoint(params, model_file, metadata)
+    results_file = os.path.join(out, 'detections.json')
+
+    def detect():
+        detector = load_detector(model_file, device=device,
+                                 detector_options={'dtype': 'bfloat16'})
+        counts, _ = _counted_detection(
+            'phase 38 on {}, phase 28\'s yolov5l6 (bf16) over {} JPEGs at '
+            '{:.4f}'.format(card, len(files), threshold), detector,
+            model_file, files, folder, threshold, results_file)
+        del detector
+        torch.cuda.empty_cache()
+        return counts
+
+    counts = step('detect', detect)
+    valid(results_file)
+    with open(results_file) as f:
+        results = json.load(f)
+    n_detections = sum(len(im['detections'] or [])
+                       for im in results['images'])
+    cache = os.path.join(out, 'detection_cache')
+    halves = []
+    for name, images in (('first', results['images'][:40]),
+                         ('last', results['images'][24:])):
+        halves.append(os.path.join(out, 'detections_{}.json'.format(name)))
+        ct_utils.write_json(halves[-1], dict(results, images=images))
+    messages = step('cache', lambda: [cache_batchapi_outputs.cache_json(
+        path, True, 'workflow', cache) for path in halves])
+    with open(os.path.join(cache, 'vsmoke_workflow.npz',
+                           'workflow.json')) as f:
+        cached = json.load(f)
+    if sorted(cached['images'], key=lambda im: im['file']) != sorted(
+            results['images'], key=lambda im: im['file']) or \
+            'Merging' not in messages[1]:
+        fail('the cache holds {} images after the merge, want the card\'s '
+             '{}'.format(len(cached['images']), len(results['images'])))
+
+    # 4. Crops, the dataset, one epoch, the evaluation (float32: no
+    # kernel of ours)
+    _reset_counts()
+    crops_dir = os.path.join(out, 'crops')
+    n_crops, failed = step('crop_detections', lambda: crop_detections
+                           .crop_detections(results_file, crops_dir, folder,
+                                            threshold=threshold,
+                                            square_crops=True))
+    if failed or n_crops != n_detections:
+        fail('{} crops of {} detections, failed {}'.format(
+            n_crops, n_detections, failed))
+    ds_dir = os.path.join(out, 'dataset')
+    rows, label_index, splits = step(
+        'dataset', lambda: create_classification_dataset
+        .create_classification_dataset(
+            queried_file, crops_dir, ds_dir, detections_json=results_file,
+            confidence_threshold=threshold,
+            split_fractions=(0.5, 0.25, 0.25)))
+    if sorted(label_index.values()) != ['canid', 'cervid'] or \
+            sorted(len(v) for v in splits.values()) != [1, 1, 2]:
+        fail('the dataset: labels {}, splits {}'.format(label_index, splits))
+    logdir = os.path.join(out, 'train')
+    best = step('train', lambda: ctc.main(
+        ds_dir, crops_dir, model_name=CLASSIFICATION_MODEL, epochs=1,
+        img_size=CLASSIFICATION_SIZE, logdir=logdir, seed=0,
+        device=str(device)))
+    ckpt = os.path.join(logdir, 'params.npz')
+    eval_dir = os.path.join(out, 'eval')
+    step('evaluate', lambda: evaluate_model.evaluate_model(
+        ckpt, ds_dir, crops_dir, eval_dir, batch_size=32, device=device))
+    outputs = os.path.join(eval_dir, 'outputs_test.csv')
+    with open(outputs, newline='') as f:
+        eval_rows = list(csv.DictReader(f))
+    labels = [label_index[str(i)] for i in range(len(label_index))]
+    if not eval_rows or best is None:
+        fail('evaluate_model wrote {} test rows (best {})'.format(
+            len(eval_rows), best))
+
+    # 5. Review, then merge
+    gaps = {}
+    for r in eval_rows:
+        probs = {k: float(r[k]) for k in labels}
+        pred = max(probs, key=probs.get)
+        if pred != r['label']:
+            gaps[r['path']] = (probs[pred] - probs[r['label']], pred)
+    if not gaps:
+        fail('the classifier labelled every test crop right: no candidate '
+             'to review')
+    margin = max(g for g, _ in gaps.values()) / 2
+    candidates_dir = os.path.join(out, 'candidates')
+    candidates = step('identify_mislabeled', lambda:
+                      identify_mislabeled_candidates
+                      .identify_mislabeled_candidates(
+                          outputs, 'test', candidates_dir, margin=margin))
+    want = {}
+    for path, (gap, _) in gaps.items():
+        if gap >= margin:
+            dataset, rest = path.split('/', 1)
+            want.setdefault(dataset, []).append(rest)
+    listed = {}
+    for name in os.listdir(candidates_dir):
+        with open(os.path.join(candidates_dir, name)) as f:
+            listed[name] = f.read()
+    if candidates != want or listed != {
+            'mislabeled_candidates_test_{}.txt'.format(ds): ''.join(
+                p + '\n' for p in sorted(paths))
+            for ds, paths in want.items()}:
+        fail('identify_mislabeled_candidates: {} against {}'.format(
+            candidates, want))
+    n_candidates = sum(len(v) for v in want.values())
+    row_labels = {r['path']: r['label'] for r in eval_rows}
+    entries, flagged = [], set()
+    for dataset, paths in want.items():
+        for path in paths:
+            image = path.split('___crop')[0]
+            entries.append({
+                'dataset': dataset, 'file': image,
+                'original_label': row_labels[dataset + '/' + path],
+                'corrected_label': gaps[dataset + '/' + path][1]})
+            flagged.add(dataset + '/' + image)
+    ledger = os.path.join(out, 'mislabeled.csv')
+    step('save_mislabeled', lambda: save_mislabeled.save_mislabeled(
+        ledger, entries))
+    kept = step('filter_queried', lambda: save_mislabeled
+                .filter_queried_images(queried_file, ledger, os.path.join(
+                    out, 'queried_filtered.json')))
+    if sorted(kept) != sorted(set(queried) - flagged):
+        fail('filter_queried_images kept {} of {} images, {} flagged'.format(
+            len(kept), len(queried), len(flagged)))
+    run_file = os.path.join(out, 'run_classifier.json')
+    run_csv = os.path.join(out, 'run_classifier.csv')
+    merged_run = step('run_classifier', lambda: run_classifier
+                      .run_classifier(results_file, crops_dir, ckpt,
+                                      run_file, run_csv, batch_size=64,
+                                      device=device))
+    classified = sum('classifications' in d for im in merged_run['images']
+                     for d in im['detections'] or [])
+    if classified != n_crops:
+        fail('run_classifier classified {} of {} crops'.format(classified,
+                                                               n_crops))
+    mapping = step('map_categories', lambda: map_classification_categories
+                   .map_classification_categories(WORKFLOW_TARGETS, spec))
+    if mapping != {'ungulate': ['cervid'], 'carnivore': ['canid']}:
+        fail('map_classification_categories: {}'.format(mapping))
+    mapping_file = os.path.join(out, 'target_mapping.json')
+    ct_utils.write_json(mapping_file, mapping)
+    aggregated = os.path.join(out, 'aggregated.csv')
+    step('aggregate_probs', lambda: aggregate_classifier_probs
+         .aggregate_classifier_probs(run_csv, mapping_file, aggregated,
+                                     os.path.join(out, 'targets.json')))
+    with open(aggregated, newline='') as f:
+        sums = [sum(float(v) for k, v in r.items() if k != 'path')
+                for r in csv.DictReader(f)]
+    if len(sums) != n_crops or max(abs(x - 1) for x in sums) > 1e-5:
+        fail('aggregate_classifier_probs: {} rows, sums {} to {}'.format(
+            len(sums), min(sums), max(sums)))
+    merged_file = os.path.join(out, 'merged.json')
+    merged = step('merge', lambda: merge_classification_detection_output
+                  .merge_classification_detection_output(
+                      outputs, results_file, merged_file,
+                      label_index_path=os.path.join(ds_dir,
+                                                    'label_index.json'),
+                      classifier_name=CLASSIFICATION_MODEL))
+    n_merged = sum('classifications' in d for im in merged['images']
+                   for d in im['detections'] or [])
+    if n_merged != len(eval_rows):
+        fail('merge_classification_detection_output classified {} '
+             'detections, the test split holds {} crops'.format(
+                 n_merged, len(eval_rows)))
+    valid(run_file)
+    valid(merged_file)
+
+    # 6. A truncated JPEG among the crops
+    planted = 'cam0/planted_truncated.jpg'
+    first = path_utils.find_images(crops_dir, recursive=True)[0]
+    with open(first, 'rb') as f:
+        data = f.read()
+    with open(os.path.join(crops_dir, planted), 'wb') as f:
+        f.write(data[:len(data) // 2])
+    crop_files = path_utils.find_images(crops_dir, recursive=True,
+                                        return_relative_paths=True)
+    report = step('analyze_failed', lambda: analyze_failed_images
+                  .analyze_failed_images(crop_files, crops_dir, threads=8))
+    bad = sorted(e['file'] for status, items in report['by_status'].items()
+                 if status != 'ok' for e in items)
+    if bad != [planted] or len(crop_files) != n_crops + 1:
+        fail('analyze_failed_images flagged {} of {} files'.format(
+            bad, len(crop_files)))
+    host_counts = _counts()
+    if host_counts != (0, 0, 0, 0, 0):
+        fail('steps 4-6 launched {} (float32: none of ours)'.format(
+            host_counts))
+
+    print('phase 38 on {}: the database 64 images in 4 locations (32 deer, '
+          '32 fox), valid, the cameras\' subsets combined back, a sample of '
+          '{}; queried_images.json {} images; launches (nms, conv, '
+          'bottleneck, stem, silu) {}; {} detections cached; {} crops, '
+          'dataset {} rows (splits {}), val acc_top1 {:.3f}; {} test rows, '
+          '{} mislabeled candidates at margin {:.4f}, {} images filtered '
+          'out; run_classifier {} crops, {} targets summed to 1; {} merged '
+          'detections; {} of {} files flagged'.format(
+              card, len(sample['images']), len(queried), counts,
+              n_detections, n_crops, len(rows),
+              {k: len(v) for k, v in splits.items()}, best['acc_top1'],
+              len(eval_rows), n_candidates, margin, len(flagged),
+              classified, len(sums), n_merged, len(bad), len(crop_files)),
+          flush=True)
+    print('phase 38 on {}: seconds by step: {}; total {:.3f}'.format(
+        card, ', '.join('{} {:.3f}'.format(k, v)
+                        for k, v in seconds.items()),
+        time.time() - start), flush=True)
+    return counts
+
+
 def main():
     import numpy as np
     import torch
@@ -6404,7 +6927,7 @@ def main():
     card = smi.splitlines()[0]
     import importlib.util
     print('device: torch {} CUDA {} python {}; {} (count {}); {}; cv2 {}; '
-          'pandas {}; tensorflow {}'
+          'pandas {}; tensorflow {}; networkx {}'
           .format(torch.__version__, torch.version.cuda,
                   sys.version.split()[0], torch.cuda.get_device_name(0),
                   torch.cuda.device_count(), card,
@@ -6413,7 +6936,9 @@ def main():
                   'present' if importlib.util.find_spec('pandas')
                   else 'absent',
                   'present' if importlib.util.find_spec('tensorflow')
-                  else 'absent (no .pb detector)'), flush=True)
+                  else 'absent (no .pb detector)',
+                  'present' if importlib.util.find_spec('networkx')
+                  else 'absent (no taxonomy graph)'), flush=True)
 
     # 2. build
     start = time.time()
@@ -6679,6 +7204,18 @@ def main():
         stem_record['launches'] += counts[3]
         silu_record['launches'] += counts[4]
         print('phase 37 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 38. the classifier-training workflow, from a CCT database
+        start = time.time()
+        counts = phase_classifier_workflow(device, workdir, workflow_path,
+                                           threshold, card)
+        record['launches'] += counts[0]
+        conv_record['launches'] += counts[1]
+        bottleneck_record['launches'] += counts[2]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        print('phase 38 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

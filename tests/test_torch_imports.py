@@ -15,7 +15,9 @@ validation gate and its comparator, the classifier's dataset and
 evaluation modules, the accelerator and profiling utilities and the
 legacy .pb detector; the exported artifact, mAP evaluation, frame
 extraction, the URL helpers and the integration harness; the
-detection-postprocessing tools and plot_utils). PIL is imported only once a file is decoded or
+detection-postprocessing tools and plot_utils; the classifier-training
+workflow's host tools and the CCT database tools, whose TaxonNode route
+alone needs networkx). PIL is imported only once a file is decoded or
 drawn on; tensorflow only once a .pb detector is built, pandas only
 inside the functions that build data frames, matplotlib only inside the
 functions that plot. cv2 is not checked:
@@ -40,6 +42,20 @@ POSTPROCESSING_TOOLS = (
     'md_to_wi', 'separate_detections_into_folders', 'top_folders_to_bottom',
     'create_crop_folder', 'detector_calibration',
     'render_detection_confusion_matrix', 'analyze_classification_results')
+# The classifier-training workflow's host tools and the CCT database tools
+CLASSIFICATION_TOOLS = (
+    'classification.csv_to_json', 'classification.json_validator',
+    'classification.cache_batchapi_outputs',
+    'classification.aggregate_classifier_probs',
+    'classification.map_classification_categories',
+    'classification.merge_classification_detection_output',
+    'classification.identify_mislabeled_candidates',
+    'classification.save_mislabeled', 'classification.analyze_failed_images',
+    'data_management.annotation_constants',
+    'data_management.integrity_check_json_db',
+    'data_management.add_width_and_height_to_db',
+    'data_management.subset_json_db', 'data_management.coco_tools',
+    'data_management.cct_to_md')
 PACKAGE_DIR = os.path.dirname(os.path.abspath(
     megadetector_tpu_torch.__file__))
 
@@ -172,7 +188,9 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                 'megadetector_tpu_torch.utils.integration_tests'} | {
                     'megadetector_tpu_torch.postprocessing.' + name
                     for name in POSTPROCESSING_TOOLS} | {
-                    'megadetector_tpu_torch.visualization.plot_utils'}
+                    'megadetector_tpu_torch.visualization.plot_utils'} | {
+                    'megadetector_tpu_torch.' + name
+                    for name in CLASSIFICATION_TOOLS}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
@@ -491,4 +509,80 @@ def test_postprocessing_tools_run_without_jax_or_tqdm():
     assert report['crops'] == ['im{}_crop_{:03d}.jpg'.format(i, j)
                                for i in range(3) for j in range(2)]
     assert report['tagged'] == 6
+    assert report['blocked'] == []
+
+
+_CLASSIFICATION = """
+import importlib, json, os, sys, tempfile
+# Importing any of these now raises ImportError
+for blocked in ('jax', 'megadetector_tpu', 'tqdm', 'networkx'):
+    sys.modules[blocked] = None
+import numpy as np
+from PIL import Image
+names = json.loads(sys.argv[1])
+for name in names:
+    importlib.import_module(name)
+from megadetector_tpu_torch.classification import (
+    analyze_failed_images, map_classification_categories)
+from megadetector_tpu_torch.data_management import (
+    add_width_and_height_to_db, cct_to_md, subset_json_db)
+tmp = tempfile.mkdtemp()
+rng = np.random.RandomState(0)
+db = {'images': [], 'annotations': [], 'categories': [
+    {'id': 1, 'name': 'deer'}]}
+for i in range(4):
+    name = 'cam{}/im{}.jpg'.format(i % 2, i)
+    os.makedirs(os.path.join(tmp, 'cam{}'.format(i % 2)), exist_ok=True)
+    Image.fromarray(rng.randint(0, 256, (30 + i, 40, 3), np.uint8)).save(
+        os.path.join(tmp, name))
+    db['images'].append({'id': i, 'file_name': name})
+    db['annotations'].append({'id': i, 'image_id': i, 'category_id': 1,
+                              'bbox': [1, 2, 10, 12]})
+db = add_width_and_height_to_db.add_width_and_height_to_db(db, tmp,
+                                                           n_workers=3)
+md = cct_to_md.cct_to_md(subset_json_db.subset_json_db(db, 'cam1/'))
+spec = {'d': {'dataset_labels': {'ds': ['deer']}},
+        'e': {'dataset_labels': {'ds': ['elk']}}}
+mapping = map_classification_categories.map_classification_categories(
+    {'cervid': {'dataset_labels': {'ds': ['deer', 'elk']}}}, spec)
+try:
+    map_classification_categories.parse_spec(
+        {'taxa': [{'level': 'family', 'name': 'cervidae'}]}, {}, {})
+    refusal = None
+except ImportError as e:
+    refusal = str(e)
+report = analyze_failed_images.analyze_failed_images(
+    [im['file_name'] for im in db['images']], tmp, threads=2)
+print(json.dumps({
+    'heights': [im['height'] for im in db['images']],
+    'md_boxes': sum(len(im['detections']) for im in md['images']),
+    'mapping': mapping, 'refusal': refusal,
+    'ok': len(report['by_status']['ok']),
+    'blocked': [m for m in ('jax', 'megadetector_tpu', 'tqdm', 'networkx')
+                if sys.modules[m] is not None]}))
+"""
+
+
+def test_classification_and_cct_tools_run_without_jax_tqdm_or_networkx():
+    """The 15 host tools of the classifier-training workflow and the CCT
+    database import with jax, the JAX package, tqdm and networkx made
+    unimportable; add_width_and_height_to_db (a thread pool),
+    subset_json_db, cct_to_md, map_classification_categories' pair route
+    and analyze_failed_images (threads) then run, and the TaxonNode route
+    raises an ImportError that names networkx."""
+
+    names = ['megadetector_tpu_torch.' + name
+             for name in CLASSIFICATION_TOOLS]
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', _CLASSIFICATION,
+                           json.dumps(names)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report['heights'] == [30, 31, 32, 33]
+    assert report['md_boxes'] == 2
+    assert report['mapping'] == {'cervid': ['d', 'e']}
+    assert report['refusal'] is not None and 'networkx' in report['refusal']
+    assert report['ok'] == 4
     assert report['blocked'] == []
