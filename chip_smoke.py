@@ -4340,10 +4340,11 @@ def _timed_optimizer(opt):
 
 
 def _train_detector(device, params, dtype, batch,
-                    steps=DETECTOR_TRAIN_STEPS):
+                    steps=DETECTOR_TRAIN_STEPS, images=None, targets=None):
     """[steps] Adam steps (clip 5, lr DETECTOR_TRAIN_LR) of yolov5l6 on
-    one repeated batch at 1280x1280; returns (losses, step ms, optimizer
-    ms, peak GB, launches, the activated convs)."""
+    one repeated batch at 1280x1280 ([images], uint8 [batch, 1280, 1280,
+    3], and their pad_targets [targets], or seeded ones); returns (losses,
+    step ms, optimizer ms, peak GB, launches, the activated convs)."""
 
     import numpy as np
     import torch
@@ -4354,10 +4355,11 @@ def _train_detector(device, params, dtype, batch,
     from megadetector_tpu_torch.training import train_detector as td
 
     config = yolov5.YoloV5Config(DETECTOR_TRAIN_ARCH, num_classes=3)
-    rng = np.random.RandomState(5)
-    side = DETECTOR_TRAIN_SIZE
-    images = rng.randint(0, 256, (batch, side, side, 3)).astype(np.uint8)
-    targets = _detector_targets(rng, batch)
+    if images is None:
+        rng = np.random.RandomState(5)
+        side = DETECTOR_TRAIN_SIZE
+        images = rng.randint(0, 256, (batch, side, side, 3)).astype(np.uint8)
+        targets = _detector_targets(rng, batch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = yolov5.YoloV5(config).load_params(params).to(device)
@@ -6903,6 +6905,866 @@ def phase_classifier_workflow(device, workdir, workflow_path, threshold,
     return counts
 
 
+# Phase 39: the two-species taxonomy of the WI and Camtrap DP steps (WI's
+# batch-upload fields) and the LILA dataset's name in the index
+DATA_FORMAT_TAXONOMY = {
+    'deer': {'common_name': 'White-tailed Deer',
+             'wi_taxon_id': '5c7ce479-8a45-40b3-ae21-7c97dfae22f5',
+             'class': 'Mammalia', 'order': 'Cetartiodactyla',
+             'family': 'Cervidae', 'genus': 'Odocoileus',
+             'species': 'virginianus'},
+    'fox': {'common_name': 'Red Fox',
+            'wi_taxon_id': '3d80f1d6-b1df-4966-9ff4-94053c7a902a',
+            'class': 'Mammalia', 'order': 'Carnivora', 'family': 'Canidae',
+            'genus': 'Vulpes', 'species': 'vulpes'}}
+LILA_SMOKE_DATASET = 'Smoke Cameras'
+
+
+def _with_exif_datetime(data, stamp):
+    """JPEG bytes [data] with an EXIF block (DateTime [stamp]) spliced in
+    after the start-of-image marker: the pixels' bytes untouched."""
+
+    import struct
+
+    from PIL import Image
+
+    exif = Image.Exif()
+    exif[306] = stamp
+    block = exif.tobytes()
+    return data[:2] + b'\xff\xe1' + struct.pack('>H', len(block) + 2) + \
+        block + data[2:]
+
+
+def _label_rows(path):
+    """[[class, cx, cy, w, h(, conf)], ...] of a YOLO .txt file."""
+
+    with open(path) as f:
+        return [[float(t) for t in line.split()] for line in f
+                if line.strip()]
+
+
+def _coco_rows(coco, clip, minus_one=False):
+    """{file_name: [[category name, cx, cy, w, h], ...]} of a COCO dict's
+    boxes, normalized by each image's side (or side - 1, as
+    labelme_file_to_yolo_file does: clipped to side - 1, a box outside it
+    left out), in annotation order; with [clip] a box is clipped to the
+    image as coco_to_yolo clips it (and left out where nothing is
+    left)."""
+
+    names = {c['id']: c['name'] for c in coco['categories']}
+    images = {im['id']: im for im in coco['images']}
+    rows = {im['file_name']: [] for im in coco['images']}
+    for ann in coco['annotations']:
+        if ann.get('bbox') is None:
+            continue
+        im = images[ann['image_id']]
+        w_im, h_im = im['width'], im['height']
+        x, y, w, h = ann['bbox']
+        if minus_one:
+            if x >= w_im - 1 or x + w <= 0 or y >= h_im - 1 or y + h <= 0:
+                continue
+            x0, y0 = max(x, 0.0), max(y, 0.0)
+            x1, y1 = min(x + w, w_im - 1), min(y + h, h_im - 1)
+            w_im, h_im = w_im - 1, h_im - 1
+            x, y, w, h = x0, y0, x1 - x0, y1 - y0
+        elif clip:
+            xc, yc = max(x, 0), max(y, 0)
+            w = min(w - (xc - x), w_im - xc)
+            h = min(h - (yc - y), h_im - yc)
+            x, y = xc, yc
+            if w <= 0 or h <= 0:
+                continue
+        rows[im['file_name']].append([
+            names[ann['category_id']], (x + w / 2.0) / w_im,
+            (y + h / 2.0) / h_im, w / w_im, h / h_im])
+    return rows
+
+
+def _rows_close(got, want, class_names, tol):
+    """Whether per-image YOLO rows [got] ({file: rows}, class indices)
+    equal [want] ({file: rows}, class names) within [tol]."""
+
+    if sorted(got) != sorted(want):
+        return False
+    for name, rows in want.items():
+        if len(got[name]) != len(rows):
+            return False
+        for g, w in zip(got[name], rows):
+            if class_names[int(g[0])] != w[0] or \
+                    max(abs(a - b) for a, b in zip(g[1:5], w[1:])) > tol:
+                return False
+    return True
+
+
+def _data_format_tools(folder, db_file, results_file, out, step, fail):
+    """Steps 1-4 of phase 39 (see phase_data_formats) over the images in
+    [folder], the CCT database [db_file] and the card's results
+    [results_file]; [step](name, fn) times fn(), [fail](message) raises.
+    Returns ({name: count}, the YOLO folder)."""
+
+    import csv
+    import shutil
+
+    from PIL import Image
+
+    from megadetector_tpu_torch.data_management import (
+        animl_to_md, camtrap_dp_to_coco, cct_to_wi, coco_to_labelme,
+        coco_to_yolo, image_file_tools, importers, labelme_to_coco,
+        labelme_to_yolo, wi_download_csv_to_coco, yolo_output_to_md_output,
+        yolo_to_coco, zamba_to_md)
+    from megadetector_tpu_torch.postprocessing import md_to_coco
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import validate_batch_results
+    from megadetector_tpu_torch.utils import ct_utils
+
+    os.makedirs(out, exist_ok=True)
+    with open(db_file) as f:
+        db = json.load(f)
+    with open(results_file) as f:
+        results = json.load(f)
+    card = _detections(results)
+    files = sorted(card)
+    names = {c['id']: c['name'] for c in db['categories']}
+    image_label = {}
+    for ann in db['annotations']:
+        image_label[ann['image_id']] = names[ann['category_id']]
+    label = {im['file_name']: image_label[im['id']] for im in db['images']}
+    counts = {}
+
+    def valid(path):
+        errors = validate_batch_results(path)['validation_results']
+        if errors['validation_errors']:
+            fail('{} is invalid: {}'.format(
+                os.path.basename(path), errors['validation_errors'][:3]))
+
+    def boxes(dets):
+        return [(d['category'], d['conf'], d['bbox']) for d in dets]
+
+    # 1. YOLO and labelme from the card's detections
+    coco_file = os.path.join(out, 'detections_coco.json')
+    coco = step('md_to_coco', lambda: md_to_coco.md_to_coco(
+        results_file, coco_file, image_folder=folder))
+    yolo_dir = os.path.join(out, 'yolo')
+    class_file = os.path.join(out, 'yolo_classes.txt')
+    written = step('coco_to_yolo', lambda: coco_to_yolo.coco_to_yolo(
+        folder, yolo_dir, coco_file, class_file_name=class_file))
+    class_list = written['class_list']
+    dataset_file = coco_to_yolo.write_yolo_dataset_file(
+        os.path.join(out, 'dataset.yaml'), yolo_dir, class_list,
+        train_folder_relative='.', val_folder_relative='.')
+    views = [os.path.join(out, 'yolo_' + v) for v in ('images', 'labels')]
+    step('create_yolo_symlinks', lambda: coco_to_yolo.create_yolo_symlinks(
+        yolo_dir, views[0], views[1], class_list_file=class_file))
+    for view, ext in zip(views, ('.jpg', '.txt')):
+        linked = sorted(os.path.relpath(os.path.join(b, n), view)
+                        for b, _, ns in os.walk(view) for n in ns
+                        if n.endswith(ext))
+        if linked != [os.path.splitext(f)[0] + ext for f in files] or any(
+                os.path.realpath(os.path.join(view, n)) != os.path.realpath(
+                    os.path.join(yolo_dir, n)) for n in linked):
+            fail('create_yolo_symlinks: {} links in {}'.format(
+                len(linked), os.path.basename(view)))
+    report = step('validate_yolo_dataset', lambda: yolo_to_coco
+                  .validate_yolo_dataset(yolo_dir, class_file))
+    # coco_to_yolo clips each box to the image, so a bound can pass 1 by
+    # its {:.6f} rounding alone
+    excess = [max(-v, v - 1) for e in report['label_errors']
+              for message in e['errors']
+              for v in map(float, message.split(':')[1].split())]
+    if report['images_without_labels'] or report['labels_without_images'] \
+            or report['n_images'] != len(files) or \
+            report['n_labels'] != len(files) or max(excess,
+                                                    default=0) > 1e-6:
+        fail('validate_yolo_dataset: {}'.format(report))
+    labels = {f: _label_rows(os.path.join(
+        yolo_dir, os.path.splitext(f)[0] + '.txt')) for f in files}
+    clipped = _coco_rows(coco, True)
+    if not _rows_close(labels, clipped, class_list, 1e-6):
+        fail('coco_to_yolo\'s label files differ from the card\'s boxes')
+    back = step('yolo_to_coco', lambda: yolo_to_coco.yolo_to_coco(
+        yolo_dir, class_file, os.path.join(out, 'yolo_coco.json')))
+    if sorted((im['file_name'], im['width'], im['height'])
+              for im in back['images']) != sorted(
+            (im['file_name'], im['width'], im['height'])
+            for im in coco['images']) or not _rows_close(
+            {k: [[class_list.index(r[0])] + r[1:] for r in v]
+             for k, v in _coco_rows(back, False).items()},
+            clipped, class_list, 1e-6):
+        fail('yolo_to_coco gives back other images or boxes')
+    counts['YOLO labels'] = sum(len(v) for v in labels.values())
+    counts['YOLO label files'] = len(labels)
+
+    labelme_dir = os.path.join(out, 'labelme')
+    shutil.copytree(folder, labelme_dir)
+    labelme_files = step('coco_to_labelme', lambda: coco_to_labelme
+                         .coco_to_labelme(coco_file, labelme_dir))
+    from_labelme = step('labelme_to_coco', lambda: labelme_to_coco
+                        .labelme_to_coco(labelme_dir, os.path.join(
+                            out, 'labelme_coco.json')))
+    unclipped = _coco_rows(coco, False)
+    if len(labelme_files) != len(files) or not _rows_close(
+            {k: [[class_list.index(r[0])] + r[1:] for r in v]
+             for k, v in _coco_rows(from_labelme, False).items()},
+            unclipped, class_list, 1e-9):
+        fail('labelme_to_coco gives back other boxes than coco_to_labelme '
+             'wrote ({} files)'.format(len(labelme_files)))
+    empty = step('find_empty_labelme_files', lambda: labelme_to_coco
+                 .find_empty_labelme_files(labelme_dir))
+    if empty != {'images_with_empty_json_files': [
+            f for f in files if not card[f]],
+            'images_with_no_json_files': [],
+            'images_with_non_empty_json_files': [f for f in files if card[f]]}:
+        fail('find_empty_labelme_files: {}'.format(
+            {k: len(v) for k, v in empty.items()}))
+    mapping = {name: i for i, name in enumerate(class_list)}
+    txt = [os.path.join(labelme_dir, os.path.splitext(f)[0] + '.txt')
+           for f in files]
+
+    def txt_bytes():
+        out = []
+        for path in txt:
+            with open(path, 'rb') as f:
+                out.append(f.read())
+        return out
+
+    one = labelme_to_yolo.labelme_folder_to_yolo(labelme_dir, mapping)
+    one_bytes = txt_bytes()
+    spawned = step('labelme_to_yolo (4 processes)', lambda: labelme_to_yolo
+                   .labelme_folder_to_yolo(labelme_dir, mapping, n_workers=4,
+                                           use_threads=False))
+    # labelme_file_to_yolo_file normalizes by side - 1, at 3 digits
+    if spawned != one or txt_bytes() != one_bytes or not _rows_close(
+            {f: _label_rows(p) for f, p in zip(files, txt)},
+            _coco_rows(coco, False, minus_one=True), class_list,
+            5e-4 + 1e-9):
+        fail('labelme_folder_to_yolo in 4 processes differs from one '
+             'worker or from the card\'s boxes')
+    labelme_to_yolo.labelme_to_yolo(labelme_dir, class_list=list(class_list))
+    if not _rows_close({f: _label_rows(p) for f, p in zip(files, txt)},
+                       unclipped, class_list, 1e-6):
+        fail('labelme_to_yolo\'s label files differ from coco_to_yolo\'s')
+    counts['labelme files'] = len(labelme_files)
+
+    # 2. A YOLO detector's outputs back to MD
+    val_dir = os.path.join(out, 'yolo_val_txt')
+    predictions, id_to_file = [], {}
+    for i, f in enumerate(files):
+        if not card[f]:
+            continue
+        id_to_file[i] = f
+        with Image.open(os.path.join(folder, f)) as im:
+            w_im, h_im = im.size
+        path = os.path.join(val_dir, os.path.splitext(f)[0] + '.txt')
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, 'w') as fh:
+            for d in card[f]:
+                x, y, w, h = d['bbox']
+                fh.write('{} {:.6f} {:.6f} {:.6f} {:.6f} {:.6f}\n'.format(
+                    int(d['category']) - 1, x + w / 2, y + h / 2, w, h,
+                    d['conf']))
+                predictions.append({
+                    'image_id': i, 'category_id': int(d['category']) - 1,
+                    'bbox': [x * w_im, y * h_im, w * w_im, h * h_im],
+                    'score': d['conf']})
+    pred_file = os.path.join(out, 'yolo_predictions.json')
+    ct_utils.write_json(pred_file, predictions)
+    from_txt = os.path.join(out, 'from_yolo_txt.json')
+    from_json = os.path.join(out, 'from_yolo_json.json')
+    step('yolo_txt_output_to_md_output', lambda: yolo_output_to_md_output
+         .yolo_txt_output_to_md_output(val_dir, folder, from_txt))
+    step('yolo_json_output_to_md_output', lambda: yolo_output_to_md_output
+         .yolo_json_output_to_md_output(
+             pred_file, folder, from_json,
+             yolo_category_id_to_name=yolo_output_to_md_output
+             .read_classes_from_yolo_dataset_file(dataset_file),
+             image_id_to_relative_path=id_to_file))
+    for path in (from_txt, from_json):
+        valid(path)
+        with open(path) as f:
+            data = json.load(f)
+        got = {k: boxes(v) for k, v in _detections(data).items()}
+        want = {f: boxes(card[f]) for f in files
+                if card[f] or path == from_txt}
+        used = sorted({d['category'] for v in card.values() for d in v})
+        if got != want or (path == from_json and data[
+                'detection_categories'] != {c: results[
+                    'detection_categories'][c] for c in used}):
+            fail('{} differs from the card\'s results'.format(
+                os.path.basename(path)))
+
+    # 3. WI, Camtrap DP, Animl, Zamba, MEWC
+    wi_dir = os.path.join(out, 'wi')
+    wi = step('cct_to_wi', lambda: cct_to_wi.cct_to_wi(
+        db_file, DATA_FORMAT_TAXONOMY, wi_dir,
+        project_info={'project_id': 'chip_smoke'}))
+    for name, columns in (('projects', cct_to_wi.PROJECT_COLUMNS),
+                          ('cameras', cct_to_wi.CAMERA_COLUMNS),
+                          ('deployments', cct_to_wi.DEPLOYMENT_COLUMNS),
+                          ('images', cct_to_wi.IMAGE_COLUMNS)):
+        with open(wi[name], newline='') as f:
+            rows = list(csv.reader(f))
+        if rows[0] != columns:
+            fail('cct_to_wi\'s {}.csv has columns {}'.format(name, rows[0]))
+        counts['WI {} rows'.format(name)] = len(rows) - 1
+    wi_coco = step('wi_download_csv_to_coco', lambda: wi_download_csv_to_coco
+                   .wi_download_csv_to_coco(
+                       wi['images'], os.path.join(out, 'wi_coco.json'),
+                       image_flattening='none'))
+    wi_names = {c['id']: c['name'] for c in wi_coco['categories']}
+    if {a['image_id']: wi_names[a['category_id']]
+            for a in wi_coco['annotations']} != {
+            f: DATA_FORMAT_TAXONOMY[label[f]]['common_name'].lower()
+            for f in files} or sorted(
+            (im['file_name'], im['location'], im['datetime'])
+            for im in wi_coco['images']) != sorted(
+            (im['file_name'], im['location'], im['datetime'])
+            for im in db['images']) or counts['WI images rows'] != len(files):
+        fail('wi_download_csv_to_coco does not give back the database\'s '
+             'labels')
+
+    # Camtrap DP: an event an image, every observation an event-level
+    # animal of the database's species carrying one of the card's boxes (an
+    # image without one, a row without a box). The two converters read
+    # filePath differently (camtrap_dp_to_coco joins it to fileName,
+    # camtrap_dp_to_md takes it alone): an empty filePath and the relative
+    # fileName give both the database's file name
+    package = os.path.join(out, 'camtrap_dp')
+    os.makedirs(package)
+    science = {k: '{} {}'.format(v['genus'], v['species'])
+               for k, v in DATA_FORMAT_TAXONOMY.items()}
+    tables = {'deployments': [], 'events': [], 'media': [],
+              'observations': []}
+    for loc in sorted({im['location'] for im in db['images']}):
+        tables['deployments'].append({'deploymentID': loc,
+                                      'locationName': loc})
+    for im in db['images']:
+        f = im['file_name']
+        tables['media'].append({'mediaID': im['id'],
+                                'deploymentID': im['location'],
+                                'timestamp': im['datetime'],
+                                'filePath': '', 'fileName': f})
+        event = 'event_' + im['id']
+        tables['events'].append({'eventID': event, 'mediaID': im['id']})
+        for k, d in enumerate(card[f] or [None]):
+            row = {'observationID': '{}_{}'.format(event, k),
+                   'eventID': event, 'mediaID': im['id'],
+                   'observationLevel': 'event',
+                   'observationType': 'animal',
+                   'scientificName': science[label[f]]}
+            if d is not None:
+                row.update(zip(('bboxX', 'bboxY', 'bboxWidth', 'bboxHeight'),
+                               map(repr, d['bbox'])))
+                row['classificationProbability'] = repr(d['conf'])
+            tables['observations'].append(row)
+    for name, rows in tables.items():
+        columns = []
+        for row in rows:
+            columns += [c for c in row if c not in columns]
+        with open(os.path.join(package, name + '.csv'), 'w',
+                  newline='') as f:
+            writer = csv.DictWriter(f, fieldnames=columns)
+            writer.writeheader()
+            writer.writerows(rows)
+    ct_utils.write_json(os.path.join(package, 'datapackage.json'), {
+        'name': 'chip-smoke-phase-39',
+        'profile': camtrap_dp_to_coco.CAMTRAP_DP_PROFILE,
+        'resources': [{'name': name, 'path': name + '.csv'}
+                      for name in tables]})
+    dp_coco = step('camtrap_dp_to_coco', lambda: camtrap_dp_to_coco
+                   .camtrap_dp_to_coco(package, os.path.join(
+                       out, 'camtrap_coco.json')))
+    dp_names = {c['id']: c['name'] for c in dp_coco['categories']}
+    back_science = {v: k for k, v in science.items()}
+    if sorted((im['file_name'], im['location'], im['datetime'])
+              for im in dp_coco['images']) != sorted(
+            (im['file_name'], im['location'], im['datetime'])
+            for im in db['images']) or sorted(
+            (a['image_id'], back_science[dp_names[a['category_id']]])
+            for a in dp_coco['annotations']) != sorted(
+            (im['id'], label[im['file_name']]) for im in db['images']):
+        fail('camtrap_dp_to_coco does not give back the database\'s images '
+             'and labels')
+    dp_md = os.path.join(out, 'camtrap_md.json')
+    data = step('camtrap_dp_to_md', lambda: importers.camtrap_dp_to_md(
+        package, dp_md))
+    valid(dp_md)
+    full = [((0.0, 0.0, 1.0, 1.0), 1.0)]
+    if {k: [(tuple(d['bbox']), d['conf']) for d in v]
+            for k, v in _detections(data).items()} != {
+            f: [(tuple(d['bbox']), d['conf']) for d in card[f]] or full
+            for f in files} or any(
+            data['classification_categories'][d['classifications'][0][0]] !=
+            science[label[im['file']]] for im in data['images']
+            for d in im['detections']):
+        fail('camtrap_dp_to_md does not give back the card\'s boxes')
+    counts['Camtrap DP observations'] = len(tables['observations'])
+
+    # Animl (detections with the image's species), Zamba and MEWC (the
+    # image's top confidence as its species' probability)
+    def write_csv(name, columns, rows):
+        path = os.path.join(out, name)
+        with open(path, 'w', newline='') as f:
+            writer = csv.writer(f)
+            writer.writerow(columns)
+            writer.writerows(rows)
+        return path
+
+    animl = write_csv('animl.csv', [
+        'file', 'category', 'detection_conf', 'bbox1', 'bbox2', 'bbox3',
+        'bbox4', 'class', 'classification_conf'], [
+            [f, d['category'], repr(d['conf'])] + [repr(v) for v in
+                                                  d['bbox']] +
+            [label[f], repr(d['conf'])] for f in files for d in card[f]])
+    animl_plain = write_csv('animl_plain.csv', [
+        'FilePath', 'category', 'conf', 'bbox1', 'bbox2', 'bbox3', 'bbox4'],
+        [[f, d['category'], repr(d['conf'])] + [repr(v) for v in d['bbox']]
+         for f in files for d in card[f]] +
+        [[f, '', '', '', '', '', ''] for f in files if not card[f]])
+    top = {f: max([d['conf'] for d in card[f]], default=0.0)
+           for f in files}
+    zamba = write_csv('zamba.csv', ['filepath', 'blank', 'deer', 'fox'], [
+        [f, repr(1 - top[f])] + [repr(top[f] if label[f] == s else 0.0)
+                                 for s in ('deer', 'fox')] for f in files])
+    mewc = write_csv('mewc.csv', ['filename', 'class_id', 'prob'], [
+        [f, label[f] if card[f] else 'blank', repr(top[f] or 1.0)]
+        for f in files])
+    outs = {}
+    for name, module, argv in (
+            ('animl', animl_to_md, [animl]),
+            ('zamba', zamba_to_md, [zamba])):
+        outs[name] = os.path.join(out, name + '_md.json')
+        saved = sys.argv
+        sys.argv = [name + '_to_md'] + argv + ['--output_file', outs[name]]
+        try:
+            step(name + '_to_md CLI', module.main)
+        finally:
+            sys.argv = saved
+    outs['animl_plain'] = os.path.join(out, 'animl_plain_md.json')
+    step('animl_to_md', lambda: importers.animl_to_md(
+        animl_plain, outs['animl_plain']))
+    outs['mewc'] = os.path.join(out, 'mewc_md.json')
+    step('mewc_to_md', lambda: importers.mewc_to_md(mewc, outs['mewc']))
+    frame = [0.0, 0.0, 1.0, 1.0]
+    want = {
+        'animl': {f: [(d['category'], d['conf'], d['bbox'], label[f])
+                      for d in card[f]] for f in files if card[f]},
+        'animl_plain': {f: [(d['category'], d['conf'], d['bbox'], None)
+                            for d in card[f]] for f in files},
+        'zamba': {f: [('1', top[f], frame, label[f])]
+                  if top[f] > 1 - top[f] else [] for f in files},
+        'mewc': {f: [('1', top[f], frame, label[f])] if card[f] else []
+                 for f in files}}
+    for name, path in outs.items():
+        valid(path)
+        with open(path) as f:
+            data = json.load(f)
+        classes = data.get('classification_categories', {})
+        got = {im['file']: [(d['category'], d['conf'], d['bbox'],
+                             classes[d['classifications'][0][0]]
+                             if 'classifications' in d else None)
+                            for d in im['detections']]
+               for im in data['images']}
+        if got != want[name]:
+            fail('{} does not give back the card\'s detections'.format(
+                os.path.basename(path)))
+
+    # 4. Image tools
+    crops_dir = os.path.join(out, 'crops')
+    crops = step('generate_crops_from_cct', lambda: image_file_tools
+                 .generate_crops_from_cct(db_file, folder, crops_dir))
+    sizes = []
+    images = {im['id']: im for im in db['images']}
+    for ann in db['annotations']:
+        im = images[ann['image_id']]
+        x, y, w, h = ann['bbox']
+        x0, y0 = max(0, int(x)), max(0, int(y))
+        x1 = min(im['width'], int(x + w))
+        y1 = min(im['height'], int(y + h))
+        if x1 > x0 and y1 > y0:
+            sizes.append((x1 - x0, y1 - y0))
+    got = []
+    for path in crops:
+        with Image.open(path) as im:
+            got.append(im.size)
+    if got != sizes:
+        fail('generate_crops_from_cct: {} crops of {} boxes that cover a '
+             'pixel, or of other sizes'.format(len(got), len(sizes)))
+    counts['crops'] = len(crops)
+    stamped = os.path.join(out, 'stamped')
+    for im in db['images']:
+        with open(os.path.join(folder, im['file_name']), 'rb') as f:
+            data = f.read()
+        path = os.path.join(stamped, im['file_name'])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, 'wb') as f:
+            f.write(_with_exif_datetime(data, im['datetime'].replace(
+                '-', ':')))
+    renamed = os.path.join(out, 'renamed')
+    dry = step('rename_images (dry run)', lambda: image_file_tools
+               .rename_images(stamped, renamed, dry_run=True))
+    mapping = step('rename_images', lambda: image_file_tools.rename_images(
+        stamped, renamed, n_copy_workers=4))
+    want = {}
+    for im in db['images']:
+        camera, name = im['file_name'].split('/')
+        want[im['file_name']] = '{}#{}#{}'.format(
+            camera, im['datetime'].replace(':', '-').replace(' ', '_'), name)
+    if dry != mapping or mapping != want or sorted(os.listdir(
+            renamed)) != sorted(want.values()) or any(
+            _file_bytes(os.path.join(stamped, k)) != _file_bytes(
+                os.path.join(renamed, v)) for k, v in mapping.items()):
+        fail('rename_images: {} names, {} unique'.format(
+            len(mapping), len(set(mapping.values()))))
+    # remove_exif re-encodes pixel by pixel (about 0.6-0.9 s a 2-3 MP
+    # image on one core): one batch's worth, 4 a camera
+    exif_dir = os.path.join(out, 'exif')
+    chosen = [f for f in files if f.startswith('cam0/')][:4] + \
+        [f for f in files if f.startswith('cam1/')][:4]
+    before = {}
+    for f in chosen:
+        os.makedirs(os.path.dirname(os.path.join(exif_dir, f)),
+                    exist_ok=True)
+        shutil.copyfile(os.path.join(stamped, f), os.path.join(exif_dir, f))
+        with Image.open(os.path.join(exif_dir, f)) as im:
+            before[f] = (im.size, dict(im.getexif()))
+    cleaned = step('remove_exif', lambda: image_file_tools.remove_exif(
+        exif_dir, n_workers=4))
+    after = {}
+    for f in chosen:
+        with Image.open(os.path.join(exif_dir, f)) as im:
+            after[f] = (im.size, dict(im.getexif()))
+    if len(cleaned) != len(chosen) or any(
+            not before[f][1] or after[f] != (before[f][0], {})
+            for f in chosen):
+        fail('remove_exif: sizes or EXIF {} after {}'.format(after, before))
+    counts['EXIF removed'] = len(cleaned)
+    return counts, yolo_dir
+
+
+def _file_bytes(path):
+    with open(path, 'rb') as f:
+        return f.read()
+
+
+def _lila_subset(folder, db_file, results_file, out, step, fail):
+    """Step 5 of phase 39's host half: a LILA site over loopback (the
+    port's url_utils.SingletonHTTPServer on a temporary folder holding
+    the index, the database zipped and the images), read and downloaded
+    through the LILA tools. Returns (the downloaded folder, its files,
+    {name: count})."""
+
+    import csv
+    import random
+    import shutil
+    import socket
+    import zipfile
+
+    from megadetector_tpu_torch.data_management.lila import (
+        download_lila_subset, generate_lila_per_image_labels, lila_common,
+        lila_reports)
+    from megadetector_tpu_torch.utils import path_utils, url_utils
+
+    with open(db_file) as f:
+        db = json.load(f)
+    site = os.path.join(out, 'lila_site')
+    shutil.copytree(folder, os.path.join(site, 'images'))
+    with zipfile.ZipFile(os.path.join(site, 'smoke_cameras.json.zip'),
+                         'w') as zf:
+        zf.write(db_file, 'smoke_cameras.json')
+    shutil.copyfile(results_file, os.path.join(site, 'smoke_cameras_md.json'))
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    base = url_utils.SingletonHTTPServer.start_server(site, port=port,
+                                                      host='127.0.0.1')
+    index_url = base + '/lila_camera_trap_datasets.csv'
+    with open(os.path.join(site, 'lila_camera_trap_datasets.csv'), 'w',
+              newline='') as f:
+        writer = csv.writer(f)
+        writer.writerow(['name', 'short_name', 'metadata_url',
+                         'image_base_url', 'md_results_url'])
+        writer.writerow([LILA_SMOKE_DATASET, 'smoke_cameras',
+                         base + '/smoke_cameras.json.zip',
+                         base + '/images/', base + '/smoke_cameras_md.json'])
+    metadata_dir = os.path.join(out, 'lila_metadata')
+    subset = os.path.join(out, 'lila_subset')
+    # Nothing may reach for the hosted index: its URL is the server's
+    # while the tools run
+    hosted = lila_common.LILA_DATASET_INDEX_URL
+    lila_common.LILA_DATASET_INDEX_URL = index_url
+    try:
+        table = step('read_lila_metadata', lambda: lila_common
+                     .read_lila_metadata(metadata_dir, index_url=index_url))
+        entry = table[LILA_SMOKE_DATASET]
+        json_path = step('read_metadata_file_for_dataset', lambda:
+                         lila_common.read_metadata_file_for_dataset(
+                             LILA_SMOKE_DATASET, metadata_dir,
+                             metadata_table=table))
+        with open(json_path) as f:
+            if json.load(f) != db:
+                fail('the unzipped LILA metadata differs from the database')
+        files = step('select_lila_images_by_species', lambda: lila_common
+                     .select_lila_images_by_species(json_path, ['fox']))
+        fox = {c['id'] for c in db['categories'] if c['name'] == 'fox'}
+        fox_images = {a['image_id'] for a in db['annotations']
+                      if a['category_id'] in fox}
+        if files != [im['file_name'] for im in db['images']
+                     if im['id'] in fox_images]:
+            fail('select_lila_images_by_species chose {} images'.format(
+                len(files)))
+        status = step('download_lila_subset', lambda: lila_common
+                      .download_lila_subset(entry, files, subset,
+                                            n_workers=8))
+        cli_subset = subset + '_cli'
+        saved = sys.argv
+        try:
+            sys.argv = ['download_lila_subset', LILA_SMOKE_DATASET,
+                        cli_subset, '--species', 'fox', '--metadata_dir',
+                        metadata_dir, '--n_workers', '4']
+            step('download_lila_subset CLI', download_lila_subset.main)
+            labels_file = os.path.join(out, 'lila_per_image_labels.json')
+            sys.argv = ['generate_lila_per_image_labels', LILA_SMOKE_DATASET,
+                        labels_file, '--metadata_dir', metadata_dir]
+            step('generate_lila_per_image_labels CLI',
+                 generate_lila_per_image_labels.main)
+        finally:
+            sys.argv = saved
+        downloaded = path_utils.find_images(subset, recursive=True,
+                                            return_relative_paths=True)
+        if sorted(s['status'] for s in status.values()) != \
+                ['success'] * len(files) or downloaded != sorted(files) or \
+                any(_file_bytes(os.path.join(subset, f)) != _file_bytes(
+                    os.path.join(folder, f)) or _file_bytes(os.path.join(
+                        cli_subset, f)) != _file_bytes(os.path.join(
+                            folder, f)) for f in files) or \
+                path_utils.find_images(cli_subset, recursive=True,
+                                       return_relative_paths=True) != \
+                downloaded:
+            fail('download_lila_subset fetched {} of {} images, or other '
+                 'bytes'.format(len(downloaded), len(files)))
+        with open(labels_file) as f:
+            records = json.load(f)
+        names = {c['id']: c['name'] for c in db['categories']}
+        by_image = {a['image_id']: [names[a['category_id']]]
+                    for a in db['annotations']}
+        if [(r['file_name'], r['labels']) for r in records] != [
+                (im['file_name'], by_image[im['id']]) for im in db['images']]:
+            fail('generate_lila_per_image_labels: {} records'.format(
+                len(records)))
+        counts = step('lila_reports', lambda: (
+            lila_reports.get_lila_annotation_counts(table, metadata_dir),
+            lila_reports.get_lila_image_counts(table, metadata_dir)))
+        want = {LILA_SMOKE_DATASET: {'deer': len(db['images']) -
+                                     len(fox_images),
+                                     'fox': len(fox_images)}}
+        picks = [lila_reports.create_lila_test_set(
+            entry, metadata_dir, n_empty_per_dataset=4,
+            n_non_empty_per_dataset=8, seed=39) for _ in range(2)]
+        drawn = random.Random(39).sample(db['images'], 8)
+        links = lila_reports.create_links_to_md_results_files(table)
+        probe = step('validate_lila_metadata_urls', lambda: lila_reports
+                     .validate_lila_metadata_urls(table, check_images=True))
+        if counts != (want, want) or picks[0] != picks[1] or [
+                (p['file_name'], p['url'], p['is_empty'])
+                for p in picks[0]] != [
+                (im['file_name'], base + '/images/' + im['file_name'], False)
+                for im in drawn] or links != {
+                LILA_SMOKE_DATASET: base + '/smoke_cameras_md.json'} or \
+                probe != {LILA_SMOKE_DATASET: {'metadata_ok': True,
+                                               'image_ok': True}}:
+            fail('lila_reports: counts {}, test set {}, links {}, probe '
+                 '{}'.format(counts, len(picks[0]), links, probe))
+    finally:
+        lila_common.LILA_DATASET_INDEX_URL = hosted
+        url_utils.SingletonHTTPServer.stop_server()
+    return subset, [os.path.join(subset, f) for f in downloaded], {
+        'LILA files downloaded': len(downloaded)}
+
+
+def phase_data_formats(device, workdir, workflow_path, threshold, card):
+    """
+    39. The data-format converters, importers, image tools and LILA tools
+    from what phase 38 leaves on disk: its CCT database over phase 28's 64
+    workflow JPEGs (sizes filled) and the card's bf16 yolov5l6 results at
+    phase 28's threshold. Every step is checked and raises on a failure.
+    1. md_to_coco of the card's results; coco_to_yolo (copied images,
+    the class list beside), write_yolo_dataset_file, create_yolo_symlinks
+    (each link resolves to its file); validate_yolo_dataset finds no image
+    without labels nor labels without an image (a bound past 1 only by the
+    {:.6f} rounding); yolo_to_coco gives back the images and the boxes
+    within 1e-6 of the image side (coco_to_yolo clips a box that the
+    4-digit MD rounding pushed past the image: held to the clipped box).
+    coco_to_labelme beside copies of the images, labelme_to_coco gives
+    the boxes back; find_empty_labelme_files lists exactly the images
+    without a detection; labelme_folder_to_yolo in a spawned pool of 4
+    writes one worker's bytes (3 digits over side - 1: within 5e-4), and
+    labelme_to_yolo writes coco_to_yolo's rows within 1e-6 (unclipped).
+    2. The card's detections as YOLO val.py output, per-image .txt rows
+    (class cx cy w h conf) and a predictions JSON (pixels), back through
+    yolo_txt_output_to_md_output and yolo_json_output_to_md_output (its
+    class names from the dataset YAML): both valid and equal to the
+    card's results at MD rounding (bbox 4 digits, conf 3).
+    3. cct_to_wi with a two-species taxonomy: the four CSVs with WI's
+    column lists exactly; its images.csv read back as a WI download by
+    wi_download_csv_to_coco gives the database's image labels, locations
+    and times. A Camtrap DP package (datapackage.json, deployments,
+    events, media, observations: an event an image, its observations the
+    database's species with the card's boxes): camtrap_dp_to_coco gives
+    back the database's images and labels, importers.camtrap_dp_to_md
+    the card's boxes (a full frame where the card found none). Animl,
+    Zamba and MEWC CSVs from the card's results through the animl_to_md
+    and zamba_to_md CLIs (main with sys.argv) and importers' animl_to_md
+    and mewc_to_md: valid files with the card's detections.
+    4. generate_crops_from_cct: one crop per box that covers a pixel, each
+    the size of its PIL crop; rename_images of an EXIF-stamped copy of
+    the folder, a dry run then a copy with 4 workers: the same mapping,
+    unique <camera>#<datetime>#<name> names, byte-identical copies;
+    remove_exif with 4 workers on 8 of them (it re-encodes pixel by pixel,
+    about 0.6-0.9 s a 2-3 MP image): no EXIF after, the sizes unchanged.
+    5. A LILA site on loopback (_lila_subset): read_lila_metadata by
+    index_url, read_metadata_file_for_dataset (download and unzip),
+    select_lila_images_by_species for fox, download_lila_subset (and its
+    CLI): the 32 images byte-identical; generate_lila_per_image_labels'
+    CLI, lila_reports' counts, seeded test set, links and URL probe. The
+    subset through phase 28's model in bf16 (1280 px, batch 8,
+    load_and_run_detector_batch), launches exact (B1, B4, E7): its
+    detections match phase 38's for the same images at the golden
+    tolerances (md_tests: conf 0.005, coord 0.001).
+    6. 8 images of the YOLO set with labels (4 a camera), resized to
+    1280 x 1280, their label files into pad_targets: 3 Adam steps of
+    phase 28's yolov5l6 (nc 3) in bf16 at batch 8 (_train_detector):
+    every loss finite, launches exactly E7 and E7 backward 3 x the
+    activated convs each, nothing else of ours.
+    ocr_tools is left out: neither machine is promised an OCR engine, and
+    without one the module raises (its CPU tests inject ocr_fn). Prints
+    each step's seconds, the launches and the counts. Returns the phase's
+    (nms, conv, bottleneck, stem, silu) launches and its E7 backward
+    launches.
+    """
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.models.convert_weights import load_checkpoint
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import validate_batch_results
+    from megadetector_tpu_torch.training.train_detector import pad_targets
+    from megadetector_tpu_torch.utils import md_tests
+
+    start = time.time()
+    folder = os.path.join(workdir, 'workflow_images')
+    previous = os.path.join(workdir, 'classifier_workflow')
+    db_file = os.path.join(previous, 'db.json')
+    results_file = os.path.join(previous, 'detections.json')
+    model_file = os.path.join(previous, 'md_vsmoke_workflow.npz')
+    out = os.path.join(workdir, 'data_formats')
+    seconds = {}
+
+    def step(name, fn):
+        t0 = time.time()
+        value = fn()
+        seconds[name] = time.time() - t0
+        return value
+
+    def fail(message):
+        raise AssertionError('phase 39: ' + message)
+
+    t0 = time.time()
+    counts, yolo_dir = _data_format_tools(folder, db_file, results_file,
+                                          out, step, fail)
+    steps = {'1-4': time.time() - t0}
+
+    # 5. A LILA subset over loopback, then through the card
+    t0 = time.time()
+    subset, subset_files, more = _lila_subset(folder, db_file, results_file,
+                                              out, step, fail)
+    counts.update(more)
+    subset_results = os.path.join(out, 'lila_subset_detections.json')
+
+    def detect():
+        detector = load_detector(model_file, device=device,
+                                 detector_options={'dtype': 'bfloat16'})
+        launches, _ = _counted_detection(
+            'phase 39 on {}, the LILA subset through phase 28\'s yolov5l6 '
+            '(bf16) at {:.4f}'.format(card, threshold), detector,
+            model_file, subset_files, subset, threshold, subset_results)
+        del detector
+        torch.cuda.empty_cache()
+        return launches
+
+    launches = step('detect (LILA subset)', detect)
+    errors = validate_batch_results(subset_results)['validation_results']
+    with open(results_file) as f:
+        results = json.load(f)
+    names = set(os.path.relpath(p, subset) for p in subset_files)
+    reference = dict(results, images=[im for im in results['images']
+                                      if im['file'] in names])
+    parity = md_tests.compare_results(subset_results, reference)
+    if errors['validation_errors'] or parity['errors'] or \
+            parity['n_images_compared'] != len(subset_files):
+        fail('the LILA subset\'s detections against phase 38\'s: {} images '
+             'compared, {}'.format(parity['n_images_compared'],
+                                   (errors['validation_errors'] +
+                                    parity['errors'])[:5]))
+    steps['5'] = time.time() - t0
+
+    # 6. Three bf16 training steps from the YOLO labels
+    t0 = time.time()
+    chosen = []
+    for camera in ('cam0', 'cam1'):
+        chosen += [p for p in sorted(
+            os.path.join(yolo_dir, camera, f) for f in os.listdir(
+                os.path.join(yolo_dir, camera)) if f.endswith('.jpg'))
+            if _label_rows(p[:-4] + '.txt')][:4]
+    side = DETECTOR_TRAIN_SIZE
+    images, boxes, classes = [], [], []
+    for path in chosen:
+        with Image.open(path) as im:
+            images.append(np.asarray(im.convert('RGB').resize(
+                (side, side), Image.BILINEAR)))
+        rows = np.asarray(_label_rows(path[:-4] + '.txt'), np.float32)
+        boxes.append(rows[:, 1:5])
+        classes.append(rows[:, 0].astype(np.int64))
+    targets = pad_targets(boxes, classes,
+                          max_targets=max(len(b) for b in boxes))
+    params, _ = load_checkpoint(workflow_path)
+    losses, times, _, peak, train_launches, n_act = step(
+        'train (3 bf16 steps)', lambda: _train_detector(
+            device, params, torch.bfloat16, len(images), steps=3,
+            images=np.stack(images), targets=targets))
+    want = (0, 0, 0, 0, 3 * n_act, 3 * n_act)
+    if len(images) != 8 or not all(np.isfinite(losses)) or \
+            train_launches != want:
+        fail('training from the YOLO labels: {} images, losses {}, launches '
+             '(nms, conv, bottleneck, stem, E7, E7 backward) {}, want '
+             '{}'.format(len(images), losses, train_launches, want))
+    steps['6'] = time.time() - t0
+    counts['training targets'] = int(targets[2].sum())
+
+    total = tuple(a + b for a, b in zip(launches, train_launches[:5]))
+    print('phase 39 on {}: launches (nms, conv, bottleneck, stem, silu) '
+          'detection {}, training {}, E7 backward {}; LILA subset against '
+          'phase 38 over {} images: max conf error {:.4f}, max coord error '
+          '{:.4f}; training losses {}, step ms {}, {:.2f} GB peak; '
+          'counts {}'.format(
+              card, launches, train_launches[:5], train_launches[5],
+              parity['n_images_compared'], parity['max_conf_error'],
+              parity['max_coord_error'],
+              ['{:.4f}'.format(v) for v in losses],
+              ['{:.1f}'.format(v) for v in times], peak,
+              ', '.join('{} {}'.format(k, v) for k, v in counts.items())),
+          flush=True)
+    print('phase 39 on {}: seconds by step: {}; steps 1-4 {:.3f}, 5 {:.3f}, '
+          '6 {:.3f}; total {:.3f}'.format(
+              card, ', '.join('{} {:.3f}'.format(k, v)
+                              for k, v in seconds.items()),
+              steps['1-4'], steps['5'], steps['6'], time.time() - start),
+          flush=True)
+    return total, train_launches[5]
+
+
 def main():
     import numpy as np
     import torch
@@ -7216,6 +8078,20 @@ def main():
         stem_record['launches'] += counts[3]
         silu_record['launches'] += counts[4]
         print('phase 38 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 39. the data-format converters, from phase 38's database and
+        # detections
+        start = time.time()
+        counts, backward_launches = phase_data_formats(
+            device, workdir, workflow_path, threshold, card)
+        record['launches'] += counts[0]
+        conv_record['launches'] += counts[1]
+        bottleneck_record['launches'] += counts[2]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        backward_record['launches'] += backward_launches
+        print('phase 39 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

@@ -17,7 +17,8 @@ legacy .pb detector; the exported artifact, mAP evaluation, frame
 extraction, the URL helpers and the integration harness; the
 detection-postprocessing tools and plot_utils; the classifier-training
 workflow's host tools and the CCT database tools, whose TaxonNode route
-alone needs networkx). PIL is imported only once a file is decoded or
+alone needs networkx; the data-format converters, importers, image and
+OCR tools and the LILA tools). PIL is imported only once a file is decoded or
 drawn on; tensorflow only once a .pb detector is built, pandas only
 inside the functions that build data frames, matplotlib only inside the
 functions that plot. cv2 is not checked:
@@ -56,6 +57,15 @@ CLASSIFICATION_TOOLS = (
     'data_management.add_width_and_height_to_db',
     'data_management.subset_json_db', 'data_management.coco_tools',
     'data_management.cct_to_md')
+# The data-format converters, importers, image and OCR tools and the LILA
+# tools (data_management/<name>.py)
+DATA_FORMAT_TOOLS = (
+    'importers', 'animl_to_md', 'zamba_to_md', 'yolo_output_to_md_output',
+    'coco_to_yolo', 'yolo_to_coco', 'coco_to_labelme', 'labelme_to_coco',
+    'labelme_to_yolo', 'cct_to_wi', 'wi_download_csv_to_coco',
+    'camtrap_dp_to_coco', 'image_file_tools', 'ocr_tools', 'lila',
+    'lila.lila_common', 'lila.lila_reports', 'lila.download_lila_subset',
+    'lila.generate_lila_per_image_labels')
 PACKAGE_DIR = os.path.dirname(os.path.abspath(
     megadetector_tpu_torch.__file__))
 
@@ -190,7 +200,9 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                     for name in POSTPROCESSING_TOOLS} | {
                     'megadetector_tpu_torch.visualization.plot_utils'} | {
                     'megadetector_tpu_torch.' + name
-                    for name in CLASSIFICATION_TOOLS}
+                    for name in CLASSIFICATION_TOOLS} | {
+                    'megadetector_tpu_torch.data_management.' + name
+                    for name in DATA_FORMAT_TOOLS}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
@@ -585,4 +597,105 @@ def test_classification_and_cct_tools_run_without_jax_tqdm_or_networkx():
     assert report['mapping'] == {'cervid': ['d', 'e']}
     assert report['refusal'] is not None and 'networkx' in report['refusal']
     assert report['ok'] == 4
+    assert report['blocked'] == []
+
+
+_DATA_FORMATS = """
+import importlib, json, os, sys, tempfile
+# Importing any of these now raises ImportError
+for blocked in ('jax', 'megadetector_tpu', 'tqdm'):
+    sys.modules[blocked] = None
+import numpy as np
+from PIL import Image
+names = json.loads(sys.argv[1])
+for name in names:
+    importlib.import_module(name)
+from megadetector_tpu_torch.data_management import (
+    coco_to_labelme, coco_to_yolo, image_file_tools, importers,
+    labelme_to_yolo, ocr_tools, yolo_to_coco)
+from megadetector_tpu_torch.data_management.lila import lila_common
+
+
+def main():
+    tmp = tempfile.mkdtemp()
+    images = os.path.join(tmp, 'images')
+    rng = np.random.RandomState(0)
+    db = {'images': [], 'annotations': [], 'categories': [
+        {'id': 1, 'name': 'deer'}]}
+    for i in range(4):
+        name = 'cam{}/im{}.jpg'.format(i % 2, i)
+        os.makedirs(os.path.join(images, 'cam{}'.format(i % 2)),
+                    exist_ok=True)
+        Image.fromarray(rng.randint(0, 256, (30, 40, 3), np.uint8)).save(
+            os.path.join(images, name))
+        db['images'].append({'id': i, 'file_name': name, 'width': 40,
+                             'height': 30})
+        db['annotations'].append({'id': i, 'image_id': i, 'category_id': 1,
+                                  'bbox': [1, 2, 10, 12]})
+    db_file = os.path.join(tmp, 'db.json')
+    with open(db_file, 'w') as f:
+        json.dump(db, f)
+    yolo = os.path.join(tmp, 'yolo')
+    coco_to_yolo.coco_to_yolo(images, yolo, db_file)
+    back = yolo_to_coco.yolo_to_coco(yolo, os.path.join(yolo, 'classes.txt'))
+    coco_to_labelme.coco_to_labelme(db, images)
+    spawned = labelme_to_yolo.labelme_folder_to_yolo(
+        images, n_workers=2, use_threads=False)
+    renamed = image_file_tools.rename_images(
+        images, os.path.join(tmp, 'flat'), n_copy_workers=2)
+    md = importers.zamba_to_md(_zamba(tmp))
+    try:
+        ocr_tools.get_datetime_from_image(np.zeros((40, 40, 3), np.uint8))
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    print(json.dumps({
+        'boxes': len(back['annotations']),
+        'converted': [r['status'] for r in spawned['image_results']],
+        'renamed': len(renamed), 'zamba': len(md['images']),
+        'url': lila_common.lila_image_url({}, 'a/b.jpg'),
+        'refusal': refusal,
+        'blocked': [m for m in ('jax', 'megadetector_tpu', 'tqdm')
+                    if sys.modules[m] is not None]}))
+
+
+def _zamba(tmp):
+    path = os.path.join(tmp, 'zamba.csv')
+    with open(path, 'w') as f:
+        f.write('filepath,blank,deer\\na.mp4,0.2,0.8\\n')
+    return path
+
+
+if __name__ == '__main__':
+    sys.modules['pytesseract'] = None
+    main()
+"""
+
+
+def test_data_format_tools_run_without_jax_or_tqdm(tmp_path):
+    """The 19 data-format, importer, image, OCR and LILA modules import
+    with jax, the JAX package and tqdm made unimportable; coco_to_yolo,
+    yolo_to_coco, coco_to_labelme, labelme_folder_to_yolo (a spawned
+    pool), rename_images (threads), an importer and a LILA URL then run,
+    and ocr_tools without an engine raises RuntimeError."""
+
+    names = ['megadetector_tpu_torch.data_management.' + name
+             for name in DATA_FORMAT_TOOLS]
+    script = str(tmp_path / 'data_formats.py')
+    with open(script, 'w') as f:
+        f.write(_DATA_FORMATS)
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, script, json.dumps(names)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report['boxes'] == 4
+    assert report['converted'] == ['converted'] * 4
+    assert report['renamed'] == 4
+    assert report['zamba'] == 1
+    assert report['url'] == ('https://storage.googleapis.com/'
+                             'public-datasets-lila/a/b.jpg')
+    assert report['refusal'] is not None and 'OCR' in report['refusal']
     assert report['blocked'] == []
