@@ -182,11 +182,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      latency p50 / p90 / p99 over the window's requests, images/s over
      the window, mean batch fill; client.detect_folder
      writes a valid file;
- 25. the bias + SiLU backward kernel (E7 bwd) against its plain version
-     at every distinct shape of phases 26 and 27's bf16 forwards and at
-     l1's [8,128,240,320]: dx bit-identical, db within one bf16 step; ms
-     of kernel, plain version and aten.silu_backward, the bound; at l1's
-     shape also the kernel without a bias (no db);
+ 25. the bias + SiLU backward kernel (E7 bwd) against its plain version:
+     dx bit-identical over all 65,536 bf16 x (three seeded g and bias
+     draws, NCHW and channels_last, 16-byte aligned and not, with and
+     without a bias); at every distinct shape of phases 26 and 27's bf16
+     forwards and at l1's [8,128,240,320]: dx bit-identical, db equal to
+     silu_bf16_backward_bias_sum_ordered (the kernel's fixed order),
+     the same bits over three calls and within one bf16 step of the
+     plain version's; ms of kernel (back to back and replayed),
+     plain version and aten.silu_backward, the bound, the total a
+     training step; at l1's shape also the kernel without a bias (no db);
  26. detector training: yolov5l6 (nc 3, seed 0) at 1280x1280 on seeded
      uint8 images with 1-8 boxes each, bf16 at batch 8 and float32 at
      batch 8 (4 if 8 does not fit), 21 Adam steps (clip 5, lr 1e-5) on
@@ -4175,46 +4180,126 @@ def phase_serving(device, workdir, float_path, card):
     return counts
 
 
-def _training_silu_shapes():
-    """{[N, C, H, W]: launches per forward} of the bias + SiLU epilogue in
-    phase 26's bf16 yolov5l6 step (1280x1280, batch 8; l0 is a plain conv
-    on float input) and phase 27's efficientnetv2_s step (224 px, batch
-    64), plus l1's [8,128,240,320] at a 960x1280 canvas (the shape of
-    E7's record)."""
+def _training_silu_models():
+    """{model: {[N, C, H, W]: launches per forward}} of the bias + SiLU
+    epilogue in phase 26's bf16 yolov5l6 step (1280x1280, batch 8; l0 is a
+    plain conv on float input) and phase 27's efficientnetv2_s step (224
+    px, batch 64)."""
 
     from megadetector_tpu_torch.models import efficientnet, yolov5
 
-    shapes = {(8, 128, 240, 320): 0}
+    models = {'yolov5l6': {}, 'efficientnetv2_s': {}}
     for d in yolov5.activated_conv_shapes(
             yolov5.YoloV5Config('yolov5l6', 3), 1280, 1280, 8):
         key = (8, d['cout'], d['ho'], d['wo'])
-        shapes[key] = shapes.get(key, 0) + 1
+        models['yolov5l6'][key] = models['yolov5l6'].get(key, 0) + 1
     for key in efficientnet.activated_conv_shapes(
             efficientnet.EfficientNetConfig('efficientnetv2_s', 3, 224),
             224, 64):
-        shapes[key] = shapes.get(key, 0) + 1
+        counts = models['efficientnetv2_s']
+        counts[key] = counts.get(key, 0) + 1
+    return models
+
+
+def _training_silu_shapes():
+    """{[N, C, H, W]: launches per forward} of _training_silu_models' two
+    steps together, plus l1's [8,128,240,320] at a 960x1280 canvas (the
+    shape of E7's record)."""
+
+    shapes = {(8, 128, 240, 320): 0}
+    for counts in _training_silu_models().values():
+        for key, n in counts.items():
+            shapes[key] = shapes.get(key, 0) + n
     return shapes
 
 
+def _all_bf16_pairs(gen, layout, offset, device):
+    """(x, g, bias) for the exhaustive check: x holds every bf16 bit
+    pattern once, as [4, 16, 32, 32] in [layout] ('nchw' or
+    'channels_last'), g a seeded normal draw and bias [16] uniform in
+    [-1, 1); x and g start [offset] elements into their buffers (1: not
+    16-byte aligned, so the kernel takes its one-element path)."""
+
+    import torch
+
+    shape, nhwc = (4, 16, 32, 32), (4, 32, 32, 16)
+
+    def place(flat):
+        buf = torch.empty(flat.numel() + 8, dtype=torch.bfloat16,
+                          device=device)
+        buf[offset:offset + flat.numel()] = flat.to(device)
+        view = buf[offset:offset + flat.numel()]
+        if layout == 'nchw':
+            return view.view(shape)
+        return view.view(nhwc).permute(0, 3, 1, 2)
+
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    x = place(bits.view(torch.bfloat16))
+    g = place(torch.randn(65536, generator=gen).to(torch.bfloat16))
+    bias = (torch.rand(16, generator=gen) * 2 - 1).to(torch.bfloat16).to(
+        device)
+    return x, g, bias
+
+
 def phase_silu_backward(device):
-    """E7's backward kernel against its plain version at every distinct
-    shape of phases 26 and 27's bf16 forwards (channels_last, as their
-    convs give them): dx identical, db within one bf16 step; ms of the
-    kernel, the plain version and aten.silu_backward (no bias, one
+    """E7's backward kernel against its plain version: dx bit-identical
+    over all 65,536 bf16 x (three seeded g and bias draws, NCHW and
+    channels_last, 16-byte aligned and not, with and without a bias);
+    then at every distinct shape of phases 26 and 27's bf16 forwards
+    (channels_last, as their convs give them): dx identical, db equal to
+    silu_bf16_backward_bias_sum_ordered and the same bits over three
+    calls; ms of the kernel (back to back, and replayed from a CUDA
+    graph), the plain version and aten.silu_backward (no bias, one
     rounding) and the bound. Returns the record (at l1's shape)."""
 
     import torch
 
     from megadetector_tpu_torch.ops import silu_bf16
 
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
     def step(v):
         e = torch.floor(torch.log2(torch.clamp(v.abs().float(),
                                                min=2.0 ** -126)))
         return torch.pow(2.0, e - 7)
 
+    checked = 0
+    for seed in range(3):
+        for layout in ('nchw', 'channels_last'):
+            for offset in (0, 1):
+                gen = torch.Generator().manual_seed(25 + seed)
+                x, g, bias = _all_bf16_pairs(gen, layout, offset, device)
+                for b in (bias, None):
+                    dx, db = silu_bf16.silu_bf16_backward(g, x, b)
+                    torch.cuda.synchronize()
+                    ref, _ = silu_bf16.silu_bf16_backward_reference(g, x, b)
+                    if not same_bits(dx, ref):
+                        raise AssertionError(
+                            'E7 backward: dx differs from the plain version '
+                            'over all bf16 x ({}, offset {}, seed {}, {}): '
+                            '{} elements'.format(
+                                layout, offset, seed,
+                                'bias' if b is not None else 'no bias',
+                                int((dx.view(torch.int16) !=
+                                     ref.view(torch.int16)).sum())))
+                    if b is not None and not same_bits(
+                            db, silu_bf16.silu_bf16_backward_bias_sum_ordered(
+                                dx, aligned=offset == 0)):
+                        raise AssertionError(
+                            'E7 backward: db differs from the ordered sum '
+                            '({}, offset {}, seed {})'.format(layout, offset,
+                                                             seed))
+                    checked += 1
+    print('E7 backward == plain over all 65,536 bf16 x: dx bit-identical in '
+          '{} runs (3 seeds x NCHW / channels_last x 16-byte aligned / not '
+          'x bias / none; db equal to the ordered sum)'.format(checked),
+          flush=True)
+
     record = None
     max_err = 0.0
-    per_step_ms = 0.0
+    models = _training_silu_models()
+    per_step = {name: [0.0, 0.0] for name in models}
     for shape, per_forward in sorted(_training_silu_shapes().items()):
         gen = torch.Generator().manual_seed(sum(shape))
         x = (torch.randn(shape, generator=gen) * 3).to(torch.bfloat16).to(
@@ -4226,10 +4311,22 @@ def phase_silu_backward(device):
         dx, db = silu_bf16.silu_bf16_backward(g, x, bias)
         torch.cuda.synchronize()
         ref_dx, ref_db = silu_bf16.silu_bf16_backward_reference(g, x, bias)
-        if not torch.equal(dx.view(torch.int16), ref_dx.view(torch.int16)):
+        if not same_bits(dx, ref_dx):
             raise AssertionError(
                 'E7 backward: dx differs from the plain version at {} ({} '
                 'elements)'.format(shape, int((dx != ref_dx).sum())))
+        ordered = silu_bf16.silu_bf16_backward_bias_sum_ordered(dx)
+        if not same_bits(db, ordered):
+            raise AssertionError(
+                'E7 backward: db differs from the ordered sum at {} ({} of '
+                '{} channels)'.format(shape, int((db != ordered).sum()),
+                                      shape[1]))
+        for _ in range(2):
+            again_dx, again_db = silu_bf16.silu_bf16_backward(g, x, bias)
+            if not (same_bits(again_dx, dx) and same_bits(again_db, db)):
+                raise AssertionError('E7 backward: a repeated call gave '
+                                     'other bits at {}'.format(shape))
+        del again_dx, again_db
         d = (db.float() - ref_db.float()).abs()
         if not bool((d <= step(ref_db)).all()):
             raise AssertionError(
@@ -4239,6 +4336,7 @@ def phase_silu_backward(device):
         max_err = max(max_err, float(d.max()))
         ms = _time_ms(lambda: silu_bf16.silu_bf16_backward(g, x, bias),
                       reps=10)
+        graph_ms = _graph_ms(lambda: silu_bf16.silu_bf16_backward(g, x, bias))
         plain_ms = _time_ms(
             lambda: silu_bf16.silu_bf16_backward_reference(g, x, bias),
             reps=2, warmup=1)
@@ -4247,32 +4345,33 @@ def phase_silu_backward(device):
                           reps=10)
         n = x.numel()
         bound = _bound(6 * n + 4 * shape[1], 15 * n, F32_OPS_PER_MS)
-        per_step_ms += per_forward * ms
-        print('E7 backward == plain (dx bit-identical, db within one bf16 '
-              'step: {} of {} channels differ) at {} (x{} a step): kernel '
-              '{:.4f} ms, plain {:.4f} ms, aten.silu_backward {:.4f} ms, '
-              'bound {:.4f} ms ({}, {:.0%} of it)'.format(
-                  n_db, shape[1], list(shape), per_forward, ms, plain_ms,
-                  lib_ms, bound[0], bound[1], bound[0] / ms), flush=True)
+        for name, counts in models.items():
+            per_step[name][0] += counts.get(shape, 0) * ms
+            per_step[name][1] += counts.get(shape, 0) * graph_ms
+        print('E7 backward == plain (dx bit-identical; db equal to the '
+              'ordered sum and the same over 3 calls, {} of {} channels one '
+              'bf16 step from the plain version\'s) at {} (x{} a step): '
+              'kernel {:.4f} ms ({:.4f} replayed), plain {:.4f} ms, '
+              'aten.silu_backward {:.4f} ms, bound {:.4f} ms ({}, {:.0%} of '
+              'it)'.format(n_db, shape[1], list(shape), per_forward, ms,
+                           graph_ms, plain_ms, lib_ms, bound[0], bound[1],
+                           bound[0] / ms), flush=True)
         if shape == (8, 128, 240, 320):
-            # The same kernel without a bias takes the no-db path (no
-            # shared-memory atomics): what the db sums cost at this shape
+            # Without a bias: no db, so no sums and no bias pass
             nb_dx, _ = silu_bf16.silu_bf16_backward(g, x, None)
             torch.cuda.synchronize()
             nb_ref, _ = silu_bf16.silu_bf16_backward_reference(g, x, None)
-            if not torch.equal(nb_dx.view(torch.int16),
-                               nb_ref.view(torch.int16)):
+            if not same_bits(nb_dx, nb_ref):
                 raise AssertionError('E7 backward without a bias: dx '
                                      'differs from the plain version')
             nb_ms = _time_ms(lambda: silu_bf16.silu_bf16_backward(g, x),
                              reps=10)
             nb_bound = _bound(6 * n, 14 * n, F32_OPS_PER_MS)
             print('E7 backward == plain without a bias (dx bit-identical; '
-                  'no db, so no shared-memory atomics) at {}: kernel {:.4f} '
-                  'ms against {:.4f} ms with the bias; bound {:.4f} ms '
-                  '({:.0%} of it)'.format(list(shape), nb_ms, ms,
-                                          nb_bound[0], nb_bound[0] / nb_ms),
-                  flush=True)
+                  'no db) at {}: kernel {:.4f} ms against {:.4f} ms with '
+                  'the bias; bound {:.4f} ms ({:.0%} of it)'.format(
+                      list(shape), nb_ms, ms, nb_bound[0],
+                      nb_bound[0] / nb_ms), flush=True)
             del nb_dx, nb_ref
             record = {'name': 'silu_bf16_backward', 'route': 'cuda',
                       'source': SILU_SOURCE,
@@ -4280,12 +4379,17 @@ def phase_silu_backward(device):
                       'max_abs_err': None, 'ms': ms, 'plain_ms': plain_ms,
                       'bound_ms': bound[0], 'bound_by': bound[1],
                       'library_ms': lib_ms}
-        del x, g, bias, dx, db, ref_dx, ref_db, y
+        del x, g, bias, dx, db, ref_dx, ref_db, y, ordered
         torch.cuda.empty_cache()
     record['max_abs_err'] = max_err
     print('E7 backward: {:.3f} ms of kernel time per training step of the '
-          'two models together (each shape x its launches per forward)'
-          .format(per_step_ms), flush=True)
+          'two models together (each shape x its launches per forward; '
+          '{:.3f} ms replayed from CUDA graphs); {}'.format(
+              sum(v[0] for v in per_step.values()),
+              sum(v[1] for v in per_step.values()),
+              ', '.join('{} {:.3f} / {:.3f} ms ({} launches)'.format(
+                  name, v[0], v[1], sum(models[name].values()))
+                  for name, v in per_step.items())), flush=True)
     return record
 
 

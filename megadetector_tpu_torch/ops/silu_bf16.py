@@ -30,9 +30,15 @@ to the float32 parameter by autograd. (JAX's VJP sums in a bf16
 reduce_sum, which XLA on the CPU evaluates one element after another,
 rounding every addition; a parallel sum cannot follow that order, and
 rounding once is the more exact of the two: ROADMAP C, PR 14.)
+
+The kernel adds in a fixed partition and order of its own
+(backward_plan), so its db is the same bits on every call;
+silu_bf16_backward_bias_sum_ordered repeats that order in torch ops, for
+the tests and the card check. Its sigmoid comes from a table of (s, i)
+over every bf16 y, whose plain version is sigmoid_grad_table_reference.
 """
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,11 +49,28 @@ from megadetector_tpu_torch.ops import _build
 launches = 0
 backward_launches = 0
 
-# The backward kernel's per-channel sums live in shared memory (float32),
-# up to 48 KB of it
-MAX_BACKWARD_CHANNELS = 12288
-# Blocks of the backward kernel's grid-stride loop, at most
+# The backward kernel's partition (csrc/silu_bf16.cu, backward_plan):
+# threads a block; blocks at most (4 of 256 threads on each of the H100's
+# 132 SMs, all resident at once, so that each stages the sigmoid table
+# once); rows a thread of the rows kernel walks before another block is
+# added; units a thread takes of a planes-kernel tile; slices of the bias
+# pass
+BACKWARD_THREADS = 256
 BACKWARD_BLOCKS = 528
+BACKWARD_MIN_ROWS = 4
+BACKWARD_TILE_STEPS = 4
+BACKWARD_BIAS_SLICES = 64
+# Channels the backward takes: the rows kernel's grid has a column tile
+# for every 32 units of C, at most 65,535 (the sums live in registers and
+# in [blocks, C] scratch, not in shared memory)
+MAX_BACKWARD_CHANNELS = 1 << 20
+
+# The backward's (s, i) table: float bits of the largest bf16 below 2^-8
+# and of 128.0, and the entries of each sign (csrc/silu_bf16.cu kTableLo,
+# kTableHi, kTableHalf)
+SIGMOID_TABLE_LO = 0x3B7F0000
+SIGMOID_TABLE_HI = 0x43000000
+SIGMOID_TABLE_HALF = ((SIGMOID_TABLE_HI - SIGMOID_TABLE_LO) >> 16) + 1
 
 
 def _channel_view(bias, x):
@@ -102,6 +125,171 @@ def silu_bf16_backward_reference(g, x, bias=None):
         return dx, None
     dims = (0,) + tuple(range(2, x.dim()))
     return dx, dx.float().sum(dims).to(torch.bfloat16)
+
+
+def _bf16_from_bits(bits):
+    """bf16 tensor of int64 [bits] (0 .. 65535)."""
+
+    return (((bits + 32768) % 65536) - 32768).to(torch.int16).view(
+        torch.bfloat16)
+
+
+def _bf16_bits(t):
+    """int64 bit patterns (0 .. 65535) of a bf16 tensor."""
+
+    return t.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def sigmoid_grad_table_reference():
+    """
+    Plain version of the backward kernel's table: int64 [2 *
+    SIGMOID_TABLE_HALF], positive y first. Entry k of a sign holds the y
+    with float bits sign | (SIGMOID_TABLE_LO + (k << 16)); its value is
+    s's bf16 bits << 16 | i's, s = sigmoid_bf16_reference(y) and i = s *
+    (1 - s) in bf16. Entry 0 stands for every |y| below 2^-8, the last
+    for every |y| from 128 up.
+    """
+
+    k = torch.arange(SIGMOID_TABLE_HALF, dtype=torch.int64)
+    mag = (SIGMOID_TABLE_LO + (k << 16)) >> 16
+    y = _bf16_from_bits(torch.cat([mag, mag | 0x8000]))
+    s = sigmoid_bf16_reference(y)
+    i = s * (1 - s)
+    return (_bf16_bits(s) << 16) | _bf16_bits(i)
+
+
+def sigmoid_grad_lookup_reference(y, table):
+    """(s, i), bf16 tensors of [y]'s shape, read from [table] for the bf16
+    tensor [y] as the backward kernel reads them."""
+
+    bits = _bf16_bits(y) << 16
+    a = (bits & 0x7FFFFFFF).clamp(SIGMOID_TABLE_LO, SIGMOID_TABLE_HI)
+    e = table[((a - SIGMOID_TABLE_LO) >> 16) + (bits >> 31) *
+              SIGMOID_TABLE_HALF]
+    return _bf16_from_bits(e >> 16), _bf16_from_bits(e & 0xFFFF)
+
+
+class BackwardPlan(NamedTuple):
+    """The backward kernel's partition (csrc/silu_bf16.cu)."""
+
+    kind: str          # 'rows' (a bias, inner == 1) or 'planes'
+    width: int         # elements a unit: 8 (one 16-byte vector) or 1
+    blocks: int        # the grid's x size
+    cols: int          # rows: units a block covers across a row
+    lanes: int         # rows: rows a block walks side by side
+    segs: int          # planes: tiles a plane
+    partial_rows: int  # rows of the [partial_rows, C] float32 scratch
+
+
+def backward_plan(n, c, inner, has_bias, aligned=True):
+    """
+    The partition the backward kernel uses for a dense tensor of [n]
+    elements whose element i has channel (i / inner) % c, with or without
+    a bias; [aligned]: g, x and dx start on 16-byte boundaries.
+
+    With a bias and inner == 1 ([rows, c], channels_last): units of 8
+    channels (1 where c % 8 != 0 or not aligned), cols = min(units, 32)
+    of them across a block and lanes = 256 // cols rows side by side; a
+    block for every lanes * BACKWARD_MIN_ROWS rows, at most
+    BACKWARD_BLOCKS over all column tiles. Else planes (the (n, c) planes
+    of an NCHW tensor; without a bias one plane of all n): units of 8
+    where the plane allows it, tiles of BACKWARD_TILE_STEPS * 256 units,
+    at most BACKWARD_BLOCKS blocks.
+    """
+
+    if has_bias and inner == 1:
+        width = 8 if aligned and c % 8 == 0 else 1
+        units = c // width
+        cols = min(units, 32)
+        lanes = BACKWARD_THREADS // cols
+        col_tiles = -(-units // cols)
+        rows = n // c
+        blocks = max(1, min(BACKWARD_BLOCKS // col_tiles,
+                            -(-rows // (lanes * BACKWARD_MIN_ROWS))))
+        return BackwardPlan('rows', width, blocks, cols, lanes, 0, blocks)
+    plane = inner if has_bias else n
+    width = 8 if aligned and plane % 8 == 0 else 1
+    segs = -(-(plane // width) // (BACKWARD_TILE_STEPS * BACKWARD_THREADS))
+    planes = n // plane
+    return BackwardPlan('planes', width, min(BACKWARD_BLOCKS, planes * segs),
+                        0, 0, segs, planes // c * segs if has_bias else 0)
+
+
+def _tree_sum(v, dim):
+    """The kernels' fixed tree over [dim] of size L: at step s (from the
+    largest power of two below L down to 1) entry l < s adds entry l + s
+    where that exists; float32 additions, one at a time."""
+
+    v = v.movedim(dim, 0).clone()
+    size = v.shape[0]
+    s = 1
+    while s < size:
+        s <<= 1
+    s >>= 1
+    while s > 0:
+        m = min(s, size - s)
+        if m > 0:
+            v[:m] = v[:m] + v[s:s + m]
+        s >>= 1
+    return v[0]
+
+
+def _sum_in_order(v):
+    """v[0] + v[1] + ... in float32, in that order."""
+
+    total = torch.zeros_like(v[0])
+    for part in v:
+        total = total + part
+    return total
+
+
+def silu_bf16_backward_bias_sum_ordered(dx, aligned=True):
+    """
+    db as the backward kernel adds it from its own dx: the float32 sums
+    of backward_plan's partition in the kernel's order (each thread's
+    rows or tile units in order, the block's fixed tree, then the bias
+    pass's 64 slices and its tree), rounded once to bf16. [dx] bf16, 4-d,
+    contiguous or channels_last; [aligned] as for backward_plan. Only the
+    tests and the card check use it.
+    """
+
+    return _bias_sum_ordered_f32(dx, aligned).to(torch.bfloat16)
+
+
+def _bias_sum_ordered_f32(dx, aligned):
+    """silu_bf16_backward_bias_sum_ordered before its rounding: [C]
+    float32."""
+
+    layout = _layout(dx)
+    if layout is None:
+        raise ValueError('silu_bf16_backward_bias_sum_ordered: dx must be '
+                         '4-d, contiguous or channels_last')
+    c, inner = layout
+    plan = backward_plan(dx.numel(), c, inner, True, aligned)
+    d = dx.float()
+    if plan.kind == 'rows':
+        rows = d.permute(0, 2, 3, 1).reshape(-1, c)
+        stride = plan.blocks * plan.lanes
+        pad = -rows.shape[0] % stride
+        rows = torch.cat([rows, rows.new_zeros(pad, c)])
+        sums = _sum_in_order(rows.view(-1, plan.blocks, plan.lanes, c))
+        partials = _tree_sum(sums, 1)
+    else:
+        tile = BACKWARD_TILE_STEPS * BACKWARD_THREADS * plan.width
+        planes = d.reshape(dx.shape[0], c, inner)
+        planes = torch.cat([planes, planes.new_zeros(
+            dx.shape[0], c, plan.segs * tile - inner)], 2)
+        units = planes.view(dx.shape[0], c, plan.segs, BACKWARD_TILE_STEPS,
+                            BACKWARD_THREADS, plan.width)
+        sums = _sum_in_order(units.permute(3, 5, 0, 1, 2, 4).reshape(
+            -1, dx.shape[0], c, plan.segs, BACKWARD_THREADS))
+        warps = _tree_sum(sums.view(dx.shape[0], c, plan.segs,
+                                    BACKWARD_THREADS // 32, 32), 4)
+        partials = _tree_sum(warps, 3).permute(0, 2, 1).reshape(-1, c)
+    pad = -partials.shape[0] % BACKWARD_BIAS_SLICES
+    partials = torch.cat([partials, partials.new_zeros(pad, c)])
+    slices = _sum_in_order(partials.view(-1, BACKWARD_BIAS_SLICES, c))
+    return _tree_sum(slices, 0)
 
 
 def _is_dense(x):
@@ -287,10 +475,11 @@ def silu_bf16_backward(g, x, bias=None):
     dx in x's shape and memory format, db [C] bf16 (None without a bias).
 
     CPU tensors run silu_bf16_backward_reference. CUDA tensors run the
-    kernel md_silu_bf16_backward (one launch: dx and per-block float32
-    channel sums, then a pass that adds the blocks' sums in order and
-    rounds); anything else raises. A [g] whose strides differ from x's is
-    copied into x's layout first.
+    kernel md_silu_bf16_backward (one counted launch: dx and each block's
+    float32 channel sums in backward_plan's partition, then, with a bias,
+    a pass that adds them in a fixed order and rounds); anything else
+    raises. A [g] whose strides differ from x's is copied into x's layout
+    first.
     """
 
     global backward_launches
@@ -314,9 +503,10 @@ def silu_bf16_backward(g, x, bias=None):
         if db is not None:
             db.zero_()
         return dx, db
-    blocks = min(BACKWARD_BLOCKS, -(-x.numel() // 2048))
+    plan = backward_plan(x.numel(), c, inner, bias is not None,
+                         all(t.data_ptr() % 16 == 0 for t in (g, x, dx)))
     partials = None if bias is None else torch.empty(
-        (blocks, c), dtype=torch.float32, device=x.device)
+        (plan.partial_rows, c), dtype=torch.float32, device=x.device)
 
     lib = _build.load_library()
     with torch.cuda.device(x.device):
@@ -325,7 +515,8 @@ def silu_bf16_backward(g, x, bias=None):
             0 if bias is None else bias.data_ptr(), dx.data_ptr(),
             0 if bias is None else partials.data_ptr(),
             0 if bias is None else db.data_ptr(), x.numel(), int(c),
-            int(inner), blocks, torch.cuda.current_stream().cuda_stream)
+            int(inner), plan.width, plan.blocks, plan.cols, plan.lanes,
+            plan.segs, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, 'md_silu_bf16_backward')
     backward_launches += 1
     return dx, db

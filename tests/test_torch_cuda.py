@@ -1087,11 +1087,14 @@ def _bf16_step(v):
 @pytest.mark.parametrize('shape,layout', [
     ((8, 128, 60, 80), 'channels_last'),
     ((4, 96, 17, 23), 'nchw'),
-    ((64, 1536, 1, 1), 'se')])
+    ((64, 1536, 1, 1), 'se'),
+    ((8, 60, 20, 20), 'channels_last')])
 def test_silu_backward_kernel_identical_to_plain(cuda_device, shape, layout):
     """E7's backward kernel against silu_bf16_backward_reference on the
-    card: dx bit-identical, db within one bf16 step of the plain version's
-    (float32 partial sums in another order, rounded once); one launch."""
+    card: dx bit-identical; db equal to
+    silu_bf16_backward_bias_sum_ordered (the kernel's fixed partition and
+    order) and the same bits over repeated calls; one launch. (8, 60, 20,
+    20) has C % 8 != 0: one channel a thread."""
 
     gen = torch.Generator().manual_seed(sum(shape))
     x = (torch.randn(shape, generator=gen) * 3).to(torch.bfloat16)
@@ -1108,6 +1111,12 @@ def test_silu_backward_kernel_identical_to_plain(cuda_device, shape, layout):
     assert dx.stride() == x.stride()
     ref_dx, ref_db = silu_bf16.silu_bf16_backward_reference(g, x, bias)
     assert torch.equal(dx.view(torch.int16), ref_dx.view(torch.int16))
+    ordered = silu_bf16.silu_bf16_backward_bias_sum_ordered(dx)
+    assert torch.equal(db.view(torch.int16), ordered.view(torch.int16))
+    for _ in range(3):
+        again_dx, again_db = silu_bf16.silu_bf16_backward(g, x, bias)
+        assert torch.equal(again_dx.view(torch.int16), dx.view(torch.int16))
+        assert torch.equal(again_db.view(torch.int16), db.view(torch.int16))
     assert bool(((db.float() - ref_db.float()).abs() <=
                  _bf16_step(ref_db)).all())
     # without a bias: dx only
@@ -1122,6 +1131,42 @@ def test_silu_backward_kernel_identical_to_plain(cuda_device, shape, layout):
     torch.cuda.synchronize()
     assert silu_bf16.backward_launches == before + 1
     assert torch.equal(xg.grad.view(torch.int16), ref_dx.view(torch.int16))
+
+
+@pytest.mark.parametrize('layout', ['nchw', 'channels_last'])
+@pytest.mark.parametrize('offset', [0, 1])
+def test_silu_backward_kernel_all_bf16_inputs(cuda_device, layout, offset):
+    """dx over all 65,536 bf16 x on the card, with a bias and without,
+    bit-identical to the plain version (NaN bits included): the (s, i)
+    table covers every y. offset 1 puts x and g off a 16-byte boundary
+    (one element a thread)."""
+
+    shape = (4, 16, 32, 32)
+    gen = torch.Generator().manual_seed(7 + offset)
+
+    def place(flat):
+        buf = torch.empty(flat.numel() + 8, dtype=torch.bfloat16,
+                          device=cuda_device)
+        buf[offset:offset + flat.numel()] = flat.to(cuda_device)
+        view = buf[offset:offset + flat.numel()]
+        if layout == 'nchw':
+            return view.view(shape)
+        return view.view(4, 32, 32, 16).permute(0, 3, 1, 2)
+
+    x = place(torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16))
+    g = place(torch.randn(65536, generator=gen).to(torch.bfloat16))
+    bias = (torch.rand(16, generator=gen) * 2 - 1).to(torch.bfloat16).to(
+        cuda_device)
+    for b in (bias, None):
+        dx, db = silu_bf16.silu_bf16_backward(g, x, b)
+        ref, _ = silu_bf16.silu_bf16_backward_reference(g, x, b)
+        assert torch.equal(dx.view(torch.int16), ref.view(torch.int16))
+        if b is not None:
+            assert torch.equal(
+                db.view(torch.int16),
+                silu_bf16.silu_bf16_backward_bias_sum_ordered(
+                    dx, aligned=offset == 0).view(torch.int16))
 
 
 def _grads_l2(model_a, model_b, ref):

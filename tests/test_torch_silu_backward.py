@@ -20,7 +20,17 @@ megadetector_tpu/models/yolov5.py _conv computes it with dtype bf16:
   bf16(float32 sum of JAX's own dx), and is no further from the exact
   (float64) sum of dx than JAX's db is, plus one bf16 step;
 - silu_bf16 under autograd: its gradients are the plain backward's, the
-  forward's bits are the no-grad call's, and out= is refused.
+  forward's bits are the no-grad call's, and out= is refused;
+- the kernel's (s, i) table (sigmoid_grad_table_reference and the
+  kernel's lookup, sigmoid_grad_lookup_reference) over all 65,536 bf16
+  y: the plain chain's bits, and jax.nn.sigmoid's under the subnormal
+  rule above; dx through the table equal to the plain dx;
+- the kernel's db order: silu_bf16_backward_bias_sum_ordered equal to a
+  thread-by-thread walk of the kernels' loops (csrc/silu_bf16.cu: the
+  rows kernel, the planes kernel, the bias pass) at small shapes, and
+  held to JAX's db by the bars above (NCHW, channels_last, C of 24, 80
+  and 1536 at H = W = 1); backward_plan's grids within the card's
+  limits.
 """
 
 import numpy as np
@@ -214,3 +224,275 @@ def test_no_grad_call_is_unchanged():
     assert not y.requires_grad and y.grad_fn is None
     assert torch.equal(y.view(torch.int16), silu_bf16.silu_bf16_reference(
         x, bias.detach()).view(torch.int16))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16)
+
+
+def test_sigmoid_grad_table_exhaustive_vs_jax():
+    """The table's (s, i) for every bf16 y: the plain chain's bits (NaN y
+    reads an outside entry: see test_table_dx_equals_plain_dx), and
+    JAX's sigmoid and s * (1 - s) in bf16 outside the elements where an
+    intermediate is subnormal (XLA on the CPU flushes those; the flushed
+    chain gives JAX's bits there)."""
+
+    y = _all_bf16((65536,))
+    table = silu_bf16.sigmoid_grad_table_reference()
+    assert table.shape == (2 * silu_bf16.SIGMOID_TABLE_HALF,) == (3844,)
+    s, i = silu_bf16.sigmoid_grad_lookup_reference(y, table)
+    ref_s = silu_bf16.sigmoid_bf16_reference(y)
+    ref_i = ref_s * (1 - ref_s)
+    nan = torch.isnan(y.float())
+    assert int(nan.sum()) == 254
+    assert torch.equal(_bits(s)[~nan], _bits(ref_s)[~nan])
+    assert torch.equal(_bits(i)[~nan], _bits(ref_i)[~nan])
+    # every |y| < 2^-8 is (0.5, 0.25), y >= 128 (1, 0), y <= -128 (0, 0)
+    a = y.float().abs()
+    assert bool((s[a < 2.0 ** -8].float() == 0.5).all())
+    assert bool((i[a < 2.0 ** -8].float() == 0.25).all())
+    assert bool((s[y.float() >= 128].float() == 1).all())
+    assert bool((s[y.float() <= -128].float() == 0).all())
+    assert bool((i[a >= 128].float() == 0).all())
+
+    yj = jnp.asarray(y.float().numpy()).astype(jnp.bfloat16)
+    sj = jax.nn.sigmoid(yj)
+    ij = sj * (1 - sj)
+    sj = torch.from_numpy(np.array(sj.astype(jnp.float32))).to(
+        torch.bfloat16)
+    ij = torch.from_numpy(np.array(ij.astype(jnp.float32))).to(
+        torch.bfloat16)
+    e = torch.exp(-y)
+    d = 1 + e
+    sub = _subnormal(y) | _subnormal(e) | _subnormal(d) | \
+        _subnormal(ref_s) | _subnormal(1 - ref_s) | _subnormal(ref_i)
+    keep = ~nan & ~sub
+    assert torch.equal(_bits(s)[keep], _bits(sj)[keep])
+    assert torch.equal(_bits(i)[keep], _bits(ij)[keep])
+    fs = _ftz(torch.reciprocal(_ftz(1 + _ftz(torch.exp(-_ftz(y))))))
+    fi = _ftz(fs * _ftz(1 - fs))
+    assert bool(((fs.float() == sj.float()) | (_bits(fs) == _bits(sj)))[
+        ~nan].all())
+    assert bool(((fi.float() == ij.float()) | (_bits(fi) == _bits(ij)))[
+        ~nan].all())
+    # measured: the subnormal y (254) and y where s underflows
+    assert int((sub & ~nan).sum()) <= 600
+
+
+@pytest.mark.parametrize('with_bias', [True, False])
+def test_table_dx_equals_plain_dx(with_bias):
+    """dx from the table's (s, i), rounded where the kernel rounds, equals
+    the plain chain's dx over all 65,536 bf16 x (NaN where it is NaN)."""
+
+    shape = (4, 16, 32, 32)
+    x = _all_bf16(shape)
+    rng = np.random.RandomState(11)
+    g = _draw(rng, shape, 1.0)
+    bias = _draw(rng, (16,), 0.5) if with_bias else None
+    y = x if bias is None else x + silu_bf16._channel_view(bias, x)
+    s, i = silu_bf16.sigmoid_grad_lookup_reference(
+        y, silu_bf16.sigmoid_grad_table_reference())
+    dx = g * s + (y * g) * i
+    ref, _ = silu_bf16.silu_bf16_backward_reference(g, x, bias)
+    nan = torch.isnan(ref.float())
+    assert torch.equal(torch.isnan(dx.float()), nan)
+    assert torch.equal(_bits(dx)[~nan], _bits(ref)[~nan])
+
+
+def _walk_rows(d, plan):
+    """partials [blocks, c] of the rows kernel, thread by thread: d
+    float32 [rows, c]."""
+
+    rows, c = d.shape
+    width, cols, lanes = plan.width, plan.cols, plan.lanes
+    units = c // width
+    stride = plan.blocks * lanes
+    partials = np.zeros((plan.blocks, c), np.float32)
+    for bx in range(plan.blocks):
+        for by in range(-(-units // cols)):
+            for col in range(cols):
+                unit = by * cols + col
+                if unit >= units:
+                    continue
+                chans = slice(unit * width, (unit + 1) * width)
+                red = []
+                for lane in range(lanes):
+                    total = np.zeros(width, np.float32)
+                    r = bx * lanes + lane
+                    while r < rows:
+                        total = total + d[r, chans]
+                        r += stride
+                    red.append(total)
+                s = 1
+                while s < lanes:
+                    s <<= 1
+                s >>= 1
+                while s > 0:
+                    for lane in range(min(s, lanes - s)):
+                        red[lane] = red[lane] + red[lane + s]
+                    s >>= 1
+                partials[bx, chans] = red[0]
+    return partials
+
+
+def _walk_planes(d, plan):
+    """partials [N * segs, c] of the planes kernel, thread by thread: d
+    float32 [N, c, inner]."""
+
+    n_img, c, inner = d.shape
+    width, segs = plan.width, plan.segs
+    threads, steps = silu_bf16.BACKWARD_THREADS, \
+        silu_bf16.BACKWARD_TILE_STEPS
+    plane_units = inner // width
+    partials = np.zeros((n_img * segs, c), np.float32)
+    for p in range(n_img * c):
+        plane = d[p // c, p % c]
+        for seg in range(segs):
+            begin = seg * threads * steps
+            end = min(plane_units, begin + threads * steps)
+            sums = np.zeros(threads, np.float32)
+            for t in range(threads):
+                total = np.float32(0)
+                for j in range(steps):
+                    u = begin + t + j * threads
+                    if u < end:
+                        for k in range(width):
+                            total = np.float32(total + plane[u * width + k])
+                sums[t] = total
+            v = sums.reshape(threads // 32, 32).copy()
+            for s in (16, 8, 4, 2, 1):
+                v[:, :s] = v[:, :s] + v[:, s:2 * s]
+            w = v[:, 0].copy()
+            for s in (4, 2, 1):
+                w[:s] = w[:s] + w[s:2 * s]
+            partials[(p // c) * segs + seg, p % c] = w[0]
+    return partials
+
+
+def _walk_bias_pass(partials):
+    """db [c] of the bias pass before its rounding (float32), slice by
+    slice."""
+
+    rows, c = partials.shape
+    slices = silu_bf16.BACKWARD_BIAS_SLICES
+    db = np.zeros(c, np.float32)
+    for ch in range(c):
+        red = np.zeros(slices, np.float32)
+        for sl in range(slices):
+            total = np.float32(0)
+            for r in range(sl, rows, slices):
+                total = np.float32(total + partials[r, ch])
+            red[sl] = total
+        s = slices // 2
+        while s > 0:
+            red[:s] = red[:s] + red[s:2 * s]
+            s >>= 1
+        db[ch] = red[0]
+    return torch.from_numpy(db)
+
+
+@pytest.mark.parametrize('shape,layout,aligned,kind,width', [
+    ((2, 256, 10, 10), 'channels_last', True, 'rows', 8),
+    ((1, 24, 30, 30), 'channels_last', True, 'rows', 8),
+    ((1, 520, 4, 5), 'channels_last', True, 'rows', 8),
+    ((1, 40, 12, 12), 'channels_last', False, 'rows', 1),
+    ((5, 24, 1, 1), 'nchw', True, 'rows', 8),
+    ((1, 2, 96, 96), 'nchw', True, 'planes', 8),
+    ((2, 3, 7, 9), 'nchw', True, 'planes', 1)])
+def test_ordered_sum_follows_the_kernel_loops(shape, layout, aligned, kind,
+                                              width):
+    """silu_bf16_backward_bias_sum_ordered, bit for bit, against a walk of
+    the kernels' own loops: several blocks, lanes not a power of two
+    (C = 24: 85 lanes), a partly filled column tile (C = 520), one
+    channel a thread, two tiles a plane, one element a unit."""
+
+    rng = np.random.RandomState(sum(shape))
+    # exponents spread over 2^-20 .. 2^20, so that float32 sums round and
+    # their order shows in the bits
+    dx = torch.from_numpy((rng.standard_normal(shape) * 2.0 ** rng.randint(
+        -20, 21, shape)).astype(np.float32)).to(torch.bfloat16)
+    if layout == 'channels_last':
+        dx = dx.contiguous(memory_format=torch.channels_last)
+    c, inner = silu_bf16._layout(dx)
+    plan = silu_bf16.backward_plan(dx.numel(), c, inner, True, aligned)
+    assert (plan.kind, plan.width) == (kind, width)
+    d = dx.float()
+    if kind == 'rows':
+        partials = _walk_rows(d.permute(0, 2, 3, 1).reshape(-1, c).numpy(),
+                              plan)
+        assert plan.blocks > 1 or shape[1] in (520, 24)
+    else:
+        partials = _walk_planes(d.reshape(shape[0], c, inner).numpy(), plan)
+    assert partials.shape == (plan.partial_rows, c)
+    want = _walk_bias_pass(partials)
+    got = silu_bf16._bias_sum_ordered_f32(dx, aligned)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(
+        _bits(silu_bf16.silu_bf16_backward_bias_sum_ordered(dx, aligned)),
+        _bits(want.to(torch.bfloat16)))
+    # the order shows: float32 sums in another order give other bits
+    assert not torch.equal(got.view(torch.int32),
+                           d.sum((0, 2, 3)).view(torch.int32))
+
+
+@pytest.mark.parametrize('layout', ['nchw', 'channels_last'])
+@pytest.mark.parametrize('shape', [(2, 24, 9, 11), (4, 16, 32, 32),
+                                   (2, 40, 20, 20), (64, 24, 1, 1),
+                                   (64, 80, 1, 1), (64, 1536, 1, 1)])
+def test_ordered_bias_sum_against_jax(shape, layout):
+    """The kernel's db (its order, from the plain dx, which is JAX's) held
+    to JAX's VJP: within one bf16 step of bf16(float32 sum of JAX's dx),
+    and no further from the exact (float64) sum than JAX's db plus one
+    step. Both 16-byte paths (aligned and not)."""
+
+    rng = np.random.RandomState(sum(shape) + 1)
+    x = _draw(rng, shape, 3.0)
+    g = _draw(rng, shape, 1.0)
+    bias = _draw(rng, (shape[1],), 0.5)
+    ref_dx, ref_db = _jax_vjp(x, bias, g)
+    if layout == 'channels_last':
+        x = x.contiguous(memory_format=torch.channels_last)
+        g = g.contiguous(memory_format=torch.channels_last)
+    dx, _ = silu_bf16.silu_bf16_backward_reference(g, x, bias)
+    assert _check_dx(g, x, bias, dx, ref_dx) == 0
+    f32 = ref_dx.float().sum((0, 2, 3)).to(torch.bfloat16).float().numpy()
+    exact = dx.double().sum((0, 2, 3)).numpy()
+    for aligned in (True, False):
+        ours = silu_bf16.silu_bf16_backward_bias_sum_ordered(
+            dx, aligned=aligned).float().numpy()
+        assert np.all(np.abs(ours - f32) <= _bf16_step(f32))
+        assert np.all(np.abs(ours - exact) <=
+                      np.abs(ref_db - exact) + _bf16_step(exact))
+
+
+def test_backward_plan_within_the_card_limits():
+    """Every plan's block fits 256 threads, its grid the card's limits and
+    BACKWARD_BLOCKS resident blocks, and every row / tile is some block's,
+    across the layouts, widths and the channel limit."""
+
+    cases = [(8 * 128 * 240 * 320, 128, 1), (64 * 1536 * 49, 1536, 1),
+             (64 * 16, 16, 1), (8 * 1024 * 400, 1024, 1),
+             (4 * 96 * 391, 96, 391), (8 * 128 * 76800, 128, 76800),
+             (silu_bf16.MAX_BACKWARD_CHANNELS * 3,
+              silu_bf16.MAX_BACKWARD_CHANNELS, 1)]
+    for n, c, inner in cases:
+        for has_bias in (True, False):
+            for aligned in (True, False):
+                plan = silu_bf16.backward_plan(n, c, inner, has_bias,
+                                               aligned)
+                assert plan.blocks >= 1
+                if plan.kind == 'rows':
+                    units = c // plan.width
+                    col_tiles = -(-units // plan.cols)
+                    assert plan.cols * plan.lanes <= 256
+                    assert col_tiles <= 65535
+                    assert plan.blocks * col_tiles <= max(
+                        silu_bf16.BACKWARD_BLOCKS, col_tiles)
+                    assert plan.partial_rows == plan.blocks
+                else:
+                    plane = inner if has_bias else n
+                    tile = silu_bf16.BACKWARD_TILE_STEPS * 256
+                    assert plan.segs * tile >= plane // plan.width
+                    assert plan.blocks <= silu_bf16.BACKWARD_BLOCKS
+                    assert plan.partial_rows == (
+                        n // plane // c * plan.segs if has_bias else 0)
