@@ -329,6 +329,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      truncated JPEG; nothing after the detector launches a kernel of ours;
      seconds by step, launches, crops, candidates, merged detections. Its
      launches join the B1, B4 and E7 records.
+ 39. the data-format converters, importers, image tools and LILA tools
+     from phase 38's database and detections, a LILA subset over loopback
+     through the card, three bf16 training steps from the YOLO labels
+     (phase_data_formats has the list). Its launches join the B1, B4, E7
+     and E7 backward records.
+ 40. the Wildlife Insights and SpeciesNet results layer and the WI
+     download workflow: run_md_and_speciesnet over phase 28's 64 JPEGs
+     with phase 28's yolov5l6 and phase 23's EfficientNetV2-M in bf16,
+     the ensemble on (B1, B4, E7, launches exact); the card's results to
+     predictions.json and back (instances, 4 batches merged, an ensemble
+     file with geofencing through TaxonomyHandler,
+     generate_md_results_from_predictions_json and the speciesnet_to_md
+     CLI byte-identical, wi_predictions_to_md, find_geofence_adjustments,
+     map_lila_taxonomy_to_wi); four WI payloads an image validated and
+     pushed in 4 threads with an auth token to a loopback server, each
+     received once; a WI download bundle from phase 38's database through
+     prepare_project_downloads, its scripts run with a stub gcloud, the
+     completion check, thumbnails, COCO, the visualize_db preview,
+     samples, directory_listing and split_locations_into_train_val
+     (phase_wildlife_insights has the list); seconds by step. Its
+     launches join the B1, B4 and E7 records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -7869,6 +7890,874 @@ def phase_data_formats(device, workdir, workflow_path, threshold, card):
     return total, train_launches[5]
 
 
+#%% 40: the Wildlife Insights and SpeciesNet results layer and the WI
+#%% download workflow
+
+# Phase 40's WI project and its stand-in bucket
+WI_PROJECT_ID = 2013431
+WI_BUCKET = 'wi-smoke-bucket'
+WI_API_HOST = 'https://api.wildlifeinsights.org'
+# The country the phase's geofence rules are asked about
+WI_COUNTRY = 'USA'
+
+# `gcloud storage cp [-r] [--no-clobber] SRC DST` for the download
+# scripts: gs://<bucket>/<path> is <root>/<bucket>/<path>; a folder is
+# copied into DST under its own name; every object copied is logged, one
+# line a copy (@PYTHON@ and @ROOT@ filled in by the phase)
+_GCLOUD_STUB = """#!@PYTHON@
+import os, shutil, sys
+args = sys.argv[1:]
+if args[:2] != ['storage', 'cp'] or len(args) < 4:
+    sys.exit(2)
+flags, (src, dst) = args[2:-2], args[-2:]
+if set(flags) - {'-r', '--no-clobber'} or not src.startswith('gs://'):
+    sys.exit(2)
+root = '@ROOT@'
+path = os.path.join(root, src[len('gs://'):])
+if not os.path.exists(path):
+    sys.exit(1)
+if os.path.isdir(path):
+    if '-r' not in flags:
+        sys.exit(1)
+    pairs = []
+    top = os.path.join(dst, os.path.basename(os.path.normpath(path)))
+    for base, _, files in os.walk(path):
+        for f in files:
+            full = os.path.join(base, f)
+            pairs.append((full, os.path.join(top, os.path.relpath(full,
+                                                                  path))))
+else:
+    pairs = [(path, dst)]
+for source, target in pairs:
+    if '--no-clobber' in flags and os.path.exists(target):
+        continue
+    os.makedirs(os.path.dirname(os.path.abspath(target)), exist_ok=True)
+    shutil.copyfile(source, target)
+    with open(os.path.join(root, 'copies.log'), 'a') as log:
+        log.write('gs://' + os.path.relpath(source, root) + '\\n')
+"""
+
+
+class _WIRecordingServer:
+    """A ThreadingHTTPServer on 127.0.0.1 (a free port) that records each
+    POST (path, headers, JSON body): {'token': [token]} on paths ending in
+    /token, {'ok': true} elsewhere. A context manager; [url] is its
+    base."""
+
+    def __init__(self, token):
+        import http.server
+        import threading
+
+        self.requests = []
+        lock = threading.Lock()
+        requests = self.requests
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers['Content-Length']))
+                with lock:
+                    requests.append((self.path, dict(self.headers),
+                                     json.loads(body)))
+                data = json.dumps(
+                    {'token': token} if self.path.endswith('/token')
+                    else {'ok': True}).encode()
+                self.send_response(200)
+                self.send_header('Content-Type', 'application/json')
+                self.send_header('Content-Length', str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(('127.0.0.1', 0),
+                                                     Handler)
+        self.url = 'http://127.0.0.1:{}'.format(self.httpd.server_port)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def _wi_taxonomy(out, class_names, blocked):
+    """The phase's WI taxonomy release over the classifier's class names
+    (each a species-level prediction string) with a family-level string
+    for each family among them, and its geofencing: a third of the
+    species and those in [blocked] blocked in the USA, the first 200 of
+    the next third allowed in the USA and Canada only, the rest without a
+    rule. Returns (the taxonomy file, the geofence file, the country-code
+    file, the family strings, the taxa allowed in the USA)."""
+
+    families = {}
+    for name in class_names:
+        tokens = name.split(';')
+        families.setdefault(tokens[3], 'f{:07x};{};{};{};;;{}'.format(
+            len(families), tokens[1], tokens[2], tokens[3], tokens[3]))
+    taxonomy_file = os.path.join(out, 'wi_taxonomy.txt')
+    with open(taxonomy_file, 'w') as f:
+        f.write('\n'.join(list(class_names) + list(families.values())) +
+                '\n')
+    rules = {}
+    for i, name in enumerate(class_names):
+        five = ';'.join(name.split(';')[1:6])
+        if i % 3 == 0:
+            rules[five] = {'block': {'USA': []}}
+        elif i % 3 == 1 and i < 600:
+            rules[five] = {'allow': {'USA': [], 'CAN': []}}
+        if name in blocked:
+            rules[five] = {'block': {'USA': []}}
+    geofence_file = os.path.join(out, 'geofence.json')
+    with open(geofence_file, 'w') as f:
+        json.dump(rules, f)
+    codes_file = os.path.join(out, 'country_codes.csv')
+    with open(codes_file, 'w') as f:
+        f.write('name,alpha-2,alpha-3\nUnited States of America,US,USA\n'
+                'Canada,CA,CAN\nAustralia,AU,AUS\n')
+    allowed = sorted(k for k, v in rules.items() if 'allow' in v)
+    return taxonomy_file, geofence_file, codes_file, families, allowed
+
+
+def _wi_classes(im, descriptions):
+    """[(class string, score)] of the top (by confidence) classified
+    detection of [im], scores descending, or None."""
+
+    classified = [d for d in im['detections'] or []
+                  if d.get('classifications')]
+    if not classified:
+        return None
+    top = max(classified, key=lambda d: d['conf'])
+    return sorted(((descriptions[c], score)
+                   for c, score in top['classifications']),
+                  key=lambda cs: -cs[1])
+
+
+def _wi_ensemble_file(predictions, data, handler, path):
+    """An ensemble-format predictions.json from the card's two-stage
+    results: each image's detections ([predictions], MD -> SpeciesNet),
+    its 'classifications' the top classified detection's (the ensemble's
+    strings, scores descending; blank at 1.0 where no detection was
+    classified), and its 'prediction' the first class allowed in
+    WI_COUNTRY under [handler]'s geofencing, else the top class's parent
+    (SpeciesNet's geofence rollup). Returns the file's dict."""
+
+    from megadetector_tpu_torch.utils import ct_utils
+    from megadetector_tpu_torch.utils.wi_taxonomy_utils import \
+        blank_prediction_string
+
+    descriptions = data['classification_category_descriptions']
+    out = []
+    for p, im in zip(predictions['predictions'], data['images']):
+        p = dict(p)
+        pairs = _wi_classes(im, descriptions)
+        if pairs:
+            allowed = [cs for cs in pairs
+                       if handler.species_allowed_in_country(cs[0],
+                                                             WI_COUNTRY)]
+            prediction, score = allowed[0] if allowed else (
+                handler.parent_string(pairs[0][0]), pairs[0][1])
+        else:
+            pairs = [(blank_prediction_string, 1.0)]
+            prediction, score = pairs[0]
+        p['classifications'] = {'classes': [c for c, _ in pairs],
+                                'scores': [s for _, s in pairs]}
+        p['prediction'] = prediction
+        p['prediction_score'] = score
+        p['prediction_source'] = 'ensemble'
+        out.append(p)
+    ensemble = {'predictions': out}
+    ct_utils.write_json(path, ensemble, force_str=True)
+    return ensemble
+
+
+def _wi_two_stage(device, folder, classifier_path, workflow_path, threshold,
+                  out, card, fail):
+    """run_md_and_speciesnet over [folder] with phase 28's yolov5l6 in bf16
+    (pad_batches_to 8) at [threshold] for output and classification and
+    the EfficientNetV2-M at [classifier_path] in bf16, the ensemble on;
+    launches exact (_expected_launches, and 147 bias + SiLU launches a
+    classifier forward). Returns (the results file, its dict, (nms, conv,
+    bottleneck, stem, silu), classifier forwards, crops)."""
+
+    import math
+
+    import torch
+
+    from megadetector_tpu_torch.detection import run_md_and_speciesnet
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.models import efficientnet
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import ValidateBatchResultsOptions, validate_batch_results
+
+    detector = load_detector(workflow_path, device=device, detector_options={
+        'dtype': 'bfloat16', 'pad_batches_to': 8})
+    options = run_md_and_speciesnet.RunMDSpeciesNetOptions()
+    options.source = folder
+    options.output_file = os.path.join(out, 'speciesnet_results.json')
+    options.detector_model = detector
+    options.classification_model = classifier_path
+    options.classifier_options = {'dtype': 'bfloat16'}
+    options.detection_confidence_threshold_for_output = threshold
+    options.classification_confidence_threshold = threshold
+    options.apply_ensemble = True
+    options.device = device
+    before = _program_calls(detector)
+    programs = detector.programs_run
+    _reset_counts()
+    data = run_md_and_speciesnet.run_md_and_speciesnet(options)
+    counts = _counts()
+    forwards, _, selects, _ = _program_deltas(detector, before)
+    programs = detector.programs_run - programs
+    validation = ValidateBatchResultsOptions()
+    validation.raise_errors = True
+    validate_batch_results(options.output_file, options=validation)
+
+    crops = sum('classifications' in d for im in data['images']
+                for d in im['detections'] or [])
+    qualifying = sum(d['category'] == '1' and d['conf'] >= threshold
+                     for im in data['images'] for d in im['detections'] or [])
+    clf_forwards = math.ceil(crops / options.classifier_batch_size)
+    config = efficientnet.EfficientNetConfig(CLASSIFIER_ARCH,
+                                             num_classes=CLASSIFIER_CLASSES)
+    _, e7 = efficientnet.forward_launches(config, False, torch.bfloat16)
+    want = _expected_launches(detector, forwards, False, selects)
+    want = want[:4] + (want[4] + clf_forwards * e7,)
+    if counts != want or programs != sum(forwards.values()) or \
+            not 0 < crops <= qualifying or len(data['images']) != 64:
+        fail('run_md_and_speciesnet: launches (nms, conv, bottleneck, stem, '
+             'silu) {}, want {} ({} detection programs {}, {} selection '
+             'programs, {} classifier forwards); {} crops of {} qualifying '
+             'detections, {} images'.format(
+                 counts, want, programs, sorted(forwards.items()), selects,
+                 clf_forwards, crops, qualifying, len(data['images'])))
+    steps = options.step_seconds
+    print('phase 40 on {}: run_md_and_speciesnet (ensemble on) over {} JPEGs '
+          'at {:.4f}: {} crops classified in {} forwards of {}; launches '
+          '(nms, conv, bottleneck, stem, silu) {} as they imply ({} detection '
+          'programs {}, {} selection programs); seconds: detect {:.3f}, crop '
+          '{:.3f}, classify {:.3f}, total {:.3f}'.format(
+              card, len(data['images']), threshold, crops, clf_forwards,
+              options.classifier_batch_size, counts, programs,
+              sorted(forwards.items()), selects, steps['detect'],
+              steps['crop'], steps['classify'], steps['total']), flush=True)
+    del detector
+    torch.cuda.empty_cache()
+    return options.output_file, data, counts, clf_forwards, crops
+
+
+def _wi_results_layer(folder, results_file, data, class_names, out, step,
+                      fail):
+    """The results layer on the card's two-stage results (phase 40's step
+    2). Returns (the ensemble file's dict, the card's detections by
+    file, {name: count})."""
+
+    import collections
+    import csv
+
+    from megadetector_tpu_torch.data_management import speciesnet_to_md
+    from megadetector_tpu_torch.taxonomy_mapping import \
+        map_lila_taxonomy_to_wi_taxonomy as lila_to_wi
+    from megadetector_tpu_torch.utils import wi_taxonomy_utils as wtu
+    from megadetector_tpu_torch.utils import wi_utils
+
+    counts = {}
+    card = {im['file']: [(d['category'], d['conf'], d['bbox'])
+                         for d in im['detections'] or []]
+            for im in data['images']}
+
+    # a. MD results -> predictions.json, validated against the folder's
+    # instances; split into 4 batches and merged back
+    predictions_file = os.path.join(out, 'predictions.json')
+    predictions = step('predictions_from_md', lambda: (
+        wtu.generate_predictions_json_from_md_results(
+            results_file, predictions_file, base_folder=folder)))
+    instances_file = os.path.join(out, 'instances.json')
+    instances = step('instances', lambda: (
+        wtu.generate_instances_json_from_folder(
+            folder, country=WI_COUNTRY, admin1_region='CA',
+            output_file=instances_file)))
+    step('validate_predictions', lambda: wtu.validate_predictions_file(
+        predictions_file, instances_file))
+    want_paths = sorted(os.path.join(folder, im['file']).replace('\\', '/')
+                        for im in data['images'])
+    if sorted(p['filepath'] for p in predictions['predictions']) != \
+            want_paths or sorted(i['filepath'] for i in instances[
+                'instances']) != want_paths or any(
+                [(d['category'], d['conf'], d['bbox']) for d in
+                 p.get('detections', [])] != card[im['file']]
+                for p, im in zip(predictions['predictions'], data['images'])):
+        fail('predictions.json and instances.json do not carry the card\'s '
+             'images and detections')
+    batches = step('split_instances', lambda: (
+        wtu.split_instances_into_n_batches(instances_file, 4)))
+    by_path = {p['filepath']: p for p in predictions['predictions']}
+    shards = []
+    for i, batch in enumerate(batches):
+        with open(batch) as f:
+            paths = [inst['filepath'] for inst in json.load(f)['instances']]
+        shard = os.path.join(out, 'predictions_batch_{:03d}.json'.format(i))
+        with open(shard, 'w') as f:
+            json.dump({'predictions': [by_path[p] for p in paths]}, f)
+        shards.append(shard)
+    merged_file = os.path.join(out, 'predictions_merged.json')
+    merged = step('merge_predictions', lambda: (
+        wtu.merge_prediction_json_files(shards, merged_file)))
+    wtu.validate_predictions_file(merged_file, instances)
+    if len(batches) != 4 or sorted(
+            (json.dumps(p, sort_keys=True) for p in merged['predictions'])) \
+            != sorted(json.dumps(p, sort_keys=True)
+                      for p in predictions['predictions']):
+        fail('4 batches merged do not give predictions.json back')
+
+    # b. A taxonomy over the classifier's class names, its geofencing, and
+    # an ensemble-format predictions file from the card's classifications
+    # Every other species that tops an image's classifications is blocked
+    # in the USA as well, so that the geofence step changes some
+    tops = sorted({pairs[0][0] for pairs in (
+        _wi_classes(im, data['classification_category_descriptions'])
+        for im in data['images']) if pairs and pairs[0][0] in
+        set(class_names)})
+    taxonomy_file, geofence_file, codes_file, families, want_allowed = \
+        _wi_taxonomy(out, class_names, set(tops[::2]))
+    handler = step('taxonomy_handler', lambda: wtu.TaxonomyHandler(
+        taxonomy_file, geofencing_file=geofence_file,
+        country_code_file=codes_file))
+    allowed = step('taxa_allowed_in_usa', lambda: (
+        handler.find_taxa_allowed_in_region(WI_COUNTRY)))
+    name = class_names[4]
+    if allowed != want_allowed or handler.string_for_name(
+            name.split(';')[6]) != name or handler.string_for_name(
+                '{} {}'.format(*name.split(';')[4:6])) != name or \
+            len(handler.ancestor_chain(name)) != 4 or \
+            handler.species_allowed_in_country(class_names[3], WI_COUNTRY):
+        fail('TaxonomyHandler over the class names: {} taxa allowed in {} '
+             '(want {})'.format(len(allowed), WI_COUNTRY,
+                                len(want_allowed)))
+    ensemble_file = os.path.join(out, 'ensemble_predictions.json')
+    ensemble = step('ensemble_file', lambda: _wi_ensemble_file(
+        predictions, data, handler, ensemble_file))
+    wtu.validate_predictions_file(ensemble_file, instances)
+
+    # c. Back to MD results, through the function and through the CLI
+    md_file = os.path.join(out, 'md_from_ensemble.json')
+    md = step('md_from_predictions', lambda: (
+        wtu.generate_md_results_from_predictions_json(
+            ensemble_file, md_file, base_folder=folder)))
+    cli_file = os.path.join(out, 'md_from_ensemble_cli.json')
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.path.dirname(os.path.abspath(__file__)) + \
+        os.pathsep + env.get('PYTHONPATH', '')
+    cli = step('speciesnet_to_md_cli', lambda: subprocess.run(
+        [sys.executable, '-m', speciesnet_to_md.__name__, ensemble_file,
+         cli_file, '--base_folder', folder], env=env, capture_output=True,
+        text=True, timeout=120))
+    if cli.returncode != 0:
+        fail('the speciesnet_to_md CLI: {}'.format(cli.stderr[-800:]))
+    with open(md_file, 'rb') as a, open(cli_file, 'rb') as b:
+        if a.read() != b.read():
+            fail('the speciesnet_to_md CLI and '
+                 'generate_md_results_from_predictions_json differ')
+    fake = {k for k, v in md['detection_categories'].items()
+            if v == 'unknown'}
+    got = {im['file']: [(d['category'], d['conf'], d['bbox'])
+                        for d in im['detections'] or []
+                        if d['category'] not in fake]
+           for im in md['images']}
+    n_fake = sum(d['category'] in fake for im in md['images']
+                 for d in im['detections'] or [])
+    n_pred = sum(p['prediction'] != wtu.blank_prediction_string
+                 and not p['detections'] for p in ensemble['predictions'])
+    if got != card or n_fake != n_pred or any(
+            d.get('classifications', [[None]])[0][0] is None
+            for im in md['images'] for d in im['detections'] or []):
+        fail('predictions.json -> MD results does not give the card\'s '
+             'detections back ({} whole-image detections, {} non-blank '
+             'images without detections)'.format(n_fake, n_pred))
+    counts['whole-image detections'] = n_fake
+
+    # d. wi_predictions_to_md, and the geofence adjustments against a
+    # direct count
+    wi_md = step('wi_predictions_to_md', lambda: (
+        wi_utils.wi_predictions_to_md(ensemble_file)))
+    names = wi_md.get('classification_categories', {})
+    for p, im in zip(ensemble['predictions'], wi_md['images']):
+        prediction = p['prediction']
+        if im['file'] != p['filepath'] or len(im['detections']) < len(
+                p['detections']):
+            fail('wi_predictions_to_md lost {}'.format(p['filepath']))
+        if wi_utils.is_animal_prediction(prediction) and \
+                not wi_utils.is_blank_prediction(prediction):
+            top = max(im['detections'], key=lambda d: d['conf'])
+            common = wi_utils.taxonomy_string_to_common_name(prediction) or \
+                wi_utils.taxonomy_string_to_binomial_name(prediction)
+            if names[top['classifications'][0][0]] != common or \
+                    top['classifications'][0][1] != round(
+                        float(p['prediction_score']), 4):
+                fail('wi_predictions_to_md classified {} as {}, want '
+                     '{}'.format(im['file'], top['classifications'], common))
+    adjustments = step('find_geofence_adjustments', lambda: (
+        wtu.find_geofence_adjustments(ensemble_file)))
+    direct = collections.Counter(
+        '{} -> {}'.format(
+            wtu.get_common_name_from_prediction_string(
+                p['classifications']['classes'][0]),
+            wtu.get_common_name_from_prediction_string(p['prediction']))
+        for p in ensemble['predictions']
+        if p['classifications']['classes'][0] != p['prediction'])
+    if adjustments != dict(direct) or list(adjustments.values()) != sorted(
+            adjustments.values(), reverse=True) or bool(tops) != bool(
+                adjustments):
+        fail('find_geofence_adjustments {} against a direct count '
+             '{}'.format(adjustments, dict(direct)))
+    html = wtu.generate_geofence_adjustment_html_summary(adjustments, 1)
+    if adjustments and html.count('<br/>') != len(adjustments):
+        fail('the geofence summary lists {} of {} changes'.format(
+            html.count('<br/>'), len(adjustments)))
+    counts['geofence changes'] = sum(adjustments.values())
+
+    # e. map_lila_taxonomy_to_wi over a LILA CSV of the predicted species
+    # (exact), species WI lacks under a family it has (ancestor), an
+    # empty category (unmapped)
+    predicted = sorted({c for p in ensemble['predictions']
+                        for c in p['classifications']['classes']
+                        if c in set(class_names)})
+    rows = []
+    for i, s in enumerate(predicted):
+        tokens = s.split(';')
+        rows.append({'dataset_name': 'smoke', 'query': tokens[6],
+                     'taxonomy_level': 'species',
+                     'scientific_name': '{} {}'.format(*tokens[4:6]),
+                     'taxonomy_string': repr([
+                         (i, 'species', '{} {}'.format(*tokens[4:6]), []),
+                         (i, 'genus', tokens[4], []),
+                         (i, 'family', tokens[3], [])])})
+    for j, family in enumerate(sorted(families)[:4]):
+        rows.append({'dataset_name': 'smoke', 'query': 'unknown {}'.format(j),
+                     'taxonomy_level': 'species',
+                     'scientific_name': 'nogenus{} nospecies'.format(j),
+                     'taxonomy_string': repr([
+                         (j, 'species', 'nogenus{} nospecies'.format(j), []),
+                         (j, 'genus', 'nogenus{}'.format(j), []),
+                         (j, 'family', family, [])])})
+    rows.append({'dataset_name': 'smoke', 'query': 'empty',
+                 'taxonomy_level': '', 'scientific_name': '',
+                 'taxonomy_string': ''})
+    lila_csv = os.path.join(out, 'lila_taxonomy.csv')
+    with open(lila_csv, 'w', newline='') as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    mapped = step('map_lila_taxonomy_to_wi', lambda: (
+        lila_to_wi.map_lila_taxonomy_to_wi(
+            lila_csv, taxonomy_file,
+            output_file=os.path.join(out, 'lila_wi_mapping.csv'))))
+    want = [('exact', s) for s in predicted] + [
+        ('ancestor:family', families[f]) for f in sorted(families)[:4]] + [
+        ('unmapped', '')]
+    if [(r['mapping_method'], r['wi_prediction_string'])
+            for r in mapped] != want:
+        fail('map_lila_taxonomy_to_wi: {}'.format(
+            collections.Counter(r['mapping_method'] for r in mapped)))
+    counts['LILA rows mapped'] = len(mapped)
+    counts['batches'] = len(batches)
+    return ensemble, card, counts
+
+
+def _wi_payloads(folder, ensemble, card, step, fail):
+    """Four WI payloads an image (its prediction with the card's
+    detections, replacement detections, blank, no CV result), each
+    validated; get_auth_token and parallel_push_results_for_images (4
+    threads) through the default urllib transport against a loopback
+    server that records the requests. Returns the number of payloads
+    pushed."""
+
+    import uuid
+
+    import numpy as np
+
+    from megadetector_tpu_torch.utils import wi_platform_utils as wi
+
+    rng = np.random.RandomState(40)
+    payloads = []
+    for p in ensemble['predictions']:
+        file = os.path.relpath(p['filepath'], folder).replace('\\', '/')
+        detections = [{'category': c, 'conf': conf, 'bbox': bbox}
+                      for c, conf, bbox in card[file]]
+        data_file_id = str(uuid.UUID(bytes=rng.bytes(16), version=4))
+        tokens = p['prediction'].split(';')
+        row = dict(zip(wi.WI_RESULT_FIELDS, tokens),
+                   image_id=data_file_id, project_id=WI_PROJECT_ID)
+        payloads += [
+            wi.generate_payload_for_prediction_string(
+                data_file_id, WI_PROJECT_ID, p['prediction'],
+                prediction_confidence=float(p['prediction_score']),
+                detections=detections),
+            wi.generate_payload_with_replacement_detections(row, detections),
+            wi.generate_blank_prediction_payload(data_file_id,
+                                                 str(WI_PROJECT_ID)),
+            wi.generate_no_cv_result_payload(data_file_id, WI_PROJECT_ID)]
+        if row['image_id'] != payloads[-3]['predictions'][0]['data_file_id'] \
+                or payloads[-3]['predictions'][0]['prediction'] != \
+                p['prediction']:
+            fail('the replacement payload of {} lost its result'.format(file))
+    step('validate_payloads', lambda: [wi.validate_payload(x)
+                                       for x in payloads])
+    with _WIRecordingServer('tok-phase-40') as server:
+        def transport(method, url, headers=None, payload=None):
+            return wi._default_transport(
+                method, url.replace(WI_API_HOST, server.url),
+                headers=headers, payload=payload)
+
+        token = step('get_auth_token', lambda: wi.get_auth_token(
+            {'clientId': 'smoke', 'clientSecret': 'phase-40'},
+            transport=transport))
+        headers = wi.prepare_data_update_auth_headers(token or '')
+        codes = step('parallel_push', lambda: (
+            wi.parallel_push_results_for_images(
+                payloads, headers, transport=transport, n_workers=4)))
+    auth, pushes = server.requests[0], server.requests[1:]
+    key = (lambda x: json.dumps(x, sort_keys=True))
+    if token != 'tok-phase-40' or auth[2] != {
+            'clientId': 'smoke', 'clientSecret': 'phase-40'} or \
+            codes != [200] * len(payloads) or sorted(
+                (x[2] for x in pushes), key=key) != sorted(
+                    json.loads(json.dumps(payloads)), key=key) or any(
+                x[0] != '/api/v1/data-file/process-CV-response' or
+                x[1].get('Authorization') != 'Bearer tok-phase-40'
+                for x in pushes):
+        fail('the loopback server got {} pushes of {} payloads (token {}, '
+             'codes {})'.format(len(pushes), len(payloads), token,
+                                sorted(set(codes))))
+    return len(payloads)
+
+
+def _wi_download_workflow(workdir, folder, out, step, fail):
+    """The WI download workflow (phase 40's step 4) over a bundle written
+    from phase 38's database. Returns {name: count}."""
+
+    import csv
+    import shutil
+    import uuid
+
+    from PIL import Image
+
+    from megadetector_tpu_torch.data_management import cct_to_wi
+    from megadetector_tpu_torch.utils import (directory_listing,
+                                              split_locations_into_train_val)
+    from megadetector_tpu_torch.workflows import download_wi_projects as dwp
+
+    counts = {}
+    base = os.path.join(out, 'wi_projects')
+    bucket = os.path.join(out, 'bucket')
+    db_file = os.path.join(workdir, 'classifier_workflow', 'db.json')
+    with open(db_file) as f:
+        db = json.load(f)
+
+    # The bundle: cct_to_wi's images.csv, each row's location the image's
+    # gs:// object, blank flags, one image left unidentified
+    taxonomy = {
+        'deer': {'common_name': 'White-tailed Deer', 'wi_taxon_id': 'u1',
+                 'class': 'Mammalia', 'order': 'Cetartiodactyla',
+                 'family': 'Cervidae', 'genus': 'Odocoileus',
+                 'species': 'virginianus'},
+        'fox': {'common_name': 'Red Fox', 'wi_taxon_id': 'u2',
+                'class': 'Mammalia', 'order': 'Carnivora',
+                'family': 'Canidae', 'genus': 'Vulpes', 'species': 'vulpes'}}
+    paths = step('cct_to_wi', lambda: cct_to_wi.cct_to_wi(
+        db_file, taxonomy, os.path.join(out, 'cct_to_wi'),
+        project_info={'project_id': WI_PROJECT_ID}))
+    with open(paths['images'], newline='') as f:
+        rows = list(csv.DictReader(f))
+    bundle = os.path.join(base, 'csv_downloads',
+                          'wildlife-insights_{}_project-{}_data'.format(
+                              uuid.UUID(int=40, version=4), WI_PROJECT_ID))
+    os.makedirs(bundle)
+    file_of = {im['id']: im['file_name'] for im in db['images']}
+    url_of = {}
+    for i, row in enumerate(rows):
+        relative = 'deployment/{}/{}.JPG'.format(row['deployment_id'],
+                                                 row['image_id'])
+        url_of[row['image_id']] = relative
+        row['location'] = 'gs://{}/{}'.format(WI_BUCKET, relative)
+        row['is_blank'] = 0
+        if i == 5:
+            row['identified_by'] = ''
+        target = os.path.join(bucket, WI_BUCKET, relative)
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        shutil.copyfile(os.path.join(folder, file_of[row['image_id']]),
+                        target)
+    # Whole-bucket downloads bring '_500' thumbnails beside 8 originals
+    thumbnails = sorted(url_of)[:8]
+    for image_id in thumbnails:
+        with Image.open(os.path.join(folder, file_of[image_id])) as im:
+            im.convert('RGB').resize((500, 375)).save(os.path.join(
+                bucket, WI_BUCKET, url_of[image_id][:-4] + '_500.JPG'))
+    with open(os.path.join(bundle, 'images_{}.csv'.format(WI_PROJECT_ID)),
+              'w', newline='') as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    for name in ('projects', 'deployments', 'cameras'):
+        shutil.copyfile(paths[name], os.path.join(bundle, name + '.csv'))
+    stub_dir = os.path.join(out, 'bin')
+    os.makedirs(stub_dir)
+    with open(os.path.join(stub_dir, 'gcloud'), 'w') as f:
+        f.write(_GCLOUD_STUB.replace('@PYTHON@', sys.executable).replace(
+            '@ROOT@', bucket))
+    os.chmod(os.path.join(stub_dir, 'gcloud'), 0o755)
+    env = dict(os.environ)
+    env['PATH'] = stub_dir + os.pathsep + env.get('PATH', '')
+
+    # prepare: per-image scripts in 4 workers; run the master script
+    projects = step('prepare_project_downloads', lambda: (
+        dwp.prepare_project_downloads(base, download_individual_images=True,
+                                      n_download_workers=4)))
+    project = os.path.join(base, 'images', str(WI_PROJECT_ID))
+    workers = sorted(fn for fn in os.listdir(project)
+                     if fn.startswith('download_wi_images.') and
+                     fn != 'download_wi_images.sh')
+    if len(projects) != 1 or projects[0]['id'] != WI_PROJECT_ID or \
+            len(set(projects[0]['image_urls_to_download'])) != 64 or \
+            len(workers) != 4:
+        fail('prepare_project_downloads: {} projects, {} worker scripts'
+             .format(len(projects), len(workers)))
+    run = step('download (master script)', lambda: subprocess.run(
+        ['sh', 'download_wi_images.sh'], cwd=project, env=env,
+        capture_output=True, text=True, timeout=300))
+    with open(os.path.join(bucket, 'copies.log')) as f:
+        copies = f.read().split()
+    if run.returncode != 0 or 'Finished downloads' not in run.stdout or \
+            sorted(copies) != sorted(set(r['location'] for r in rows)):
+        fail('the download scripts: rc {}, {} copies of {} objects: '
+             '{}'.format(run.returncode, len(copies), len(url_of),
+                         run.stderr[-500:]))
+    report = step('check_download_completion', lambda: (
+        dwp.check_download_completion(base)))[WI_PROJECT_ID]
+    if sorted(report['matching']) != sorted(url_of.values()) or \
+            report['missing'] or report['extra'] or report['n_placeholders']:
+        fail('check_download_completion: {} matching, {} missing, {} extra'
+             .format(len(report['matching']), len(report['missing']),
+                     len(report['extra'])))
+    for relative in url_of.values():
+        with open(os.path.join(project, relative), 'rb') as a, \
+                open(os.path.join(bucket, WI_BUCKET, relative), 'rb') as b:
+            if a.read() != b.read():
+                fail('{} differs from its object'.format(relative))
+
+    # The whole-bucket prefix download next: it brings the thumbnails,
+    # which find_redundant_thumbnails lists and the delete removes
+    prefix_script = dwp.write_prefix_download_command(
+        rows, project, download_command_file=os.path.join(
+            project, 'download_images_{}.sh'.format(WI_PROJECT_ID)))
+    prefix = step('download (prefix)', lambda: subprocess.run(
+        ['sh', prefix_script], cwd=project, env=env, capture_output=True,
+        text=True, timeout=300))
+    redundant = step('find_redundant_thumbnails', lambda: (
+        dwp.find_redundant_thumbnails(base)))
+    want = sorted(os.path.join(project, url_of[i][:-4] + '_500.JPG')
+                  for i in thumbnails)
+    if prefix.returncode != 0 or sorted(redundant) != want:
+        fail('the prefix download (rc {}) and find_redundant_thumbnails: '
+             '{} of {} thumbnails'.format(prefix.returncode, len(redundant),
+                                          len(want)))
+    deleted = step('delete_redundant_thumbnails', lambda: (
+        dwp.delete_redundant_thumbnails(base)))
+    if sorted(deleted) != want or any(os.path.exists(p) for p in want) or \
+            dwp.find_redundant_thumbnails(base):
+        fail('delete_redundant_thumbnails left thumbnails')
+
+    # COCO with sequences. Its deployment flattening names a file
+    # <deployment_id>/<guid> while the downloads sit at
+    # url_to_relative_path's deployment/<deployment_id>/<guid> (the JAX
+    # module's layout): each deployment folder is linked beside the
+    # project's for the preview
+    coco_files = step('convert_projects_to_coco', lambda: (
+        dwp.convert_projects_to_coco(base)))
+    with open(coco_files[0]) as f:
+        coco = json.load(f)
+    deployments = sorted({r['deployment_id'] for r in rows})
+    for deployment in deployments:
+        os.symlink(os.path.join('deployment', deployment),
+                   os.path.join(project, deployment))
+    labels = {}
+    for ann in coco['annotations']:
+        labels.setdefault(ann['image_id'], set()).add(
+            {c['id']: c['name'] for c in coco['categories']}[
+                ann['category_id']])
+    db_labels = {}
+    names = {c['id']: c['name'] for c in db['categories']}
+    for ann in db['annotations']:
+        db_labels.setdefault(ann['image_id'], set()).add(
+            taxonomy[names[ann['category_id']]]['common_name'].lower())
+    want_labels = {'{}/{}.JPG'.format(r['deployment_id'], r['image_id']):
+                   db_labels[r['image_id']] for r in rows}
+    if len(coco_files) != 1 or labels != want_labels or \
+            not all('seq_id' in im for im in coco['images']):
+        fail('convert_projects_to_coco: {} images, labels equal {}'.format(
+            len(coco['images']), labels == want_labels))
+    preview = os.path.join(base, 'coco-preview')
+    previews = step('preview_project_coco', lambda: (
+        dwp.preview_project_coco(base, num_to_visualize=64)))
+    rendered = os.listdir(os.path.join(preview, str(WI_PROJECT_ID),
+                                       'rendered_images'))
+    if previews != [os.path.join(preview, str(WI_PROJECT_ID),
+                                 'index.html')] or len(rendered) != 64:
+        fail('preview_project_coco: {} pages, {} images rendered'.format(
+            len(previews), len(rendered)))
+
+    # Samples, the directory listing of the preview, the location split
+    sampled = step('sample_project_images', lambda: (
+        dwp.sample_project_images(base, n_samples_per_project=16)))
+    for path in sampled:
+        image_id = os.path.basename(path)[:-4]
+        with open(path, 'rb') as a, open(os.path.join(
+                folder, file_of[image_id]), 'rb') as b:
+            if a.read() != b.read():
+                fail('the sample {} differs from its image'.format(path))
+    if len(sampled) != 16:
+        fail('sample_project_images copied {}'.format(len(sampled)))
+    folders = [root for root, _, _ in os.walk(preview)]
+    lacking = sorted(os.path.join(f, 'index.html') for f in folders
+                     if not os.path.isfile(os.path.join(f, 'index.html')))
+    written = step('directory_listing', lambda: (
+        directory_listing.create_html_index(preview)))
+    if sorted(written) != lacking or not all(
+            os.path.isfile(os.path.join(f, 'index.html')) for f in folders):
+        fail('create_html_index wrote {} of {} indexes'.format(
+            len(written), len(lacking)))
+    location_counts = {}
+    by_id = {im['id']: im['location'] for im in coco['images']}
+    cat = {c['id']: c['name'] for c in coco['categories']}
+    for ann in coco['annotations']:
+        counts_at = location_counts.setdefault(by_id[ann['image_id']], {})
+        counts_at[cat[ann['category_id']]] = \
+            counts_at.get(cat[ann['category_id']], 0) + 1
+    val, fractions = step('split_locations_into_train_val', lambda: (
+        split_locations_into_train_val.split_locations_into_train_val(
+            location_counts, n_random_seeds=100, target_val_fraction=0.25)))
+    want_fractions = {
+        c: sum(location_counts[v].get(c, 0) for v in val) /
+        sum(n.get(c, 0) for n in location_counts.values())
+        for c in fractions}
+    if len(location_counts) != 4 or len(val) != 1 or \
+            fractions != want_fractions or \
+            not all(abs(f - 0.25) < 0.1 for f in fractions.values()):
+        fail('split_locations_into_train_val over {}: {} {}'.format(
+            location_counts, val, fractions))
+    counts.update({'bundle rows': len(rows), 'objects copied': len(copies),
+                   'thumbnails deleted': len(deleted),
+                   'COCO images': len(coco['images']),
+                   'preview images': len(rendered),
+                   'samples': len(sampled), 'indexes': len(written),
+                   'val locations': len(val)})
+    return counts
+
+
+def phase_wildlife_insights(device, workdir, workflow_path, threshold,
+                            card):
+    """
+    40. The Wildlife Insights and SpeciesNet results layer and the WI
+    download workflow, from the card's two-stage results. Every step is
+    checked and raises on a failure.
+    1. run_md_and_speciesnet over phase 28's 64 workflow JPEGs (two
+    cameras) with phase 28's yolov5l6 in bf16 at phase 28's threshold and
+    phase 23's EfficientNetV2-M (SpeciesNet-style class names) in bf16 on
+    the detections above it, the ensemble on (rollup): the file valid,
+    launches exact (_expected_launches; 147 bias + SiLU launches a
+    classifier forward).
+    2. generate_predictions_json_from_md_results (the card's images and
+    detections) validated against generate_instances_json_from_folder;
+    split_instances_into_n_batches into 4 and merge_prediction_json_files
+    of their predictions gives each prediction back once. A WI taxonomy
+    of the class names (with family strings) and its geofencing through
+    TaxonomyHandler (lookups, the taxa allowed in the USA); an
+    ensemble-format predictions file from the card's classifications (the
+    first class allowed in the USA, else the parent: SpeciesNet's geofence
+    step); generate_md_results_from_predictions_json and the
+    speciesnet_to_md CLI (a process of its own) write the same bytes, the
+    card's detections at MD rounding, a whole-image detection for each
+    non-blank image without one; wi_predictions_to_md classifies each
+    animal image's top detection; find_geofence_adjustments equals a
+    direct count; map_lila_taxonomy_to_wi maps a LILA CSV of the predicted
+    species exactly, unknown species to their family, an empty row not.
+    3. Four WI payloads an image (its prediction with the card's
+    detections, replacement detections, blank, no CV result), each
+    through validate_payload; get_auth_token and
+    parallel_push_results_for_images (4 threads) over the default urllib
+    transport to a loopback server: the token back, every payload
+    received once as generated, status 200.
+    4. A WI download bundle from phase 38's database through cct_to_wi
+    (csv_downloads/wildlife-insights_<guid>_project-<id>_data, gs://
+    locations in a stand-in bucket folder): prepare_project_downloads
+    (individual images, 4 workers), the master script with a stub gcloud
+    first on PATH (each object copied once, byte-identical);
+    check_download_completion (every image, nothing missing or extra); a
+    prefix download brings 8 '_500' thumbnails, which
+    find_redundant_thumbnails lists and delete_redundant_thumbnails
+    removes; convert_projects_to_coco (the database's labels, sequences),
+    preview_project_coco (all 64 rendered through visualize_db),
+    sample_project_images (16 byte-identical copies), directory_listing
+    over the preview (an index in every folder) and
+    split_locations_into_train_val over the COCO's location counts.
+    Prints each step's seconds. Returns the phase's (nms, conv,
+    bottleneck, stem, silu) launches.
+    """
+
+    start = time.time()
+    folder = os.path.join(workdir, 'workflow_images')
+    classifier_path = os.path.join(workdir, 'md_smoke_classifier.npz')
+    out = os.path.join(workdir, 'wildlife_insights')
+    os.makedirs(out, exist_ok=True)
+    seconds = {}
+
+    def step(name, fn):
+        t0 = time.time()
+        value = fn()
+        seconds[name] = time.time() - t0
+        return value
+
+    def fail(message):
+        raise AssertionError('phase 40: ' + message)
+
+    t0 = time.time()
+    results_file, data, launches, clf_forwards, crops = _wi_two_stage(
+        device, folder, classifier_path, workflow_path, threshold, out, card,
+        fail)
+    steps = {'1': time.time() - t0}
+    t0 = time.time()
+    with open(os.path.splitext(classifier_path)[0] + '.metadata.json') as f:
+        metadata = json.load(f)
+    ensemble, detections, counts = _wi_results_layer(
+        folder, results_file, data, metadata['class_names'], out, step,
+        fail)
+    steps['2'] = time.time() - t0
+    t0 = time.time()
+    counts['payloads pushed'] = _wi_payloads(folder, ensemble, detections,
+                                             step, fail)
+    steps['3'] = time.time() - t0
+    t0 = time.time()
+    counts.update(_wi_download_workflow(workdir, folder, out, step, fail))
+    steps['4'] = time.time() - t0
+    print('phase 40 on {}: launches (nms, conv, bottleneck, stem, silu) {}; '
+          '{} crops in {} classifier forwards; counts {}'.format(
+              card, launches, crops, clf_forwards,
+              ', '.join('{} {}'.format(k, v) for k, v in counts.items())),
+          flush=True)
+    print('phase 40 on {}: seconds by step: {}; steps 1 {:.3f}, 2 {:.3f}, '
+          '3 {:.3f}, 4 {:.3f}; total {:.3f}'.format(
+              card, ', '.join('{} {:.3f}'.format(k, v)
+                              for k, v in seconds.items()),
+              steps['1'], steps['2'], steps['3'], steps['4'],
+              time.time() - start), flush=True)
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -8196,6 +9085,19 @@ def main():
         silu_record['launches'] += counts[4]
         backward_record['launches'] += backward_launches
         print('phase 39 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 40. the Wildlife Insights and SpeciesNet results layer and the
+        # WI download workflow, from the card's two-stage results
+        start = time.time()
+        counts = phase_wildlife_insights(device, workdir, workflow_path,
+                                         threshold, card)
+        record['launches'] += counts[0]
+        conv_record['launches'] += counts[1]
+        bottleneck_record['launches'] += counts[2]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        print('phase 40 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

@@ -5,7 +5,8 @@ that emit MD-format JSON (float truncation and rounding, the YOLO and xyxy
 box conventions, sorting, the JSON writer, --detector_options parsing and
 printing, argparse -> options objects), and those the folder workflows
 use (IoU, max confidence, dictionary inversion, list chunking, camera
-folders, the datetime JSON handler).
+folders, the datetime JSON handler), and the empty and NaN tests of the
+Wildlife Insights tools (isnan, is_empty, compare_values_nan_equal).
 """
 
 import datetime
@@ -275,3 +276,32 @@ def image_file_to_camera_folder(image_fn):
                 break
     return folder
 
+
+
+def is_empty(v, strip_strings=True):
+    """True for None, '', whitespace-only strings, and NaN."""
+
+    if v is None:
+        return True
+    if isinstance(v, str):
+        return len(v.strip() if strip_strings else v) == 0
+    if isinstance(v, float) and math.isnan(v):
+        return True
+    return False
+
+
+def isnan(v):
+    """True if v is a float NaN (never raises)."""
+
+    try:
+        return math.isnan(v)
+    except TypeError:
+        return False
+
+
+def compare_values_nan_equal(v0, v1):
+    """Equality where NaN == NaN."""
+
+    if isnan(v0) and isnan(v1):
+        return True
+    return v0 == v1

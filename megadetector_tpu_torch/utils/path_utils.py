@@ -2,8 +2,10 @@
 Image and video enumeration for the port: its own copy of
 megadetector_tpu/utils/path_utils.py find_images, read_list_from_file,
 the video helpers (VIDEO_EXTENSIONS, is_video_file, find_video_strings,
-find_videos), flatten_path, is_image_file, recursive_file_list and
-path_is_abs.
+find_videos), flatten_path, is_image_file, recursive_file_list,
+path_is_abs, and the script and deletion helpers of the Wildlife Insights
+download workflow (insert_before_extension, make_executable, delete_file,
+parallel_delete_files).
 """
 
 import glob
@@ -136,3 +138,49 @@ def path_is_abs(p):
     """True for absolute paths on either POSIX or Windows conventions."""
 
     return posixpath.isabs(p) or ntpath.isabs(p) or re.match(r'^[A-Za-z]:', p)
+
+
+def insert_before_extension(filename, s=None, separator='.'):
+    """
+    'a/b.jpg' + 'x' -> 'a/b.x.jpg'. When [s] is None, inserts a timestamp.
+    """
+
+    if s is None or len(s) == 0:
+        import datetime
+        s = datetime.datetime.now().strftime('%Y.%m.%d.%H.%M.%S')
+    base, ext = os.path.splitext(filename)
+    return '{}{}{}{}'.format(base, separator, s, ext)
+
+
+def delete_file(filename, verbose=False):
+    """Delete a file if it exists; never raises for a missing file."""
+
+    try:
+        os.remove(filename)
+        return True
+    except FileNotFoundError:
+        return False
+
+
+def make_executable(filename, catch_exceptions=False):
+    """chmod +x (reference: path_utils.py:696)."""
+
+    try:
+        os.chmod(filename, os.stat(filename).st_mode | 0o111)
+        return True
+    except OSError:
+        if not catch_exceptions:
+            raise
+        return False
+
+
+def parallel_delete_files(input_files, max_workers=8, verbose=False):
+    """Delete files in parallel (reference: path_utils.py:1156)."""
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(fn):
+        delete_file(fn, verbose=verbose)
+
+    with ThreadPoolExecutor(max_workers=max_workers) as pool:
+        list(pool.map(one, input_files))

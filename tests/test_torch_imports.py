@@ -18,7 +18,8 @@ extraction, the URL helpers and the integration harness; the
 detection-postprocessing tools and plot_utils; the classifier-training
 workflow's host tools and the CCT database tools, whose TaxonNode route
 alone needs networkx; the data-format converters, importers, image and
-OCR tools and the LILA tools). PIL is imported only once a file is decoded or
+OCR tools and the LILA tools; the Wildlife Insights and SpeciesNet results
+layer, the WI platform tools and the WI download workflow). PIL is imported only once a file is decoded or
 drawn on; tensorflow only once a .pb detector is built, pandas only
 inside the functions that build data frames, matplotlib only inside the
 functions that plot. cv2 is not checked:
@@ -66,6 +67,15 @@ DATA_FORMAT_TOOLS = (
     'camtrap_dp_to_coco', 'image_file_tools', 'ocr_tools', 'lila',
     'lila.lila_common', 'lila.lila_reports', 'lila.download_lila_subset',
     'lila.generate_lila_per_image_labels')
+# The Wildlife Insights and SpeciesNet results layer, the WI platform tools
+# and the WI download workflow
+WI_TOOLS = (
+    'utils.wi_utils', 'utils.wi_taxonomy_utils',
+    'data_management.speciesnet_to_md',
+    'taxonomy_mapping.map_lila_taxonomy_to_wi_taxonomy',
+    'utils.wi_platform_utils', 'visualization.visualize_db',
+    'utils.directory_listing', 'utils.split_locations_into_train_val',
+    'workflows.download_wi_projects')
 PACKAGE_DIR = os.path.dirname(os.path.abspath(
     megadetector_tpu_torch.__file__))
 
@@ -202,7 +212,8 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                     'megadetector_tpu_torch.' + name
                     for name in CLASSIFICATION_TOOLS} | {
                     'megadetector_tpu_torch.data_management.' + name
-                    for name in DATA_FORMAT_TOOLS}
+                    for name in DATA_FORMAT_TOOLS} | {
+                    'megadetector_tpu_torch.' + name for name in WI_TOOLS}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
@@ -699,3 +710,70 @@ def test_data_format_tools_run_without_jax_or_tqdm(tmp_path):
                              'public-datasets-lila/a/b.jpg')
     assert report['refusal'] is not None and 'OCR' in report['refusal']
     assert report['blocked'] == []
+
+
+_WI = """
+import importlib, json, os, sys, tempfile
+# Importing any of these now raises ImportError
+for blocked in ('jax', 'megadetector_tpu', 'tqdm'):
+    sys.modules[blocked] = None
+import numpy as np
+from PIL import Image
+names = json.loads(sys.argv[1])
+for name in names:
+    importlib.import_module(name)
+from megadetector_tpu_torch.utils import (
+    directory_listing, split_locations_into_train_val, wi_platform_utils,
+    wi_taxonomy_utils, wi_utils)
+from megadetector_tpu_torch.visualization import visualize_db
+tmp = tempfile.mkdtemp()
+rng = np.random.RandomState(0)
+Image.fromarray(rng.randint(0, 256, (30, 40, 3), np.uint8)).save(
+    os.path.join(tmp, 'a.jpg'))
+db = {'images': [{'id': 'a', 'file_name': 'a.jpg'}],
+      'annotations': [{'id': 0, 'image_id': 'a', 'category_id': 1,
+                       'bbox': [1, 2, 10, 12]}],
+      'categories': [{'id': 1, 'name': 'deer'}]}
+with open(os.path.join(tmp, 'db.json'), 'w') as f:
+    json.dump(db, f)
+deer = 'u1;mammalia;cetartiodactyla;cervidae;odocoileus;virginianus;deer'
+md = wi_taxonomy_utils.generate_md_results_from_predictions_json(
+    {'predictions': [{'filepath': 'a.jpg', 'detections': [],
+                      'prediction': deer, 'prediction_score': 0.9}]})
+payload = wi_platform_utils.generate_payload_for_prediction_string(
+    '00000000-0000-4000-8000-000000000000', 7, deer)
+html, _ = visualize_db.visualize_db(os.path.join(tmp, 'db.json'),
+                                    os.path.join(tmp, 'viz'), tmp)
+written = directory_listing.create_html_index(os.path.join(tmp, 'viz'))
+val, _ = split_locations_into_train_val.split_locations_into_train_val(
+    {'l{}'.format(i): {'deer': i + 1} for i in range(10)},
+    n_random_seeds=10, default_max_allowable_error=None)
+print(json.dumps({
+    'common': wi_utils.taxonomy_string_to_common_name(deer),
+    'fake': md['images'][0]['detections'][0]['bbox'],
+    'valid': wi_platform_utils.validate_payload(payload),
+    'html': os.path.isfile(html), 'indexes': len(written),
+    'val': len(val),
+    'pandas': 'pandas' in sys.modules,
+    'blocked': [m for m in ('jax', 'megadetector_tpu', 'tqdm')
+                if sys.modules[m] is not None]}))
+"""
+
+
+def test_wi_tools_run_without_jax_tqdm_or_pandas():
+    """The nine Wildlife Insights and SpeciesNet modules import with jax,
+    the JAX package and tqdm made unimportable; predictions.json to MD
+    results, a WI payload and its validation, visualize_db, a directory
+    index and a location split then run without importing pandas."""
+
+    names = ['megadetector_tpu_torch.' + name for name in WI_TOOLS]
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', _WI, json.dumps(names)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {'common': 'deer', 'fake': [0, 0, 1, 1], 'valid': True,
+                      'html': True, 'indexes': 1, 'val': 1,
+                      'pandas': False, 'blocked': []}

@@ -3,14 +3,18 @@ The port's own copies of the JAX package's jax-free helpers, each held
 against the original on the same inputs: ops/boxes (letterbox,
 auto_target_shape, resize_long_side, scale_coords, xyxy2xywh),
 utils/ct_utils (with the drivers' convert_xywh_to_xyxy, args_to_object,
-dict_to_kvp_list, is_iterable), utils/path_utils (with the video helpers
-and flatten_path), models/registry and
+dict_to_kvp_list, is_iterable, and the Wildlife Insights tools' is_empty,
+isnan and compare_values_nan_equal), utils/path_utils (with the video
+helpers, flatten_path, and the download workflow's
+insert_before_extension, make_executable, delete_file and
+parallel_delete_files), models/registry and
 visualization/visualization_utils.load_image (its rendering is held in
 tests/test_torch_run_detector.py).
 """
 
 import argparse
 import json
+import os
 
 import numpy as np
 import pytest
@@ -118,6 +122,66 @@ def test_path_utils_match(tmp_path):
     for f in (listing, as_json):
         assert path_utils.read_list_from_file(str(f)) == \
             jax_path.read_list_from_file(str(f))
+
+
+EMPTY_VALUES = [None, '', '  ', ' x ', 'x', float('nan'), 0.0, 0, 1.5,
+                np.float64('nan'), np.float32(1.0), 'nan', ('a',)]
+
+
+@pytest.mark.parametrize('strip', [True, False])
+def test_wi_ct_utils_match(strip):
+    for v in EMPTY_VALUES:
+        assert ct_utils.is_empty(v, strip_strings=strip) == \
+            jax_ct.is_empty(v, strip_strings=strip), v
+        assert ct_utils.isnan(v) == jax_ct.isnan(v), v
+        for w in EMPTY_VALUES:
+            assert ct_utils.compare_values_nan_equal(v, w) == \
+                jax_ct.compare_values_nan_equal(v, w), (v, w)
+    assert ct_utils.is_empty(float('nan')) and ct_utils.is_empty('  ')
+    assert not ct_utils.is_empty('  ', strip_strings=False)
+    assert ct_utils.compare_values_nan_equal(float('nan'), float('nan'))
+
+
+def test_wi_path_utils_match(tmp_path, monkeypatch):
+    for name, s, sep in (('a/b.jpg', 'x', '.'), ('a/b.c.JPG', '00', '_'),
+                         ('noext', 'tag', '.'), ('d/e.sh', '', '.')):
+        if s:
+            assert path_utils.insert_before_extension(name, s, sep) == \
+                jax_path.insert_before_extension(name, s, sep)
+    import datetime
+    fixed = datetime.datetime(2024, 5, 6, 7, 8, 9)
+
+    class Frozen(datetime.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return fixed
+
+    monkeypatch.setattr(datetime, 'datetime', Frozen)
+    assert path_utils.insert_before_extension('a/b.jpg') == \
+        jax_path.insert_before_extension('a/b.jpg') == \
+        'a/b.2024.05.06.07.08.09.jpg'
+    monkeypatch.undo()
+    for module, tag in ((path_utils, 'ours'), (jax_path, 'ref')):
+        script = tmp_path / (tag + '.sh')
+        script.write_text('echo x\n')
+        script.chmod(0o640)
+        assert module.make_executable(str(script)) is True
+        assert oct(script.stat().st_mode & 0o777) == oct(0o751)
+        assert module.make_executable(str(tmp_path / 'missing'),
+                                      catch_exceptions=True) is False
+        with pytest.raises(OSError):
+            module.make_executable(str(tmp_path / 'missing'))
+        files = []
+        for i in range(25):
+            f = tmp_path / tag / 'f{:02d}.bin'.format(i)
+            f.parent.mkdir(exist_ok=True)
+            f.write_bytes(b'x')
+            files.append(str(f))
+        assert module.delete_file(files[0]) is True
+        assert module.delete_file(files[0]) is False
+        module.parallel_delete_files(files + [str(tmp_path / 'gone')],
+                                     max_workers=4)
+        assert os.listdir(str(tmp_path / tag)) == []
 
 
 @pytest.mark.parametrize('box', [[0.1, 0.2, 0.3, 0.4], [0, 0, 1, 1],
