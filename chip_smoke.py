@@ -350,6 +350,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      samples, directory_listing and split_locations_into_train_val
      (phase_wildlife_insights has the list); seconds by step. Its
      launches join the B1, B4 and E7 records.
+ 41. the taxonomy tools, the YOLO val runner, change detection, XMP
+     tagging, video rendering and the native host kernels: GBIF and iNat
+     archives and sample images on loopback through species_lookup,
+     taxonomy_release, the checkers and both image-search tools; the 32
+     downloads through phase 28's yolov5l6 in bf16 (B1, B4, E7, launches
+     exact); run_inference_with_yolo_val with a stand-in val.py running
+     the same detector on the card (chunked and resumed, then the symlink
+     farm; each process's launches exact; its MD files against the batch
+     driver's at the golden tolerances); XMP sidecars and embedded tags
+     (a stand-in pyexiv2); change detection over phase 28's cameras;
+     phase 21's videos rendered; native/letterbox_nms.cpp built with g++
+     and held to ops/boxes.letterbox, to B1's keep masks and to its
+     clustering rule (phase_host_tools has the list); seconds by step.
+     Its launches join the B1, B4 and E7 records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -8758,6 +8772,927 @@ def phase_wildlife_insights(device, workdir, workflow_path, threshold,
     return launches
 
 
+#%% 41: the taxonomy tools, the YOLO val runner, change detection, XMP
+#%% tagging, video rendering and the native host kernels
+
+
+# Phase 41's sample images: this many of phase 28's JPEGs a camera are
+# served on loopback and downloaded by each image-search tool
+SAMPLE_IMAGES = 16
+# The YOLO val runner's chunk: the 32 downloads in one chunk. Each chunk
+# is a val.py process of its own, about 20 s on the card (torch's import
+# 7-8 s, the detector's load 2 s, its cold first programs 10-11 s)
+YOLO_VAL_CHUNK = 32
+# Python's random seed before simple_image_download's Downloader names its
+# files (a random id below 1000 each; this seed gives 16 distinct ones)
+DOWNLOADER_SEED = 41
+# The IoU threshold of the native clustering check (RDE's default)
+CLUSTER_IOU = 0.85
+
+
+def _host_tools_data():
+    """tests/torch_host_tools_data.py, shared with the port's CPU tests:
+    the seeded taxonomy archives and native.cluster_boxes' rule in
+    Python."""
+
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        'torch_host_tools_data', os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), 'tests',
+            'torch_host_tools_data.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# The stand-in YOLO repository's val.py: the port's detector on the card
+# over the dataset YAML's folder, YOLOv5's predictions JSON out, and a
+# last line (also appended to $MD_SMOKE_VAL_LOG) with its own launches
+_STAND_IN_VAL = """
+import argparse, json, os, sys, time
+t0 = time.time()
+with open('/proc/uptime') as f, open('/proc/self/stat') as g:
+    started = float(f.read().split()[0]) - int(g.read().rsplit(')', 1)[1]
+        .split()[19]) / os.sysconf('SC_CLK_TCK')
+sys.path.insert(0, @REPO@)
+p = argparse.ArgumentParser()
+for a in ('--task', '--data', '--weights', '--device', '--name',
+          '--project'):
+    p.add_argument(a)
+for a in ('--batch-size', '--imgsz'):
+    p.add_argument(a, type=int)
+p.add_argument('--conf-thres', type=float)
+for a in ('--save-json', '--exist-ok', '--augment'):
+    p.add_argument(a, action='store_true')
+args = p.parse_args()
+import chip_smoke as cs
+from PIL import Image
+from megadetector_tpu_torch.detection.run_detector import load_detector
+from megadetector_tpu_torch.detection.run_detector_batch import \\
+    load_and_run_detector_batch
+folder = None
+for line in open(args.data):
+    if line.startswith('path:'):
+        folder = line.split(':', 1)[1].strip()
+files = sorted(os.path.join(folder, f) for f in os.listdir(folder)
+               if os.path.splitext(f)[1].lower() in ('.jpg', '.jpeg',
+                                                    '.png'))
+t1 = time.time()
+# YOLOv5's --device: a CUDA device's index, or 'cpu'
+device = 'cuda:' + args.device if args.device.isdigit() else args.device
+detector = load_detector(args.weights, device=device,
+                         detector_options={'dtype': 'bfloat16'})
+t2 = time.time()
+before, programs = cs._program_calls(detector), detector.programs_run
+cs._reset_counts()
+results = load_and_run_detector_batch(
+    detector, files, batch_size=args.batch_size, quiet=True,
+    confidence_threshold=args.conf_thres, augment=args.augment)
+counts = cs._counts()
+t3 = time.time()
+forwards, _, selects, _ = cs._program_deltas(detector, before)
+preds = []
+for r in results:
+    if r.get('failure'):
+        raise RuntimeError('{}: {}'.format(r['file'], r['failure']))
+    with Image.open(r['file']) as im:
+        w, h = im.size
+    base = os.path.splitext(os.path.basename(r['file']))[0]
+    for d in r['detections']:
+        x, y, bw, bh = d['bbox']
+        preds.append({'image_id': base,
+                      'category_id': int(d['category']) - 1,
+                      'bbox': [x * w, y * h, bw * w, bh * h],
+                      'score': d['conf']})
+out_dir = os.path.join(args.project, args.name)
+os.makedirs(out_dir, exist_ok=True)
+with open(os.path.join(out_dir, 'best_predictions.json'), 'w') as f:
+    json.dump(preds, f)
+line = json.dumps({'images': len(files), 'counts': list(counts),
+                   'programs': detector.programs_run - programs,
+                   'selects': selects,
+                   'forwards': [list(k) + [n] for k, n in
+                                sorted(forwards.items())],
+                   'seconds': {'startup': round(started, 3),
+                               'imports': round(t1 - t0, 3),
+                               'load': round(t2 - t1, 3),
+                               'detect': round(t3 - t2, 3),
+                               'total': round(time.time() - t0 + started,
+                                              3)}})
+with open(os.environ['MD_SMOKE_VAL_LOG'], 'a') as f:
+    f.write(line + '\\n')
+print(line)
+"""
+
+
+def _sample_site(workdir, site, rng):
+    """Phase 28's JPEGs on the loopback site (the first SAMPLE_IMAGES of
+    each camera under images/) and two image-search answer pages in
+    Bing's form (murl fields), one a query. Returns ({query: source
+    paths}, {query: page name})."""
+
+    import shutil
+
+    folder = os.path.join(workdir, 'workflow_images')
+    os.makedirs(os.path.join(site, 'images'))
+    sources, pages = {}, {}
+    for camera, query in (('cam0', 'red fox'), ('cam1', 'white-tailed deer')):
+        names = sorted(os.listdir(os.path.join(folder, camera)))
+        chosen = sorted(rng.choice(names, SAMPLE_IMAGES, replace=False))
+        sources[query] = []
+        urls = []
+        for name in chosen:
+            served = '{}_{}'.format(camera, name)
+            shutil.copyfile(os.path.join(folder, camera, name),
+                            os.path.join(site, 'images', served))
+            sources[query].append(os.path.join(folder, camera, name))
+            urls.append('@BASE@/images/' + served)
+        pages[query] = 'search_{}.html'.format(
+            re.sub(r'[^a-z0-9]+', '_', query.lower()))
+        with open(os.path.join(site, pages[query]), 'w') as f:
+            f.write('<html><body>' + ''.join(
+                '<a m="{{&quot;murl&quot;:&quot;{}&quot;}}">x</a>'.format(u)
+                for u in urls) + '</body></html>')
+    return sources, pages
+
+
+def _loopback_search(base, pages):
+    """A search_fn over the site's answer pages: retrieve_sample_image's
+    Bing scrape (the page's murl fields) against loopback."""
+
+    import urllib.parse
+    import urllib.request
+
+    def search(query, limit):
+        q = query.replace('+', ' ')
+        url = '{}/{}?q={}&count={}'.format(base, pages[q],
+                                           urllib.parse.quote(q), limit)
+        with urllib.request.urlopen(url, timeout=30) as r:
+            html = r.read().decode('utf-8', errors='replace')
+        urls = re.findall(r'murl&quot;:&quot;(.*?)&quot;', html)
+        return [u.replace('@BASE@', base) for u in urls][:limit]
+    return search
+
+
+def _taxonomy_and_samples(workdir, out, step, fail):
+    """Step 1: the taxonomy tools over archives on loopback, and the
+    sample images downloaded by both image-search tools (default urllib
+    fetch). Returns (the download folder, {name: count})."""
+
+    import csv
+    import random
+    import socket
+
+    import numpy as np
+
+    from megadetector_tpu_torch.taxonomy_mapping import (
+        retrieve_sample_image, simple_image_download, species_lookup,
+        taxonomy_csv_checker, taxonomy_release,
+        validate_lila_category_mappings as validate)
+    from megadetector_tpu_torch.utils import url_utils
+
+    rng = np.random.RandomState(41)
+    site = os.path.join(out, 'site')
+    os.makedirs(site)
+    commons, species, n_taxa = _host_tools_data().taxonomy_archives(
+        site, rng)
+    sources, pages = _sample_site(workdir, site, rng)
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    base = url_utils.SingletonHTTPServer.start_server(site, port=port,
+                                                      host='127.0.0.1')
+    counts = {'taxa': n_taxa}
+    try:
+        fetched = []
+
+        def download(url, dest):
+            fetched.append(url)
+            url_utils.download_url('{}/{}'.format(base, url.split('/')[-1]),
+                                   dest)
+
+        taxonomy_dir = os.path.join(out, 'taxonomy')
+        lookups = step('initialize_taxonomy_lookup', lambda: species_lookup
+                       .initialize_taxonomy_lookup(taxonomy_dir,
+                                                   download_fn=download,
+                                                   verbose=False))
+        again = step('initialize_taxonomy_lookup (files in place)', lambda:
+                     species_lookup.initialize_taxonomy_lookup(
+                         taxonomy_dir, download_fn=download, verbose=False))
+        if fetched != [species_lookup.TAXONOMY_URLS['GBIF'],
+                       species_lookup.TAXONOMY_URLS['iNaturalist']] or \
+                sorted(again) != ['gbif', 'inat']:
+            fail('initialize_taxonomy_lookup fetched {}'.format(fetched))
+        for source in ('gbif', 'inat'):
+            person = lookups[source].lookup('person')
+            if person is None or person.name.lower() != 'homo sapiens' or \
+                    lookups[source].lookup('vehicle') is not None:
+                fail('{}: person -> {}'.format(source, person))
+
+        # The detector's categories, common names with their hyphens as
+        # spaces, and scientific names: a new dataset's mapping
+        picked = sorted(commons)[:12]
+        queries = ['animal', 'person', 'vehicle'] + \
+            [c.replace('-', ' ') for c in picked] + species[::60]
+        want = {'animal': 'animalia', 'person': 'homo sapiens',
+                'vehicle': ''}
+        want.update({c.replace('-', ' '): commons[c].lower()
+                     for c in picked})
+        want.update({s.lower(): s.lower() for s in species[::60]})
+        mapping_csv = os.path.join(out, 'md_smoke_mapping.csv')
+        rows = step('map_new_dataset', lambda: taxonomy_release
+                    .map_new_dataset('md_smoke', queries, lookups['gbif'],
+                                     output_csv=mapping_csv))
+        got = {r['query']: r['scientific_name'].lower() for r in rows}
+        if got != {q.lower(): want[q.lower()] for q in queries}:
+            fail('map_new_dataset: {}'.format(
+                {q: (got.get(q), w) for q, w in want.items()
+                 if got.get(q) != w}))
+        checked = step('check_taxonomy_csv', lambda: taxonomy_csv_checker
+                       .check_taxonomy_csv(mapping_csv, verbose=False))
+        issues = taxonomy_release.check_taxonomy_consistency(
+            taxonomy_release.read_taxonomy_csv(mapping_csv),
+            lookup=lookups['gbif'])
+        if checked['n_rows'] != len(queries) or checked['cycle'] or \
+                checked['taxon_level_errors'] or \
+                checked['scientific_name_errors'] or \
+                checked['ambiguous_parent_nodes'] or \
+                issues['null_mappings'] != ['md_smoke:vehicle'] or \
+                issues['scientific_name_mismatches'] or \
+                issues['level_mismatches'] or issues['stale_mappings']:
+            fail('the mapping checks: {}; {}'.format(checked, issues))
+        categories = os.path.join(out, 'md_smoke_categories.json')
+        with open(categories, 'w') as f:
+            json.dump({'md_smoke': [{'name': q} for q in queries],
+                       'md_smoke_bbox': [{'name': 'animal'}]}, f)
+        preview = step('preview_lila_taxonomy', lambda: taxonomy_release
+                       .preview_lila_taxonomy(mapping_csv,
+                                              os.path.join(out, 'preview')))
+        release_csv = os.path.join(out, 'md_smoke_release.csv')
+        released = step('prepare_taxonomy_release', lambda: taxonomy_release
+                        .prepare_taxonomy_release(mapping_csv, release_csv,
+                                                  categories))
+        with open(release_csv, newline='') as f:
+            read_back = list(csv.DictReader(f))
+        person = [r for r in read_back if r['query'] == 'person']
+        if len(released) != len(queries) or len(read_back) != len(queries) \
+                or len(person) != 1 or \
+                person[0]['species'] != 'homo sapiens' or \
+                person[0]['kingdom'] != 'animalia' or \
+                'source' in read_back[0] or not os.path.isfile(preview):
+            fail('prepare_taxonomy_release: {} rows, person {}'.format(
+                len(read_back), person))
+        with open(categories) as f:
+            dataset_to_categories = json.load(f)
+        missing, unmapped = step('validate_category_mappings', lambda:
+                                 validate.validate_category_mappings(
+                                     dataset_to_categories,
+                                     validate.load_taxonomy_queries(
+                                         mapping_csv), verbose=False))
+        if missing or unmapped != ['md_smoke:vehicle']:
+            fail('validate_category_mappings: missing {}, unmapped '
+                 '{}'.format(missing, unmapped))
+        counts['mapped queries'] = len(queries) - 1
+
+        # The sample images, through both tools' default urllib fetch
+        downloads = os.path.join(out, 'downloads')
+        search = _loopback_search(base, pages)
+        retrieved = step('retrieve_sample_image', lambda: retrieve_sample_image
+                         .download_images('red fox', os.path.join(
+                             downloads, 'retrieved'), limit=SAMPLE_IMAGES,
+                             search_fn=search))
+        downloader = simple_image_download.Downloader(search_fn=search)
+        downloader.directory = os.path.join(downloads, 'simple')
+        random.seed(DOWNLOADER_SEED)
+        simple = step('simple_image_download', lambda: downloader.download(
+            'white-tailed deer', limit=SAMPLE_IMAGES - 1))
+        by_query = {'red fox': retrieved, 'white-tailed deer': simple}
+        for query, paths in by_query.items():
+            got = sorted(_file_bytes(p) for p in paths)
+            if len(paths) != SAMPLE_IMAGES or got != sorted(
+                    _file_bytes(p) for p in sources[query]):
+                fail('{}: {} images downloaded, or other bytes'.format(
+                    query, len(paths)))
+        counts['images downloaded'] = len(retrieved) + len(simple)
+    finally:
+        url_utils.SingletonHTTPServer.stop_server()
+    return downloads, counts
+
+
+def _python_first_on_path(workdir):
+    """None when `python` on PATH is this interpreter; else a folder
+    holding a `python` that execs this interpreter (to put first on
+    PATH)."""
+
+    import shutil
+
+    found = shutil.which('python')
+    if found and os.path.realpath(found) == os.path.realpath(
+            sys.executable):
+        return None
+    shim = os.path.join(workdir, 'python_shim')
+    os.makedirs(shim, exist_ok=True)
+    path = os.path.join(shim, 'python')
+    with open(path, 'w') as f:
+        f.write('#!/bin/sh\nexec "{}" "$@"\n'.format(sys.executable))
+    os.chmod(path, 0o755)
+    return shim
+
+
+def _yolo_val(workdir, downloads, workflow_path, threshold, results_file,
+              detector, out, card, step, fail):
+    """Step 3: run_inference_with_yolo_val through a stand-in YOLO
+    repository whose val.py runs the port's detector on the card, at the
+    runner's default device ('0'): once chunked (YOLO_VAL_CHUNK, unique
+    basenames verified) and run again to show the skip, once through the
+    symlink farm. The one chunk holds every download, so merging shards
+    and resuming a partly done run are driven by the CPU tests only
+    (tests/test_torch_misc_tools.py, chunks of 4 and 5). Each val.py
+    process's launches are held exact against [detector] (the same model
+    and options). Returns ((nms, conv, bottleneck, stem, silu) of the
+    val.py processes, {name: count})."""
+
+    from megadetector_tpu_torch.detection import \
+        run_inference_with_yolo_val as yolo_val
+    from megadetector_tpu_torch.utils import md_tests
+
+    repo = os.path.join(out, 'yolo_repo')
+    os.makedirs(repo)
+    with open(os.path.join(repo, 'val.py'), 'w') as f:
+        f.write(_STAND_IN_VAL.replace('@REPO@', repr(os.path.dirname(
+            os.path.abspath(__file__)))))
+    log = os.path.join(out, 'val_launches.jsonl')
+    shim = _python_first_on_path(workdir)
+    print('phase 41: `python` on PATH is {}'.format(
+        'this interpreter ({})'.format(sys.executable) if shim is None else
+        'not this interpreter: a shim exec-ing {} goes first on PATH for '
+        'the YOLO val runner'.format(sys.executable)), flush=True)
+    saved = {k: os.environ.get(k) for k in ('PATH', 'MD_SMOKE_VAL_LOG')}
+    os.environ['MD_SMOKE_VAL_LOG'] = log
+    if shim is not None:
+        os.environ['PATH'] = shim + os.pathsep + os.environ['PATH']
+
+    def options(name, **kwargs):
+        o = yolo_val.YoloInferenceOptions()
+        o.input_folder = downloads
+        o.model_filename = workflow_path
+        o.output_file = os.path.join(out, name)
+        o.yolo_working_folder = repo
+        o.image_size = 1280
+        o.conf_thres = threshold
+        o.batch_size = 8
+        for k, v in kwargs.items():
+            setattr(o, k, v)
+        return o
+
+    try:
+        chunked = options('yolo_val_chunked.json', unique_id_strategy='verify',
+                          checkpoint_frequency=YOLO_VAL_CHUNK,
+                          checkpoint_folder=os.path.join(out, 'yolo_chunks'))
+        step('run_inference_with_yolo_val (chunked)',
+             lambda: yolo_val.run_inference_with_yolo_val(chunked))
+        first = _file_bytes(chunked.output_file)
+        os.remove(chunked.output_file)
+        step('run_inference_with_yolo_val (chunked, every chunk done)',
+             lambda: yolo_val.run_inference_with_yolo_val(chunked))
+        with open(log) as f:
+            n_chunked = len(f.readlines())
+        if _file_bytes(chunked.output_file) != first or n_chunked != 1:
+            fail('the chunked rerun: {} val.py runs in all, the file {}'
+                 .format(n_chunked, 'changed' if os.path.isfile(
+                     chunked.output_file) else 'missing'))
+        links = options('yolo_val_links.json', symlink_folder=os.path.join(
+            out, 'yolo_links'))
+        step('run_inference_with_yolo_val (links)',
+             lambda: yolo_val.run_inference_with_yolo_val(links))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with open(log) as f:
+        runs = [json.loads(line) for line in f]
+    if len(runs) != 2 or os.path.exists(links.symlink_folder):
+        fail('{} val.py runs (want 2), the symlink farm {}'.format(
+            len(runs), 'left' if os.path.exists(links.symlink_folder)
+            else 'removed'))
+    print('phase 41: val.py processes\' seconds: {}'.format(
+        [run['seconds'] for run in runs]), flush=True)
+    total = [0] * 5
+    for i, run in enumerate(runs):
+        forwards = {tuple(f[:3]): f[3] for f in run['forwards']}
+        _check_launches('phase 41 on {}, val.py run {} ({} images)'.format(
+            card, i + 1, run['images']), detector, tuple(run['counts']),
+            run['programs'], run['selects'], forwards)
+        total = [a + b for a, b in zip(total, run['counts'])]
+    with open(results_file) as f:
+        reference = json.load(f)
+    counts = {}
+    for name, o in (('chunked', chunked), ('links', links)):
+        with open(o.output_file) as f:
+            md = json.load(f)
+        files = {im['file'] for im in md['images']}
+        absent = [im['file'] for im in reference['images']
+                  if im['file'] not in files and im['detections']]
+        parity = md_tests.compare_results(md, dict(
+            reference, images=[im for im in reference['images']
+                               if im['file'] in files]))
+        if absent or parity['errors'] or \
+                parity['n_images_compared'] != len(files) or not files:
+            fail('the YOLO val runner ({}) against the batch driver: {} '
+                 'images compared, absent with detections {}, {}'.format(
+                     name, parity['n_images_compared'], absent[:3],
+                     parity['errors'][:5]))
+        counts['YOLO {} images'.format(name)] = len(files)
+        counts['YOLO {} max conf / coord error'.format(name)] = \
+            '{:.4f} / {:.4f}'.format(parity['max_conf_error'],
+                                     parity['max_coord_error'])
+    return tuple(total), counts
+
+
+class _RecordingExiv2:
+    """A stand-in pyexiv2 module: Image(path).modify_xmp(tags) records
+    (path, tags)."""
+
+    def __init__(self):
+        import threading
+        import types
+
+        self.calls = []
+        lock = threading.Lock()
+        calls = self.calls
+
+        class Image:
+            def __init__(self, path):
+                self.path = path
+
+            def modify_xmp(self, tags):
+                with lock:
+                    calls.append((self.path, dict(tags)))
+
+        self.module = types.ModuleType('pyexiv2')
+        self.module.Image = Image
+
+
+def _xmp(downloads, results_file, threshold, out, step, fail):
+    """Step 4: XMP sidecars of the card's results, and process_input_data
+    (4 threads) into a recording stand-in pyexiv2. Returns {name:
+    count}."""
+
+    import importlib.util
+    import shutil
+
+    from megadetector_tpu_torch.integration import xmp_integration
+
+    folder = os.path.join(out, 'xmp_images')
+    shutil.copytree(downloads, folder)
+    with open(results_file) as f:
+        data = json.load(f)
+    names = data['detection_categories']
+    written = step('write_results_to_xmp', lambda: xmp_integration
+                   .write_results_to_xmp(results_file, folder,
+                                         confidence_threshold=threshold))
+    above = 0
+    for im in data['images']:
+        tags = sorted({'MegaDetector|' + names[d['category']]
+                       for d in im['detections'] if d['conf'] >= threshold})
+        above += bool(tags)
+        with open(os.path.splitext(os.path.join(folder, im['file']))[0] +
+                  '.xmp') as f:
+            text = f.read()
+        if not all('<rdf:li>{}</rdf:li>'.format(t) in text
+                   for t in tags or ['MegaDetector|empty']):
+            fail('{}: the sidecar lacks {}'.format(im['file'], tags))
+    if len(written) != len(data['images']):
+        fail('{} sidecars for {} images'.format(len(written),
+                                                 len(data['images'])))
+    recorder = _RecordingExiv2()
+    saved = sys.modules.get('pyexiv2')
+    sys.modules['pyexiv2'] = recorder.module
+    try:
+        options = xmp_integration.xmp_integration_options()
+        options.image_folder = folder
+        options.input_file = results_file
+        options.min_threshold = str(threshold)
+        options.num_threads = 4
+        step('process_input_data (stand-in pyexiv2, 4 threads)',
+             lambda: xmp_integration.process_input_data(options))
+    finally:
+        if saved is None:
+            sys.modules.pop('pyexiv2', None)
+        else:
+            sys.modules['pyexiv2'] = saved
+    want = {}
+    for im in data['images']:
+        tags = []
+        for d in im['detections']:
+            name = names[d['category']]
+            cat = xmp_integration.category_mapping.get(name, name)
+            if cat not in tags and d['conf'] > threshold:
+                tags.append(cat)
+        want[os.path.join(folder, im['file'])] = {
+            'Xmp.lr.hierarchicalSubject': tags}
+    if dict(recorder.calls) != want or len(recorder.calls) != len(want):
+        fail('process_input_data wrote {} images\' tags, want {}'.format(
+            len(recorder.calls), len(want)))
+    print('phase 41: pyexiv2 {} (the stand-in recorded the embedded '
+          'writes)'.format('is installed' if importlib.util.find_spec(
+              'pyexiv2') else 'is not installed'), flush=True)
+    return {'XMP sidecars': len(written),
+            'sidecars with a detection at the threshold': above,
+            'embedded XMP writes': len(recorder.calls)}
+
+
+def _change_detection(workdir, out, step, fail):
+    """Step 5: process_folders and create_change_previews over phase 28's
+    two-camera folder, one score held to cv2 directly. Returns {name:
+    count}."""
+
+    import cv2
+    import numpy as np
+
+    from megadetector_tpu_torch.detection import change_detection
+
+    folder = os.path.join(workdir, 'workflow_images')
+    csv_path = os.path.join(out, 'motion.csv')
+    options = change_detection.ChangeDetectionOptions()
+    results = step('process_folders', lambda: change_detection
+                   .process_folders(folder, csv_path, options))
+    previews = step('create_change_previews', lambda: change_detection
+                    .create_change_previews(results, os.path.join(
+                        out, 'change_previews'), num_samples=10,
+                        random_seed=41))
+    with open(csv_path) as f:
+        rows = f.read().splitlines()
+    by_camera = {}
+    for r in results:
+        by_camera.setdefault(os.path.dirname(r['file']), []).append(r)
+
+    def gray(path):
+        img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+        if img.shape[1] > options.comparison_width:
+            scale = options.comparison_width / img.shape[1]
+            img = cv2.resize(img, (options.comparison_width,
+                                   int(round(img.shape[0] * scale))))
+        return cv2.GaussianBlur(img, (5, 5), 0)
+
+    cam0 = by_camera[os.path.join(folder, 'cam0')]
+    diff = cv2.absdiff(gray(cam0[1]['file']), gray(cam0[0]['file']))
+    direct = float(np.count_nonzero(diff > options.diff_threshold)) / \
+        diff.size
+    candidates = sum(1 for i, r in enumerate(results)
+                     if r['motion'] and i > 0)
+    if len(results) != 64 or len(rows) != 65 or \
+            sorted(len(v) for v in by_camera.values()) != [32, 32] or \
+            any(r.get('failure') for r in results) or \
+            any(v[0]['motion_fraction'] != 0.0 for v in by_camera.values()) \
+            or cam0[1]['motion_fraction'] != direct or \
+            len(previews) != min(10, candidates) or \
+            any(cv2.imread(p).shape[1] != 2 * min(
+                options.comparison_width, cv2.imread(
+                    cam0[0]['file']).shape[1]) for p in previews):
+        fail('change detection: {} results, {} CSV rows, {} previews of {} '
+             'candidates, score {} against {}'.format(
+                 len(results), len(rows), len(previews), candidates,
+                 cam0[1]['motion_fraction'], direct))
+    return {'motion images': sum(r['motion'] for r in results),
+            'change previews': len(previews)}
+
+
+def _video_render(workdir, out, step, fail):
+    """Step 6: visualize_video_output over phase 21's time_sample results
+    (a frame every 0.5 s) and videos: annotated mp4v videos that reopen
+    with every frame, then one sampled video's annotated frames. Returns
+    {name: count}."""
+
+    import random
+
+    import cv2
+
+    from megadetector_tpu_torch.visualization import \
+        visualize_video_output as vvo
+
+    results_file = os.path.join(workdir, 'video_time_sample.json')
+    videos = os.path.join(workdir, 'videos')
+    lengths = {'clip_a.mp4': 60, 'clip_b.mp4': 45}
+    rendered = step('visualize_video_output (videos)', lambda: vvo
+                    .visualize_video_output(results_file, videos,
+                                            os.path.join(out, 'videos')))
+    frames = {}
+    for path in rendered:
+        cap = cv2.VideoCapture(path)
+        n, shape = 0, None
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            n += 1
+            shape = frame.shape
+        cap.release()
+        frames[os.path.basename(path)] = (n, shape)
+    want = {os.path.splitext(k)[0] + '_annotated.mp4': (n, (1080, 1920, 3))
+            for k, n in lengths.items()}
+    if frames != want:
+        fail('the annotated videos: {}, want {}'.format(frames, want))
+    options = vvo.VideoVisualizationOptions()
+    options.render_frames_only = True
+    options.sample = 1
+    options.random_seed = 41
+    written = step('visualize_video_output (frames of one sampled video)',
+                   lambda: vvo.visualize_video_output(
+                       results_file, videos, os.path.join(out, 'frames'),
+                       options=options))
+    with open(results_file) as f:
+        data = json.load(f)
+    candidates = [im for im in data['images']
+                  if im.get('detections') is not None]
+    chosen = random.Random(41).sample(candidates, 1)[0]
+    want_frames = sorted({d['frame_number'] for d in chosen['detections']
+                          if d['conf'] >= options.confidence_threshold})
+    got = sorted(int(os.path.basename(p)[5:11]) for p in written)
+    if got != want_frames or not got or any(
+            cv2.imread(p).shape != (1080, 1920, 3) for p in written):
+        fail('{}: frames {}, want {}'.format(chosen['file'], got,
+                                            want_frames))
+    return {'annotated videos': len(rendered),
+            'annotated frames of {}'.format(chosen['file']): len(written)}
+
+
+def _native_host(device, downloads, results_file, detector, step, fail):
+    """Step 7: the native host library built here; letterbox_u8 against
+    ops/boxes.letterbox(auto=False, scaleup=True) on the downloads;
+    nms_xyxy against B1's keep mask on each image's class-offset
+    candidates of step 2's selection programs (scores -rank in B1's
+    order); cluster_boxes against the rule in
+    tests/torch_host_tools_data.py on step 2's detections.
+    Returns {name: value}."""
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from megadetector_tpu_torch import native
+    from megadetector_tpu_torch.ops import boxes as box_ops
+    from megadetector_tpu_torch.ops.cuda_nms import greedy_nms_keep
+    from megadetector_tpu_torch.ops.decode import select_topk_candidates
+    from megadetector_tpu_torch.ops.nms import _CLASS_OFFSET, cxcywh_to_xyxy
+    from megadetector_tpu_torch.utils import path_utils
+
+    built = step('native build', native.is_available)
+    if not built:
+        fail('the native host library did not build')
+    print('phase 41: native host library {}'.format(os.path.relpath(
+        native.host_library_path())), flush=True)
+    files = path_utils.find_images(downloads, recursive=True)
+    images = []
+    for path in files:
+        with Image.open(path) as im:
+            images.append(np.asarray(im.convert('RGB')))
+    worst = [0.0, 0.0]
+
+    def letterbox():
+        for img in images:
+            ref = box_ops.letterbox(img, 1280, auto=False, scaleup=True)[0]
+            got = native.letterbox_u8(img, 1280)
+            if got.shape != ref.shape:
+                fail('letterbox_u8: {} against {}'.format(got.shape,
+                                                          ref.shape))
+            diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+            mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+            worst[0], worst[1] = max(worst[0], mean), max(worst[1], p99)
+            if mean >= 1.0 or p99 > 4:
+                fail('letterbox_u8 against ops/boxes.letterbox: mean {:.3f}'
+                     ', p99 {}'.format(mean, p99))
+    step('letterbox_u8 x {}'.format(len(images)), letterbox)
+
+    # Step 2's selection programs: capacity and thresholds by canvas
+    selection = {}
+    for key in detector._programs.entries:
+        if 'select' in key and key[0] == 'forward':
+            i = key.index('select')
+            shape = tuple(key[2:4])
+            capacity, conf, iou = key[i + 1:i + 4]
+            if capacity >= selection.get(shape, (0,))[0]:
+                selection[shape] = (capacity, conf, iou)
+    buckets = {}
+    for path, img in zip(files, images):
+        info = detector.preprocess_image(img, image_id=path)
+        buckets.setdefault(tuple(info['target_shape']), []).append(
+            info['img_processed'])
+    if not detector._fused_decode or set(buckets) != set(selection):
+        fail('canvases {} against the selection programs {}'.format(
+            sorted(buckets), sorted(selection)))
+    config = detector.config
+    stats = {'images': 0, 'candidates': 0, 'kept': 0, 'differing': 0,
+             'pairs within an ulp': 0}
+
+    def nms():
+        for shape, canvases in sorted(buckets.items()):
+            capacity, conf, iou = selection[shape]
+            thr = np.float32(iou)
+            ulp = float(np.spacing(thr))
+            for start in range(0, len(canvases), 8):
+                batch = torch.from_numpy(np.stack(
+                    canvases[start:start + 8])).to(device)
+                with torch.inference_mode():
+                    heads = detector._forward(batch)
+                    cands = select_topk_candidates(
+                        list(heads), config.anchors, config.strides,
+                        config.num_classes, conf, capacity)
+                    xyxy = cxcywh_to_xyxy(cands['boxes_cxcywh'])
+                    valid = cands['valid']
+                    masked = torch.where(valid[..., None], xyxy, 0.0)
+                    offset = torch.clamp(masked.amax(dim=(1, 2)) + 1.0,
+                                         min=_CLASS_OFFSET)
+                    shifted = xyxy + cands['classes'].float()[..., None] * \
+                        offset[:, None, None]
+                    keep = greedy_nms_keep(shifted.contiguous(),
+                                           valid.contiguous(), iou)
+                for b in range(batch.shape[0]):
+                    v = valid[b]
+                    n = int(v.sum())
+                    pts = shifted[b][v]
+                    b1 = set(torch.nonzero(keep[b][v]).flatten().tolist())
+                    got = set(native.nms_xyxy(
+                        pts.cpu().numpy(), -np.arange(n, dtype=np.float32),
+                        iou).tolist())
+                    # Pairs whose exact IoU lies within one float32 ulp of
+                    # the threshold (the coordinates' products in float64)
+                    p = pts.double()
+                    area = (p[:, 2] - p[:, 0]) * (p[:, 3] - p[:, 1])
+                    iw = (torch.minimum(p[:, None, 2], p[None, :, 2]) -
+                          torch.maximum(p[:, None, 0], p[None, :, 0])
+                          ).clamp(min=0)
+                    ih = (torch.minimum(p[:, None, 3], p[None, :, 3]) -
+                          torch.maximum(p[:, None, 1], p[None, :, 1])
+                          ).clamp(min=0)
+                    inter = iw * ih
+                    exact = inter / (area[:, None] + area[None, :] - inter
+                                     ).clamp(min=1e-300)
+                    near = torch.triu((exact - float(thr)).abs() <= ulp,
+                                      diagonal=1)
+                    n_near = int(near.sum())
+                    stats['pairs within an ulp'] += n_near
+                    stats['images'] += 1
+                    stats['candidates'] += n
+                    stats['kept'] += len(b1)
+                    if got != b1:
+                        stats['differing'] += 1
+                        # The first box the two decide differently must be
+                        # within an ulp of a box both kept before it
+                        j = min(got ^ b1)
+                        before = sorted(i for i in b1 & got if i < j)
+                        if not before or not bool(near[before, j].any()):
+                            fail('native NMS against B1 on a {} canvas: '
+                                 'box {} of {} decided differently, no '
+                                 'kept box within an ulp of the threshold'
+                                 .format(shape, j, n))
+    step('nms_xyxy against B1', nms)
+
+    with open(results_file) as f:
+        data = json.load(f)
+    dets = [d for im in data['images'] for d in im['detections']]
+    boxes = np.array([d['bbox'] for d in dets], np.float32)
+    cats = np.array([int(d['category']) for d in dets], np.int32)
+    ids, n_clusters = step('cluster_boxes', lambda: native.cluster_boxes(
+        boxes, cats, CLUSTER_IOU))
+    want_ids, want_n = _host_tools_data().cluster_rule(boxes, cats,
+                                                        CLUSTER_IOU)
+    if ids.tolist() != want_ids or n_clusters != want_n:
+        fail('cluster_boxes: {} clusters, the rule {}'.format(n_clusters,
+                                                               want_n))
+    stats.update({'letterbox worst mean |d|': round(worst[0], 4),
+                  'letterbox worst p99 |d|': worst[1],
+                  'clustered detections': len(dets),
+                  'clusters': n_clusters})
+    return stats
+
+
+def phase_host_tools(device, workdir, workflow_path, threshold, card):
+    """
+    41. The taxonomy tools, the YOLO val runner, change detection, XMP
+    tagging, video rendering and the native host kernels, from sample
+    images downloaded over loopback through the card's detections. Every
+    step is checked and raises on a failure.
+    1. GBIF and iNat taxonomy archives (about 300 taxa naming the
+    detector's categories: Animalia 'animal', Homo sapiens 'person')
+    served by url_utils.SingletonHTTPServer: initialize_taxonomy_lookup
+    (download_fn maps each public URL to the server by its basename; a
+    second call fetches nothing); map_new_dataset of the categories, 12
+    common names (hyphens as spaces) and 4 scientific names, each to its
+    taxon, 'vehicle' unmapped; check_taxonomy_csv and
+    check_taxonomy_consistency find nothing else; the preview, the
+    release (per-level columns) and validate_category_mappings. 16 of
+    phase 28's JPEGs a camera downloaded by retrieve_sample_image and by
+    simple_image_download's Downloader from a loopback search answer
+    (Bing's murl form) with the default urllib fetch, byte-identical.
+    2. The 32 downloads through phase 28's yolov5l6 in bf16 at phase 28's
+    threshold (load_and_run_detector_batch, batch 8), launches exact.
+    3. run_inference_with_yolo_val with a stand-in YOLO repository whose
+    val.py runs the same detector on the card (a `python` shim first on
+    PATH where `python` is not this interpreter): chunked (one chunk of
+    32, unique basenames verified), rerun (the chunk skipped, the same
+    file), then through the symlink farm; each val.py process's own
+    launches exact (its seconds printed); both MD files match step 2's at
+    the golden tolerances (md_tests).
+    4. write_results_to_xmp: a sidecar an image with its tags;
+    process_input_data in 4 threads into a recording stand-in pyexiv2:
+    each image's digiKam tags above the threshold.
+    5. process_folders and create_change_previews over phase 28's two
+    cameras (frame differencing): 64 scores, each camera's first 0, one
+    score equal to cv2 directly, 10 side-by-side previews.
+    6. visualize_video_output over phase 21's time_sample results: two
+    mp4v videos that reopen with all 60 and 45 frames at 1920x1080, then
+    one seeded sample's annotated frames.
+    7. The native host library (letterbox_nms.cpp; g++, no libjpeg) built
+    here: letterbox_u8 against ops/boxes.letterbox on the 32 downloads
+    (mean |d| < 1, p99 <= 4), nms_xyxy against B1's keep mask on every
+    image's class-offset candidates at step 2's capacity (equal, but
+    where a pair's exact IoU is within a float32 ulp of the threshold),
+    cluster_boxes against its rule in Python on step 2's detections.
+    Prints each step's seconds. Returns the phase's (nms, conv,
+    bottleneck, stem, silu) launches: step 2's and the val.py processes'.
+    """
+
+    import torch
+
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.postprocessing.validate_batch_results \
+        import validate_batch_results
+    from megadetector_tpu_torch.utils import path_utils
+
+    start = time.time()
+    out = os.path.join(workdir, 'host_tools')
+    os.makedirs(out, exist_ok=True)
+    seconds, steps = {}, {}
+
+    def step(name, fn):
+        t0 = time.time()
+        value = fn()
+        seconds[name] = time.time() - t0
+        return value
+
+    def fail(message):
+        raise AssertionError('phase 41: ' + message)
+
+    t0 = time.time()
+    downloads, counts = _taxonomy_and_samples(workdir, out, step, fail)
+    steps['1'] = time.time() - t0
+
+    t0 = time.time()
+    files = path_utils.find_images(downloads, recursive=True)
+    results_file = os.path.join(out, 'detections.json')
+    detector = step('load_detector', lambda: load_detector(
+        workflow_path, device=device, detector_options={'dtype': 'bfloat16'}))
+    launches, programs = step('detect', lambda: _counted_detection(
+        'phase 41 on {}, the downloads through phase 28\'s yolov5l6 (bf16) '
+        'at {:.4f}'.format(card, threshold), detector, workflow_path, files,
+        downloads, threshold, results_file))
+    errors = validate_batch_results(results_file)['validation_results']
+    if len(files) != 2 * SAMPLE_IMAGES or errors['validation_errors']:
+        fail('{} downloads detected, {}'.format(
+            len(files), errors['validation_errors'][:3]))
+    steps['2'] = time.time() - t0
+
+    t0 = time.time()
+    val_launches, more = _yolo_val(workdir, downloads, workflow_path,
+                                   threshold, results_file, detector, out,
+                                   card, step, fail)
+    counts.update(more)
+    steps['3'] = time.time() - t0
+
+    for label, run in (('4', lambda: _xmp(downloads, results_file,
+                                          threshold, out, step, fail)),
+                       ('5', lambda: _change_detection(workdir, out, step,
+                                                       fail)),
+                       ('6', lambda: _video_render(workdir, out, step,
+                                                   fail)),
+                       ('7', lambda: _native_host(device, downloads,
+                                                  results_file, detector,
+                                                  step, fail))):
+        t0 = time.time()
+        counts.update(run())
+        steps[label] = time.time() - t0
+    del detector
+    torch.cuda.empty_cache()
+
+    total = tuple(a + b for a, b in zip(launches, val_launches))
+    print('phase 41 on {}: launches (nms, conv, bottleneck, stem, silu) '
+          'detection {} ({} programs), val.py processes {}; counts {}'
+          .format(card, launches, programs, val_launches,
+                  ', '.join('{} {}'.format(k, v) for k, v in counts.items())),
+          flush=True)
+    print('phase 41 on {}: seconds by step: {}; steps {}; total {:.3f}'
+          .format(card, ', '.join('{} {:.3f}'.format(k, v)
+                                  for k, v in seconds.items()),
+                  ', '.join('{} {:.3f}'.format(k, v)
+                            for k, v in steps.items()),
+                  time.time() - start), flush=True)
+    return total
+
+
 def main():
     import numpy as np
     import torch
@@ -9098,6 +10033,20 @@ def main():
         stem_record['launches'] += counts[3]
         silu_record['launches'] += counts[4]
         print('phase 40 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 41. the taxonomy tools, the YOLO val runner, change detection,
+        # XMP tagging, video rendering and the native host kernels, from
+        # sample images downloaded over loopback through the card
+        start = time.time()
+        counts = phase_host_tools(device, workdir, workflow_path, threshold,
+                                  card)
+        record['launches'] += counts[0]
+        conv_record['launches'] += counts[1]
+        bottleneck_record['launches'] += counts[2]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        print('phase 41 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

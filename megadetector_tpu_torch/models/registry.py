@@ -3,9 +3,15 @@ Model registry for the port: its own copy of the parts of
 megadetector_tpu/models/registry.py that the detection entry points use
 (friendly-name resolution, the canonical model table with its thresholds,
 the output-file metadata, a model file's version from its embedded
-metadata or its name, embedding metadata in a model file, and where
-converted checkpoints are looked up).
-Nothing here downloads: the URLs are metadata written into results files.
+metadata or its name, embedding metadata in a model file, where
+converted checkpoints are looked up, and download_model /
+try_download_known_detector, which fetch an original checkpoint through
+utils/url_utils.download_url with the MD5 check; a known name still
+resolves to a converted checkpoint on disk first).
+
+One difference on purpose: download_model(force_download=True) fetches
+the file again even where it is on disk; the JAX function hands the
+existing file to download_url, which skips it.
 """
 
 import json
@@ -325,17 +331,97 @@ def add_metadata_to_model_file(model_filename, metadata,
     return output_filename
 
 
-#%% Converted checkpoints
+#%% Download and converted checkpoints
 
 
 def get_default_model_folder():
-    """Folder where converted models are looked up ($MD_MODEL_FOLDER)."""
+    """Folder where downloaded and converted models are cached
+    ($MD_MODEL_FOLDER)."""
 
     folder = os.environ.get(
         'MD_MODEL_FOLDER',
         os.path.join(tempfile.gettempdir(), 'megadetector_tpu_models'))
     os.makedirs(folder, exist_ok=True)
     return folder
+
+
+def _validate_md5(filename, expected_md5):
+    """True if [filename]'s MD5 matches [expected_md5]."""
+
+    import hashlib
+    h = hashlib.md5()
+    with open(filename, 'rb') as f:
+        for chunk in iter(lambda: f.read(1 << 20), b''):
+            h.update(chunk)
+    return h.hexdigest().lower() == expected_md5.lower()
+
+
+def download_model(model_version, force_download=False, model_folder=None):
+    """
+    Download (with MD5 validation and corrupted-file redownload) the original
+    checkpoint for a canonical model version. Returns the local path.
+    """
+
+    from megadetector_tpu_torch.utils.url_utils import download_url
+
+    assert model_version in known_models, \
+        'Unknown model version {}'.format(model_version)
+    entry = known_models[model_version]
+    url = entry['url']
+    if model_folder is None:
+        model_folder = get_default_model_folder()
+    local_file = os.path.join(model_folder, url.split('/')[-1])
+
+    needs_download = force_download or not os.path.isfile(local_file)
+    if not needs_download and 'md5' in entry:
+        if not _validate_md5(local_file, entry['md5']):
+            print('MD5 mismatch for {}, re-downloading'.format(local_file))
+            os.remove(local_file)
+            needs_download = True
+
+    if needs_download:
+        download_url(url, local_file, force_download=force_download,
+                     verbose=True)
+        if 'md5' in entry and not _validate_md5(local_file, entry['md5']):
+            raise IOError(
+                'Downloaded file {} failed MD5 validation'.format(local_file))
+
+    return local_file
+
+
+def try_download_known_detector(detector_name, force_download=False,
+                                verbose=False):
+    """
+    If [detector_name] is a known model name (e.g. 'MDV5A'), return its
+    converted checkpoint when one is on disk, else download the original
+    (or find the cached copy) and return the local path; otherwise return
+    [detector_name] unchanged.
+    """
+
+    if detector_name is None:
+        return None
+
+    # Environment-variable overrides, e.g. MDV5A=/path/to/model
+    if detector_name in os.environ:
+        detector_name = os.environ[detector_name]
+        if verbose:
+            print('Model name resolved via environment variable: {}'.format(
+                detector_name))
+
+    if os.path.exists(detector_name):
+        return detector_name
+
+    name_lower = detector_name.lower()
+    if name_lower not in model_string_to_model_version:
+        return detector_name
+    version = model_string_to_model_version[name_lower]
+
+    # Prefer an already-converted checkpoint in the model cache
+    converted = find_converted_checkpoint(version)
+    if converted is not None:
+        return converted
+
+    return download_model(version, force_download=force_download)
 
 
 def find_converted_checkpoint(model_version, model_folder=None):

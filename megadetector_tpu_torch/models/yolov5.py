@@ -299,6 +299,19 @@ def init_params(config, seed=0):
 #%% Tensors of either kind: float NCHW or QTensor (int8 NHWC)
 
 
+def conv_geom(stride, pad, k):
+    """Normalize conv geometry: stride -> 2-tuple, pad -> [(t,b),(l,r)]
+    (int/None inputs keep the classic square k//2 behavior)."""
+
+    if isinstance(stride, int):
+        stride = (stride, stride)
+    if pad is None:
+        pad = k // 2
+    if isinstance(pad, int):
+        pad = [(pad, pad), (pad, pad)]
+    return stride, pad
+
+
 def _float_nchw(x, dtype=torch.float32):
     """A float NCHW tensor; QTensors are dequantized into [dtype] (in bf16
     as the JAX qt_dequant does: bf16(q) * bf16(scale), rounded)."""

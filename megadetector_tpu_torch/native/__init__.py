@@ -1,16 +1,27 @@
 """
-The port's native JPEG loader: decode + EXIF rotation + letterbox of a
-JPEG in C++ on libjpeg (jpeg_loader.cpp, the port's copy of
-megadetector_tpu/native/jpeg_loader.cpp), with ctypes bindings. It is host
-code, not a device kernel: the batch driver's --use_native_loader runs it
-on the loader workers, and ctypes releases the GIL for each call.
+The port's native host code, in two libraries with ctypes bindings. Both
+are host code, not device kernels, and ctypes releases the GIL for each
+call.
 
-The library is built at first use with g++ -O3 -shared -fPIC -fopenmp
-... -ljpeg into megadetector_tpu_torch/_build/ (ignored by git), under a
-name keyed by a hash of the source and flags. The build writes to a
-temporary name and then os.replace()s it, so processes that build at once
-never load a half-written file. A missing g++ or libjpeg raises
-NativeLoaderError naming the missing piece; nothing falls back quietly.
+- The JPEG loader: decode + EXIF rotation + letterbox of a JPEG in C++ on
+  libjpeg (jpeg_loader.cpp, the port's copy of
+  megadetector_tpu/native/jpeg_loader.cpp). The batch driver's
+  --use_native_loader runs it on the loader workers.
+- The host kernels letterbox_u8, nms_xyxy and cluster_boxes
+  (letterbox_nms.cpp, the port's copy of
+  megadetector_tpu/native/letterbox_nms.cpp), with the JAX module's
+  is_available() and signatures. They need no libjpeg, so they build
+  where the JPEG loader cannot. No code of the port calls them, as no
+  code of the JAX package calls its own: they are kept for parity with
+  the JAX package, and its tests are their only callers.
+
+Each library is built at first use with g++ -O3 -shared -fPIC -fopenmp
+(and -ljpeg for the loader) into megadetector_tpu_torch/_build/ (ignored
+by git), under a name keyed by a hash of its source and flags. The build
+writes to a temporary name and then os.replace()s it, so processes that
+build at once never load a half-written file. A missing g++ or libjpeg
+raises NativeLoaderError naming the missing piece; nothing falls back
+quietly.
 
 Numpy only at import (no torch, no PIL): loader worker processes import
 this module; PIL reads a JPEG's header inside decode_jpeg_scaled.
@@ -27,6 +38,8 @@ import numpy as np
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'jpeg_loader.cpp')
+_HOST_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         'letterbox_nms.cpp')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), '_build')
 CXX_FLAGS = ['-O3', '-shared', '-fPIC', '-fopenmp']
@@ -39,31 +52,50 @@ JL_NOT_RGB = 3
 
 _lock = threading.Lock()
 _lib = None
+_host_lib = None
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_F32P = ctypes.POINTER(ctypes.c_float)
 
 
 class NativeLoaderError(RuntimeError):
-    """The native JPEG loader cannot be built or loaded."""
+    """A native library (the JPEG loader or the host kernels) cannot be
+    built or loaded."""
+
+
+def _hashed_path(src, stem, link_flags):
+    digest = hashlib.sha256(' '.join(CXX_FLAGS + link_flags).encode())
+    with open(src, 'rb') as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR,
+                        '{}-{}.so'.format(stem, digest.hexdigest()[:16]))
 
 
 def library_path():
-    """Where the library for the current source and flags lives."""
+    """Where the JPEG loader for the current source and flags lives."""
 
-    digest = hashlib.sha256(' '.join(CXX_FLAGS + LINK_FLAGS).encode())
-    with open(_SRC, 'rb') as f:
-        digest.update(f.read())
-    return os.path.join(BUILD_DIR,
-                        'libmdjpeg-{}.so'.format(digest.hexdigest()[:16]))
+    return _hashed_path(_SRC, 'libmdjpeg', LINK_FLAGS)
+
+
+def host_library_path():
+    """Where the host kernels' library for the current source and flags
+    lives."""
+
+    return _hashed_path(_HOST_SRC, 'libmdnative', [])
+
+
+def _gxx_problem():
+    return None if shutil.which('g++') else 'g++ not found on PATH'
 
 
 def toolchain_problem():
     """None when g++ and libjpeg's header are present, else a sentence
     naming what is missing."""
 
-    if shutil.which('g++') is None:
-        return 'g++ not found on PATH'
+    problem = _gxx_problem()
+    if problem is not None:
+        return problem
     proc = subprocess.run(['g++', '-E', '-x', 'c++', '-', '-o', os.devnull],
                           input='#include <cstdio>\n#include <jpeglib.h>\n',
                           capture_output=True, text=True)
@@ -73,22 +105,20 @@ def toolchain_problem():
     return None
 
 
-def _build(out_path):
-    problem = toolchain_problem()
+def _build(out_path, src, link_flags, what, problem):
     if problem is not None:
-        raise NativeLoaderError('cannot build the native JPEG loader: '
-                                '{}'.format(problem))
+        raise NativeLoaderError('cannot build {}: {}'.format(what, problem))
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = '{}.tmp{}'.format(out_path, os.getpid())
-    cmd = ['g++'] + CXX_FLAGS + [_SRC, '-o', tmp] + LINK_FLAGS
+    cmd = ['g++'] + CXX_FLAGS + [src, '-o', tmp] + link_flags
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         missing = 'libjpeg (-ljpeg)' if 'ljpeg' in proc.stderr else 'g++'
         raise NativeLoaderError(
-            'cannot build the native JPEG loader: {} failed ({}):\n{}\n{}'
-            .format(missing, proc.returncode, ' '.join(cmd), proc.stderr))
+            'cannot build {}: {} failed ({}):\n{}\n{}'.format(
+                what, missing, proc.returncode, ' '.join(cmd), proc.stderr))
     os.replace(tmp, out_path)
 
 
@@ -102,7 +132,8 @@ def load_library():
             return _lib
         path = library_path()
         if not os.path.isfile(path):
-            _build(path)
+            _build(path, _SRC, LINK_FLAGS, 'the native JPEG loader',
+                   toolchain_problem())
         lib = ctypes.CDLL(path)
         lib.decode_jpeg_letterbox_rect.argtypes = [
             _U8P, ctypes.c_long, _U8P, ctypes.c_int, ctypes.c_int,
@@ -252,3 +283,116 @@ def decode_jpeg_letterbox_batch(jpeg_buffers, canvas, pad_value=114,
         ptrs, lens, n, _u8(out), canvas_h, canvas_w, int(pad_value),
         int(scale_target), int(dct_scale_target), _i32(dims), _i32(errs))
     return out, dims, errs
+
+
+#%% Host kernels (letterbox_nms.cpp: a library of its own, no libjpeg)
+
+
+def load_host_library():
+    """The loaded host-kernel library, building it first if needed;
+    raises NativeLoaderError when it cannot be built."""
+
+    global _host_lib
+    with _lock:
+        if _host_lib is not None:
+            return _host_lib
+        path = host_library_path()
+        if not os.path.isfile(path):
+            _build(path, _HOST_SRC, [], 'the native host kernels',
+                   _gxx_problem())
+        lib = ctypes.CDLL(path)
+        lib.letterbox_u8.argtypes = [
+            _U8P, ctypes.c_int, ctypes.c_int, _U8P, ctypes.c_int,
+            ctypes.c_uint8]
+        lib.letterbox_u8.restype = None
+        lib.letterbox_u8_rect.argtypes = [
+            _U8P, ctypes.c_int, ctypes.c_int, _U8P, ctypes.c_int,
+            ctypes.c_int, ctypes.c_uint8]
+        lib.letterbox_u8_rect.restype = None
+        lib.nms_xyxy.argtypes = [
+            _F32P, _F32P, ctypes.c_int, ctypes.c_float, _I32P]
+        lib.nms_xyxy.restype = ctypes.c_int
+        lib.cluster_boxes.argtypes = [
+            _F32P, _I32P, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            _I32P]
+        lib.cluster_boxes.restype = ctypes.c_int
+        _host_lib = lib
+        return _host_lib
+
+
+def is_available():
+    """True when the host kernels' library is built (building it if
+    needed), False when it cannot be (no g++)."""
+
+    try:
+        load_host_library()
+    except NativeLoaderError:
+        return False
+    return True
+
+
+def letterbox_u8(image, out_size, pad_value=114):
+    """
+    Fused native letterbox: HWC uint8 -> [out_h, out_w, 3] uint8
+    (geometry identical to ops/boxes.letterbox(auto=False, scaleup=True)).
+    out_size may be an int (square canvas) or an (out_h, out_w) tuple.
+    """
+
+    lib = load_host_library()
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    out_h, out_w = _canvas_hw(out_size)
+    if image.ndim != 3 or image.shape[2] != 3 or min(image.shape[:2]) < 1 \
+            or min(out_h, out_w) < 1:
+        raise ValueError('letterbox_u8: an HxWx3 image onto a positive '
+                         'canvas, got {} onto {}'.format(image.shape,
+                                                         (out_h, out_w)))
+    h, w = image.shape[:2]
+    out = np.empty((out_h, out_w, 3), dtype=np.uint8)
+    lib.letterbox_u8_rect(_u8(image), h, w, _u8(out), out_h, out_w,
+                          pad_value)
+    return out
+
+
+def nms_xyxy(boxes, scores, iou_thres):
+    """
+    Native greedy NMS. boxes [N,4] xyxy, scores [N]; returns kept indices
+    (score-descending numpy int32 array). Boxes are ordered with
+    std::sort, which is not stable: among tied scores the order, and so
+    the kept set, may differ from a stable sort's.
+    """
+
+    lib = load_host_library()
+    boxes = np.ascontiguousarray(boxes, dtype=np.float32)
+    scores = np.ascontiguousarray(scores, dtype=np.float32)
+    n = boxes.shape[0]
+    if boxes.shape != (n, 4) or scores.shape != (n,):
+        raise ValueError('nms_xyxy: boxes [N, 4] and scores [N], got {} and '
+                         '{}'.format(boxes.shape, scores.shape))
+    keep = np.empty(n, dtype=np.int32)
+    n_keep = lib.nms_xyxy(boxes.ctypes.data_as(_F32P),
+                          scores.ctypes.data_as(_F32P), n,
+                          float(iou_thres), _i32(keep))
+    return keep[:n_keep].copy()
+
+
+def cluster_boxes(boxes_xywh, categories, iou_thres,
+                  category_agnostic=False):
+    """
+    Native greedy IoU clustering (grid-hashed; the port's repeat-detection
+    elimination does not call it). boxes [N,4] normalized
+    xywh, categories [N] ints; returns (cluster_ids [N], n_clusters).
+    """
+
+    lib = load_host_library()
+    boxes = np.ascontiguousarray(boxes_xywh, dtype=np.float32)
+    categories = np.ascontiguousarray(categories, dtype=np.int32)
+    n = boxes.shape[0]
+    if boxes.shape != (n, 4) or categories.shape != (n,):
+        raise ValueError('cluster_boxes: boxes [N, 4] and categories [N], '
+                         'got {} and {}'.format(boxes.shape,
+                                                categories.shape))
+    out = np.empty(n, dtype=np.int32)
+    n_clusters = lib.cluster_boxes(
+        boxes.ctypes.data_as(_F32P), _i32(categories), n, float(iou_thres),
+        int(category_agnostic), _i32(out))
+    return out, n_clusters

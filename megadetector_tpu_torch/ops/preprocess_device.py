@@ -147,6 +147,47 @@ def letterbox_batch(images_u8, sizes, out_size, scale_target=None,
     return _div(out, 255.0)
 
 
+def letterbox_one(image_u8, height, width, out_size, pad_value=114.0,
+                  use_matmul=True, scale_target=None, resize_dtype=None,
+                  fold_layout=None):
+    """
+    Letterbox one image from a staging canvas onto [out_h, out_w]: the
+    geometry of letterbox_batch on a batch of one.
+
+    Args:
+        image_u8: [S0h, S0w, 3] uint8 staging canvas; the valid image
+            occupies the top-left [height, width] region
+        height, width: ints or 0-d integer tensors, the valid region
+        out_size: canvas, an int (square) or (h, w)
+        use_matmul: True for the matmul form (letterbox_batch), False for
+            the four-corner gather (letterbox_batch_gather; float32, and
+            resize_dtype is ignored there, as in the JAX function)
+        scale_target, resize_dtype: as in letterbox_batch
+        fold_layout: None only; the folded stem layout is TPU-only and
+            any other value raises ValueError
+
+    Returns:
+        [out_h, out_w, 3] float32 in [0, 1]
+    """
+
+    if fold_layout is not None:
+        raise ValueError(
+            'fold_layout={!r}: the folded stem layout is TPU-only and not '
+            'ported'.format(fold_layout))
+    device = image_u8.device
+    sizes = torch.stack([torch.as_tensor(height, device=device),
+                         torch.as_tensor(width, device=device)]).reshape(
+                             1, 2).to(torch.int32)
+    if use_matmul:
+        return letterbox_batch(image_u8[None], sizes, out_size,
+                               scale_target=scale_target,
+                               resize_dtype=resize_dtype,
+                               pad_value=pad_value)[0]
+    return letterbox_batch_gather(image_u8[None], sizes, out_size,
+                                  scale_target=scale_target,
+                                  pad_value=pad_value)[0]
+
+
 def letterbox_batch_gather(images_u8, sizes, out_size, scale_target=None,
                            pad_value=114.0):
     """The four-corner gather form of letterbox_batch (same geometry and

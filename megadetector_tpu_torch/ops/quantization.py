@@ -128,6 +128,18 @@ def quantize_params_chain(params, skip_names=('detect',),
             for key, value in params.items()}
 
 
+def is_quantized(params):
+    """True when the conv node carries int8 weights: a parameter dict
+    with 'w_q' (the JAX function's argument), or a module holding an int8
+    weight (the port's QConv)."""
+
+    if isinstance(params, dict):
+        return 'w_q' in params
+    weight = getattr(params, 'weight', None)
+    return isinstance(params, torch.nn.Module) and \
+        torch.is_tensor(weight) and weight.dtype == torch.int8
+
+
 def requalify_quantized(params):
     """
     Copy of a parameter tree with every static scale (x_scale, y_scale,

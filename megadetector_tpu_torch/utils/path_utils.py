@@ -5,7 +5,8 @@ the video helpers (VIDEO_EXTENSIONS, is_video_file, find_video_strings,
 find_videos), flatten_path, is_image_file, recursive_file_list,
 path_is_abs, and the script and deletion helpers of the Wildlife Insights
 download workflow (insert_before_extension, make_executable, delete_file,
-parallel_delete_files).
+parallel_delete_files), and unzip_file and safe_create_link for the
+taxonomy downloads and the YOLO val runner.
 """
 
 import glob
@@ -14,6 +15,7 @@ import ntpath
 import os
 import posixpath
 import re
+import zipfile
 
 # The image extensions of the MD enumeration contract
 IMG_EXTENSIONS = ('.jpg', '.jpeg', '.gif', '.png', '.tif', '.tiff', '.bmp',
@@ -184,3 +186,24 @@ def parallel_delete_files(input_files, max_workers=8, verbose=False):
 
     with ThreadPoolExecutor(max_workers=max_workers) as pool:
         list(pool.map(one, input_files))
+
+
+def safe_create_link(link_exists, link_new):
+    """Create a symlink link_new -> link_exists, replacing a stale one."""
+
+    if os.path.lexists(link_new):
+        if os.path.islink(link_new) and os.readlink(link_new) == link_exists:
+            return
+        os.remove(link_new)
+    os.symlink(link_exists, link_new)
+
+
+def unzip_file(input_file, output_folder=None):
+    """Unzip an archive (defaults to a folder named after the zip)."""
+
+    if output_folder is None:
+        output_folder = os.path.splitext(input_file)[0]
+    os.makedirs(output_folder, exist_ok=True)
+    with zipfile.ZipFile(input_file, 'r') as zf:
+        zf.extractall(output_folder)
+    return output_folder

@@ -19,7 +19,9 @@ detection-postprocessing tools and plot_utils; the classifier-training
 workflow's host tools and the CCT database tools, whose TaxonNode route
 alone needs networkx; the data-format converters, importers, image and
 OCR tools and the LILA tools; the Wildlife Insights and SpeciesNet results
-layer, the WI platform tools and the WI download workflow). PIL is imported only once a file is decoded or
+layer, the WI platform tools and the WI download workflow; the taxonomy
+tools, the YOLO val runner, change detection, XMP tagging, video
+rendering and the string and process helpers). PIL is imported only once a file is decoded or
 drawn on; tensorflow only once a .pb detector is built, pandas only
 inside the functions that build data frames, matplotlib only inside the
 functions that plot. cv2 is not checked:
@@ -76,6 +78,17 @@ WI_TOOLS = (
     'utils.wi_platform_utils', 'visualization.visualize_db',
     'utils.directory_listing', 'utils.split_locations_into_train_val',
     'workflows.download_wi_projects')
+# The taxonomy tools, the YOLO val runner, change detection, XMP tagging,
+# video rendering and the string and process helpers
+HOST_TOOLS = (
+    'taxonomy_mapping.species_lookup', 'taxonomy_mapping.taxonomy_release',
+    'taxonomy_mapping.taxonomy_csv_checker',
+    'taxonomy_mapping.validate_lila_category_mappings',
+    'taxonomy_mapping.retrieve_sample_image',
+    'taxonomy_mapping.simple_image_download', 'utils.process_utils',
+    'detection.run_inference_with_yolo_val', 'detection.change_detection',
+    'integration.xmp_integration', 'visualization.visualize_video_output',
+    'utils.string_utils')
 PACKAGE_DIR = os.path.dirname(os.path.abspath(
     megadetector_tpu_torch.__file__))
 
@@ -213,7 +226,8 @@ def test_port_imports_no_jax_no_jax_package_and_no_pil():
                     for name in CLASSIFICATION_TOOLS} | {
                     'megadetector_tpu_torch.data_management.' + name
                     for name in DATA_FORMAT_TOOLS} | {
-                    'megadetector_tpu_torch.' + name for name in WI_TOOLS}
+                    'megadetector_tpu_torch.' + name for name in WI_TOOLS} | {
+                    'megadetector_tpu_torch.' + name for name in HOST_TOOLS}
     assert expected <= set(report['modules'])
     assert report['jax'] == []
     assert report['jax_package'] == []
@@ -777,3 +791,136 @@ def test_wi_tools_run_without_jax_tqdm_or_pandas():
     assert report == {'common': 'deer', 'fake': [0, 0, 1, 1], 'valid': True,
                       'html': True, 'indexes': 1, 'val': 1,
                       'pandas': False, 'blocked': []}
+
+
+_HOST = """
+import importlib, json, os, sys, tempfile
+# Importing any of these now raises ImportError
+for blocked in ('jax', 'megadetector_tpu', 'tqdm'):
+    sys.modules[blocked] = None
+import numpy as np
+names = json.loads(sys.argv[1])
+for name in names:
+    importlib.import_module(name)
+from megadetector_tpu_torch import native
+from megadetector_tpu_torch.detection import change_detection
+from megadetector_tpu_torch.integration import xmp_integration
+from megadetector_tpu_torch.taxonomy_mapping import (species_lookup,
+                                                     taxonomy_release)
+from megadetector_tpu_torch.utils import process_utils, string_utils
+tmp = tempfile.mkdtemp()
+import cv2
+os.makedirs(os.path.join(tmp, 'cam'))
+rng = np.random.RandomState(0)
+for i in range(3):
+    img = rng.randint(0, 50, (40, 60), np.uint8)
+    img[10:30, 10 * i:10 * i + 20] = 250
+    cv2.imwrite(os.path.join(tmp, 'cam', 'im{}.jpg'.format(i)), img)
+motion = change_detection.process_folders(os.path.join(tmp, 'cam'))
+with open(os.path.join(tmp, 'r.json'), 'w') as f:
+    json.dump({'images': [{'file': 'im0.jpg', 'detections': [
+        {'category': '1', 'conf': 0.9, 'bbox': [0, 0, 1, 1]}]}],
+        'detection_categories': {'1': 'animal'}}, f)
+xmp = xmp_integration.write_results_to_xmp(os.path.join(tmp, 'r.json'),
+                                           os.path.join(tmp, 'cam'))
+lookup = species_lookup.SpeciesLookup(
+    [('1', 'genus', 'puma', None), ('2', 'species', 'puma concolor', '1')],
+    synonyms={'cougar': 'puma concolor'})
+rows = taxonomy_release.map_new_dataset('ds', ['Cougar'], lookup)
+print(json.dumps({
+    'motion': sum(r['motion'] for r in motion),
+    'xmp': len(xmp), 'mapped': rows[0]['scientific_name'],
+    'bytes': string_utils.human_readable_to_bytes('2 KB'),
+    'echo': process_utils.execute_and_print('echo ok',
+                                            print_output=False)['output'],
+    'nms': native.nms_xyxy(np.array([[0, 0, 2, 2], [0, 0, 2, 2.1]],
+                                    np.float32),
+                           np.array([0.5, 0.9], np.float32), 0.5).tolist(),
+    'PIL': 'PIL' in sys.modules,
+    'blocked': [m for m in ('jax', 'megadetector_tpu', 'tqdm')
+                if sys.modules[m] is not None]}))
+"""
+
+
+def test_host_tools_run_without_jax_or_tqdm():
+    """The twelve host modules of the taxonomy tools, the YOLO val runner,
+    change detection, XMP tagging, video rendering and the string and
+    process helpers import with jax, the JAX package and tqdm made
+    unimportable; change detection, XMP sidecars, a taxonomy mapping, the
+    helpers and the native NMS then run without PIL."""
+
+    names = ['megadetector_tpu_torch.' + name for name in HOST_TOOLS]
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', _HOST, json.dumps(names)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {'motion': 2, 'xmp': 1, 'mapped': 'puma concolor',
+                      'bytes': 2048.0, 'echo': ['ok\n'], 'nms': [1],
+                      'PIL': False, 'blocked': []}
+
+
+def _public(path):
+    """{name: signature} of the public functions and classes of [path] (a
+    class: its bases and each method's arguments), and the names of its
+    public module-level assignments (ROADMAP C's AST diff)."""
+
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and \
+                not node.name.startswith('_'):
+            out[node.name] = ast.unparse(node.args)
+        elif isinstance(node, ast.ClassDef) and \
+                not node.name.startswith('_'):
+            out[node.name] = (
+                [ast.unparse(b) for b in node.bases],
+                {n.name: ast.unparse(n.args) for n in node.body
+                 if isinstance(n, ast.FunctionDef)})
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                if isinstance(target, ast.Name) and \
+                        not target.id.startswith('_'):
+                    out[target.id] = 'assigned'
+    return out
+
+
+def _sources(module):
+    return [os.path.join(REPO, package, *module.split('.')) + '.py'
+            for package in ('megadetector_tpu', 'megadetector_tpu_torch')]
+
+
+def test_host_tools_public_signatures_match():
+    """The twelve modules match their JAX modules exactly."""
+
+    for module in HOST_TOOLS:
+        want, got = (_public(p) for p in _sources(module))
+        assert got == want and want, module
+
+
+# (module, the JAX functions the port now has with their signatures)
+QUEUE_C = (
+    ('native/__init__', ('is_available', 'letterbox_u8', 'nms_xyxy',
+                         'cluster_boxes')),
+    ('utils/path_utils', ('unzip_file', 'safe_create_link')),
+    ('models/registry', ('download_model', 'try_download_known_detector',
+                         'find_converted_checkpoint',
+                         'get_default_model_folder')),
+    ('ops/quantization', ('is_quantized',)),
+    ('ops/preprocess_device', ('letterbox_one',)),
+    ('models/yolov5', ('conv_geom',)),
+)
+
+
+def test_native_bindings_and_queue_c_functions_match():
+    """The four native bindings, the two path_utils helpers and queue C's
+    five functions have the JAX functions' signatures."""
+
+    for module, names in QUEUE_C:
+        want, got = (_public(p) for p in _sources(module.replace('/', '.')))
+        for name in names:
+            assert name in got and got[name] == want[name], (module, name)

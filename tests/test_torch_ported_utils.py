@@ -7,7 +7,9 @@ dict_to_kvp_list, is_iterable, and the Wildlife Insights tools' is_empty,
 isnan and compare_values_nan_equal), utils/path_utils (with the video
 helpers, flatten_path, and the download workflow's
 insert_before_extension, make_executable, delete_file and
-parallel_delete_files), models/registry and
+parallel_delete_files), models/registry (with download_model and
+try_download_known_detector against a loopback server),
+ops/quantization.is_quantized, models/yolov5.conv_geom and
 visualization/visualization_utils.load_image (its rendering is held in
 tests/test_torch_run_detector.py).
 """
@@ -277,3 +279,154 @@ def test_load_image_matches(tmp_path):
             ref = jax_vis.load_image(str(tmp_path / name), ignore)
             assert ours.mode == ref.mode and ours.size == ref.size
             assert np.array_equal(np.asarray(ours), np.asarray(ref))
+
+
+#%% registry downloads (over loopback), is_quantized, conv_geom
+
+
+@pytest.fixture
+def model_site(tmp_path, monkeypatch):
+    """A loopback server holding a fake checkpoint for every known model,
+    with every known_models URL of each package pointed at it (so nothing
+    can reach the network): MD5s are the fake files' own, and v5b.0.0 has
+    none. MD_MODEL_FOLDER is a temporary folder."""
+
+    import hashlib
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_format_data import free_port
+    from megadetector_tpu_torch.utils import url_utils
+
+    served = tmp_path / 'served'
+    served.mkdir()
+    rng = np.random.RandomState(0)
+    blobs = {}
+    for version in sorted(registry.known_models):
+        name = registry.known_models[version]['url'].split('/')[-1]
+        blobs[name] = rng.bytes(int(rng.randint(500, 3000)))
+        (served / name).write_bytes(blobs[name])
+    base = url_utils.SingletonHTTPServer.start_server(
+        str(served), port=free_port(), host='127.0.0.1')
+    for module in (jax_registry, registry):
+        for version, entry in list(module.known_models.items()):
+            name = entry['url'].split('/')[-1]
+            entry = dict(entry, url=base + '/' + name)
+            if 'md5' in entry:
+                entry['md5'] = hashlib.md5(blobs[name]).hexdigest()
+            if version == 'v5b.0.0':
+                entry.pop('md5')
+            monkeypatch.setitem(module.known_models, version, entry)
+    monkeypatch.setenv('MD_MODEL_FOLDER', str(tmp_path / 'models'))
+    yield dict(served=served, blobs=blobs, root=tmp_path)
+    url_utils.SingletonHTTPServer.stop_server()
+
+
+def test_download_model_matches(model_site, capsys):
+    out = []
+    for side, module in enumerate((jax_registry, registry)):
+        folder = str(model_site['root'] / 'dl{}'.format(side))
+        os.makedirs(folder)
+        got = []
+        for version in ('v5a.0.0', 'v5b.0.0'):
+            path = module.download_model(version, model_folder=folder)
+            got.append((os.path.basename(path), open(path, 'rb').read()))
+        # A corrupt file is re-downloaded (the MD5 check)
+        path = os.path.join(folder, 'md_v5a.0.0.pt')
+        with open(path, 'wb') as f:
+            f.write(b'corrupt')
+        module.download_model('v5a.0.0', model_folder=folder)
+        got.append(open(path, 'rb').read())
+        # The default folder is MD_MODEL_FOLDER
+        got.append(os.path.relpath(module.download_model('v5b.0.0'),
+                                   str(model_site['root'])))
+        printed = capsys.readouterr().out.replace(folder, '<folder>')
+        out.append((got, printed.count('MD5 mismatch')))
+    assert out[0] == out[1]
+    assert out[1][0][0] == ('md_v5a.0.0.pt',
+                            model_site['blobs']['md_v5a.0.0.pt'])
+    assert out[1][0][2] == model_site['blobs']['md_v5a.0.0.pt']
+    assert out[1][1] == 1
+
+
+def test_download_model_refusals_match(model_site, monkeypatch):
+    for side, module in enumerate((jax_registry, registry)):
+        folder = str(model_site['root'] / 'bad{}'.format(side))
+        with pytest.raises(AssertionError):
+            module.download_model('v9', model_folder=folder)
+        monkeypatch.setitem(module.known_models, 'v5a.0.0', dict(
+            module.known_models['v5a.0.0'], md5='0' * 32))
+        with pytest.raises(IOError, match='MD5'):
+            module.download_model('v5a.0.0', model_folder=folder)
+
+
+def test_download_model_force_redownloads_where_jax_does_not(model_site):
+    """A known fault of the JAX function: force_download=True hands the
+    existing file to url_utils.download_url, which skips a file that is on
+    disk, so nothing is fetched again. The port fetches it."""
+
+    out = []
+    for side, module in enumerate((jax_registry, registry)):
+        folder = str(model_site['root'] / 'force{}'.format(side))
+        os.makedirs(folder)
+        stale = os.path.join(folder, 'md_v5b.0.0.pt')
+        with open(stale, 'wb') as f:
+            f.write(b'stale copy')
+        path = module.download_model('v5b.0.0', force_download=True,
+                                     model_folder=folder)
+        out.append(open(path, 'rb').read())
+    assert out[0] == b'stale copy'
+    assert out[1] == model_site['blobs']['md_v5b.0.0.pt']
+
+
+def test_try_download_known_detector_matches(model_site, monkeypatch):
+    existing = str(model_site['root'] / 'mine.npz')
+    open(existing, 'wb').close()
+    monkeypatch.setenv('MY_DETECTOR', existing)
+    models = model_site['root'] / 'models'
+    out = []
+    for module in (jax_registry, registry):
+        got = [module.try_download_known_detector(name, verbose=True)
+               for name in (None, existing, 'MY_DETECTOR', 'not_a_model',
+                            'MDV5B')]
+        # A converted checkpoint on disk wins over a download
+        converted = models / 'md_v5a.0.1.npz'
+        converted.write_bytes(b'')
+        got.append(module.try_download_known_detector('mdv5a'))
+        converted.unlink()
+        got.append(module.try_download_known_detector('mdv5a'))
+        out.append(got)
+        for f in models.iterdir():
+            f.unlink()
+    assert out[0] == out[1]
+    assert out[1][4] == str(models / 'md_v5b.0.1.pt')
+    assert out[1][5] == str(models / 'md_v5a.0.1.npz')
+    assert out[1][6] == str(models / 'md_v5a.0.1.pt')
+
+
+def test_is_quantized_matches():
+    import torch
+    from megadetector_tpu.ops import quantization as jax_q
+    from megadetector_tpu_torch.models.yolov5 import Conv, QConv
+    from megadetector_tpu_torch.ops import quantization as q
+
+    nodes = [{'w_q': np.zeros((1, 1, 1, 1), np.int8), 'w_scale': 1.0},
+             {'w': np.zeros((1, 1, 1, 1), np.float32)}, {}, None, [],
+             'w_q', {'cv1': {'w_q': 1}}]
+    for node in nodes:
+        assert q.is_quantized(node) == jax_q.is_quantized(node)
+    conv = Conv(8, 16, 3, 1)
+    assert not q.is_quantized(conv)
+    qconv = QConv(conv, {'w_q': torch.zeros((16, 3, 3, 8), dtype=torch.int8),
+                         'w_scale': torch.ones(16), 'b': torch.zeros(16)})
+    assert q.is_quantized(qconv)
+
+
+@pytest.mark.parametrize('stride,pad,k', [
+    (1, None, 3), (2, None, 6), ((2, 1), 0, 1), (1, 2, 5),
+    (1, [(0, 1), (1, 0)], 3), ((1, 2), None, 1)])
+def test_conv_geom_matches(stride, pad, k):
+    from megadetector_tpu.models import yolov5 as jax_yolov5
+    from megadetector_tpu_torch.models import yolov5
+
+    assert yolov5.conv_geom(stride, pad, k) == \
+        jax_yolov5.conv_geom(stride, pad, k)

@@ -10,6 +10,9 @@ the JAX package's (megadetector_tpu/ops/preprocess_device.py):
 - the gather form (the oracle) vs the matmul form within 1e-5;
 - at ratio 1 (images equal to the canvas) the letterbox is the image / 255
   bit for bit, which is what the detector's identity path computes;
+- letterbox_one (one image, both forms, bf16 operands) against JAX's
+  letterbox_one within 1e-5, and equal to letterbox_batch's row; a
+  fold_layout raises ValueError;
 - stage_images identical;
 - the batch runner in device mode (staged infos through canvas buckets,
   batch padding and the writer) against the JAX package's, on files;
@@ -18,6 +21,8 @@ the JAX package's (megadetector_tpu/ops/preprocess_device.py):
   other images go through the device letterbox and match the JAX
   TPUDetector in device mode at the golden tolerances.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -112,6 +117,55 @@ def test_identity_is_the_letterbox_at_ratio_one():
     identity = torch.from_numpy(staged)[:, :192, :256].to(torch.float32) / \
         torch.full((), 255.0)
     assert torch.equal(out, identity)
+
+
+def _jax_letterbox_one(image, height, width, out_size, **kwargs):
+    """JAX's letterbox_one under one jit (its ops one by one compile
+    slowly on the CPU)."""
+
+    import jax
+    return jax.jit(functools.partial(jax_pre.letterbox_one,
+                                     out_size=out_size, **kwargs))(
+                                         image, height, width)
+
+
+@pytest.mark.parametrize('sizes,canvas,scale_target', CASES)
+def test_letterbox_one_matches_jax(sizes, canvas, scale_target):
+    staged, hw = pre.stage_images(_images(sizes, seed=4), multiple=64)
+    out_size = canvas if isinstance(canvas, int) else tuple(canvas)
+    batch = pre.letterbox_batch(torch.from_numpy(staged),
+                                torch.from_numpy(hw), canvas,
+                                scale_target=scale_target)
+    # Every form and operand dtype on the first image; each image's plain
+    # form equal to its row of the batch
+    h, w = hw[0]
+    for use_matmul in (True, False):
+        for resize_dtype, jax_dtype in ((None, None),
+                                        (torch.bfloat16, jnp.bfloat16)):
+            ref = np.asarray(_jax_letterbox_one(
+                jnp.asarray(staged[0]), jnp.int32(h), jnp.int32(w),
+                out_size, use_matmul=use_matmul, scale_target=scale_target,
+                resize_dtype=jax_dtype))
+            ours = pre.letterbox_one(
+                torch.from_numpy(staged[0]), int(h), torch.tensor(w),
+                canvas, use_matmul=use_matmul, scale_target=scale_target,
+                resize_dtype=resize_dtype).numpy()
+            assert ours.shape == ref.shape
+            assert np.abs(ours - ref).max() <= 1e-5
+    for i, (h, w) in enumerate(hw):
+        plain = pre.letterbox_one(torch.from_numpy(staged[i]), int(h),
+                                  int(w), canvas, scale_target=scale_target)
+        assert torch.equal(plain, batch[i])
+    gray = pre.letterbox_one(torch.from_numpy(staged[0]), int(hw[0][0]),
+                             int(hw[0][1]), canvas, pad_value=7.0,
+                             scale_target=scale_target)
+    ref = np.asarray(_jax_letterbox_one(
+        jnp.asarray(staged[0]), jnp.int32(hw[0][0]), jnp.int32(hw[0][1]),
+        out_size, pad_value=7.0, scale_target=scale_target))
+    assert np.abs(gray.numpy() - ref).max() <= 1e-5
+    with pytest.raises(ValueError, match='fold_layout'):
+        pre.letterbox_one(torch.from_numpy(staged[0]), 8, 8, canvas,
+                          fold_layout='h2')
 
 
 def test_stage_images_matches_jax():
