@@ -364,6 +364,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      and held to ops/boxes.letterbox, to B1's keep masks and to its
      clustering rule (phase_host_tools has the list); seconds by step.
      Its launches join the B1, B4 and E7 records.
+ 42. data parallelism on a two-replica mesh (make_data_mesh(devices=
+     [cuda:0, cuda:0]), a stream each): the meshed yolov5l6 in bf16 and
+     int8 pallas on the 960x1280 batch of 8 against the unsharded
+     detector (eager, captured, replayed; launches exact over the
+     replicas' programs; outputs and MD records at the golden
+     tolerances), load_and_run_detector_batch over phase 18's 64 JPEGs and
+     MDServer with the meshed detector, the sharded detector and
+     classifier train steps against the unsharded ones (float32 at the
+     CPU tests' bars, bf16 at the bf16 bar; E7 and E7 backward in each
+     replica), dryrun_multichip on the two replicas, and the helper
+     modules' new functions on the driver's output
+     (phase_data_parallel has the list); seconds by step. Its launches
+     join the B1, B2, B3, B4, E7 and E7 bwd records.
 Phases 4, 7 and 10-12 count two passes over the images: the first runs
 each program eagerly (its first call), the second captures the programs
 into CUDA graphs and replays them; launches must be equal and detections
@@ -9693,6 +9706,717 @@ def phase_host_tools(device, workdir, workflow_path, threshold, card):
     return total
 
 
+#%% Phase 42: data parallelism on a two-replica mesh
+
+# Training shapes of phase 42's sharded steps against the unsharded ones
+MESH_DETECTOR_SIZE = 640
+MESH_CLASSIFIER_ARCH = 'efficientnetv2_s'
+MESH_CLASSIFIER_SIZE = 224
+MESH_TRAIN_BATCH = 8
+MESH_SERVER_REQUESTS = 16
+
+
+def _replica_programs(detector):
+    """({(batch, height, width): forward programs run}, selection programs
+    run) over a meshed detector's replicas."""
+
+    forwards, selects = {}, 0
+    for r in detector._replicas:
+        for key, entry in r.programs.entries.items():
+            if 'select' in key:
+                selects += entry.calls
+            elif key[0] == 'forward':
+                forwards[key[1:4]] = forwards.get(key[1:4], 0) + entry.calls
+    return forwards, selects
+
+
+def _mesh_counted(detector, fn):
+    """fn() on a meshed detector with the launch counters at 0 just
+    before; returns (its value, launches (nms, conv, bottleneck, stem,
+    silu), the replicas' {(batch, height, width): forward programs} and
+    selection programs it ran), after holding the launches to the ones
+    those programs imply (_expected_launches)."""
+
+    forwards_before, selects_before = _replica_programs(detector)
+    _reset_counts()
+    value = fn()
+    counts = _counts()
+    forwards_after, selects_after = _replica_programs(detector)
+    forwards = {k: n - forwards_before.get(k, 0)
+                for k, n in forwards_after.items()
+                if n != forwards_before.get(k, 0)}
+    selects = selects_after - selects_before
+    want = _expected_launches(detector, forwards, False, selects)
+    n = sum(forwards.values())
+    if counts != want or not n <= selects <= 2 * n:
+        raise AssertionError(
+            'data parallelism: launches (nms, conv, bottleneck, stem, silu) '
+            '{} over the replicas\' programs {} and {} selections, want '
+            '{}'.format(counts, sorted(forwards.items()), selects, want))
+    return value, counts, forwards, selects
+
+
+def _golden_options():
+    """md_tests at the MD-JSON golden tolerances: conf 0.005, coord
+    0.001, boxes matched at IoU 0.85, every detection from md_tests'
+    comparison threshold (0.1) compared. Below it a random-weight model
+    ranks thousands of near-equal candidates, which any rounding
+    reorders at the capacity's edge."""
+
+    from megadetector_tpu_torch.utils import md_tests
+
+    return md_tests.MDTestOptions()
+
+
+def _md_parity(ours, ref):
+    """md_tests.compare_results of two lists of MD records at the golden
+    tolerances (_golden_options)."""
+
+    from megadetector_tpu_torch.utils import md_tests
+
+    return md_tests.compare_results({'images': ours}, {'images': ref},
+                                    _golden_options())
+
+
+def _golden_parity(label, ours, ref, n):
+    """md_tests.compare_results of two lists of MD records at the golden
+    tolerances; raises unless all [n] images match. Returns the
+    comparison."""
+
+    parity = _md_parity(ours, ref)
+    if parity['errors'] or parity['n_images_compared'] != n:
+        raise AssertionError('{}: {} images compared (want {}), {}'.format(
+            label, parity['n_images_compared'], n, parity['errors'][:5]))
+    return parity
+
+
+def _train_case(kind, dtype, mesh, device, params, images, targets):
+    """One step of the detector or classifier ([kind]) in [dtype], sharded
+    over [mesh] or not (None): (metrics, the gradients the optimizer
+    stepped with (the sharded step's summed ones) and the parameters
+    after the step, each a list of float32 numpy arrays, step ms,
+    launches (nms, conv, bottleneck, stem, silu, E7 backward), activated
+    convs)."""
+
+    import torch
+
+    from megadetector_tpu_torch.models import efficientnet, yolov5
+    from megadetector_tpu_torch.ops import silu_bf16
+    from megadetector_tpu_torch.training import optim
+    from megadetector_tpu_torch.training import train_classifier as tc
+    from megadetector_tpu_torch.training import train_detector as td
+
+    torch.cuda.empty_cache()
+    if kind == 'detector':
+        config = yolov5.YoloV5Config(DETECTOR_TRAIN_ARCH, num_classes=3)
+        model = yolov5.YoloV5(config).load_params(params).to(device)
+        opt = optim.Optimizer(model.parameters(), optim.chain(
+            optim.clip_by_global_norm(5.0), optim.adam(DETECTOR_TRAIN_LR)))
+    else:
+        config = efficientnet.EfficientNetConfig(
+            MESH_CLASSIFIER_ARCH, num_classes=4,
+            image_size=MESH_CLASSIFIER_SIZE)
+        model = tc.make_classifier(config, params, device, dtype)
+        opt = optim.Optimizer(model.parameters(), optim.chain(
+            optim.clip_by_global_norm(1.0),
+            optim.adamw(1e-3, weight_decay=1e-5)))
+    grads = []
+    inner = opt.step
+
+    def step_recording_gradients():
+        grads.extend(p.grad.detach().float().cpu().numpy().copy()
+                     for p in opt.params)
+        inner()
+
+    opt.step = step_recording_gradients
+    if kind == 'detector':
+        step = td.make_detector_train_step(config, model, opt, dtype) \
+            if mesh is None else td.make_sharded_detector_train_step(
+                config, model, opt, mesh, compute_dtype=dtype)
+        args = (images,) + tuple(targets)
+    else:
+        step = tc.make_train_step(config, model, opt, 0.1, dtype) \
+            if mesh is None else tc.make_sharded_train_step(
+                config, model, opt, mesh, label_smoothing=0.1,
+                compute_dtype=dtype)
+        args = (images, targets)
+    _reset_counts()
+    silu_bf16.backward_launches = 0
+    torch.cuda.synchronize()
+    start = time.time()
+    metrics = step(*args)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    launches = _counts() + (silu_bf16.backward_launches,)
+    ms = (time.time() - start) * 1e3
+    leaves = [p.detach().float().cpu().numpy().copy()
+              for p in model.parameters()]
+    n_act = _n_activated_convs(model) if kind == 'detector' else None
+    del model, opt, step
+    return metrics, grads, leaves, ms, launches, n_act
+
+
+def _mesh_training(device, mesh, det_params, card):
+    """Step 4 of phase 42: each sharded step against the unsharded one in
+    float32 and in bf16; returns the sharded steps' (silu, backward)
+    launches. The invariant is the gradient: the summed shard gradients
+    are the whole batch's. The parameters after one Adam step are
+    printed, not held: Adam moves each by about lr whatever its
+    gradient's size, so a gradient near 0 that rounds otherwise (cuDNN's
+    backward sums a batch of 4 in another order than a batch of 8) moves
+    its parameter by up to 2 lr the other way."""
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.models import efficientnet
+
+    rng = np.random.RandomState(42)
+    side = MESH_DETECTOR_SIZE
+    det_images = rng.randint(0, 256, (MESH_TRAIN_BATCH, side, side,
+                                      3)).astype(np.uint8)
+    det_targets = _detector_targets(rng, MESH_TRAIN_BATCH)
+    clf_config = efficientnet.EfficientNetConfig(
+        MESH_CLASSIFIER_ARCH, num_classes=4,
+        image_size=MESH_CLASSIFIER_SIZE)
+    clf_params = efficientnet.init_params(clf_config, seed=0,
+                                          train_init=True)
+    clf_images = rng.randint(0, 256, (2 * MESH_TRAIN_BATCH,
+                                      MESH_CLASSIFIER_SIZE,
+                                      MESH_CLASSIFIER_SIZE,
+                                      3)).astype(np.uint8)
+    clf_labels = rng.randint(0, 4, 2 * MESH_TRAIN_BATCH).astype(np.int32)
+
+    def dist(xs, ys):
+        return float(np.sqrt(sum(np.sum((x.astype(np.float64) - y) ** 2)
+                                 for x, y in zip(xs, ys))))
+
+    def worst(xs, ys):
+        """The largest |d| of a tensor over its largest |ref|."""
+        return max(float(np.abs(x - y).max()) /
+                   max(float(np.abs(y).max()), 1e-30)
+                   for x, y in zip(xs, ys))
+
+    silu = backward = 0
+    for kind, params, images, targets, lr in (
+            ('detector', det_params, det_images, det_targets,
+             DETECTOR_TRAIN_LR),
+            ('classifier', clf_params, clf_images, clf_labels, 1e-3)):
+        runs = {}
+        for dtype_name, dtype in (('float32', torch.float32),
+                                  ('bf16', torch.bfloat16)):
+            for sharded in (False, True):
+                runs[dtype_name, sharded] = _train_case(
+                    kind, dtype, mesh if sharded else None, device, params,
+                    images, targets)
+        # float32: the loss within rtol 1e-6 (the CPU tests' bar), the
+        # gradients within 1e-5 of the whole gradient's L2 norm. cuDNN's
+        # backward sums a batch of 4 in another order than a batch of 8,
+        # so a tensor whose gradient is a sum that cancels can differ by
+        # far more than that against its own largest element (printed)
+        m_ref, g_ref, p_ref = runs['float32', False][:3]
+        m_sh, g_sh, p_sh = runs['float32', True][:3]
+        loss_rel = abs(m_sh['loss'] / m_ref['loss'] - 1)
+        g_rel = dist(g_sh, g_ref) / dist(g_ref, [0.0 * g for g in g_ref])
+        g_worst = worst(g_sh, g_ref)
+        if not loss_rel <= 1e-6 or not g_rel <= 1e-5:
+            raise AssertionError(
+                'data parallelism: sharded {} float32 step: loss {} against '
+                '{} (relative {:.3e}, bar 1e-6), gradients L2 {:.3e} of the '
+                'whole gradient\'s (bar 1e-5; the worst tensor {:.3e} of '
+                'its max |ref|)'.format(kind, m_sh['loss'], m_ref['loss'],
+                                        loss_rel, g_rel, g_worst))
+        # bf16: the loss no further from the unsharded bf16 step's than
+        # that is from float32's, or than one bf16 ulp of it (a bf16 loss
+        # of shards is a sum of rounded parts); the gradients (L2) no
+        # further from float32's than 1.5 times the unsharded bf16
+        # step's are: each replica rounds its own partial gradient to
+        # bf16 before the sum, so two replicas add about sqrt(2) times
+        # one rounding's error where that rounding dominates (the
+        # classifier's zero head; measured 1.17 on the CPU)
+        m16, g16, p16 = runs['bf16', False][:3]
+        m16s, g16s, p16s = runs['bf16', True][:3]
+        own_loss = max(abs(m16['loss'] - m_ref['loss']),
+                       2.0 ** (np.floor(np.log2(abs(m16['loss']))) - 7))
+        own_grad = dist(g16, g_ref)
+        if abs(m16s['loss'] - m16['loss']) > own_loss or \
+                dist(g16s, g_ref) > 1.5 * own_grad:
+            raise AssertionError(
+                'data parallelism: sharded {} bf16 step: loss {} against '
+                '{} (bar {:.3e}), gradients L2 from float32\'s {:.3e} (bar '
+                '1.5 x {:.3e})'.format(
+                    kind, m16s['loss'], m16['loss'], own_loss,
+                    dist(g16s, g_ref), own_grad))
+        # Launches: float32 none of ours; bf16 E7 forward and backward
+        # once per activated conv in each replica (the detector's l0
+        # included: float input), as in the unsharded bf16 step
+        for dtype_name in ('float32', 'bf16'):
+            ref_l, sh_l = runs[dtype_name, False][4], runs[dtype_name,
+                                                          True][4]
+            want = tuple(mesh.size * v for v in ref_l)
+            if sh_l != want or (dtype_name == 'float32' and any(sh_l)) or \
+                    (dtype_name == 'bf16' and not sh_l[4] == sh_l[5] > 0):
+                raise AssertionError(
+                    'data parallelism: sharded {} {} step launches (nms, '
+                    'conv, bottleneck, stem, E7, E7 backward) {}, want {} '
+                    '(the unsharded step\'s {} a replica)'.format(
+                        kind, dtype_name, sh_l, want, ref_l))
+        n_act = runs['bf16', True][5]
+        if kind == 'detector' and runs['bf16', True][4][4] != \
+                mesh.size * n_act:
+            raise AssertionError('data parallelism: sharded detector bf16 '
+                                 'E7 launches {} for {} activated convs in '
+                                 '{} replicas'.format(
+                                     runs['bf16', True][4][4], n_act,
+                                     mesh.size))
+        silu += runs['bf16', True][4][4]
+        backward += runs['bf16', True][4][5]
+        p_worst = max(float(np.abs(x - y).max()) for x, y in zip(p_sh,
+                                                                p_ref))
+        print('data parallelism step 4, {} training on {}: {} batch {} at '
+              '{} px, one Adam step sharded over {} replicas against the '
+              'unsharded step: float32 loss {:.6f} / {:.6f} (relative '
+              '{:.2e}, bar 1e-6), gradients L2 {:.2e} of the whole '
+              'gradient\'s (bar 1e-5; the worst tensor {:.2e} of its max '
+              '|ref|), parameters after the step max |d| '
+              '{:.3e} = {:.3f} lr; bf16 loss {:.6f} / {:.6f} (|d| {:.2e}, '
+              'bar {:.2e}), gradients L2 from float32\'s {:.3e} (bar 1.5 x '
+              '{:.3e}), parameters L2 {:.3e} (bf16 vs float32 {:.3e}); step '
+              'ms float32 {:.1f} / {:.1f}, bf16 {:.1f} / {:.1f} (sharded / '
+              'unsharded, eager first steps); bf16 launches (nms, conv, '
+              'bottleneck, stem, E7, E7 backward) {}'.format(
+                  kind, card, 'yolov5l6' if kind == 'detector' else
+                  MESH_CLASSIFIER_ARCH,
+                  len(images), images.shape[1], mesh.size, m_sh['loss'],
+                  m_ref['loss'], loss_rel, g_rel, g_worst, p_worst,
+                  p_worst / lr,
+                  m16s['loss'], m16['loss'], abs(m16s['loss'] -
+                                                 m16['loss']),
+                  own_loss, dist(g16s, g_ref), own_grad, dist(p16s, p16),
+                  dist(p16, p_ref), runs['float32', True][3],
+                  runs['float32', False][3], runs['bf16', True][3],
+                  runs['bf16', False][3], runs['bf16', True][4]),
+              flush=True)
+    return silu, backward
+
+
+def phase_data_parallel(device, workdir, float_path, q_path, params, batch,
+                        card):
+    """
+    42. Data parallelism on a two-replica mesh: make_data_mesh(devices=
+    [cuda:0, cuda:0]), each replica on its own stream with its own
+    program cache and CUDA graphs (the counterpart of the JAX package's
+    virtual CPU mesh). Every check raises.
+    1. yolov5l6 from phase 4's seed-0 checkpoint as phase 28 rescales it
+    ([float_path], _workflow_checkpoint: phase 4's own random weights
+    score every box 1.0, so their top 8192 candidates are near-ties that
+    any rounding reorders), its int8 chain ([q_path], phase 29's) under
+    conv_backend pallas, then the float model in bf16, meshed and not, on
+    the 960x1280 batch of 8: run_program eager, captured and replayed
+    (identical, every replica's programs replayed), launches exact over
+    the replicas' programs (each a batch of 4; B1 once a selection, B2 /
+    B3 / B4 / E7 as each forward implies); each shard's outputs
+    bit-identical to the unsharded detector's on that shard at the
+    capacity the whole batch took; against the whole batch's program the
+    largest differences printed (cuDNN may pick other algorithms for 8
+    images than for 4); the MD records of 8 synthetic images against the
+    unsharded detector's at the golden tolerances under int8 pallas
+    (float32 float layers); in bf16 they are printed beside the unsharded
+    bf16 records' distance from float32's (the rescaled random model
+    amplifies any rounding change; the per-shard identity holds the
+    mesh); replayed program ms of both.
+    2. load_and_run_detector_batch over phase 18's 64 JPEGs with the
+    meshed int8 pallas detector (batch 8), launches exact, its JSON at
+    the golden tolerances of the unmeshed run.
+    3. MDServer with a meshed int8 pallas detector (the mesh option)
+    answers 16 requests from 4 client threads, each equal to step 2's
+    record of its image at the golden tolerances.
+    4. One sharded step of yolov5l6 (640 px, batch 8) and of
+    efficientnetv2_s (224 px, batch 16) against the unsharded step: in
+    float32 the loss within rtol 1e-6 and the summed gradients within
+    1e-5 of the gradient's L2 norm; in bf16 the loss within the unsharded
+    bf16 loss's distance from float32's (or one bf16 ulp) and the
+    gradients no further from float32's than 1.5 times the unsharded bf16
+    gradients are (_mesh_training: why the gradients and not the
+    parameters after Adam); launches: none in float32, in bf16 E7 and E7
+    backward once per activated conv in each replica.
+    5. dryrun_multichip(2, devices=[cuda:0, cuda:0]).
+    6. The helper modules' newest functions on step 2's output:
+    draw_bounding_boxes_on_file on four images, parallel_get_image_sizes
+    of the renders (the inputs' sizes), parallel_compute_file_hashes
+    (distinct, equal to compute_file_hash), zip_files_into_single_zipfile
+    of the renders and JSON files (every member reads back).
+    7. With more than one card, the driver's auto-mesh over the cards
+    (prints the count); with one, it prints that it is not engaged.
+    Returns the phase's meshed launches (nms, conv, bottleneck, stem,
+    silu) and E7 backward launches.
+    """
+
+    import threading
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from megadetector_tpu_torch.detection import run_detector_batch as rdb
+    from megadetector_tpu_torch.detection.run_detector import load_detector
+    from megadetector_tpu_torch.models.detector import TorchDetector
+    from megadetector_tpu_torch.parallel.dryrun import dryrun_multichip
+    from megadetector_tpu_torch.parallel.mesh import (local_device_count,
+                                                      make_data_mesh)
+    from megadetector_tpu_torch.serving import MDServer, ServingOptions
+    from megadetector_tpu_torch.serving import client
+    from megadetector_tpu_torch.utils import path_utils
+    from megadetector_tpu_torch.visualization import visualization_utils
+
+    out_dir = os.path.join(workdir, 'data_parallel')
+    os.makedirs(out_dir, exist_ok=True)
+    mesh = make_data_mesh(devices=[device, device])
+    total = [0, 0, 0, 0, 0]
+    seconds = {}
+
+    def add(counts):
+        for i, v in enumerate(counts):
+            total[i] += v
+
+    # 1. The meshed detector against the unsharded one
+    t0 = time.time()
+    images = _synthetic_images(np.random.RandomState(1))[:8]
+    ids = ['mesh_{}.jpg'.format(i) for i in range(8)]
+    b, h, w = batch.shape[:3]
+    half = b // 2
+    detectors = {}
+    float32_records = None
+    for label, path, options in (
+            ('int8 pallas', q_path, {'conv_backend': 'pallas'}),
+            ('bf16', float_path, {'dtype': 'bfloat16'})):
+        base = load_detector(path, device=device, detector_options=dict(
+            options, pad_batches_to=8))
+        meshed = load_detector(path, device=device, detector_options=dict(
+            options, pad_batches_to=8, mesh=mesh))
+        streams = [r.stream for r in meshed._replicas]
+        if len(streams) != 2 or (device.type == 'cuda' and (
+                None in streams or streams[0] is streams[1])):
+            raise AssertionError('data parallelism: replicas {}'.format(
+                meshed._replicas))
+        ref = [base.run_program(batch, 0.005, 0.45) for _ in range(3)]
+        (eager, captured, replayed), counts, forwards, selects = \
+            _mesh_counted(meshed, lambda: [meshed.run_program(
+                batch, 0.005, 0.45) for _ in range(3)])
+        add(counts)
+        for (o, topk) in (captured, replayed):
+            if topk != eager[1] or any(
+                    o[k].tobytes() != eager[0][k].tobytes() for k in o):
+                raise AssertionError('data parallelism {}: replayed outputs '
+                                     'differ from eager'.format(label))
+        if device.type == 'cuda' and any(
+                r.programs.replays == 0 or r.programs.captures == 0
+                for r in meshed._replicas):
+            raise AssertionError('data parallelism {}: a replica never '
+                                 'replayed'.format(label))
+        out, topk = eager
+        if topk != ref[0][1]:
+            raise AssertionError('data parallelism {}: capacity {} meshed, '
+                                 '{} unsharded'.format(label, topk,
+                                                       ref[0][1]))
+        # Each shard is the unsharded detector's program on that shard at
+        # the capacity the whole batch took: the same bits
+        shard_ref = load_detector(path, device=device, detector_options=dict(
+            options, pre_nms_topk=topk, auto_escalate_topk=False))
+        shards = [shard_ref.run_program(batch[i:i + half], 0.005, 0.45)[0]
+                  for i in (0, half)]
+        del shard_ref
+        if any(out[k].tobytes() != np.concatenate(
+                [s[k] for s in shards]).tobytes() for k in out):
+            raise AssertionError('data parallelism {}: the meshed outputs '
+                                 'differ from the unsharded detector\'s on '
+                                 'each shard'.format(label))
+        # Against the whole batch's unsharded program: where cuDNN picks
+        # another algorithm for a batch of 8 than of 4, float sums round
+        # otherwise (printed: the largest differences where both are
+        # valid)
+        ref_out = ref[0][0]
+        identical = all(out[k].tobytes() == ref_out[k].tobytes()
+                        for k in out)
+        both = out['valid'] & ref_out['valid']
+        d_score = float(np.abs(out['scores'].astype(np.float64) -
+                               ref_out['scores'])[both].max(initial=0))
+        scale = np.array([w, h, w, h], np.float64)
+        d_box = float((np.abs(out['boxes'].astype(np.float64) -
+                              ref_out['boxes']) / scale)[both].max(
+                                  initial=0))
+        ms_meshed = _time_ms(lambda: meshed.run_program(batch, 0.005, 0.45),
+                             reps=5)
+        ms_base = _time_ms(lambda: base.run_program(batch, 0.005, 0.45),
+                           reps=5)
+        # The MD records of 8 images, meshed against unsharded: at the
+        # golden tolerances where the float layers are float32 (int8
+        # pallas). In bf16 the rescaled random model turns any rounding
+        # change into large output changes, and cuDNN rounds a batch of 8
+        # otherwise than a batch of 4: the records are printed beside the
+        # unsharded bf16 records' distance from float32's, and held by the
+        # per-shard identity above
+        records, more, _, _ = _mesh_counted(
+            meshed, lambda: meshed.generate_detections_one_batch(
+                images, ids, 0.005))
+        add(more)
+        ref_records = base.generate_detections_one_batch(images, ids, 0.005)
+        if label == 'int8 pallas':
+            parity = _golden_parity('data parallelism {}: records'.format(
+                label), records, ref_records, 8)
+            bar = ''
+        else:
+            if float32_records is None:
+                f32 = load_detector(path, device=device,
+                                    detector_options={'pad_batches_to': 8})
+                float32_records = f32.generate_detections_one_batch(
+                    images, ids, 0.005)
+                del f32
+            parity = _md_parity(records, ref_records)
+            own = _md_parity(ref_records, float32_records)
+            if parity['n_images_compared'] != 8:
+                raise AssertionError('data parallelism bf16: {} images '
+                                     'compared'.format(
+                                         parity['n_images_compared']))
+            bar = ' (unsharded bf16 against float32: {} outside the ' \
+                'golden tolerances, max conf error {:.4f}, coord ' \
+                '{:.4f})'.format(len(own['errors']), own['max_conf_error'],
+                                 own['max_coord_error'])
+        n_det = sum(len(r['detections']) for r in records)
+        print('data parallelism step 1, {} on {}: yolov5l6 960x1280 batch '
+              '{} over 2 replicas on one card ({} programs of batch {}); '
+              'eager, captured and replayed identical, launches (nms, conv, '
+              'bottleneck, stem, silu) {} exact; each shard bit-identical '
+              'to the unsharded detector on it (capacity {}); against the '
+              'whole batch\'s program: bit-identical {}, valid equal {}, '
+              'where both valid max |d| score {:.3e}, box {:.3e} of the '
+              'canvas; records of 8 images ({} detections): {} outside the '
+              'golden tolerances, max conf error {:.4f}, coord {:.4f}{}; '
+              'replayed program {:.3f} ms meshed, {:.3f} ms '
+              'unsharded'.format(
+                  label, card, b, sum(forwards.values()),
+                  sorted(forwards)[0][0], counts, topk, identical,
+                  np.array_equal(out['valid'], ref_out['valid']), d_score,
+                  d_box, n_det, len(parity['errors']),
+                  parity['max_conf_error'], parity['max_coord_error'], bar,
+                  ms_meshed, ms_base), flush=True)
+        if label == 'int8 pallas':
+            detectors = {'meshed': meshed, 'base': base}
+        else:
+            del meshed, base
+        torch.cuda.empty_cache()
+    seconds['1'] = time.time() - t0
+
+    # 2. The batch driver with the meshed detector
+    t0 = time.time()
+    folder = os.path.join(workdir, 'folder')
+    paths = sorted(os.path.join(folder, f) for f in os.listdir(folder)
+                   if f.startswith('img_'))
+    if len(paths) != 64:
+        raise AssertionError('data parallelism: phase 18\'s folder holds '
+                             '{} JPEGs'.format(len(paths)))
+    meshed = detectors['meshed']
+    start = time.time()
+    res_meshed, counts, forwards, _ = _mesh_counted(
+        meshed, lambda: rdb.load_and_run_detector_batch(
+            meshed, list(paths), batch_size=8, quiet=True,
+            loader_workers=8))
+    meshed_s = time.time() - start
+    add(counts)
+    start = time.time()
+    res_plain = rdb.load_and_run_detector_batch(
+        detectors['base'], list(paths), batch_size=8, quiet=True,
+        loader_workers=8)
+    plain_s = time.time() - start
+    files = {}
+    for name, res in (('meshed', res_meshed), ('plain', res_plain)):
+        files[name] = os.path.join(out_dir, name + '.json')
+        rdb.write_results_to_file(res, files[name],
+                                  relative_path_base=folder,
+                                  detector_file=q_path)
+    with open(files['meshed']) as f:
+        written = json.load(f)
+    with open(files['plain']) as f:
+        written_plain = json.load(f)
+    parity = _golden_parity('data parallelism: the driver\'s JSON',
+                            written['images'], written_plain['images'], 64)
+    if any(im.get('failure') for im in written['images']):
+        raise AssertionError('data parallelism: driver failures')
+    seconds['2'] = time.time() - t0
+    print('data parallelism step 2 on {}: load_and_run_detector_batch over '
+          'phase 18\'s 64 JPEGs with the meshed int8 pallas detector (batch '
+          '8, 8 loader threads): {:.2f} s meshed, {:.2f} s unmeshed; replica '
+          'programs {}, launches {} exact; the JSON at the golden '
+          'tolerances of the unmeshed run (max conf error {:.4f}, coord '
+          '{:.4f})'.format(card, meshed_s, plain_s, sorted(forwards.items()),
+                           counts, parity['max_conf_error'],
+                           parity['max_coord_error']), flush=True)
+    del detectors
+    torch.cuda.empty_cache()
+
+    # 3. The server with a meshed detector
+    t0 = time.time()
+    options = ServingOptions()
+    options.port = 0
+    options.max_batch_size = 8
+    options.batch_wait_ms = 15.0
+    options.device = str(device)
+    options.detector_options = {'conv_backend': 'pallas', 'mesh': mesh}
+    server = MDServer(q_path, options).start()
+    url = 'http://127.0.0.1:{}'.format(server.port)
+    served, errors = {}, []
+    by_file = {im['file']: im for im in written['images']}
+    names = sorted(by_file)[:MESH_SERVER_REQUESTS]
+    try:
+        if server.detector.mesh is not mesh:
+            raise AssertionError('data parallelism: the server\'s detector '
+                                 'has no mesh')
+
+        def post(chunk):
+            try:
+                for name in chunk:
+                    with open(os.path.join(folder, name), 'rb') as f:
+                        served[name] = client.detect_image_bytes(
+                            url, f.read(), image_id=name)
+            except Exception as e:
+                errors.append(e)
+
+        forwards_before, _ = _replica_programs(server.detector)
+        _reset_counts()
+        threads = [threading.Thread(target=post, args=(names[i::4],))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        counts = _counts()
+        forwards_after, _ = _replica_programs(server.detector)
+    finally:
+        server.shutdown()
+    if errors or len(served) != len(names):
+        raise AssertionError('data parallelism: serving errors {}'.format(
+            errors))
+    add(counts)
+    parity = _golden_parity(
+        'data parallelism: served records against the driver\'s',
+        [served[n] for n in names], [by_file[n] for n in names], len(names))
+    programs = {k: n - forwards_before.get(k, 0)
+                for k, n in forwards_after.items()}
+    if any(k[0] != 4 for k, n in programs.items() if n):
+        raise AssertionError('data parallelism: served shards {}'.format(
+            programs))
+    seconds['3'] = time.time() - t0
+    print('data parallelism step 3 on {}: MDServer with the meshed int8 '
+          'pallas detector answered {} requests from 4 threads (replica '
+          'programs {}; launches {}); each record equals the driver\'s at '
+          'the golden tolerances (max conf error {:.4f}, coord '
+          '{:.4f})'.format(
+              card, len(served), sorted(programs.items()), counts,
+              parity['max_conf_error'], parity['max_coord_error']),
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # 4. The sharded train steps
+    t0 = time.time()
+    silu, backward = _mesh_training(device, mesh, params, card)
+    total[4] += silu
+    seconds['4'] = time.time() - t0
+
+    # 5. The dry run
+    t0 = time.time()
+    _reset_counts()
+    dry = dryrun_multichip(2, devices=[device, device])
+    counts = _counts()
+    # float32: B1 once in each replica (its plain version on the CPU)
+    nms_want = 2 if device.type == 'cuda' else 0
+    if dry['inference']['boxes'].shape != (4, 100, 4) or counts != \
+            (nms_want, 0, 0, 0, 0) or not np.isfinite(
+                float(dry['detector']['loss'])) or not np.isfinite(
+                float(dry['classifier']['loss'])):
+        raise AssertionError('data parallelism: the dry run: boxes {}, '
+                             'launches {}'.format(
+                                 dry['inference']['boxes'].shape, counts))
+    add(counts)
+    seconds['5'] = time.time() - t0
+    torch.cuda.empty_cache()
+
+    # 6. The helper functions on step 2's output
+    t0 = time.time()
+    renders = []
+    for im in written['images'][:4]:
+        src = os.path.join(folder, im['file'])
+        dst = os.path.join(out_dir, 'render', im['file'])
+        renders.append(visualization_utils.draw_bounding_boxes_on_file(
+            src, dst, im['detections'], confidence_threshold=0.5))
+    sizes = visualization_utils.parallel_get_image_sizes(renders,
+                                                         max_workers=4)
+    for src_im, dst in zip(written['images'][:4], renders):
+        want = visualization_utils.get_image_size(
+            os.path.join(folder, src_im['file']))
+        if sizes[dst] != want:
+            raise AssertionError('data parallelism: render {} is {}, '
+                                 'want {}'.format(dst, sizes[dst], want))
+    hashes = path_utils.parallel_compute_file_hashes(renders + [
+        files['meshed']], max_workers=4)
+    if any(hashes[f] != path_utils.compute_file_hash(f) for f in hashes) \
+            or len(set(hashes.values())) != len(hashes):
+        raise AssertionError('data parallelism: hashes {}'.format(hashes))
+    zip_path = path_utils.zip_files_into_single_zipfile(
+        renders + list(files.values()), os.path.join(out_dir, 'out.zip'),
+        arc_name_base=out_dir)
+    with zipfile.ZipFile(zip_path) as zf:
+        members = sorted(zf.namelist())
+        if zf.testzip() is not None or len(members) != 6:
+            raise AssertionError('data parallelism: zip members '
+                                 '{}'.format(members))
+    seconds['6'] = time.time() - t0
+    print('data parallelism step 6 on {}: 4 renders of the meshed driver\'s '
+          'detections ({}), their sizes {} equal to the inputs\', {} '
+          'distinct sha256 hashes, a zip of {} members ({:.1f} MB)'.format(
+              card, ', '.join(os.path.basename(r) for r in renders),
+              sorted(set(sizes.values())), len(hashes), len(members),
+              os.path.getsize(zip_path) / 1e6), flush=True)
+
+    # 7. The auto-mesh over the machine's cards
+    n_cards = local_device_count()
+    if n_cards > 1:
+        t0 = time.time()
+        detector_log = []
+        original = TorchDetector.attach_auto_mesh
+
+        def recording(detector, batch_size, *args, **kwargs):
+            out = original(detector, batch_size, *args, **kwargs)
+            detector_log.append((detector.mesh, out))
+            return out
+
+        TorchDetector.attach_auto_mesh = recording
+        try:
+            rdb.load_and_run_detector_batch(
+                float_path, list(paths[:16]), batch_size=8, quiet=True,
+                detector_options={'dtype': 'bfloat16'})
+        finally:
+            TorchDetector.attach_auto_mesh = original
+        mesh_used = detector_log[-1][0]
+        if mesh_used is None or mesh_used.size != n_cards:
+            raise AssertionError('data parallelism: the auto-mesh over {} '
+                                 'cards attached {}'.format(n_cards,
+                                                            mesh_used))
+        print('data parallelism step 7: the driver\'s auto-mesh over {} '
+              'cards (batch size {}) in {:.1f} s'.format(
+                  n_cards, detector_log[-1][1], time.time() - t0),
+              flush=True)
+    else:
+        print('data parallelism step 7: {} card: the driver\'s and the '
+              'server\'s auto-mesh engage above one card only; not run '
+              'here'.format(n_cards), flush=True)
+
+    print('data parallelism on {}: steps {} s; meshed launches (nms, conv, '
+          'bottleneck, stem, silu) {}, E7 backward {}'.format(
+              card, {k: round(v, 1) for k, v in seconds.items()},
+              tuple(total), backward), flush=True)
+    return tuple(total), backward
+
+
+
 def main():
     import numpy as np
     import torch
@@ -10047,6 +10771,22 @@ def main():
         stem_record['launches'] += counts[3]
         silu_record['launches'] += counts[4]
         print('phase 41 took {:.1f} s'.format(time.time() - start),
+              flush=True)
+
+        # 42. data parallelism on a two-replica mesh, with phase 28's
+        # detector and phase 29's int8 chain of it
+        start = time.time()
+        counts, backward_launches = phase_data_parallel(
+            device, workdir, workflow_path,
+            os.path.join(workdir, 'md_smoke_workflow_int8.npz'), params,
+            batch, card)
+        record['launches'] += counts[0]
+        conv_record['launches'] += counts[1]
+        bottleneck_record['launches'] += counts[2]
+        stem_record['launches'] += counts[3]
+        silu_record['launches'] += counts[4]
+        backward_record['launches'] += backward_launches
+        print('phase 42 took {:.1f} s'.format(time.time() - start),
               flush=True)
 
     # 14. the experiments' kernels vs plain

@@ -16,8 +16,10 @@ split is optim.masked, which leaves the frozen parameters as they are
 (the JAX trainer's optax.masked adds their raw gradients to them). As in
 the JAX trainer, the step divides its (already normalized) images by 255
 while the evaluation forward takes them as they are. Entry points run on
-the card unless device is 'cpu'; prep_device's mesh (data parallelism)
-waits for multi-GPU (ROADMAP A8).
+the card unless device is 'cpu'. With more than one card and no device
+asked for, prep_device's mesh trains data-parallel
+(training/train_classifier.make_sharded_train_step), and run_epoch skips
+the trailing train batches that the card count does not divide.
 """
 
 import argparse
@@ -29,8 +31,10 @@ import numpy as np
 
 import torch
 
+from megadetector_tpu_torch.classification.create_classification_dataset \
+    import load_dataset_csv
 from megadetector_tpu_torch.classification.train_utils import (
-    HeapItem, add_to_heap, load_dataset_csv, load_splits)
+    HeapItem, add_to_heap, load_splits)
 
 #: ImageNet normalization used by the reference's torchvision transforms
 #: (reference: train_utils.py MEANS/STDS)
@@ -355,14 +359,46 @@ def correct(outputs, labels, weights=None, top=(1,)):
     return result
 
 
+def prep_device(device_id=None):
+    """
+    Pick the training devices (reference: train_classifier.py:272-304,
+    there CUDA/DataParallel): returns (devices, mesh), the CUDA devices
+    (the one of [device_id] when given) and, when there is more than one
+    and no device was asked for, a parallel/mesh.DataMesh over them (the
+    DataParallel analog), else None. Raises RuntimeError without a card.
+    """
+
+    from megadetector_tpu_torch.parallel.mesh import make_data_mesh
+
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise RuntimeError('prep_device: no CUDA device (pass '
+                           'device=\'cpu\' to main for the CPU)')
+    devices = [torch.device('cuda', i) for i in range(count)]
+    if device_id is not None:
+        devices = [devices[device_id]]
+    mesh = None
+    if len(devices) > 1:
+        print('Found multiple devices, enabling data parallelism '
+              '({})'.format([d.index for d in devices]))
+        mesh = make_data_mesh(devices=devices)
+    print('Training on {} device(s) ({})'.format(
+        len(devices), devices[0].type))
+    return devices, mesh
+
+
 def run_epoch(step_fn, loader, num_classes, train=True, top=(1, 3),
-              forward_fn=None, track_extremes=False, label_names=None):
+              forward_fn=None, track_extremes=False, label_names=None,
+              batch_multiple=None):
     """
     One pass over [loader] (reference: train_classifier.py:624-745). With
     train=True, applies step_fn (imgs, labels) -> metrics per batch, which
     steps the model in place; otherwise runs forward_fn (imgs) -> logits
     for metrics only. Returns the metrics dict: loss/acc@k AverageMeters
-    plus optional extreme-example heaps.
+    plus optional extreme-example heaps. With [batch_multiple] (the mesh
+    device count for a sharded step_fn), trailing train batches not
+    divisible by it are skipped: the sharded step splits a batch into
+    equal shards.
     """
 
     loss_meter = AverageMeter()
@@ -372,6 +408,9 @@ def run_epoch(step_fn, loader, num_classes, train=True, top=(1, 3),
 
     for imgs, labels, weights, files in loader():
         n = len(labels)
+        if train and batch_multiple is not None and \
+                n % batch_multiple != 0:
+            continue
         if train:
             metrics = step_fn(imgs, labels)
             loss_meter.update(float(metrics['loss']), n)
@@ -486,15 +525,25 @@ def main(dataset_dir, cropped_images_dir, multilabel=False,
     (reference: train_classifier.py:307-473). Writes params.npz (+
     label_index.json and a metrics CSV) under [logdir]. Returns the
     best validation metrics. [device]: 'cuda', 'cuda:N', 'cpu' or None
-    (CUDA; device_id N picks cuda:N).
+    (CUDA; device_id N picks cuda:N). With neither, prep_device's mesh
+    (more than one card) trains data-parallel over every card, unless
+    batch_size does not divide over them.
     """
 
     from megadetector_tpu_torch.device import get_device, set_float32_exact
     from megadetector_tpu_torch.models.convert_weights import save_checkpoint
     from megadetector_tpu_torch.training import optim
-    from megadetector_tpu_torch.training.train_classifier import \
-        make_train_step
+    from megadetector_tpu_torch.training.train_classifier import (
+        make_sharded_train_step, make_train_step)
 
+    mesh = None
+    if device is None and device_id is None:
+        devices, mesh = prep_device()
+        if mesh is not None and batch_size % len(devices) != 0:
+            print('Batch size {} is not divisible by {} devices; using a '
+                  'single device'.format(batch_size, len(devices)))
+            mesh = None
+        device = devices[0]
     if device is None and device_id is not None:
         device = 'cuda:{}'.format(device_id)
     device = get_device(device)
@@ -520,8 +569,13 @@ def main(dataset_dir, cropped_images_dir, multilabel=False,
         optim.adamw(lr, weight_decay=weight_decay))
     if finetune:
         tx = optim.masked(tx, mask)
-    step_fn = make_train_step(config, model,
-                              optim.Optimizer(model.parameters(), tx))
+    optimizer = optim.Optimizer(model.parameters(), tx)
+    if mesh is not None:
+        step_fn = make_sharded_train_step(config, model, optimizer, mesh)
+        batch_multiple = mesh.size
+    else:
+        step_fn = make_train_step(config, model, optimizer)
+        batch_multiple = None
 
     def forward_fn(imgs):
         with torch.no_grad():
@@ -541,7 +595,8 @@ def main(dataset_dir, cropped_images_dir, multilabel=False,
     metrics_rows = []
     for epoch in range(epochs):
         train_m = run_epoch(step_fn, loaders['train'], num_classes,
-                            train=True, forward_fn=forward_fn)
+                            train=True, forward_fn=forward_fn,
+                            batch_multiple=batch_multiple)
         metrics_rows.append(('train', epoch,
                              log_run('train', epoch, None, train_m)))
         if 'val' in loaders:

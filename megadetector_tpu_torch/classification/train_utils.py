@@ -3,10 +3,9 @@ Framework-agnostic utilities for classifier training, the port's own copy
 of megadetector_tpu/classification/train_utils.py (which imports no jax;
 the port imports nothing of the JAX package): top-k example tracking via
 a bounded heap, figure/image-grid helpers for logging extreme examples,
-split loading, and confusion-matrix recall. Also load_dataset_csv and
-rows_for_split, copied from the JAX package's
-classification/create_classification_dataset.py (the rest of that module
-is not ported yet, ROADMAP A13).
+split loading, and confusion-matrix recall. The dataset CSV's readers,
+load_dataset_csv and rows_for_split, live in the port's
+classification/create_classification_dataset.py, as in the JAX package.
 """
 
 import dataclasses
@@ -159,23 +158,3 @@ def recall_from_confusion_matrix(confusion_matrix, label_names):
             confusion_matrix[i, i] / (confusion_matrix[i].sum() + 1e-8)
         for i, label_name in enumerate(label_names)
     }
-
-
-def load_dataset_csv(csv_path):
-    """Read classification_ds.csv back into a list of row dicts."""
-
-    rows = []
-    with open(csv_path) as f:
-        header = f.readline().strip().split(',')
-        for line in f:
-            parts = line.rstrip('\n').split(',', len(header) - 1)
-            rows.append(dict(zip(header, parts)))
-    return rows
-
-
-def rows_for_split(rows, splits, split_name):
-    """Rows whose (dataset, location) belongs to [split_name]."""
-
-    members = {tuple(lc) for lc in splits[split_name]}
-    return [r for r in rows
-            if (r['dataset'], str(r['location'])) in members]

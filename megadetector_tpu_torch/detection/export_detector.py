@@ -554,10 +554,11 @@ class ExportedDetector(TorchDetector):
         return out, topk
 
     def _run_select(self, key, capacity, conf_thres, iou_thres, forward_out,
-                    static):
+                    static, programs=None):
         """The artifact's selection + NMS program at [capacity]: one
         program per (forward key, capacity), the thresholds host inputs
-        staged into the program's static device tensors."""
+        staged into the program's static device tensors. [programs] is
+        always None here: an artifact takes no mesh."""
 
         b, h, w = key[1:4]
         module = self._program_module(select_program_name(

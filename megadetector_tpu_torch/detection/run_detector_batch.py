@@ -31,7 +31,12 @@ skipped. augment runs the detector's test-time augmentation.
 include_exif_data and include_image_timestamp read EXIF on the thread
 loaders.
 
-Not here yet: multi-GPU.
+With more than one card, use_mesh (default true) attaches a mesh over
+every local card to a detector loaded here (the detector's
+attach_auto_mesh, the JAX driver's auto-mesh): batch_size rounds up to a
+multiple of the card count, each batch splits into one equal shard a
+card, and the tail buckets merge at the mesh multiple. One card runs as
+before.
 """
 
 import argparse
@@ -416,13 +421,15 @@ def load_and_run_detector_batch(model_file,
     else:
         detector_options = dict(detector_options or {})
         detector_options.setdefault('pad_batches_to', batch_size)
-        # The JAX driver's use_mesh splits each batch over its local
-        # devices; one card runs here (ROADMAP A8), so any value is taken
-        # and has no effect, as the JAX driver's parse refuses none
-        detector_options.pop('use_mesh', None)
+        use_mesh = str(detector_options.pop('use_mesh', 'true')).lower() \
+            not in ('false', '0', 'no')
         detector = load_detector(model_file,
                                  detector_options=detector_options,
                                  device=device)
+        # Data parallelism over every local card (one card: no change)
+        if use_mesh and getattr(detector, 'supports_mesh', False):
+            batch_size = detector.attach_auto_mesh(batch_size,
+                                                   verbose=not quiet)
 
     n_workers = max(1, int(loader_workers))
     q = queue.Queue(maxsize=queue_depth)
@@ -453,10 +460,14 @@ def load_and_run_detector_batch(model_file,
         bucket.clear()
 
     def flush_all_pending():
-        # Tail-bucket merge: when batches pad to pad_batches_to, several
-        # part-full rect-canvas buckets would each run a padded batch;
-        # re-letterboxed onto the square canvas they run as one
-        multiple = int(getattr(detector, 'pad_batches_to', None) or 1)
+        # Tail-bucket merge: when batches pad to a mesh multiple (or to
+        # pad_batches_to), several part-full rect-canvas buckets would
+        # each run a padded batch; re-letterboxed onto the square canvas
+        # they run as one
+        if getattr(detector, 'mesh', None) is not None:
+            multiple = int(detector.mesh.devices.size)
+        else:
+            multiple = int(getattr(detector, 'pad_batches_to', None) or 1)
         if multiple > 1:
             small = [b for b in pending.values()
                      if b and len(b) % multiple != 0]

@@ -57,8 +57,18 @@ augment=True runs the reference's test-time augmentation (tta_passes,
 _tta_transform_input, tta_concatenated_predictions; host preprocessing
 only): three passes at scales 1, 0.83 (flipped) and 0.67, merged before
 one NMS, with no capacity escalation.
+
+With a mesh (parallel/mesh.DataMesh, the mesh option or detector.mesh =
+...), the detector keeps one replica of its model per mesh device
+(parallel/replicas), each with its own program cache, CUDA graphs and
+stream. A batch pads to a multiple of the mesh size and splits into equal
+contiguous shards; every replica's forward and first selection are
+launched before any host read, escalation takes the largest candidate
+count over all shards (so every shard runs at the capacity the unsharded
+batch would), and the outputs join in shard order.
 """
 
+import functools
 import math
 import os
 import threading
@@ -81,6 +91,9 @@ from megadetector_tpu_torch.ops.decode import (merge_candidates,
 from megadetector_tpu_torch.ops.nms import batched_nms, nms_on_candidates
 from megadetector_tpu_torch.ops.preprocess_device import (letterbox_batch,
                                                           stage_images)
+from megadetector_tpu_torch.parallel import mesh as mesh_lib
+from megadetector_tpu_torch.parallel.replicas import (make_replicas,
+                                                      on_stream, split_batch)
 from megadetector_tpu_torch.utils import ct_utils
 
 # Failure strings and output precision: part of the MD output contract
@@ -181,16 +194,22 @@ def _check_options(options):
     if options.get('preprocess_mode', 'host') not in ('host', 'device'):
         raise ValueError('preprocess_mode must be host or device, got '
                          '{!r}'.format(options['preprocess_mode']))
-    refused = []
-    if options.get('mesh') is not None:
-        refused.append('mesh')
-    if options.get('batch_axis') is not None:
-        refused.append('batch_axis')
+    mesh = options.get('mesh')
+    if mesh is not None and not isinstance(mesh, mesh_lib.DataMesh):
+        raise TypeError('mesh must be a megadetector_tpu_torch.parallel.'
+                        'mesh.DataMesh (make_data_mesh), got {}'.format(
+                            type(mesh).__name__))
+    batch_axis = options.get('batch_axis')
+    if batch_axis is not None:
+        if mesh is None:
+            raise ValueError('batch_axis {!r} names a mesh axis, and no '
+                             'mesh was given'.format(batch_axis))
+        if batch_axis not in mesh.axis_names:
+            raise ValueError('batch_axis {!r} is not an axis of the mesh '
+                             '{}'.format(batch_axis, mesh.axis_names))
     if options.get('xla_compiler_options'):
-        refused.append('xla_compiler_options')
-    if refused:
         raise NotImplementedError(
-            'Not ported to PyTorch: {}'.format(', '.join(refused)))
+            'Not ported to PyTorch: xla_compiler_options')
 
 
 def model_config(arch, model_type, metadata):
@@ -267,10 +286,14 @@ class TorchDetector:
             preprocessing only (loader workers): preprocess_image works,
             image_size comes from the options (default 1280) and the
             stride is 64; inference raises RuntimeError
+        mesh: a parallel/mesh.DataMesh: data parallelism over its devices
+            (the module docstring); the detector loads on its first
+            device (anything else raises TypeError)
+        batch_axis: the mesh's axis name (default 'data'); without a
+            mesh, or naming another axis, it raises ValueError
     Accepted as no-ops: folded_early, folded_h2, approx_select, select_cm,
-    stem_gemm, bottleneck_variant, use_mesh. Refused
-    (NotImplementedError): mesh and
-    batch_axis (multi-card) and xla_compiler_options. augment=True at
+    stem_gemm, bottleneck_variant, use_mesh (the drivers' option). Refused
+    (NotImplementedError): xla_compiler_options. augment=True at
     inference needs preprocess_mode host and a YOLOv5 or YOLOv8 model
     (ValueError).
 
@@ -287,9 +310,21 @@ class TorchDetector:
         _check_options(options)
         self.preprocess_only = _to_bool(options.get('preprocess_only',
                                                     False))
+        mesh = options.get('mesh')
         if _to_bool(options.get('force_cpu', False)):
             device = 'cpu'
+        if mesh is not None and not self.preprocess_only:
+            first = mesh.devices.flat[0]
+            if device is not None and get_device(device).type != \
+                    first.type:
+                raise ValueError('The mesh\'s devices are {}; the detector '
+                                 'was asked for {}'.format(
+                                     first.type, device))
+            device = first
         self.device = None if self.preprocess_only else get_device(device)
+        self.batch_axis = options.get('batch_axis') or 'data'
+        self._mesh = None
+        self._replicas = None
         if self.device is not None and self.device.type == 'cuda':
             set_float32_exact()
 
@@ -344,7 +379,66 @@ class TorchDetector:
         self._programs = ProgramCache(self.device)
         self._cuda_graphs = self.device.type == 'cuda'
         self._load_model(model_path, options, verbose)
+        if mesh is not None:
+            self.mesh = mesh
         print('{} using device {}'.format(type(self).__name__, self.device))
+
+    #: Whether a mesh may be attached (an exported artifact's programs are
+    #: single-device)
+    supports_mesh = True
+
+    @property
+    def mesh(self):
+        """The DataMesh the detector splits batches over, or None."""
+
+        return getattr(self, '_mesh', None)
+
+    @mesh.setter
+    def mesh(self, mesh):
+        """Attach [mesh] (one replica of the model per mesh device, each
+        with its own program cache and stream), or detach with None."""
+
+        if mesh is None:
+            self._mesh = self._replicas = None
+            return
+        if not self.supports_mesh:
+            raise ValueError('{} runs single-device programs and takes no '
+                             'mesh'.format(type(self).__name__))
+        if not isinstance(mesh, mesh_lib.DataMesh):
+            raise TypeError('mesh must be a DataMesh, got {}'.format(
+                type(mesh).__name__))
+        if self.preprocess_only:
+            raise ValueError('A preprocess_only detector runs no program')
+        if self.batch_axis not in mesh.axis_names:
+            raise ValueError('batch_axis {!r} is not an axis of the mesh '
+                             '{}'.format(self.batch_axis, mesh.axis_names))
+        self._replicas = make_replicas(self.model, mesh.device_list(),
+                                       ProgramCache)
+        self._mesh = mesh
+
+    def attach_auto_mesh(self, batch_size, label='batch size',
+                         verbose=True):
+        """
+        The drivers' data parallelism over every local card (the JAX batch
+        driver's and server's auto-mesh): where the detector has no mesh,
+        takes one (supports_mesh) and there is more than one card, round
+        [batch_size] up to a multiple of the card count (printing so, as
+        '[label]'), pad batches to it and attach make_data_mesh(). A
+        detector on another device type than the cards' (the CPU) is left
+        alone. Returns the batch size.
+        """
+
+        if self.mesh is not None or not self.supports_mesh or \
+                self.preprocess_only or mesh_lib.local_device_count() <= 1:
+            return batch_size
+        mesh = mesh_lib.make_data_mesh()
+        if mesh.devices.flat[0].type != self.device.type:
+            return batch_size
+        batch_size = mesh_lib.round_batch_to_devices(batch_size, mesh.size,
+                                                     label, verbose)
+        self.pad_batches_to = batch_size
+        self.mesh = mesh
+        return batch_size
 
     def _load_model(self, model_path, options, verbose):
         """The network and its checkpoint's metadata: sets model, config,
@@ -542,16 +636,41 @@ class TorchDetector:
         b, h, w = batch.shape[:3]
         with torch.inference_mode():
             if augment:
-                key = ('augment', b, h, w, self._fused_decode,
-                       float(conf_thres), float(iou_thres))
-                out, _ = self._programs.run(
-                    key, lambda x: self._augment_program(
-                        x, h, w, conf_thres, iou_thres),
-                    host_inputs=(batch,), graphs=self._cuda_graphs)
-                self.programs_run += 1
-                return self._read_outputs(out), self.pre_nms_topk
+                return self._run_augment(batch, h, w, conf_thres,
+                                         iou_thres), self.pre_nms_topk
+            if self._replicas is not None:
+                return self._sharded_program(
+                    lambda n: ('forward', n, h, w), (batch,),
+                    lambda model: functools.partial(self._forward,
+                                                    model=model),
+                    conf_thres, iou_thres)
             return self._program(('forward', b, h, w), (batch,),
                                  self._forward, conf_thres, iou_thres)
+
+    def _run_augment(self, batch, h, w, conf_thres, iou_thres):
+        """The augment program on [batch] (on every replica's shard under
+        a mesh), read to the host."""
+
+        lanes = [(self.model, self._programs, None, (batch,))]
+        n = batch.shape[0]
+        if self._replicas is not None:
+            shards, n = split_batch((batch,), len(self._replicas), pad=True)
+            lanes = [(r.model, r.programs, r.stream, shard)
+                     for r, shard in zip(self._replicas, shards)]
+        runs = []
+        for model, programs, stream, inputs in lanes:
+            key = ('augment', inputs[0].shape[0], h, w, self._fused_decode,
+                   float(conf_thres), float(iou_thres))
+            with on_stream(stream):
+                out, _ = programs.run(
+                    key, functools.partial(
+                        self._augment_program, height=h, width=w,
+                        conf_thres=conf_thres, iou_thres=iou_thres,
+                        model=model),
+                    host_inputs=inputs, graphs=self._cuda_graphs)
+            runs.append((stream, out))
+        self.programs_run += 1
+        return _join_outputs(self._read_lanes(runs), n)
 
     def _check_augment(self):
         """Raise ValueError where augment=True cannot run: device
@@ -586,7 +705,7 @@ class TorchDetector:
         staged = np.ascontiguousarray(staged_u8, dtype=np.uint8)
         sizes = np.ascontiguousarray(sizes, dtype=np.int32)
 
-        def forward(staged, sizes):
+        def forward(staged, sizes, model=None):
             if identity:
                 x = staged[:, :h, :w, :].to(torch.float32) / \
                     torch.full((), 255.0, device=staged.device)
@@ -594,21 +713,30 @@ class TorchDetector:
                 x = letterbox_batch(staged, sizes, (h, w),
                                     scale_target=scale_target,
                                     resize_dtype=self.resize_dtype)
-            return self._forward(x)
+            return self._forward(x, model)
 
-        key = ('device_preprocess',) + staged.shape + (
-            h, w, int(scale_target), bool(identity))
+        def key(n):
+            return ('device_preprocess', n) + staged.shape[1:] + (
+                h, w, int(scale_target), bool(identity))
+
         with torch.inference_mode():
-            return self._program(key, (staged, sizes), forward, conf_thres,
-                                 iou_thres)
+            if self._replicas is not None:
+                return self._sharded_program(
+                    key, (staged, sizes),
+                    lambda model: functools.partial(forward, model=model),
+                    conf_thres, iou_thres)
+            return self._program(key(staged.shape[0]), (staged, sizes),
+                                 forward, conf_thres, iou_thres)
 
-    def _forward(self, x):
-        """The network on one batch: raw heads (fused selection) or the
-        decoded predictions, as a tuple of tensors."""
+    def _forward(self, x, model=None):
+        """The network ([model], default the detector's own) on one batch:
+        raw heads (fused selection) or the decoded predictions, as a tuple
+        of tensors."""
 
+        model = self.model if model is None else model
         if self._fused_decode:
-            return tuple(self.model(x, decode=False))
-        return (self.model(x, decode=True),)
+            return tuple(model(x, decode=False))
+        return (model(x, decode=True),)
 
     def _select_and_suppress(self, capacity, conf_thres, iou_thres,
                              *forward_out):
@@ -632,38 +760,91 @@ class TorchDetector:
         to the host once, at the end. Inside inference_mode.
         """
 
-        key = key + (self._fused_decode,)
-        forward_out, static = self._programs.run(
-            key, forward, host_inputs=host_inputs, graphs=self._cuda_graphs)
+        return self._run_lanes([(key, host_inputs, forward, None, None)],
+                               conf_thres, iou_thres)
+
+    def _sharded_program(self, key_for, host_inputs, make_forward,
+                         conf_thres, iou_thres):
+        """_program over the mesh: [host_inputs] padded to a multiple of
+        the mesh size and split into one shard a replica; [key_for](shard
+        batch) is a shard's forward key, [make_forward](model) its forward.
+        The outputs join in shard order, cut back to the batch."""
+
+        shards, n = split_batch(host_inputs, len(self._replicas), pad=True)
+        lanes = [(key_for(shard[0].shape[0]), shard, make_forward(r.model),
+                  r.programs, r.stream)
+                 for r, shard in zip(self._replicas, shards)]
+        out, topk = self._run_lanes(lanes, conf_thres, iou_thres)
+        return _join_outputs([out], n), topk
+
+    def _run_lanes(self, lanes, conf_thres, iou_thres):
+        """
+        The program on each lane, a (key, host inputs, forward, program
+        cache or None for the detector's own, stream or None): every
+        lane's forward and selection at pre_nms_topk launched first, then
+        escalation to the capacity that the largest n_candidates of all
+        lanes needs (on every lane), then the outputs read lane by lane
+        and joined along the batch.
+        """
+
+        fused = (self._fused_decode,)
+        runs = []
+        for key, host_inputs, forward, programs, stream in lanes:
+            key = key + fused
+            cache = self._programs if programs is None else programs
+            with on_stream(stream):
+                forward_out, static = cache.run(
+                    key, forward, host_inputs=host_inputs,
+                    graphs=self._cuda_graphs)
+            runs.append([key, forward_out, static, programs, stream, None])
 
         def select_and_suppress(capacity):
-            return self._run_select(key, capacity, conf_thres, iou_thres,
-                                    forward_out, static)
+            for run in runs:
+                key, forward_out, static, programs, stream, _ = run
+                with on_stream(stream):
+                    run[5] = self._run_select(key, capacity, conf_thres,
+                                              iou_thres, forward_out, static,
+                                              programs=programs)
 
         topk = self.pre_nms_topk
-        out = select_and_suppress(topk)
+        select_and_suppress(topk)
         # More above-floor candidates than the capacity holds: redo
         # selection + NMS at the next power of two (up to
         # max_pre_nms_topk), like the reference's uncapped nms(). The
         # count does not depend on the capacity, so one step suffices.
         if self.auto_escalate_topk and topk < self.max_pre_nms_topk:
-            needed = int(self._read_host(out['n_candidates']).max(initial=0))
+            needed = 0
+            for run in runs:
+                with on_stream(run[4]):
+                    needed = max(needed, int(self._read_host(
+                        run[5]['n_candidates']).max(initial=0)))
             if needed > topk:
                 new_topk = topk
                 while new_topk < needed:
                     new_topk *= 2
                 topk = self._effective_topk(min(new_topk,
                                                 self.max_pre_nms_topk))
-                out = select_and_suppress(topk)
+                select_and_suppress(topk)
         self.programs_run += 1
-        return self._read_outputs(out), topk
+        return _join_outputs(self._read_lanes(
+            [(run[4], run[5]) for run in runs])), topk
+
+    def _read_lanes(self, runs):
+        """Each (stream, outputs) read to the host on its stream."""
+
+        outs = []
+        for stream, out in runs:
+            with on_stream(stream):
+                outs.append(self._read_outputs(out))
+        return outs
 
     def _run_select(self, key, capacity, conf_thres, iou_thres, forward_out,
-                    static):
+                    static, programs=None):
         """Selection + NMS at [capacity] on the forward's outputs, a
-        program per (forward key, capacity, thresholds)."""
+        program of [programs] (default the detector's own cache) per
+        (forward key, capacity, thresholds)."""
 
-        out, _ = self._programs.run(
+        out, _ = (self._programs if programs is None else programs).run(
             key + ('select', capacity, float(conf_thres), float(iou_thres)),
             lambda *f: self._select_and_suppress(capacity, conf_thres,
                                                  iou_thres, *f),
@@ -678,7 +859,7 @@ class TorchDetector:
         return topk
 
     def _augment_program(self, images_u8, height, width, conf_thres,
-                         iou_thres):
+                         iou_thres, model=None):
         """
         The test-time augmentation program (the JAX detector's
         _get_compiled_augment): the reference's three passes (tta_passes)
@@ -691,12 +872,13 @@ class TorchDetector:
         """
 
         config = self.config
+        model = self.model if model is None else model
         dtype = self.compute_dtype
         stride = int(self.letterbox_stride)
         nl = int(getattr(self, '_tta_nl', len(config.strides)))
         if not self._fused_decode:
             pred = tta_concatenated_predictions(
-                config, self.model, images_u8, height, width, stride, dtype,
+                config, model, images_u8, height, width, stride, dtype,
                 nl=nl)
             return batched_nms(pred, conf_thres, iou_thres,
                                max_det=self.max_det,
@@ -708,7 +890,7 @@ class TorchDetector:
         for i_pass, (s, flip, sh, sw, ph, pw) in enumerate(passes):
             xi = images_u8 if i_pass == 0 else _tta_transform_input(
                 x, height, width, s, flip, sh, sw, ph, pw, dtype)
-            heads = self.model(xi, decode=False)
+            heads = model(xi, decode=False)
             # _clip_augmented at the head level: skip the coarsest level
             # on the unscaled pass, the finest on the most-scaled pass
             lvl = _tta_level_slice(i_pass, len(passes), nl)
@@ -838,12 +1020,19 @@ class TorchDetector:
             self._warned_low_threshold_topk = True
 
         # Pad partial batches by repeating the last image; padded slots
-        # carry idx None and are dropped below
+        # carry idx None and are dropped below. Under a mesh the batch
+        # pads on to a multiple of the mesh size (one equal shard a
+        # replica)
         n_real = len(infos)
+        target = n_real
         if self.pad_batches_to is not None and \
                 n_real < self.pad_batches_to:
-            infos = list(infos) + \
-                [(None, infos[-1][1])] * (self.pad_batches_to - n_real)
+            target = self.pad_batches_to
+        if self.mesh is not None:
+            n_dev = int(self.mesh.devices.size)
+            target = ((target + n_dev - 1) // n_dev) * n_dev
+        if target > n_real:
+            infos = list(infos) + [(None, infos[-1][1])] * (target - n_real)
 
         staged = [info.get('img_processed') is None for _, info in infos]
         if any(staged) != all(staged):
@@ -958,6 +1147,17 @@ class TorchDetector:
                           '(raise the max_pre_nms_topk detector option to '
                           'keep them)'.format(info['file'],
                                               int(n_cand[slot]), topk))
+
+
+def _join_outputs(outs, n=None):
+    """Host outputs of consecutive shards joined along the batch (the one
+    dict of a single lane as it is), cut to the first [n] images."""
+
+    out = outs[0] if len(outs) == 1 else {
+        k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    if n is not None and n < len(out['valid']):
+        out = {k: v[:n] for k, v in out.items()}
+    return out
 
 
 #%% Test-time augmentation

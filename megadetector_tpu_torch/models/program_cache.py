@@ -54,23 +54,35 @@ def _set_counters(values):
 
 
 class CudaGraphCapture:
-    """Captures programs into torch.cuda.CUDAGraphs that share one pool."""
+    """Captures programs on [device] into torch.cuda.CUDAGraphs that share
+    one pool.
 
-    def __init__(self):
+    Each capture runs on a stream of [device] made for this capturer:
+    torch.cuda.graph's default capture stream is one per process, made on
+    whichever card captured first, and ops on another card's tensors would
+    run eagerly beside an empty graph (a mesh replica on cuda:1 capturing
+    on cuda:0's stream)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
         self.pool = None
+        self.stream = None
 
     def capture(self, fn, inputs):
         """(graph, fn(*inputs)'s outputs, now static); graph.replay()
         reruns the program on the card."""
 
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        # 'relaxed': the kernels' C entry points set function attributes
-        # and query errors, which the stricter modes may refuse
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode='relaxed'):
-            outputs = fn(*inputs)
+        with torch.cuda.device(self.device):
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+                self.stream = torch.cuda.Stream(self.device)
+            graph = torch.cuda.CUDAGraph()
+            # 'relaxed': the kernels' C entry points set function
+            # attributes and query errors, which the stricter modes may
+            # refuse
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode='relaxed'):
+                outputs = fn(*inputs)
         return graph, outputs
 
 
@@ -99,7 +111,7 @@ class ProgramCache:
     def __init__(self, device, capturer=None):
         self.device = torch.device(device)
         if capturer is None and self.device.type == 'cuda':
-            capturer = CudaGraphCapture()
+            capturer = CudaGraphCapture(self.device)
         self.capturer = capturer
         self.entries = {}
         self.captures = 0

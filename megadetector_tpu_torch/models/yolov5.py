@@ -661,9 +661,17 @@ class YoloV5(nn.Module):
             if type(m) is Conv:
                 m.weight.data = m.weight.data.to(dtype)
                 m.bias.data = m.bias.data.to(dtype)
-        if self.stem_w is not None:
-            self._stem_versions = (l0.weight._version, l0.bias._version)
+        self.stamp_stem()
         return self
+
+    def stamp_stem(self):
+        """Record l0's parameter versions as those the fused stem's weights
+        were made from (set_compute_dtype; a copy of the model, whose
+        tensors start new version counters)."""
+
+        if self.stem_w is not None:
+            l0 = self.layers['l0']
+            self._stem_versions = (l0.weight._version, l0.bias._version)
 
     def set_training(self, dtype):
         """

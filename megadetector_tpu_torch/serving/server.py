@@ -6,7 +6,7 @@ The reference exposed this capability as its hosted "Synchronous API"
 processed at a time and latency is a priority", reference:
 megadetector/api/README.md:7-10; the implementation itself is archived
 upstream). This module is the port of megadetector_tpu/serving/server.py,
-a self-hosted daemon on one CUDA card:
+a self-hosted daemon on the CUDA cards:
 
 - HTTP daemon (stdlib ThreadingHTTPServer, no service dependencies);
   request threads decode images in parallel, a single batcher thread
@@ -23,10 +23,11 @@ a self-hosted daemon on one CUDA card:
 
 Where it differs from the JAX server:
 
-- One card: the detector's own device serves; use_mesh is taken and has
-  no effect (the batch driver's rule), and where more than one card is
-  visible the server says which one it uses (the data-parallel split is
-  ROADMAP A8).
+- use_mesh (default true) splits each micro-batch over every local card,
+  as the JAX server does (the detector's attach_auto_mesh:
+  max_batch_size rounds up to the card count); one card serves alone, as
+  before. Where more than one card is visible and no mesh is attached,
+  the server says which card it uses.
 - A device fault (models/detector.is_device_fault: a kernel's build or
   launch failure, a CUDA runtime error, the card's memory running out) is
   never served as an 'inference failure' record, as the JAX server's
@@ -59,13 +60,12 @@ from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import urlparse, parse_qs
 
-import torch
-
 from megadetector_tpu_torch.models.detector import (
     DEFAULT_DETECTOR_LABEL_MAP,
     FAILURE_IMAGE_OPEN,
     is_device_fault,
 )
+from megadetector_tpu_torch.parallel.mesh import local_device_count
 from megadetector_tpu_torch.utils import ct_utils
 
 
@@ -370,19 +370,24 @@ class MDServer:
         # key, one CUDA graph, per canvas)
         detector_options.setdefault('pad_batches_to',
                                     self.options.max_batch_size)
-        # The JAX server's use_mesh splits batches over local devices; one
-        # card serves here (ROADMAP A8), so any value is taken and has no
-        # effect, as in the batch driver
-        detector_options.pop('use_mesh', None)
+        use_mesh = str(detector_options.pop('use_mesh', 'true')).lower() \
+            not in ('false', '0', 'no')
         self.detector = load_detector(
             model_file, force_cpu=self.options.force_cpu,
             detector_options=detector_options,
             verbose=self.options.verbose, device=self.options.device)
         self.model_file = model_file
-        n_cards = torch.cuda.device_count()
-        if n_cards > 1:
-            print('{} CUDA devices visible; serving on {} only (data-'
-                  'parallel serving is not ported)'.format(
+
+        # Data-parallel serving over every local card (the batch driver's
+        # wiring): each micro-batch splits over the cards
+        if use_mesh and not self.options.force_cpu and \
+                getattr(self.detector, 'supports_mesh', False):
+            self.options.max_batch_size = self.detector.attach_auto_mesh(
+                self.options.max_batch_size, label='serving batch size')
+        n_cards = local_device_count()
+        if n_cards > 1 and self.detector.mesh is None:
+            print('{} CUDA devices visible; serving on {} only (use_mesh '
+                  'false, force_cpu, or a detector without a mesh)'.format(
                       n_cards, self.detector.device))
 
         self.batcher = _Batcher(self.detector, self.options, self.metrics)

@@ -1,7 +1,10 @@
 """
 Species-classifier training (counterpart of megadetector_tpu/training/
 train_classifier.py): the train step over the port's EfficientNet module
-and optimizer (training/optim.py), a folder-per-class dataset read with
+and optimizer (training/optim.py), its data-parallel form over a
+parallel/mesh.DataMesh (make_sharded_train_step: each replica's mean
+cross-entropy weighted by its shard's share of the batch, the gradients
+summed onto the first replica), a folder-per-class dataset read with
 cv2, and train(), which writes a checkpoint that SpeciesClassifier (of
 either package) loads.
 
@@ -9,8 +12,8 @@ The step computes in float32 or bf16 (options.dtype): the model keeps
 float32 master parameters and casts them in its forward
 (EfficientNet.set_training), so a bf16 step runs the E7 kernel forward
 and backward on a card. Entry points run on the card unless
-options.device is 'cpu'. The data-parallel step (make_sharded_train_step,
-options.mesh) waits for multi-GPU (ROADMAP A8).
+options.device is 'cpu'; with options.mesh they train over the mesh's
+devices.
 """
 
 import os
@@ -22,6 +25,9 @@ import torch.nn.functional as F
 
 from megadetector_tpu_torch.device import get_device, set_float32_exact
 from megadetector_tpu_torch.models import efficientnet
+from megadetector_tpu_torch.parallel.replicas import (
+    check_on_first_device, copy_parameters, join, make_replicas, on_stream,
+    split_batch, sum_gradients, sum_metrics)
 from megadetector_tpu_torch.training import optim
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
@@ -40,8 +46,10 @@ class TrainingOptions:
         self.num_epochs = 10
         self.label_smoothing = 0.1
         self.seed = 0
-        #: A device mesh (data parallelism): not ported, must stay None
+        #: A parallel/mesh.DataMesh: data parallelism over its devices
+        #: (the model on its first), or None
         self.mesh = None
+        self.batch_axis = 'data'
         self.log_every = 50
         self.dtype = 'float32'
         #: 'cuda', 'cuda:N', 'cpu' or None (CUDA)
@@ -87,6 +95,56 @@ def make_train_step(config, model, optimizer, label_smoothing=0.0,
         loss.backward()
         optimizer.step()
         return {'loss': loss.detach(), 'accuracy': accuracy}
+
+    return train_step
+
+
+def make_sharded_train_step(config, model, optimizer, mesh, batch_axis='data',
+                            label_smoothing=0.0,
+                            compute_dtype=torch.float32):
+    """
+    make_train_step over [mesh] (parallel/mesh.DataMesh): the same call
+    and metrics, computing what the unsharded step computes on the whole
+    batch. [model] (on the mesh's first device, ValueError otherwise) is
+    the first replica and [optimizer] steps its parameters; every other
+    mesh device holds a copy. Each step copies [model]'s parameters into
+    the copies, splits the batch into equal contiguous shards (the batch
+    must divide by the mesh size: ValueError otherwise), runs each
+    replica's mean cross-entropy, weighted by its shard's share of the
+    batch, and its backward on its stream, sums the gradients onto
+    [model] in mesh order and takes one optimizer step.
+    """
+
+    if batch_axis not in mesh.axis_names:
+        raise ValueError('Mesh axes are {}; no axis {!r}'.format(
+            mesh.axis_names, batch_axis))
+    check_on_first_device(model, mesh)
+    model.set_training(compute_dtype)
+    replicas = make_replicas(model, mesh.device_list())
+
+    def train_step(images_u8, labels):
+        copy_parameters(replicas)
+        n = len(labels)
+        shards, _ = split_batch((images_u8, labels), len(replicas))
+        parts = []
+        for r, (im, lb) in zip(replicas, shards):
+            with on_stream(r.stream):
+                x = torch.as_tensor(np.asarray(im) if not isinstance(
+                    im, torch.Tensor) else im).to(r.device)
+                lb = torch.as_tensor(np.asarray(lb) if not isinstance(
+                    lb, torch.Tensor) else lb).to(r.device).to(torch.int64)
+                logits = r.model(x.to(torch.float32) / 255.0)
+                share = len(lb) / n
+                loss = cross_entropy_loss(logits, lb, config.num_classes,
+                                          label_smoothing) * share
+                accuracy = torch.mean((torch.argmax(logits, dim=-1) ==
+                                       lb).to(torch.float32)) * share
+                loss.backward()
+            parts.append({'loss': loss.detach(), 'accuracy': accuracy})
+        join(replicas)
+        sum_gradients(replicas)
+        optimizer.step()
+        return sum_metrics(parts, replicas[0].device)
 
     return train_step
 
@@ -159,10 +217,10 @@ def train(crop_folder, output_checkpoint, options=None):
 
     if options is None:
         options = TrainingOptions()
+    device = options.device
     if options.mesh is not None:
-        raise NotImplementedError('data-parallel training over a mesh is '
-                                  'not ported (one card)')
-    device = get_device(options.device)
+        device = options.mesh.devices.flat[0]
+    device = get_device(device)
     if device.type == 'cuda':
         set_float32_exact()
 
@@ -184,8 +242,13 @@ def train(crop_folder, output_checkpoint, options=None):
         optim.clip_by_global_norm(1.0),
         optim.adamw(options.learning_rate,
                     weight_decay=options.weight_decay)))
-    step = make_train_step(config, model, optimizer,
-                           options.label_smoothing, compute_dtype)
+    if options.mesh is not None:
+        step = make_sharded_train_step(
+            config, model, optimizer, options.mesh, options.batch_axis,
+            options.label_smoothing, compute_dtype)
+    else:
+        step = make_train_step(config, model, optimizer,
+                               options.label_smoothing, compute_dtype)
 
     history = []
     i_step = 0

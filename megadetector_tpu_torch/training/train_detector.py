@@ -17,13 +17,24 @@ whose arithmetic this follows op for op:
   with 'amax' over zeros (deterministic: a maximum does not depend on the
   order in which duplicates arrive), not index_put_.
 
-The step is eager PyTorch; the data-parallel make_sharded_detector_train
-_step waits for multi-GPU (ROADMAP A8).
+The step is eager PyTorch. make_sharded_detector_train_step is its
+data-parallel form over a parallel/mesh.DataMesh: one replica of the
+model per mesh device, one equal shard of the batch each, on its own
+stream. Each shard's loss counts each level's positives over the whole
+batch's targets (they depend on the targets and anchors alone), weights
+its objectness mean by its share of the batch and scales by the whole
+batch's size, so the shards' losses and gradients add up to the whole
+batch's: the step computes what the unsharded step computes on the whole
+batch, as XLA's sharding does in the JAX step.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from megadetector_tpu_torch.parallel.replicas import (
+    check_on_first_device, copy_parameters, join, make_replicas, on_stream,
+    split_batch, sum_gradients, sum_metrics)
 
 # YOLOv5 hyperparameters (published defaults)
 ANCHOR_MATCH_THRESHOLD = 4.0
@@ -98,8 +109,38 @@ def scatter_max(shape, index, values):
     return flat
 
 
+def _candidates(gt_boxes, gt_mask, anchors, s, stride, gh, gw):
+    """One level's target geometry: (gxy, gwh) in grid units [B, M, 2]
+    and the valid candidates [B, M, na, 5] (a target, one of its matching
+    anchors, one of its cell and neighbour offsets)."""
+
+    gxy = gt_boxes[..., 0:2] * s / stride          # [B, M, 2]
+    gwh = gt_boxes[..., 2:4] * s / stride          # [B, M, 2]
+
+    # Anchor-ratio matching: [B, M, na]
+    r = gwh[:, :, None, :] / (anchors[None, None] + 1e-9)
+    ratio = torch.maximum(r, 1.0 / (r + 1e-9)).amax(dim=-1)
+    anchor_ok = ratio < ANCHOR_MATCH_THRESHOLD
+
+    # Neighbor-offset validity: [B, M, 5]
+    fx = torch.remainder(gxy[..., 0], 1.0)
+    fy = torch.remainder(gxy[..., 1], 1.0)
+    off_ok = torch.stack([
+        torch.ones_like(fx, dtype=torch.bool),
+        (fx < 0.5) & (gxy[..., 0] > 1.0),
+        (fy < 0.5) & (gxy[..., 1] > 1.0),
+        (fx > 0.5) & (gxy[..., 0] < gw - 1.0),
+        (fy > 0.5) & (gxy[..., 1] < gh - 1.0),
+    ], dim=-1)
+
+    # Candidate set: [B, M, na, 5]
+    valid = gt_mask[:, :, None, None] & anchor_ok[:, :, :, None] & \
+        off_ok[:, :, None, :]
+    return gxy, gwh, valid
+
+
 def detection_loss(config, model, images, gt_boxes, gt_classes, gt_mask,
-                   compute_dtype=torch.float32):
+                   compute_dtype=torch.float32, batch_targets=None):
     """
     YOLOv5 loss.
 
@@ -111,6 +152,12 @@ def detection_loss(config, model, images, gt_boxes, gt_classes, gt_mask,
         gt_boxes: [B, M, 4] cxcywh, normalized to the canvas
         gt_classes: [B, M] int (0-based model classes)
         gt_mask: [B, M] bool (valid targets)
+        batch_targets: None, or (gt_boxes, gt_mask) of the whole batch
+            when [images] is one shard of it (a sharded step): each
+            level's positives are then counted over the whole batch, the
+            objectness mean is weighted by the shard's share of the batch
+            and the loss scales by the whole batch's size, so that the
+            shards' losses add up to the whole batch's
 
     Returns:
         (total_loss, metrics dict)
@@ -126,6 +173,12 @@ def detection_loss(config, model, images, gt_boxes, gt_classes, gt_mask,
     balance = OBJ_BALANCE[nl]
 
     head_raw = model(images, decode=False)
+    share = None
+    b_total = b
+    if batch_targets is not None:
+        all_boxes, all_mask = batch_targets
+        b_total = int(all_boxes.shape[0])
+        share = b / b_total
 
     lbox = 0.0
     lobj = 0.0
@@ -141,29 +194,9 @@ def detection_loss(config, model, images, gt_boxes, gt_classes, gt_mask,
         anchors = torch.as_tensor(config.anchors[i_level], dtype=torch.float32,
                                   device=device) / stride  # [na, 2]
 
-        # GT in this level's grid units
-        gxy = gt_boxes[..., 0:2] * s / stride          # [B, M, 2]
-        gwh = gt_boxes[..., 2:4] * s / stride          # [B, M, 2]
-
-        # Anchor-ratio matching: [B, M, na]
-        r = gwh[:, :, None, :] / (anchors[None, None] + 1e-9)
-        ratio = torch.maximum(r, 1.0 / (r + 1e-9)).amax(dim=-1)
-        anchor_ok = ratio < ANCHOR_MATCH_THRESHOLD
-
-        # Neighbor-offset validity: [B, M, 5]
-        fx = torch.remainder(gxy[..., 0], 1.0)
-        fy = torch.remainder(gxy[..., 1], 1.0)
-        off_ok = torch.stack([
-            torch.ones_like(fx, dtype=torch.bool),
-            (fx < 0.5) & (gxy[..., 0] > 1.0),
-            (fy < 0.5) & (gxy[..., 1] > 1.0),
-            (fx > 0.5) & (gxy[..., 0] < gw - 1.0),
-            (fy > 0.5) & (gxy[..., 1] < gh - 1.0),
-        ], dim=-1)
-
-        # Candidate set: [B, M, na, 5]
-        valid = gt_mask[:, :, None, None] & anchor_ok[:, :, :, None] & \
-            off_ok[:, :, None, :]
+        # GT in this level's grid units, and the candidate set
+        gxy, gwh, valid = _candidates(gt_boxes, gt_mask, anchors, s, stride,
+                                      gh, gw)
 
         cell = torch.floor(gxy[:, :, None, None, :] -
                            offsets[None, None, None] * 0.5)
@@ -200,15 +233,23 @@ def detection_loss(config, model, images, gt_boxes, gt_classes, gt_mask,
         target_box = torch.cat([t_xy, t_wh], dim=-1)
 
         ciou = _ciou(pred_box, target_box)
-        n_pos = torch.clamp(vmask.sum(), min=1.0)
+        if batch_targets is None:
+            n_pos = torch.clamp(vmask.sum(), min=1.0)
+        else:
+            # The whole batch's positives (exact: a count)
+            n_pos = torch.clamp(_candidates(
+                all_boxes, all_mask, anchors, s, stride, gh,
+                gw)[2].to(torch.float32).sum(), min=1.0)
         lbox = lbox + torch.sum((1.0 - ciou) * vmask) / n_pos
 
         # Objectness targets: scatter-max the detached CIoU at the
         # positive cells
         tobj = scatter_max((b, gh, gw, na), (vb, vj, vi, va),
                            _relu(ciou.detach()) * vmask)
-        lobj = lobj + balance[i_level] * torch.mean(
-            _bce_with_logits(raw[..., 4], tobj))
+        obj = torch.mean(_bce_with_logits(raw[..., 4], tobj))
+        if share is not None:
+            obj = obj * share
+        lobj = lobj + balance[i_level] * obj
 
         # Classification BCE at positives
         if nc > 1:
@@ -219,7 +260,7 @@ def detection_loss(config, model, images, gt_boxes, gt_classes, gt_mask,
         total_pos = total_pos + vmask.sum()
 
     loss = (BOX_GAIN * lbox + OBJ_GAIN * lobj +
-            CLS_GAIN * (nc / 80.0) * lcls) * b
+            CLS_GAIN * (nc / 80.0) * lcls) * b_total
     metrics = {'loss': loss, 'box_loss': lbox, 'obj_loss': lobj,
                'cls_loss': lcls, 'n_positives': total_pos}
     return loss, metrics
@@ -255,6 +296,56 @@ def make_detector_train_step(config, model, optimizer,
         optimizer.step()
         return {k: v.detach() if isinstance(v, torch.Tensor) else
                 torch.tensor(v) for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_sharded_detector_train_step(config, model, optimizer, mesh,
+                                     batch_axis='data',
+                                     compute_dtype=torch.float32):
+    """
+    make_detector_train_step over [mesh] (parallel/mesh.DataMesh): the
+    same call and metrics, computing what the unsharded step computes on
+    the whole batch. [model] (on the mesh's first device, ValueError
+    otherwise) is the first replica and [optimizer] steps its
+    parameters; every other mesh device holds a copy. Each step copies
+    [model]'s parameters into the copies, splits the batch into equal
+    contiguous shards (the batch must divide by the mesh size: ValueError
+    otherwise), runs each replica's loss
+    (detection_loss with the whole batch's targets) and backward on its
+    stream, sums the gradients onto [model] in mesh order (the same bits
+    on every run) and takes one optimizer step; the global-norm clip
+    sees the summed gradient.
+    """
+
+    if batch_axis not in mesh.axis_names:
+        raise ValueError('Mesh axes are {}; no axis {!r}'.format(
+            mesh.axis_names, batch_axis))
+    check_on_first_device(model, mesh)
+    model.set_training(compute_dtype)
+    replicas = make_replicas(model, mesh.device_list())
+
+    def train_step(images_u8, gt_boxes, gt_classes, gt_mask):
+        copy_parameters(replicas)
+        shards, _ = split_batch((images_u8, gt_boxes, gt_classes, gt_mask),
+                                len(replicas))
+        parts = []
+        for r, (im, boxes, classes, mask) in zip(replicas, shards):
+            d = r.device
+            with on_stream(r.stream):
+                x = _as_tensor(im, d).to(torch.float32) / 255.0
+                loss, metrics = detection_loss(
+                    config, r.model, x, _as_tensor(boxes, d, torch.float32),
+                    _as_tensor(classes, d, torch.int64),
+                    _as_tensor(mask, d, torch.bool), compute_dtype,
+                    batch_targets=(_as_tensor(gt_boxes, d, torch.float32),
+                                   _as_tensor(gt_mask, d, torch.bool)))
+                loss.backward()
+            parts.append(metrics)
+        join(replicas)
+        sum_gradients(replicas)
+        optimizer.step()
+        return sum_metrics(parts, replicas[0].device)
 
     return train_step
 

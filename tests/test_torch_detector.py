@@ -183,13 +183,14 @@ def test_data_errors_become_failure_records(slice_inputs, monkeypatch):
                   'failure': 'image access failure'}]
 
 
-@pytest.mark.parametrize('options', [
-    {'mesh': object()},
-    {'xla_compiler_options': 'xla_foo=1'},
+@pytest.mark.parametrize('options,error', [
+    # a mesh that is not the port's mesh class (parallel/mesh.DataMesh)
+    ({'mesh': object()}, TypeError),
+    ({'xla_compiler_options': 'xla_foo=1'}, NotImplementedError),
 ])
-def test_unported_options_are_refused(slice_inputs, options):
+def test_unported_options_are_refused(slice_inputs, options, error):
     _, _, model = slice_inputs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         run_detector.load_detector(model, detector_options=options,
                                    device='cpu')
 

@@ -21,7 +21,8 @@ alone needs networkx; the data-format converters, importers, image and
 OCR tools and the LILA tools; the Wildlife Insights and SpeciesNet results
 layer, the WI platform tools and the WI download workflow; the taxonomy
 tools, the YOLO val runner, change detection, XMP tagging, video
-rendering and the string and process helpers). PIL is imported only once a file is decoded or
+rendering and the string and process helpers; the data-parallel mesh,
+its replicas and the dry run). PIL is imported only once a file is decoded or
 drawn on; tensorflow only once a .pb detector is built, pandas only
 inside the functions that build data frames, matplotlib only inside the
 functions that plot. cv2 is not checked:
@@ -924,3 +925,52 @@ def test_native_bindings_and_queue_c_functions_match():
         want, got = (_public(p) for p in _sources(module.replace('/', '.')))
         for name in names:
             assert name in got and got[name] == want[name], (module, name)
+
+
+# The three helper modules whose every public function the port now has
+HELPER_MODULES = ('utils.ct_utils', 'utils.path_utils',
+                  'visualization.visualization_utils')
+
+
+def test_helper_modules_have_every_jax_public_function():
+    """ct_utils, path_utils and visualization_utils: each public function
+    of the JAX module is in the port's with its signature."""
+
+    for module in HELPER_MODULES:
+        want, got = (_public(p) for p in _sources(module))
+        functions = [n for n, v in want.items() if isinstance(v, str) and
+                     v != 'assigned']
+        assert len(functions) > 20, module
+        for name in functions:
+            assert got.get(name) == want[name], (module, name)
+
+
+def test_mesh_and_data_parallel_entry_points_match():
+    """parallel/mesh has all nine public names of JAX's, each with JAX's
+    arguments (make_data_mesh adds the keyword-only devices); the sharded
+    train steps and prep_device exist, prep_device and run_epoch with
+    JAX's arguments (the port's steps take the model, as its unsharded
+    steps do)."""
+
+    want, got = (_public(p) for p in _sources('parallel.mesh'))
+    assert len(want) == 9
+    for name, sig in want.items():
+        if name == 'make_data_mesh':
+            assert got[name] == sig + ', *, devices=None'
+        else:
+            assert got[name] == sig, name
+    for module, names in (
+            ('training.train_detector', ('make_sharded_detector_train_step',
+                                         'make_detector_train_step')),
+            ('training.train_classifier', ('make_sharded_train_step',
+                                           'make_train_step')),
+            ('classification.train_classifier', ('prep_device',
+                                                 'run_epoch'))):
+        want, got = (_public(p) for p in _sources(module))
+        for name in names:
+            assert name in got and name in want, (module, name)
+    want, got = (_public(p) for p in _sources(
+        'classification.train_classifier'))
+    assert got['prep_device'] == want['prep_device']
+    assert got['run_epoch'].endswith('batch_multiple=None')
+    assert want['run_epoch'].endswith('batch_multiple=None')

@@ -5,7 +5,8 @@ shares with the JAX package, held to the JAX detector on the CPU:
 - arch overrides the checkpoint metadata's architecture;
 - fused_decode picks the selection path as the JAX detector does (default
   on outside the strict modes, either way on request);
-- batch_axis is refused with NotImplementedError, as mesh is;
+- batch_axis is taken with a mesh that has the axis and refused
+  (ValueError) without a mesh or naming another axis;
   preprocess_only=true builds a detector without weights whose
   preprocess_image is the full detector's;
 - load_detector(model_file, force_cpu=False, detector_options=None,
@@ -131,13 +132,27 @@ def test_arch_override_matches_jax(option_inputs):
                         'arch')
 
 
-@pytest.mark.parametrize('options', [{'batch_axis': 'data'}])
+@pytest.mark.parametrize('options', [{'batch_axis': 'data'},
+                                     {'batch_axis': 'model', 'mesh': 2}])
 def test_unported_multicard_and_loader_options_are_refused(option_inputs,
                                                            options):
+    """batch_axis names the mesh's axis: refused without a mesh and when
+    the mesh has no such axis; taken with one that has it (the JAX
+    detector's default axis is 'data')."""
+
+    from megadetector_tpu_torch.parallel.mesh import make_data_mesh
     _, _, model, _ = option_inputs
-    with pytest.raises(NotImplementedError, match=list(options)[0]):
+    options = dict(options)
+    if 'mesh' in options:
+        options['mesh'] = make_data_mesh(devices=['cpu'] * options['mesh'])
+    with pytest.raises(ValueError, match='batch_axis'):
         run_detector.load_detector(model, device='cpu',
                                    detector_options=options)
+    mesh = make_data_mesh(devices=['cpu'] * 2)
+    detector = run_detector.load_detector(
+        model, device='cpu', detector_options={
+            'batch_axis': mesh.axis_names[0], 'mesh': mesh})
+    assert detector.batch_axis == 'data' and detector.mesh is mesh
 
 
 @pytest.mark.parametrize('mode', ['classic', 'modern'])
